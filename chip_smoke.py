@@ -1,0 +1,444 @@
+#!/usr/bin/env python3
+"""Smoke run of paddle_tpu_torch on one NVIDIA GPU (H100).
+
+Phases, each printing one JSON line; any failure exits non-zero:
+  1. device   the card's name and power limit; TF32 off
+  2. build    nvcc builds every kernel under paddle_tpu_torch/csrc
+  3. kernels  each kernel against its plain PyTorch version at the serving
+              path's shapes (bf16), with times, bounds and library times
+  4. path     LLaMA-7B (full width, all 32 layers, random weights from a
+              seed) served through LLMEngine.generate(device_loop=True),
+              bf16 and int8 weights, 12- and 300-token prompt batches;
+              kernel launch counts, decode and prefill times
+  5. parity   a 2-layer full-width model: the engine on the card (bf16,
+              kernels) against the same weights on the CPU (f32, plain)
+
+The line before the last holds {"kernels": [...]}, and the last line is
+{"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py                 # needs one CUDA card
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+
+REPLACES = {
+    "quantized_matmul": "paddle_tpu/ops/pallas/quantized_matmul.py:53",
+    "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:39",
+    "flash_attention_fwd": "paddle_tpu/ops/pallas/flash_attention.py:109",
+}
+SOURCES = {
+    "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
+    "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
+    "flash_attention_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def bound_ms(n_bytes, flops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms, by CUDA events around `iters` runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+# ---------------------------------------------------------------- phase 3
+def check_quantized_matmul(torch, dev):
+    from paddle_tpu_torch.ops.pallas.quantized_matmul import (
+        quantize_weights, quantized_matmul, quantized_matmul_reference)
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for m in (4, 4 * 320):
+        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            w = torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
+            wq, sc = quantize_weights(w)
+            del w
+            got = quantized_matmul(x, wq, sc)
+            ref = quantized_matmul_reference(x, wq, sc)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            # bf16 keeps 8 significant bits: two roundings of nearly equal
+            # f32 sums differ by at most ~2^-8 of the output's magnitude
+            tol = 1e-2 * float(ref.float().abs().max())
+            ms = time_ms(torch, lambda: quantized_matmul(x, wq, sc))
+            plain = time_ms(torch, lambda: quantized_matmul_reference(x, wq, sc),
+                            iters=5)
+            lib = None
+            if hasattr(torch, "_weight_int8pack_mm"):
+                w_nk = wq.t().contiguous()
+                sc_b = sc.to(torch.bfloat16)
+                try:
+                    torch._weight_int8pack_mm(x, w_nk, sc_b)
+                    torch.cuda.synchronize()
+                except (RuntimeError, NotImplementedError):
+                    lib = None     # this build has no CUDA kernel for it
+                else:
+                    lib = time_ms(torch, lambda: torch._weight_int8pack_mm(x, w_nk, sc_b))
+                del w_nk
+            bms, by = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * n * k)
+            rows.append(dict(m=m, k=k, n=n, max_abs_err=err, tol=tol, ok=err <= tol,
+                             ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                             library_ms=lib))
+            del x, wq, sc, got, ref
+    # off the main path: ragged n and k (no 16-byte loads), the tiled path
+    # on ragged edges, and f32 x (the GEMV path in chunks of 8 rows)
+    for m, k, n, dt in ((3, 333, 100, torch.bfloat16), (40, 333, 100, torch.bfloat16),
+                        (20, 4096, 4096, torch.float32)):
+        x = torch.randn((m, k), generator=g, device=dev).to(dt)
+        wq, sc = quantize_weights(torch.randn((k, n), generator=g, device=dev))
+        got = quantized_matmul(x, wq, sc)
+        ref = quantized_matmul_reference(x, wq, sc)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        # f32: the same sums in another order
+        tol = (1e-2 if dt == torch.bfloat16 else 1e-4) * float(ref.float().abs().max())
+        rows.append(dict(m=m, k=k, n=n, dtype=str(dt), max_abs_err=err, tol=tol,
+                         ok=err <= tol))
+    return rows
+
+
+def paged_inputs(torch, dev, b, h, h_kv, d, p, lens, active, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    max_pages = 8
+    n_pages = b * max_pages
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((n_pages, p, h_kv, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((n_pages, p, h_kv, d), generator=g, device=dev).to(dtype)
+    table = torch.randperm(n_pages, generator=g, device=dev).reshape(b, max_pages)
+    table = table.to(torch.int32)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    act = torch.tensor(active, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, lens_t, act
+
+
+def check_paged_attention(torch, dev):
+    from paddle_tpu_torch.ops.pallas.paged_attention import (
+        paged_attention, paged_attention_reference)
+    rows = []
+    # main path shape, then a GQA group and the tiny model's d = 16 (f32)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (("mha", 4, 32, 32, 128, 64, [300, 257, 311, 290], [1, 1, 1, 0], bf16),
+             ("gqa rep=4", 4, 32, 8, 128, 64, [300, 1, 129, 64], [1, 1, 1, 1], bf16),
+             ("d=16 f32", 3, 4, 4, 16, 16, [37, 0, 100], [1, 1, 1], f32))
+    for name, b, h, h_kv, d, p, lens, active, dt in cases:
+        q, kp, vp, table, lens_t, act = paged_inputs(torch, dev, b, h, h_kv, d, p,
+                                                     lens, active, dt, seed=2)
+        got = paged_attention(q, kp, vp, table, lens_t, active=act)
+        ref = paged_attention_reference(q, kp, vp, table, lens_t, active=act)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        # outputs are convex mixes of N(0,1) rows: bf16 rounds at ~4e-3;
+        # f32 differs only in the order of the sums
+        tol = 1e-2 if dt == bf16 else 1e-4
+        row = dict(case=name, b=b, h=h, h_kv=h_kv, d=d, p=p, lens=lens, active=active,
+                   max_abs_err=err, tol=tol, ok=err <= tol)
+        if name == "mha":
+            row["ms"] = time_ms(torch, lambda: paged_attention(q, kp, vp, table, lens_t,
+                                                               active=act))
+            row["plain_ms"] = time_ms(torch, lambda: paged_attention_reference(
+                q, kp, vp, table, lens_t, active=act), iters=5)
+            live = sum(L for L, a in zip(lens, active) if a)
+            n_bytes = (2 * b * h * d * 2 + live * h_kv * d * 2 * 2
+                       + table.numel() * 4 + b * 8)
+            row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 4 * live * h * d)
+            row["library_ms"] = None
+        rows.append(row)
+    return rows
+
+
+def check_flash(torch, dev):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas.flash_attention import (
+        flash_attention_fwd, flash_attention_reference)
+    rows = []
+    for b, s, s_true, h, d, dt in ((4, 320, 300, 32, 128, torch.bfloat16),
+                                   (2, 130, 100, 2, 64, torch.float32)):
+        g = torch.Generator(device=dev).manual_seed(3)
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = flash_attention_fwd(q, k, v, True, scale, s_true=s_true)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, True, scale, s_true=s_true)
+        torch.cuda.synchronize()
+        err = max_err(o, o_ref)
+        lse_err = max_err(lse, lse_ref)
+        # o: bf16 rounding (or, in f32, the order of the sums); lse is f32
+        tol, lse_tol = (1e-2 if dt == torch.bfloat16 else 1e-4), 1e-3
+        row = dict(b=b, s=s, s_true=s_true, h=h, d=d, dtype=str(dt), max_abs_err=err, tol=tol,
+                   lse_max_abs_err=lse_err, lse_tol=lse_tol,
+                   ok=err <= tol and lse_err <= lse_tol)
+        if d == 128:
+            row["ms"] = time_ms(torch, lambda: flash_attention_fwd(q, k, v, True, scale,
+                                                                   s_true=s_true))
+            row["plain_ms"] = time_ms(torch, lambda: flash_attention_reference(
+                q, k, v, True, scale, s_true=s_true), iters=5)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale))
+            pairs = sum(min(r + 1, s_true) for r in range(s))
+            n_bytes = 4 * b * s * h * d * 2 + b * h * s * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 4 * b * h * d * pairs)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------- phase 4
+def weight_bytes_per_step(torch, eng):
+    """Bytes of every weight a decode step reads (the embedding excluded:
+    a step reads b rows of it)."""
+    total = 0
+    for key, w in eng.weights.items():
+        if key in ("emb", "cos", "sin", "eps"):
+            continue
+        items = [w] if key != "layers" else [x for layer in w for x in layer.values()]
+        for it in items:
+            for t in (it if isinstance(it, tuple) else (it,)):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def serve_7b(torch, dev):
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    import numpy as np
+
+    cfg = LlamaConfig.llama_7b()
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    engines = {
+        "bf16": LLMEngine(model, max_len=512, page_size=64, max_batch=4,
+                          weight_dtype="bfloat16", device=dev),
+        "int8": LLMEngine(model, max_len=512, page_size=64, max_batch=4,
+                          weight_dtype="bfloat16", quant="int8", device=dev),
+    }
+    del model   # the f32 master: the snapshots are all the engines read
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    prompts = {"short": rng.randint(0, cfg.vocab_size, (4, 12)).astype(np.int64),
+               "long": rng.randint(0, cfg.vocab_size, (4, 300)).astype(np.int64)}
+    n_new = 16
+    H, hd = cfg.hidden_size, cfg.hidden_size // cfg.num_attention_heads
+    n_layer_params = L * (2 * H * H + 2 * H * hd * cfg.num_key_value_heads
+                          + 3 * H * cfg.intermediate_size)
+    n_head_params = H * cfg.vocab_size
+    results, launches = [], {}
+    for wname, eng in engines.items():
+        w_bytes = weight_bytes_per_step(torch, eng)
+        step_bound = 1e3 * w_bytes / HBM_BYTES_PER_S
+        for pname, ids in prompts.items():
+            t0_len = ids.shape[1]
+            t_pad = -(-t0_len // eng.page_size) * eng.page_size
+            n_loop = min(-(-(n_new - 1) // 32) * 32, eng.max_len - t0_len - 1)
+            # warm-up call (cuBLAS handles, allocator), then the counted ones
+            eng.generate(ids, max_new_tokens=n_new, device_loop=True)
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            t = time.perf_counter()
+            out1 = eng.generate(ids, max_new_tokens=n_new, device_loop=True)
+            total_s = time.perf_counter() - t
+            counts = kernel_launches()
+            out2 = eng.generate(ids, max_new_tokens=n_new, device_loop=True)
+            t = time.perf_counter()
+            eng.generate(ids, max_new_tokens=1, device_loop=True)   # prefill only
+            prefill_s = time.perf_counter() - t
+            expect = {
+                "paged_attention": L * n_loop,
+                "quantized_matmul": (7 * L + 1) * (1 + n_loop) if wname == "int8" else 0,
+                "flash_attention_fwd": L if t_pad >= eng.flash_prefill_min else 0,
+            }
+            decode_ms = 1e3 * (total_s - prefill_s) / n_loop
+            # prefill reads every weight once; each layer weight meets every
+            # padded token, the lm_head only the last one (2 flops per MAC)
+            flops = 2 * (n_layer_params * 4 * t_pad + n_head_params * 4)
+            prefill_bound = max(w_bytes / HBM_BYTES_PER_S,
+                                flops / BF16_FLOPS_PER_S) * 1e3
+            ok = (out1.shape == (4, t0_len + n_new)
+                  and bool((out1[:, t0_len:] >= 0).all())
+                  and bool((out1[:, t0_len:] < cfg.vocab_size).all())
+                  and bool((out1 == out2).all()) and counts == expect)
+            results.append(dict(
+                weights=wname, prompt=pname, prompt_len=t0_len, t_pad=t_pad,
+                batch=4, max_new_tokens=n_new, decode_steps=n_loop,
+                out_shape=list(out1.shape), repeat_identical=bool((out1 == out2).all()),
+                launches=counts, expected_launches=expect,
+                prefill_ms=1e3 * prefill_s, prefill_bound_ms=prefill_bound,
+                decode_ms_per_step=decode_ms,
+                # every slot of every loop step; the loop runs n_loop steps
+                # but each row returns only n_new - 1 decode tokens
+                decode_step_tokens_per_s=4 * 1e3 / decode_ms,
+                served_tokens_per_s=4 * (n_new - 1) / (total_s - prefill_s),
+                weight_gb_per_step=w_bytes / 1e9, decode_bound_ms=step_bound,
+                tail=out1[0, -4:].tolist(), ok=ok))
+            for kname, c in counts.items():
+                launches[kname] = launches.get(kname, 0) + c
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del engines
+    torch.cuda.empty_cache()
+    return dict(setup_s=setup_s, peak_gb=peak_gb, runs=results), launches
+
+
+# ---------------------------------------------------------------- phase 5
+def parity_2layer(torch, dev):
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    import numpy as np
+
+    cfg = LlamaConfig(hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=2, num_attention_heads=32)   # 7B width
+    model = LlamaForCausalLM(cfg, device="cpu", seed=7)
+    rng = np.random.RandomState(1)
+    prompts = {"short": rng.randint(0, cfg.vocab_size, (2, 12)).astype(np.int64),
+               "long": rng.randint(0, cfg.vocab_size, (2, 300)).astype(np.int64)}
+    n_new = 8
+    # bf16 activations on the card against f32 on the CPU: logits of ~0.5
+    # spread carry bf16 rounding of ~1e-2 after two layers; 0.1 leaves room
+    tol = 0.1
+    rows = []
+    for quant in (None, "int8"):
+        kw = dict(max_len=512, page_size=64, max_batch=2, quant=quant)
+        cpu = LLMEngine(model, device="cpu", **kw)
+        gpu = LLMEngine(model, device=dev, weight_dtype="bfloat16", **kw)
+        for pname, ids in prompts.items():
+            t0 = ids.shape[1]
+            err = max_err(gpu.prefill_logits(ids).cpu(), cpu.prefill_logits(ids))
+            ids_cpu = cpu.generate(ids, max_new_tokens=n_new)
+            ids_gpu = gpu.generate(ids, max_new_tokens=n_new, device_loop=True)
+            # a step counts where the CPU run's top-2 margin exceeds the
+            # tolerance; a row is followed until the two runs part ways
+            compared = equal = 0
+            for i in range(ids.shape[0]):
+                for t in range(n_new):
+                    lg = cpu.prefill_logits(ids_cpu[i:i + 1, :t0 + t])[0]
+                    top2 = torch.topk(lg, 2).values
+                    same = ids_cpu[i, t0 + t] == ids_gpu[i, t0 + t]
+                    if float(top2[0] - top2[1]) > tol:
+                        compared += 1
+                        equal += int(same)
+                    if not same:
+                        break
+            rows.append(dict(quant=quant or "none", prompt=pname, logits_max_abs_err=err,
+                             tol=tol, greedy_compared=compared, greedy_equal=equal,
+                             ok=err <= tol and equal == compared))
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    return rows
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    try:
+        import paddle_tpu_torch  # noqa: F401
+        from paddle_tpu_torch import _build
+        from paddle_tpu_torch.ops import reset_kernel_launches
+    except ImportError as e:
+        print(f"chip_smoke: paddle_tpu_torch is not importable ({e}); run from "
+              "the repository root", file=sys.stderr)
+        return 2
+
+    dev = torch.device("cuda", 0)
+    ok = True
+    t_start = time.perf_counter()
+
+    # 1. device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "n/a"
+    print(smi_line, flush=True)
+    emit(dict(phase="device", name=torch.cuda.get_device_name(0), smi=smi_line,
+              count=torch.cuda.device_count(), torch=torch.__version__,
+              cuda=torch.version.cuda, python=sys.version.split()[0], tf32=False))
+
+    # 2. build
+    t = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t
+    log = _build.build_log() or ""
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln.lower()]
+    emit(dict(phase="build", seconds=build_s, path=_build.build_info()["path"],
+              ptxas=ptxas[:40]))
+
+    # 3. kernels
+    qmm = check_quantized_matmul(torch, dev)
+    pa = check_paged_attention(torch, dev)
+    fl = check_flash(torch, dev)
+    for name, rows in (("quantized_matmul", qmm), ("paged_attention", pa),
+                       ("flash_attention_fwd", fl)):
+        for r in rows:
+            emit(dict(phase="kernels", kernel=name, **r))
+            ok &= r["ok"]
+    emit(dict(phase="kernels", elapsed_s=time.perf_counter() - t_start))
+    main_rows = {"quantized_matmul": next(r for r in qmm if r["m"] == 4 and r["n"] == 11008),
+                 "paged_attention": pa[0], "flash_attention_fwd": fl[0]}
+
+    # 4. the main path; counts are zeroed just before it inside serve_7b
+    reset_kernel_launches()
+    path, launches = serve_7b(torch, dev)
+    for r in path["runs"]:
+        emit(dict(phase="path", **r))
+        ok &= r["ok"]
+    emit(dict(phase="path", setup_s=path["setup_s"], peak_gb=path["peak_gb"],
+              elapsed_s=time.perf_counter() - t_start))
+    ok &= all(launches.get(k, 0) > 0 for k in main_rows)
+    # 5. parity on the card
+    for r in parity_2layer(torch, dev):
+        emit(dict(phase="parity", **r))
+        ok &= r["ok"]
+    emit(dict(phase="parity", elapsed_s=time.perf_counter() - t_start))
+
+    if not ok:
+        print("chip_smoke: a phase failed (see the lines with \"ok\": false)",
+              file=sys.stderr)
+        return 1
+    kernels = []
+    for name, r in main_rows.items():
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=launches.get(name, 0), max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,27 @@
+"""Kernel wrappers and their launch counters.
+
+Every wrapper counts the launches of its CUDA kernel in a plain integer
+(`wrapper.launches`), raised by one where it launches the kernel and
+nowhere else: a CPU call (the plain version) does not count. A run shows
+that it went through the kernels by resetting the counts, running, and
+reading `kernel_launches()`.
+"""
+from .pallas.flash_attention import flash_attention_fwd
+from .pallas.paged_attention import paged_attention
+from .pallas.quantized_matmul import quantized_matmul
+
+_WRAPPERS = {
+    "quantized_matmul": quantized_matmul,
+    "paged_attention": paged_attention,
+    "flash_attention_fwd": flash_attention_fwd,
+}
+
+
+def kernel_launches():
+    """{kernel name: launches since the last reset}."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_kernel_launches():
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
