@@ -12,6 +12,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               kernel launch counts, decode and prefill times
   5. parity   a 2-layer full-width model: the engine on the card (bf16,
               kernels) against the same weights on the CPU (f32, plain)
+  6. cb_path  LLaMA-7B through ContinuousBatchingEngine (page 64, max_len
+              1024, 8 slots, 128-token chunks, prefix cache): 12 ragged
+              requests at decode_block 8 (bf16, int8) and 1 (bf16), each
+              stream twice; a single request with exact launch counts
+  7. cb_parity  the CB engine on the card (bf16, K=8, kernels) against the
+              CPU CB engine (f32, plain versions), 2 layers at 7B width
 
 The line before the last holds {"kernels": [...]}, and the last line is
 {"ok": true, "device": {...}}.
@@ -31,11 +37,13 @@ REPLACES = {
     "quantized_matmul": "paddle_tpu/ops/pallas/quantized_matmul.py:53",
     "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:39",
     "flash_attention_fwd": "paddle_tpu/ops/pallas/flash_attention.py:109",
+    "ragged_paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:211",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
     "flash_attention_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "ragged_paged_attention": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
 }
 
 
@@ -140,7 +148,7 @@ def paged_inputs(torch, dev, b, h, h_kv, d, p, lens, active, dtype, seed):
 
 def check_paged_attention(torch, dev):
     from paddle_tpu_torch.ops.pallas.paged_attention import (
-        paged_attention, paged_attention_reference)
+        paged_attention, paged_attention_reference, ragged_paged_attention)
     rows = []
     # main path shape, then a GQA group and the tiny model's d = 16 (f32)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -168,7 +176,108 @@ def check_paged_attention(torch, dev):
             n_bytes = (2 * b * h * d * 2 + live * h_kv * d * 2 * 2
                        + table.numel() * 4 + b * 8)
             row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 4 * live * h * d)
-            row["library_ms"] = None
+            row["library_ms"] = sdpa_paged_ms(torch, q[:, None], kp, vp, table,
+                                              lens_t - 1, lens_t, act)
+            row["library_call"] = LIBRARY_CALL
+            # the ragged kernel at tq = 1, q_start = len - 1 on the same inputs
+            rag = ragged_paged_attention(q[:, None], kp, vp, table, lens_t, lens_t - 1,
+                                         active=act)[:, 0]
+            torch.cuda.synchronize()
+            row["ragged_tq1_max_abs_diff"] = max_err(rag, got)
+            row["ragged_tq1_identical"] = bool(torch.equal(rag, got))
+        rows.append(row)
+    return rows
+
+
+LIBRARY_CALL = ("torch.nn.functional.scaled_dot_product_attention with a boolean mask, "
+                "K/V gathered into contiguous form beforehand (the gather is not timed)")
+
+
+def sdpa_paged_ms(torch, q, kp, vp, table, q_starts, ctx_lens, act):
+    """Yardstick: one SDPA call on each slot's pages gathered beforehand
+    (GQA heads expanded), masked causally at the ragged offsets."""
+    import torch.nn.functional as F
+    b, tq, h, d = q.shape
+    n_pages, p, h_kv, _ = kp.shape
+    L = table.shape[1] * p
+    idx = table.long().clamp(0, n_pages - 1)
+    ks = kp[idx].reshape(b, L, h_kv, d).repeat_interleave(h // h_kv, 2)
+    vs = vp[idx].reshape(b, L, h_kv, d).repeat_interleave(h // h_kv, 2)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ks, vs))
+    kpos = torch.arange(L, device=q.device)[None, None, None, :]
+    qpos = (q_starts.long()[:, None] + torch.arange(tq, device=q.device))[:, None, :, None]
+    mask = (kpos <= qpos) & (kpos < ctx_lens.long()[:, None, None, None])
+    mask = mask & (act != 0)[:, None, None, None]
+    torch.cuda.synchronize()
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                attn_mask=mask))
+
+
+def ragged_inputs(torch, dev, b, tq, h, h_kv, d, p, max_pages, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = b * max_pages
+    q = torch.randn((b, tq, h, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((n_pages, p, h_kv, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((n_pages, p, h_kv, d), generator=g, device=dev).to(dtype)
+    table = torch.randperm(n_pages, generator=g, device=dev).reshape(b, max_pages)
+    return q, kp, vp, table.to(torch.int32)
+
+
+def check_ragged(torch, dev):
+    from paddle_tpu_torch.ops.pallas.paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_reference)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+    # main path shape (8 slots, 128-token chunks at ragged offsets; slot 3
+    # ends mid-chunk, slot 7 inactive), then a GQA group, then the tiny
+    # model's d = 16 in f32
+    main_starts = [0, 128, 384, 640, 0, 256, 512, 0]
+    cases = (("main", 8, 128, 32, 32, 128, 64, 16, main_starts,
+              [128, 256, 512, 690, 128, 384, 640, 128], [1, 1, 1, 1, 1, 1, 1, 0], bf16),
+             ("gqa rep=4", 4, 128, 32, 8, 128, 64, 16, [0, 200, 64, 700],
+              [128, 328, 100, 828], [1, 1, 1, 1], bf16),
+             ("d=16 f32", 3, 8, 4, 2, 16, 8, 6, [0, 5, 23], [8, 13, 27], [1, 0, 1], f32))
+    for name, b, tq, h, h_kv, d, p, mp, starts, ctx, active, dt in cases:
+        q, kp, vp, table = ragged_inputs(torch, dev, b, tq, h, h_kv, d, p, mp, dt, seed=4)
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        act = torch.tensor(active, dtype=torch.int32, device=dev)
+        got = ragged_paged_attention(q, kp, vp, table, cl, st, active=act)
+        ref = ragged_paged_attention_reference(q, kp, vp, table, cl, st, active=act)
+        torch.cuda.synchronize()
+        # rows past a slot's real chunk end are garbage by contract: compare
+        # valid rows; inactive slots must be exact zeros; all rows finite
+        err, zeros_ok = 0.0, True
+        for i in range(b):
+            n_valid = max(0, min(tq, ctx[i] - starts[i]))
+            if not active[i]:
+                zeros_ok &= bool((got[i] == 0).all())
+            elif n_valid:
+                err = max(err, max_err(got[i, :n_valid], ref[i, :n_valid]))
+        finite = bool(torch.isfinite(got.float()).all())
+        # convex mixes of N(0,1) rows: bf16 rounds at ~4e-3; f32 differs
+        # only in the order of the sums
+        tol = 1e-2 if dt == bf16 else 1e-4
+        row = dict(case=name, b=b, tq=tq, h=h, h_kv=h_kv, d=d, p=p, max_pages=mp,
+                   q_starts=starts, ctx_lens=ctx, active=active, max_abs_err=err, tol=tol,
+                   inactive_zero=zeros_ok, finite=finite,
+                   ok=err <= tol and zeros_ok and finite)
+        if name == "main":
+            row["ms"] = time_ms(torch, lambda: ragged_paged_attention(q, kp, vp, table, cl, st,
+                                                                      active=act))
+            row["plain_ms"] = time_ms(torch, lambda: ragged_paged_attention_reference(
+                q, kp, vp, table, cl, st, active=act), iters=5)
+            row["library_ms"] = sdpa_paged_ms(torch, q, kp, vp, table, st, cl, act)
+            row["library_call"] = LIBRARY_CALL
+            # each input read once, each output written once: q and o, the
+            # live keys/values of active slots, the table and the scalars;
+            # operations: 4 d per (row, visible key) pair of active slots
+            live = sum(c for c, a in zip(ctx, active) if a)
+            pairs = sum(max(0, min(s0 + qi + 1, c)) for s0, c, a in zip(starts, ctx, active)
+                        if a for qi in range(tq))
+            n_bytes = (2 * b * tq * h * d * 2 + live * h_kv * d * 2 * 2
+                       + table.numel() * 4 + 3 * b * 4)
+            row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 4 * d * h * pairs)
         rows.append(row)
     return rows
 
@@ -277,6 +386,7 @@ def serve_7b(torch, dev):
                 "paged_attention": L * n_loop,
                 "quantized_matmul": (7 * L + 1) * (1 + n_loop) if wname == "int8" else 0,
                 "flash_attention_fwd": L if t_pad >= eng.flash_prefill_min else 0,
+                "ragged_paged_attention": 0,
             }
             decode_ms = 1e3 * (total_s - prefill_s) / n_loop
             # prefill reads every weight once; each layer weight meets every
@@ -356,6 +466,177 @@ def parity_2layer(torch, dev):
     return rows
 
 
+# ---------------------------------------------------------------- phase 6
+def cb_stream(cfg):
+    """12 requests submitted at once (deeper than the 8 slots): prompt
+    lengths uniform in 16-700 and budgets uniform in 16-64 from
+    RandomState(0); requests 0, 8 and 9 extend one 256-token prefix and
+    request 10 is that prefix alone (prefix hits; request 10's last shared
+    page is copied on its first write)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    lens = rng.randint(16, 701, 12)
+    budgets = [int(x) for x in rng.randint(16, 65, 12)]
+    prefix = rng.randint(0, cfg.vocab_size, 256).astype(np.int64)
+    prompts = [rng.randint(0, cfg.vocab_size, int(t)).astype(np.int64) for t in lens]
+    for i in (0, 8, 9):
+        tail = rng.randint(0, cfg.vocab_size, max(int(lens[i]) - 256, 1))
+        prompts[i] = np.concatenate([prefix, tail.astype(np.int64)])
+    prompts[10] = prefix.copy()
+    return prompts, budgets
+
+
+def drive_cb(torch, eng, prompts, budgets):
+    """Submit the stream, step to idle; returns (outputs, wall seconds,
+    ms per decode micro-step over the steps that ran decode only)."""
+    uids = [eng.add_request(p, n) for p, n in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    dec_s, dec_n = 0.0, 0
+    t_all = time.perf_counter()
+    while True:
+        pf0, d0 = eng.prefill_steps, eng.decode_steps
+        t = time.perf_counter()
+        if not eng.step():
+            break
+        torch.cuda.synchronize()
+        if eng.prefill_steps == pf0 and eng.decode_steps > d0:
+            dec_s += time.perf_counter() - t
+            dec_n += eng.decode_steps - d0
+    wall = time.perf_counter() - t_all
+    outs = [eng.result(u) for u in uids]
+    return outs, wall, (1e3 * dec_s / dec_n if dec_n else None)
+
+
+def serve_cb_7b(torch, dev):
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    import numpy as np
+
+    cfg = LlamaConfig.llama_7b()
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    geom = dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
+                prefix_cache=True, weight_dtype="bfloat16", device=dev)
+    prompts, budgets = cb_stream(cfg)
+    prompt_tokens = int(sum(p.size for p in prompts))
+    results, launches = [], {}
+    for name, K, quant in (("K=8 bf16", 8, None), ("K=8 int8", 8, "int8"),
+                           ("K=1 bf16", 1, None)):
+        eng = ContinuousBatchingEngine(model, decode_block=K, quant=quant, **geom)
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        outs, wall, dec_ms = drive_cb(torch, eng, prompts, budgets)
+        counts = kernel_launches()
+        h1 = eng.health()
+        outs2, wall2, _ = drive_cb(torch, eng, prompts, budgets)   # warm cache
+        h2 = eng.health()
+        gen = int(sum(o.size - p.size for o, p in zip(outs, prompts)))
+        n_blk_pf = counts["ragged_paged_attention"] // L
+        expect_qmm = (7 * L + 1) * ((n_blk_pf if K > 1 else h1["prefill_steps"])
+                                    + h1["decode_steps"]) if quant else 0
+        launch_ok = (counts["flash_attention_fwd"] == 0
+                     and counts["paged_attention"] == L * h1["decode_steps"] > 0
+                     and counts["quantized_matmul"] == expect_qmm
+                     and (counts["quantized_matmul"] > 0) == bool(quant)
+                     and counts["ragged_paged_attention"] % L == 0
+                     and ((counts["ragged_paged_attention"] > 0) if K > 1
+                          else counts["ragged_paged_attention"] == 0))
+        repeat = all(np.array_equal(a, b) for a, b in zip(outs, outs2))
+        in_vocab = all(bool(((o >= 0) & (o < V)).all()) for o in outs)
+        budget_ok = all(o.size == p.size + n for o, p, n in zip(outs, prompts, budgets))
+        no_leak = all(h["pages_free"] + h["prefix_pages"] == h["pages_total"]
+                      for h in (h1, h2))
+        ok = (launch_ok and repeat and in_vocab and budget_ok and no_leak
+              and h1["done"] == len(prompts) and h2["done"] == 2 * len(prompts)
+              and (h1["fused_blocks"] > 0) == (K > 1)
+              and h2["prefix_hits"] > 0 and h2["cow_copies"] > 0)
+        results.append(dict(
+            run=name, decode_block=K, weights=quant or "bf16", requests=len(prompts),
+            prompt_tokens=prompt_tokens, generated_tokens=gen, wall_s=wall,
+            generated_tokens_per_s=gen / wall, wall_s_warm_cache=wall2,
+            ms_per_decode_microstep=dec_ms,
+            fused_blocks=h1["fused_blocks"], chained_blocks=h1["chained_blocks"],
+            prefill_steps=h1["prefill_steps"], decode_steps=h1["decode_steps"],
+            prefill_blocks=n_blk_pf if K > 1 else None,
+            prefix_hits=[h1["prefix_hits"], h2["prefix_hits"] - h1["prefix_hits"]],
+            cow_copies=[h1["cow_copies"], h2["cow_copies"] - h1["cow_copies"]],
+            launches=counts, expected_qmm=expect_qmm, launches_ok=launch_ok,
+            repeat_identical=repeat, ids_in_vocab=in_vocab, budgets_met=budget_ok,
+            no_leak=no_leak, tail=outs[0][-4:].tolist(), ok=ok))
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+        del eng
+        torch.cuda.empty_cache()
+    # one request on a fresh engine: three prefill-only blocks (300 tokens
+    # in chunks of 128), then two decode blocks of 8, the second chained
+    eng = ContinuousBatchingEngine(model, decode_block=8, **geom)
+    ids = np.random.RandomState(1).randint(0, V, 300).astype(np.int64)
+    reset_kernel_launches()
+    out = eng.generate_many([ids], max_new_tokens=17)[0]
+    counts = kernel_launches()
+    h = eng.health()
+    expect = {"quantized_matmul": 0, "paged_attention": 2 * 8 * L,
+              "flash_attention_fwd": 0, "ragged_paged_attention": 3 * L}
+    single = dict(run="single t0=300 budget=17 K=8", launches=counts,
+                  expected_launches=expect, fused_blocks=h["fused_blocks"],
+                  chained_blocks=h["chained_blocks"], out_len=int(out.size),
+                  ok=counts == expect and out.size == 317 and h["chained_blocks"] == 1
+                  and h["pages_free"] + h["prefix_pages"] == h["pages_total"])
+    for kname, c in counts.items():
+        launches[kname] = launches.get(kname, 0) + c
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del eng, model
+    torch.cuda.empty_cache()
+    return dict(runs=results, single=single, peak_gb=peak_gb), launches
+
+
+# ---------------------------------------------------------------- phase 7
+def parity_cb_2layer(torch, dev):
+    """The CB engine on the card (bf16, K=8, kernels) against the same
+    weights in the CPU CB engine (f32, plain versions) on 4 ragged
+    requests; greedy ids compared wherever the CPU's top-2 margin (from
+    the static CPU engine's prefill_logits) exceeds the tolerance."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    import numpy as np
+
+    cfg = LlamaConfig(hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=2, num_attention_heads=32)   # 7B width
+    model = LlamaForCausalLM(cfg, device="cpu", seed=7)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, t).astype(np.int64)
+               for t in (12, 300, 140, 65)]
+    n_new = 8
+    tol = 0.1     # as phase 5: bf16 on the card against f32 on the CPU
+    kw = dict(max_len=512, page_size=64, max_batch=4, prefill_chunk=128,
+              decode_block=8)
+    outs_cpu = ContinuousBatchingEngine(model, device="cpu", **kw).generate_many(
+        prompts, max_new_tokens=n_new)
+    gpu = ContinuousBatchingEngine(model, device=dev, weight_dtype="bfloat16", **kw)
+    outs_gpu = gpu.generate_many(prompts, max_new_tokens=n_new)
+    ref = LLMEngine(model, device="cpu", max_len=512, page_size=64, max_batch=1)
+    compared = equal = 0
+    for p, oc, og in zip(prompts, outs_cpu, outs_gpu):
+        t0 = p.size
+        for t in range(n_new):
+            lg = ref.prefill_logits(oc[None, :t0 + t])[0]
+            top2 = torch.topk(lg, 2).values
+            same = oc[t0 + t] == og[t0 + t]
+            if float(top2[0] - top2[1]) > tol:
+                compared += 1
+                equal += int(same)
+            if not same:
+                break
+    del gpu
+    torch.cuda.empty_cache()
+    return dict(requests=len(prompts), prompt_lens=[int(p.size) for p in prompts],
+                tol=tol, greedy_compared=compared, greedy_equal=equal,
+                ok=compared > 0 and equal == compared)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -399,14 +680,16 @@ def main():
     qmm = check_quantized_matmul(torch, dev)
     pa = check_paged_attention(torch, dev)
     fl = check_flash(torch, dev)
+    rg = check_ragged(torch, dev)
     for name, rows in (("quantized_matmul", qmm), ("paged_attention", pa),
-                       ("flash_attention_fwd", fl)):
+                       ("flash_attention_fwd", fl), ("ragged_paged_attention", rg)):
         for r in rows:
             emit(dict(phase="kernels", kernel=name, **r))
             ok &= r["ok"]
     emit(dict(phase="kernels", elapsed_s=time.perf_counter() - t_start))
     main_rows = {"quantized_matmul": next(r for r in qmm if r["m"] == 4 and r["n"] == 11008),
-                 "paged_attention": pa[0], "flash_attention_fwd": fl[0]}
+                 "paged_attention": pa[0], "flash_attention_fwd": fl[0],
+                 "ragged_paged_attention": rg[0]}
 
     # 4. the main path; counts are zeroed just before it inside serve_7b
     reset_kernel_launches()
@@ -416,12 +699,29 @@ def main():
         ok &= r["ok"]
     emit(dict(phase="path", setup_s=path["setup_s"], peak_gb=path["peak_gb"],
               elapsed_s=time.perf_counter() - t_start))
-    ok &= all(launches.get(k, 0) > 0 for k in main_rows)
     # 5. parity on the card
     for r in parity_2layer(torch, dev):
         emit(dict(phase="parity", **r))
         ok &= r["ok"]
     emit(dict(phase="parity", elapsed_s=time.perf_counter() - t_start))
+
+    # 6. the continuous-batching path; counts are zeroed just before each
+    # run inside serve_cb_7b and read just after it
+    cb, cb_launches = serve_cb_7b(torch, dev)
+    for r in cb["runs"] + [cb["single"]]:
+        emit(dict(phase="cb_path", **r))
+        ok &= r["ok"]
+    emit(dict(phase="cb_path", peak_gb=cb["peak_gb"],
+              elapsed_s=time.perf_counter() - t_start))
+    for kname, c in cb_launches.items():
+        launches[kname] = launches.get(kname, 0) + c
+    # every kernel of the main paths was launched there
+    ok &= all(launches.get(k, 0) > 0 for k in main_rows)
+
+    # 7. continuous-batching parity on the card
+    r = parity_cb_2layer(torch, dev)
+    emit(dict(phase="cb_parity", **r, elapsed_s=time.perf_counter() - t_start))
+    ok &= r["ok"]
 
     if not ok:
         print("chip_smoke: a phase failed (see the lines with \"ok\": false)",

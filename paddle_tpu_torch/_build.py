@@ -38,6 +38,9 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "ptt_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                   _I, _P],
 }
 
 _lock = threading.Lock()

@@ -295,6 +295,10 @@ class LLMEngine:
         # padded prompts at/above this length prefill through the flash
         # kernel instead of dense scores (see _attn_prefill)
         self.flash_prefill_min = int(flash_prefill_min)
+        # wall seconds spent issuing device work and blocked on its
+        # read-backs (host time included: a dispatch-side number, not
+        # device busyness); the continuous-batching engine accrues it
+        self.dispatch_seconds = 0.0
         self.weights = _snapshot_llama(model, quant, weight_dtype,
                                        self.device)
         self.kv_dtype = (torch.bfloat16 if self.device.type == "cuda"
@@ -449,9 +453,18 @@ class LLMEngine:
         self.allocator = PageAllocator(self.n_pages)
 
     # -- page claims ----------------------------------------------------------
+    def _reclaim_pages(self, n):
+        """Hook: free up to n idle pages (none here; the continuous-
+        batching engine evicts prefix-cache pages)."""
+        return 0
+
     def _claim_pages(self, b, need):
         """Claim `need` pages for each of b sequences, all or nothing.
         Returns (tables [b, max_pages] int32 numpy, per-sequence pages)."""
+        if need * b > self.allocator.available:
+            # idle cache-held pages (continuous-batching engines) are
+            # reclaimable: try before declaring the pool full
+            self._reclaim_pages(need * b - self.allocator.available)
         if need * b > self.allocator.available:
             raise EngineFullError(
                 f"engine full: this call needs {need * b} KV pages "

@@ -7,13 +7,14 @@ that it went through the kernels by resetting the counts, running, and
 reading `kernel_launches()`.
 """
 from .pallas.flash_attention import flash_attention_fwd
-from .pallas.paged_attention import paged_attention
+from .pallas.paged_attention import paged_attention, ragged_paged_attention
 from .pallas.quantized_matmul import quantized_matmul
 
 _WRAPPERS = {
     "quantized_matmul": quantized_matmul,
     "paged_attention": paged_attention,
     "flash_attention_fwd": flash_attention_fwd,
+    "ragged_paged_attention": ragged_paged_attention,
 }
 
 

@@ -1,11 +1,14 @@
-"""Paged-attention decode: one query token per slot over its KV pages.
+"""Paged attention: one query token per slot over its KV pages (decode),
+and tq tokens per slot at ragged offsets (`ragged_paged_attention`,
+chunked prefill).
 
 Counterpart of `paddle_tpu/ops/pallas/paged_attention.py`. The Pallas
-TPU kernel `_decode_kernel` is replaced by `csrc/paged_attention.cu`; the
-plain PyTorch version beside it serves CPU tensors and is the yardstick
-the kernel is held against on the card.
+TPU kernels `_decode_kernel` and `_ragged_kernel` are replaced by
+`csrc/paged_attention.cu` and `csrc/ragged_paged_attention.cu`; the plain
+PyTorch versions beside them serve CPU tensors and are the yardsticks the
+kernels are held against on the card.
 
-Layout (as in the reference):
+Decode layout (as in the reference):
   q          : [b, h, d]
   k/v_pages  : [n_pages, p, h_kv, d]   (GQA: q head i reads kv head
                                          i // (h // h_kv))
@@ -125,3 +128,109 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None,
 
 
 paged_attention.launches = 0
+
+
+def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
+                                     ctx_lens, q_starts, scale=None,
+                                     active=None):
+    """Plain version: gather each slot's pages, mask key c for the row at
+    chunk offset qi unless c <= q_starts[b] + qi and c < ctx_lens[b],
+    softmax in f32. Rows with no visible key (inactive slots included)
+    emit zeros."""
+    b, tq, h, d = q.shape
+    n_pages, p, h_kv, _ = k_pages.shape
+    max_pages = page_table.shape[1]
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    table = page_table.long().clamp(0, n_pages - 1)
+    ks = expand_kv_heads(k_pages[table].reshape(b, max_pages * p, h_kv, d), h)
+    vs = expand_kv_heads(v_pages[table].reshape(b, max_pages * p, h_kv, d), h)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), ks.float()) * s
+    dev = q.device
+    kpos = torch.arange(max_pages * p, device=dev)[None, None, None, :]
+    qpos = (q_starts.to(dev).long()[:, None]
+            + torch.arange(tq, device=dev)[None, :])[:, None, :, None]
+    ok = (kpos <= qpos) & (kpos < ctx_lens.to(dev).long()[:, None, None, None])
+    if active is not None:
+        ok = ok & (active.to(dev) != 0)[:, None, None, None]
+    logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(ok.any(-1, keepdim=True), w, torch.zeros_like(w))
+    return torch.einsum("bhqk,bkhd->bqhd", w, vs.float()).to(q.dtype)
+
+
+def ragged_paged_attention(q, k_pages, v_pages, page_table, ctx_lens,
+                           q_starts, active=None, scale=None):
+    """Ragged-chunk attention over a paged KV cache: slot b holds tq query
+    tokens at global positions q_starts[b] + [0, tq) and attends its own
+    pages causally, up to ctx_lens[b] (the tokens cached after this
+    chunk's write). Returns [b, tq, h, d] in q's dtype; rows past a slot's
+    real chunk end are garbage by contract, but finite.
+
+      q          : [b, tq, h, d]
+      k/v_pages  : [n_pages, p, h_kv, d]
+      page_table : [b, max_pages] int32 (ids clamped to [0, n_pages))
+      ctx_lens, q_starts : [b] int32
+      active     : optional [b] mask; inactive slots emit zeros
+
+    A CPU tensor takes the plain version. A CUDA tensor launches
+    `csrc/ragged_paged_attention.cu` (bf16 or f32, d a multiple of 16 up
+    to 256) or raises; there is no fallback."""
+    b, tq, h, d = q.shape
+    n_pages, p, h_kv, dd = k_pages.shape
+    if dd != d or h % h_kv or tuple(v_pages.shape) != tuple(k_pages.shape) \
+            or page_table.dim() != 2 or page_table.shape[0] != b \
+            or tuple(ctx_lens.shape) != (b,) \
+            or tuple(q_starts.shape) != (b,):
+        raise ValueError(
+            f"ragged_paged_attention shapes: q {tuple(q.shape)}, pages "
+            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, table "
+            f"{tuple(page_table.shape)}, ctx {tuple(ctx_lens.shape)}, "
+            f"starts {tuple(q_starts.shape)}")
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_reference(
+            q, k_pages, v_pages, page_table, ctx_lens, q_starts, s, active)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"ragged_paged_attention: unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise ValueError(
+            f"ragged_paged_attention kernel takes bf16/f32 q and pages of "
+            f"the same dtype; got q {q.dtype}, pages "
+            f"{k_pages.dtype}/{v_pages.dtype}")
+    if d % 16 or d > MAX_D:
+        raise ValueError(
+            f"ragged_paged_attention kernel takes d a multiple of 16 up to "
+            f"{MAX_D}; got d={d}")
+    dev = q.device
+    for t in (k_pages, v_pages):
+        if t.device != dev:
+            raise ValueError(
+                "ragged_paged_attention: operands on different devices")
+    q = q.contiguous()
+    k_pages = k_pages.contiguous()
+    v_pages = v_pages.contiguous()
+    table = page_table.to(device=dev, dtype=torch.int32).contiguous()
+    ctx = ctx_lens.to(device=dev, dtype=torch.int32).contiguous()
+    starts = q_starts.to(device=dev, dtype=torch.int32).contiguous()
+    act = None if active is None else \
+        active.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    lib = _build.library()
+    code = lib.ptt_ragged_paged_attention(
+        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_pages.data_ptr()),
+        ctypes.c_void_p(v_pages.data_ptr()), ctypes.c_void_p(table.data_ptr()),
+        ctypes.c_void_p(ctx.data_ptr()), ctypes.c_void_p(starts.data_ptr()),
+        ctypes.c_void_p(0 if act is None else act.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()),
+        b, tq, h, h_kv, d, p, n_pages, table.shape[1], float(s),
+        _DTYPE_CODE[q.dtype], dev.index, _build.stream_ptr(dev))
+    _build.check(code, "ragged_paged_attention")
+    ragged_paged_attention.launches += 1
+    return out
+
+
+ragged_paged_attention.launches = 0

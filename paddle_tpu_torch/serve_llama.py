@@ -1,10 +1,13 @@
-"""Serve LLaMA through paddle_tpu_torch's LLMEngine.
+"""Serve LLaMA through paddle_tpu_torch's engines.
 
-The default mode of `examples/serve_llama.py` (no scheduler, replicas or
-fleet): one batch of random prompts, greedy, `generate(device_loop=True)`.
-Weights are random, drawn from a seed.
+Two modes of `examples/serve_llama.py`. The default: one batch of random
+prompts, greedy, `LLMEngine.generate(device_loop=True)`. `--scheduler`:
+three ragged requests through `ContinuousBatchingEngine`, the second
+sharing the first's prompt prefix (prefix-cache hits), greedy. Weights are
+random, drawn from a seed.
 
     python -m paddle_tpu_torch.serve_llama --model 7b --quant int8
+    python -m paddle_tpu_torch.serve_llama --scheduler --decode-block 8
     python -m paddle_tpu_torch.serve_llama --model tiny --device cpu
 """
 import argparse
@@ -13,6 +16,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .inference.scheduler import (ContinuousBatchingEngine, EngineBusyError,
+                                  RequestFailedError)
 from .inference.serving import LLMEngine
 from .models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -35,6 +40,15 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--scheduler", action="store_true",
+                    help="serve ragged requests through the "
+                         "continuous-batching engine")
+    ap.add_argument("--decode-block", type=int, default=1,
+                    help="--scheduler: decode steps per fused block")
+    ap.add_argument("--queue-limit", type=int, default=None,
+                    help="--scheduler: bounded admission queue")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="--scheduler: default per-request deadline")
     args = ap.parse_args(argv)
 
     g = GEOMETRIES[args.model]
@@ -43,6 +57,8 @@ def main(argv=None):
     weight_dtype = "bfloat16" if args.model == "7b" else None
     model = LlamaForCausalLM(g["cfg"], device=device, seed=0)
     quant = None if args.quant == "none" else args.quant
+    if args.scheduler:
+        return serve_scheduler(args, g, model, quant, weight_dtype, device)
     engine = LLMEngine(model, max_len=g["max_len"], page_size=g["page"],
                        max_batch=g["bs"], quant=quant,
                        weight_dtype=weight_dtype, device=device)
@@ -58,6 +74,53 @@ def main(argv=None):
     print(f"model={args.model} quant={args.quant} "
           f"prompt={prompts.shape} -> generated={out.shape}")
     print("first sequence tail:", out[0, -args.max_new_tokens:].tolist())
+
+
+def serve_scheduler(args, g, model, quant, weight_dtype, device):
+    """Three ragged greedy requests; request 1 is the first page of
+    request 0's prompt and arrives once request 0 has published it."""
+    engine = ContinuousBatchingEngine(
+        model, max_len=g["max_len"], page_size=g["page"],
+        max_batch=max(2, g["bs"]), quant=quant, weight_dtype=weight_dtype,
+        queue_limit=args.queue_limit, default_deadline_ms=args.deadline_ms,
+        decode_block=args.decode_block, device=device)
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rng = np.random.RandomState(0)
+    page = g["page"]
+    base = rng.randint(0, g["cfg"].vocab_size, (page + 4,)).astype(np.int64)
+    # request 1 is request 0's first page: it shares that page and copies
+    # it on its first write (its last prompt token re-runs there)
+    prompts = [base, base[:page],
+               rng.randint(0, g["cfg"].vocab_size, (5,)).astype(np.int64)]
+    submitted = [(0, engine.add_request(prompts[0], args.max_new_tokens))]
+    while engine.status(submitted[0][1]) in ("queued", "prefill"):
+        engine.step()            # request 0 publishes its prompt pages
+    for i, p in enumerate(prompts[1:], start=1):
+        try:
+            submitted.append((i, engine.add_request(p, args.max_new_tokens)))
+        except EngineBusyError as e:
+            print(f"  request {i} shed by backpressure: {e}")
+    engine.drain()
+    h = engine.health()
+    fused = (f"{h['fused_blocks']} fused blocks ({h['chained_blocks']} "
+             f"chained), " if args.decode_block > 1 else "")
+    print(f"model={args.model} quant={args.quant} scheduler: "
+          f"{len(submitted)} ragged requests in {h['steps']} steps "
+          f"({h['prefill_steps']} prefill / {h['decode_steps']} decode), "
+          f"{fused}{h['prefix_hits']} prefix-page hits, "
+          f"{h['cow_copies']} copy-on-writes")
+    for i, u in submitted:
+        try:
+            o = engine.result(u)
+            print(f"  request {i}: {prompts[i].size} -> {o.size} tokens, "
+                  f"tail {o[-4:].tolist()}")
+        except RequestFailedError as e:
+            print(f"  request {i}: failed — {e.failure}")
+    print(f"  health: {h['done']} done / {h['failed']} failed, "
+          f"{h['pages_free']}/{h['pages_total']} pages free, "
+          f"{h['prefix_pages']} held by the prefix cache")
 
 
 if __name__ == "__main__":

@@ -67,6 +67,21 @@ def test_engine_refuses_cpu_without_being_asked():
     LLMEngine(model, max_len=32, page_size=16, max_batch=1, device="cpu")
 
 
+def test_cb_engine_refuses_cpu_without_being_asked():
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousBatchingEngine(model, max_len=32, page_size=16,
+                                 max_batch=1)
+    eng = ContinuousBatchingEngine(model, max_len=32, page_size=16,
+                                   max_batch=1, device="cpu")
+    assert eng.device == torch.device("cpu")
+
+
 def test_kernel_wrappers_count_only_kernel_launches():
     """CPU tensors take the plain versions, which launch nothing."""
     from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
@@ -76,7 +91,8 @@ def test_kernel_wrappers_count_only_kernel_launches():
     wq, sc = quantize_weights(torch.randn(32, 16))
     quantized_matmul(torch.randn(2, 32), wq, sc)
     assert kernel_launches() == {"quantized_matmul": 0, "paged_attention": 0,
-                                 "flash_attention_fwd": 0}
+                                 "flash_attention_fwd": 0,
+                                 "ragged_paged_attention": 0}
 
 
 def test_unsupported_device_raises():
