@@ -18,7 +18,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
               stream twice; a single request with exact launch counts
   7. cb_parity  the CB engine on the card (bf16, K=8, kernels) against the
               CPU CB engine (f32, plain versions), 2 layers at 7B width
+  8. train_path  SpmdTrainer.step through paddle_tpu_torch.train_llama at
+              bench.py's two configs, full width and depth: llama350m (3
+              warmup + 10 timed steps) and llama1p3b (2 + 5), then one
+              step under torch.profiler; ms/step, tokens/s, MFU, peak
+              memory, losses, exact launches per step, device time by
+              kernel group and the busy share
+  9. train_parity  the trainer on the card against the trainer on the CPU
+              (f32), one carried-over state, 2 layers at the 350m width and
+              vocab, bs 4, seq 256, 3 steps: card f32 (TF32 off) and card
+              bf16
 
+Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
+bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row.
 The line before the last holds {"kernels": [...]}, and the last line is
 {"ok": true, "device": {...}}.
 
@@ -38,13 +50,18 @@ REPLACES = {
     "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:39",
     "flash_attention_fwd": "paddle_tpu/ops/pallas/flash_attention.py:109",
     "ragged_paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:211",
+    "rms_norm": "paddle_tpu/ops/pallas/rms_norm.py:45",
+    "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:430",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
     "flash_attention_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "ragged_paged_attention": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+    "rms_norm": "paddle_tpu_torch/csrc/rms_norm.cu",
+    "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
 }
+
 
 
 def emit(obj):
@@ -70,6 +87,37 @@ def time_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_summary(log):
+    """One line per compiled kernel from nvcc's -Xptxas -v output: the
+    kernel's name, its mangled template arguments (f = float,
+    13__nv_bfloat16, Li128E = 128), registers and spilled bytes."""
+    import re
+    out, name, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN(\w+)'", ln)
+        if m:
+            rest = m.group(1)
+            parts = []
+            while len(parts) < 2:          # namespace, then the kernel
+                k = re.match(r"(\d+)", rest)
+                if not k:
+                    break
+                n = int(k.group(1))
+                parts.append(rest[k.end():k.end() + n])
+                rest = rest[k.end() + n:]
+            name = (parts[-1] if parts else rest[:40]) + " " + rest[:rest.find("Ev")]
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, {spill} B spilled")
+            name = None
+    return out
 
 
 def max_err(a, b):
@@ -179,14 +227,45 @@ def check_paged_attention(torch, dev):
             row["library_ms"] = sdpa_paged_ms(torch, q[:, None], kp, vp, table,
                                               lens_t - 1, lens_t, act)
             row["library_call"] = LIBRARY_CALL
-            # the ragged kernel at tq = 1, q_start = len - 1 on the same inputs
-            rag = ragged_paged_attention(q[:, None], kp, vp, table, lens_t, lens_t - 1,
-                                         active=act)[:, 0]
-            torch.cuda.synchronize()
-            row["ragged_tq1_max_abs_diff"] = max_err(rag, got)
-            row["ragged_tq1_identical"] = bool(torch.equal(rag, got))
+            # the ragged kernel at tq = 1, q_start = len - 1, against the
+            # decode kernel: bit for bit (they share one per-page step)
+            tq1 = tq1_identity(torch, dev)
+            row["ragged_tq1"] = tq1
+            row["ragged_tq1_max_abs_diff"] = max(c["max_abs_diff"] for c in tq1)
+            row["ragged_tq1_identical"] = all(c["identical"] for c in tq1)
+            row["ok"] = row["ok"] and row["ragged_tq1_identical"]
         rows.append(row)
     return rows
+
+
+def tq1_identity(torch, dev):
+    """B5 at tq = 1 with q_start = len - 1 against B3 on the same inputs:
+    bf16 and f32, page 64 and page 8, MHA and a GQA group of 4, ragged
+    lengths (one inactive slot, one of length 1)."""
+    from paddle_tpu_torch.ops.pallas.paged_attention import (
+        paged_attention, ragged_paged_attention)
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        for p in (64, 8):
+            for h, h_kv in ((32, 32), (32, 8)):
+                lens, active = [300, 257, 1, 290, 129], [1, 1, 1, 0, 1]
+                b, d, mp = len(lens), 128, -(-max(lens) // p)
+                g = torch.Generator(device=dev).manual_seed(5)
+                q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+                kp = torch.randn((b * mp, p, h_kv, d), generator=g, device=dev).to(dt)
+                vp = torch.randn((b * mp, p, h_kv, d), generator=g, device=dev).to(dt)
+                table = torch.randperm(b * mp, generator=g, device=dev)
+                table = table.reshape(b, mp).to(torch.int32)
+                ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+                ac = torch.tensor(active, dtype=torch.int32, device=dev)
+                dec = paged_attention(q, kp, vp, table, ln, active=ac)
+                rag = ragged_paged_attention(q[:, None], kp, vp, table, ln, ln - 1,
+                                             active=ac)[:, 0]
+                torch.cuda.synchronize()
+                cases.append(dict(dtype=str(dt), page=p, h=h, h_kv=h_kv,
+                                  max_abs_diff=max_err(rag, dec),
+                                  identical=bool(torch.equal(rag, dec))))
+    return cases
 
 
 LIBRARY_CALL = ("torch.nn.functional.scaled_dot_product_attention with a boolean mask, "
@@ -318,6 +397,95 @@ def check_flash(torch, dev):
     return rows
 
 
+# the training shapes of llama350m (32 x 1024 tokens, hidden 1024) and
+# llama1p3b (8 x 1024, hidden 2048), then a small f32 row
+RMS_CASES = ((32768, 1024, "bfloat16"), (8192, 2048, "bfloat16"),
+             (1000, 1024, "float32"))
+# the training shapes of llama350m (b32 s1024 h16 d64) and llama1p3b (b8
+# s1024 h16 d128), then small f32 rows with s not a multiple of 64
+FLASH_BWD_CASES = ((32, 1024, 16, 64, "bfloat16"), (8, 1024, 16, 128, "bfloat16"),
+                   (2, 200, 2, 64, "float32"), (1, 130, 3, 128, "float32"))
+
+
+def check_rms(torch, dev):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas.rms_norm import rms_norm_fwd, rms_norm_reference
+    bf16 = torch.bfloat16
+    rows, eps = [], 1e-6
+    for n, d, dt in RMS_CASES:
+        dt = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(6)
+        x = (2 * torch.randn((n, d), generator=g, device=dev)).to(dt)
+        w = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dt)
+        y = rms_norm_fwd(x, w, eps)
+        ref = rms_norm_reference(x, w, eps)
+        torch.cuda.synchronize()
+        err = max_err(y, ref)
+        # both sides compute in f32 and round once: bf16 outputs differ by
+        # at most one rounding (2^-8 relative); f32 by rsqrt's last bits
+        tol = (2 ** -7 if dt == bf16 else 1e-5) * float(ref.float().abs().max())
+        row = dict(n=n, d=d, dtype=str(dt), max_abs_err=err, tol=tol, ok=err <= tol)
+        if dt == bf16:
+            row["ms"] = time_ms(torch, lambda: rms_norm_fwd(x, w, eps))
+            row["plain_ms"] = time_ms(torch, lambda: rms_norm_reference(x, w, eps), iters=5)
+            row["library_ms"] = time_ms(torch, lambda: F.rms_norm(x, (d,), w, eps))
+            row["library_call"] = "torch.nn.functional.rms_norm"
+            es = x.element_size()
+            row["bound_ms"], row["bound_by"] = bound_ms(2 * n * d * es + d * es, 4 * n * d)
+        rows.append(row)
+    return rows
+
+
+def check_flash_bwd(torch, dev):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd)
+    bf16 = torch.bfloat16
+    rows = []
+    for b, s, h, d, dt in FLASH_BWD_CASES:
+        dt = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(7)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = flash_attention_fwd(q, k, v, True, scale)
+        got = flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+        ref = flash_attention_bwd_reference(q, k, v, o, lse, do, True, scale)
+        torch.cuda.synchronize()
+        errs = {n: max_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
+        # per gradient, relative to its largest entry: bf16 rounds the
+        # output once (2^-8) after f32 sums; f32 differs in sum order only
+        rel = 1e-2 if dt == bf16 else 1e-4
+        tols = {n: rel * float(r.float().abs().max()) for n, r in zip(("dq", "dk", "dv"), ref)}
+        del got, ref
+        row = dict(b=b, s=s, h=h, d=d, dtype=str(dt), max_abs_err=max(errs.values()),
+                   max_abs_err_by_grad=errs, tol_by_grad=tols,
+                   ok=all(errs[n] <= tols[n] for n in errs))
+        if dt == bf16:
+            row["ms"] = time_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                                   True, scale), iters=5)
+            row["plain_ms"] = time_ms(torch, lambda: flash_attention_bwd_reference(
+                q, k, v, o, lse, do, True, scale), iters=2, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+            dot = do.transpose(1, 2).contiguous()
+            row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), iters=5)
+            row["library_call"] = ("the backward alone of torch.nn.functional."
+                                   "scaled_dot_product_attention(is_causal=True)")
+            del qt, kt, vt, out, dot
+            # q, k, v, o, dO read and dQ, dK, dV written once, lse read;
+            # 10 d flops per visible (query, key) pair
+            pairs = b * h * s * (s + 1) // 2
+            n_bytes = 8 * b * s * h * d * q.element_size() + b * h * s * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 10 * d * pairs)
+        rows.append(row)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------- phase 4
 def weight_bytes_per_step(torch, eng):
     """Bytes of every weight a decode step reads (the embedding excluded:
@@ -382,12 +550,12 @@ def serve_7b(torch, dev):
             t = time.perf_counter()
             eng.generate(ids, max_new_tokens=1, device_loop=True)   # prefill only
             prefill_s = time.perf_counter() - t
-            expect = {
+            expect = dict.fromkeys(counts, 0)
+            expect.update({
                 "paged_attention": L * n_loop,
                 "quantized_matmul": (7 * L + 1) * (1 + n_loop) if wname == "int8" else 0,
                 "flash_attention_fwd": L if t_pad >= eng.flash_prefill_min else 0,
-                "ragged_paged_attention": 0,
-            }
+            })
             decode_ms = 1e3 * (total_s - prefill_s) / n_loop
             # prefill reads every weight once; each layer weight meets every
             # padded token, the lm_head only the last one (2 flops per MAC)
@@ -577,8 +745,8 @@ def serve_cb_7b(torch, dev):
     out = eng.generate_many([ids], max_new_tokens=17)[0]
     counts = kernel_launches()
     h = eng.health()
-    expect = {"quantized_matmul": 0, "paged_attention": 2 * 8 * L,
-              "flash_attention_fwd": 0, "ragged_paged_attention": 3 * L}
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"paged_attention": 2 * 8 * L, "ragged_paged_attention": 3 * L})
     single = dict(run="single t0=300 budget=17 K=8", launches=counts,
                   expected_launches=expect, fused_blocks=h["fused_blocks"],
                   chained_blocks=h["chained_blocks"], out_len=int(out.size),
@@ -637,6 +805,89 @@ def parity_cb_2layer(torch, dev):
                 ok=compared > 0 and equal == compared)
 
 
+# ---------------------------------------------------------------- phase 8
+TRAIN_RUNS = (
+    # config, warmup, timed steps, exact kernel launches per step
+    # llama350m, save_attn: 16 forward attentions (the recompute replays
+    # their o and lse), 16 backward, norms 2 x 16 + 1 forward and 2 x 16
+    # again in the recompute
+    ("llama350m", 3, 10, {"flash_attention_fwd": 16, "flash_attention_bwd": 16,
+                          "rms_norm": 65}),
+    # llama1p3b, full: every layer's forward runs again in backward
+    ("llama1p3b", 2, 5, {"flash_attention_fwd": 48, "flash_attention_bwd": 24,
+                         "rms_norm": 97}),
+)
+
+
+def train_path(torch, dev):
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.train_llama import run_config
+    results, launches = [], {}
+    for name, warmup, steps, per_step in TRAIN_RUNS:
+        torch.cuda.empty_cache()
+        reset_kernel_launches()
+        r = run_config(name, steps=steps, warmup=warmup, device=dev, profile=True)
+        counts = kernel_launches()
+        n = warmup + steps + (r["profile"] is not None)   # the profiled step
+        expect = {k: per_step.get(k, 0) * n for k in counts}
+        losses = r["losses"]
+        finite = all(math.isfinite(x) for x in losses)
+        ok = finite and losses[-1] < losses[0] and counts == expect
+        results.append(dict(r, launches=counts, expected_launches=expect,
+                            launches_per_step={k: c / n for k, c in counts.items()},
+                            losses_finite=finite, loss_fell=losses[-1] < losses[0],
+                            ok=ok))
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+        torch.cuda.empty_cache()
+    return results, launches
+
+
+# ---------------------------------------------------------------- phase 9
+def train_parity(torch, dev):
+    """The trainer on the card against the trainer on the CPU (f32, plain
+    versions) from one state: 2 layers at the 350m width and vocab, bs 4,
+    seq 256, 3 steps, recompute save_attn, lr 1e-4."""
+    import numpy as np
+    from paddle_tpu_torch.models import SpmdTrainer
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=1024, intermediate_size=2816,
+                      num_hidden_layers=2, num_attention_heads=16,
+                      max_position_embeddings=1024)
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, cfg.vocab_size, (4, 256)).astype(np.int64)
+    labels = np.roll(ids, -1, axis=1)
+    kw = dict(lr=1e-4, recompute=True, recompute_policy="save_attn")
+
+    def run(device, **extra):
+        model = LlamaForCausalLM(cfg, device=device, seed=5)
+        model.load_state_dict(cpu_model.state_dict())
+        tr = SpmdTrainer(model, **kw, **extra)
+        st = tr.init_state()
+        losses = []
+        for _ in range(3):
+            st, loss = tr.step(st, ids, labels)
+            losses.append(float(loss))
+        return losses, {n: t.float().cpu() for n, t in st["params"].items()}
+
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=5)
+    ref_losses, ref_params = run("cpu")
+    rows = []
+    # f32 on the card, TF32 off: the same math in another summation order;
+    # bf16 on the card: bf16 params, activations and products against f32
+    for name, extra, tol in (("f32", dict(param_dtype="float32"), 1e-3),
+                             ("bf16", dict(param_dtype="bfloat16"), 2e-2)):
+        losses, params = run(dev, **extra)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        pdiff = max(float((params[n] - ref_params[n]).abs().max()) for n in ref_params)
+        rows.append(dict(card=name, cpu="f32", losses=losses, cpu_losses=ref_losses,
+                         loss_max_rel_diff=rel, tol=tol, param_max_abs_diff=pdiff,
+                         ok=rel <= tol and all(math.isfinite(x) for x in losses)))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -670,30 +921,38 @@ def main():
     t = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t
-    log = _build.build_log() or ""
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln.lower()]
     emit(dict(phase="build", seconds=build_s, path=_build.build_info()["path"],
-              ptxas=ptxas[:40]))
+              ptxas=ptxas_summary(_build.build_log() or "")))
 
     # 3. kernels
-    qmm = check_quantized_matmul(torch, dev)
-    pa = check_paged_attention(torch, dev)
-    fl = check_flash(torch, dev)
-    rg = check_ragged(torch, dev)
-    for name, rows in (("quantized_matmul", qmm), ("paged_attention", pa),
-                       ("flash_attention_fwd", fl), ("ragged_paged_attention", rg)):
+    main_rows = {}
+    checks = (("quantized_matmul", check_quantized_matmul),
+              ("paged_attention", check_paged_attention),
+              ("flash_attention_fwd", check_flash),
+              ("ragged_paged_attention", check_ragged),
+              ("rms_norm", check_rms), ("flash_attention_bwd", check_flash_bwd))
+    for name, check in checks:
+        rows = check(torch, dev)
         for r in rows:
             emit(dict(phase="kernels", kernel=name, **r))
             ok &= r["ok"]
+        # the row at the main path's shape (the first with a time;
+        # quantized_matmul: the decode GEMV of gate/up)
+        main_rows[name] = next(r for r in rows if "ms" in r and (
+            name != "quantized_matmul" or (r["m"] == 4 and r["n"] == 11008)))
     emit(dict(phase="kernels", elapsed_s=time.perf_counter() - t_start))
-    main_rows = {"quantized_matmul": next(r for r in qmm if r["m"] == 4 and r["n"] == 11008),
-                 "paged_attention": pa[0], "flash_attention_fwd": fl[0],
-                 "ragged_paged_attention": rg[0]}
 
-    # 4. the main path; counts are zeroed just before it inside serve_7b
+    # 4. the serving path; counts are zeroed just before each generate
+    # call inside serve_7b and read just after it
+    launches = {}
+
+    def add(counts):
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+
     reset_kernel_launches()
-    path, launches = serve_7b(torch, dev)
+    path, counts = serve_7b(torch, dev)
+    add(counts)
     for r in path["runs"]:
         emit(dict(phase="path", **r))
         ok &= r["ok"]
@@ -707,21 +966,36 @@ def main():
 
     # 6. the continuous-batching path; counts are zeroed just before each
     # run inside serve_cb_7b and read just after it
-    cb, cb_launches = serve_cb_7b(torch, dev)
+    cb, counts = serve_cb_7b(torch, dev)
+    add(counts)
     for r in cb["runs"] + [cb["single"]]:
         emit(dict(phase="cb_path", **r))
         ok &= r["ok"]
     emit(dict(phase="cb_path", peak_gb=cb["peak_gb"],
               elapsed_s=time.perf_counter() - t_start))
-    for kname, c in cb_launches.items():
-        launches[kname] = launches.get(kname, 0) + c
-    # every kernel of the main paths was launched there
-    ok &= all(launches.get(k, 0) > 0 for k in main_rows)
 
     # 7. continuous-batching parity on the card
     r = parity_cb_2layer(torch, dev)
     emit(dict(phase="cb_parity", **r, elapsed_s=time.perf_counter() - t_start))
     ok &= r["ok"]
+
+    # 8. the training path; counts are zeroed just before each
+    # configuration's run inside train_path and read just after it
+    runs, counts = train_path(torch, dev)
+    add(counts)
+    for r in runs:
+        emit(dict(phase="train_path", **r))
+        ok &= r["ok"]
+    emit(dict(phase="train_path", elapsed_s=time.perf_counter() - t_start))
+
+    # 9. training parity on the card
+    for r in train_parity(torch, dev):
+        emit(dict(phase="train_parity", **r))
+        ok &= r["ok"]
+    emit(dict(phase="train_parity", launches=launches,
+              elapsed_s=time.perf_counter() - t_start))
+    # every kernel was launched on the main paths
+    ok &= all(launches.get(k, 0) > 0 for k in SOURCES)
 
     if not ok:
         print("chip_smoke: a phase failed (see the lines with \"ok\": false)",

@@ -41,6 +41,9 @@ SIGNATURES = {
     "ptt_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                    _I, _P],
+    "ptt_rms_norm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    "ptt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,9 @@
-"""Move a `paddle_tpu` model's parameters into a `paddle_tpu_torch` model.
+"""Move a `paddle_tpu` model's parameters, or a `paddle_tpu` trainer's
+state, into their `paddle_tpu_torch` counterparts.
 
 Both packages keep Paddle's [in, out] weight layout and the same parameter
-names, so the copy is by name with no transposes.
+names, so the copy is by name with no transposes. The caller hands over
+numpy arrays (this package never imports jax or paddle_tpu).
 """
 import numpy as np
 import torch
@@ -28,3 +30,63 @@ def load_numpy_params(model, arrays):
         for name, p in params.items():
             p.copy_(torch.tensor(np.asarray(arrays[name])))
     return model
+
+
+def trainer_state_from_numpy(trainer, params, opt=None, step=0):
+    """A `paddle_tpu_torch` `SpmdTrainer` state carried over from the
+    reference trainer's, as numpy:
+
+    - params: `trainer.gather_params(state)` of the reference —
+      {"outer": [embed, final norm, lm_head], "stacked": [[L, ...] per
+      decoder parameter name]} — the stacks in the trainer's
+      `phys_order`;
+    - opt: the reference's `state["opt"]` of one rank, {"outer": [{"m",
+      "v"}], "stacked": [{"m", "v"}]}, each moment flat (a stacked one
+      over the whole [L, ...] block; padding past the parameter's size is
+      dropped), or None for zero moments;
+    - step: the reference's step counter.
+
+    Params are cast to the trainer's param_dtype and moments to its
+    moment_dtype (bit for bit where the dtypes agree)."""
+    n_out, n_lay = len(trainer.outer_names), len(trainer.layer_param_names)
+    if len(params["outer"]) != n_out or len(params["stacked"]) != n_lay:
+        raise ValueError(
+            f"expected {n_out} outer and {n_lay} stacked arrays, got "
+            f"{len(params['outer'])} and {len(params['stacked'])}")
+    order = trainer.phys_order
+    state = trainer.init_state()
+    like = state["params"]
+
+    def put(dst, a, name):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(a.shape)} does not "
+                             f"match {tuple(dst.shape)}")
+        if a.dtype.kind == "V":     # bfloat16 as numpy holds it: exact in f32
+            a = a.astype(np.float32)
+        dst.copy_(torch.tensor(a))
+
+    def flat(a, shape):
+        a = np.asarray(a).reshape(-1)
+        return a[:int(np.prod(shape))].reshape(shape)
+
+    with torch.no_grad():
+        for i, name in enumerate(trainer.outer_names):
+            put(like[name], params["outer"][i], name)
+            if opt is not None:
+                for k in ("m", "v"):
+                    put(state["opt"][name][k],
+                        flat(opt["outer"][i][k], like[name].shape), name)
+        for i, pname in enumerate(trainer.layer_param_names):
+            block = np.asarray(params["stacked"][i])
+            one = like[trainer.layer_name(0, pname)].shape
+            mom = ({k: flat(opt["stacked"][i][k], (len(order),) + tuple(one))
+                    for k in ("m", "v")} if opt is not None else None)
+            for phys, li in enumerate(order):
+                name = trainer.layer_name(li, pname)
+                put(like[name], block[phys], name)
+                if mom is not None:
+                    for k in ("m", "v"):
+                        put(state["opt"][name][k], mom[k][phys], name)
+    state["step"] = int(step)
+    return state

@@ -15,13 +15,15 @@
 // Design: one block per (slot, kv head). The block reads its own row of
 // the page table (ids clamped to [0, n_pages) as the reference does) and
 // walks its pages up to seq_len; positions at or past seq_len are never
-// loaded. Per page: each warp takes whole tokens, holds the token's k row
-// in registers (lanes split d) and dots it with the `rep` pre-scaled
-// query heads of the group, staged once in shared memory (GQA: the k/v
-// row is read once for all rep heads). One warp per head then updates
-// (m, l) and turns the page's logits into weights; finally every thread
-// owns (head, feature) outputs and accumulates weights x v in f32
-// registers, rescaled by alpha. An inactive slot or a slot of length 0
+// loaded. Each page is one call of `ptt::online_softmax_page`
+// (common.cuh), the per-page step the ragged kernel shares: each warp
+// takes whole tokens, holds the token's k row in registers (lanes split d)
+// and dots it with the `rep` pre-scaled query heads of the group, staged
+// once in shared memory (GQA: the k/v row is read once for all rep
+// heads); one warp per head updates (m, l) and turns the page's logits
+// into weights; every thread owns (head, feature) outputs and accumulates
+// weights x v in f32 registers, rescaled by alpha. An inactive slot or a
+// slot of length 0
 // walks no page and writes zeros (l clamped to 1e-30, as in the
 // reference). d is any multiple of 16 up to 256; rep * d <= 2048.
 #include "common.cuh"
@@ -33,9 +35,7 @@ using ptt::kNegInf;
 using ptt::to_f32;
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxAcc = 16;     // accumulators per thread: rep * d <= 2048
-constexpr int kMaxDLane = 8;    // d / 32 values per lane: d <= 256
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -53,7 +53,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* a_s = l_s + rep;          // [rep] this page's rescale factor
 
   const int b = blockIdx.x / h_kv, g = blockIdx.x % h_kv;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int rd = rep * d;
   const size_t qoff = ((size_t)b * h + (size_t)g * rep) * d;  // rep heads, contiguous
 
@@ -77,69 +77,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const int page = min(max(table[(size_t)b * max_pages + pi], 0), n_pages - 1);
     const int valid = min(p, L - pi * p);
     const size_t base = (size_t)page * p * tok_stride + (size_t)g * d;
-
-    // logits: one warp per token, lanes split d
-    for (int t = warp; t < valid; t += kWarps) {
-      const T* kr = kp + base + t * tok_stride;
-      float kv[kMaxDLane];
-#pragma unroll
-      for (int i = 0; i < kMaxDLane; ++i) {
-        const int j = lane + 32 * i;
-        kv[i] = (j < d) ? to_f32(kr[j]) : 0.f;
-      }
-      for (int r = 0; r < rep; ++r) {
-        const float* qr = q_s + r * d;
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < kMaxDLane; ++i) {
-          const int j = lane + 32 * i;
-          if (j < d) part = fmaf(qr[j], kv[i], part);
-        }
-        part = ptt::warp_sum(part);
-        if (lane == 0) s_s[r * p + t] = part;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per head
-    for (int r = warp; r < rep; r += kWarps) {
-      float* sr = s_s + r * p;
-      float mx = kNegInf;
-      for (int t = lane; t < valid; t += 32) mx = fmaxf(mx, sr[t]);
-      mx = ptt::warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < valid; t += 32) {
-        const float e = expf(sr[t] - m_new);
-        sr[t] = e;
-        sum += e;
-      }
-      sum = ptt::warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc[(r, j)] = alpha * acc + sum_t w[r, t] * v[t, j]
-    const T* vb = vp + base;
-#pragma unroll
-    for (int i = 0; i < kMaxAcc; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < rd) {
-        const int r = e / d, j = e % d;
-        const float* wr = s_s + r * p;
-        float sum = 0.f;
-        for (int t = 0; t < valid; ++t)
-          sum = fmaf(wr[t], to_f32(vb[t * tok_stride + j]), sum);
-        acc[i] = a_s[r] * acc[i] + sum;
-      }
-    }
-    __syncthreads();  // s_s and a_s are rewritten by the next page
+    // every token of a live page is visible to every head of the group;
+    // token loops unrolled 2 (q.k) and 16 (p.v) deep: with few heads per
+    // group each thread has one long chain of v loads, and rolled it
+    // stalls on each (measured slower on the H100)
+    ptt::online_softmax_page<kThreads, kMaxAcc, 2, 16>(
+        q_s, rep, d, kp + base, vp + base, tok_stride, valid,
+        [](int) { return 1 << 30; }, s_s, p, m_s, l_s, a_s, acc);
   }
 
 #pragma unroll
@@ -180,7 +124,7 @@ extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (h_kv <= 0 || h % h_kv != 0 || d % 16 != 0 || d > 32 * kMaxDLane ||
+  if (h_kv <= 0 || h % h_kv != 0 || d % 16 != 0 || d > 32 * ptt::kPageMaxDLane ||
       (h / h_kv) * d > kMaxAcc * kThreads)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -10,10 +10,12 @@ Initialisation follows the reference's distributions, drawn in parameter
 order from one `torch.Generator`: XavierUniform for the projections and
 the lm_head, XavierNormal for the embedding, ones for the norms.
 
-`forward` is the training-path math on the CPU. The serving engine
-(`inference/serving.py`) reads the weights and never calls it. On a CUDA
-tensor the RMSNorm raises: its kernel (`_rms_fwd_kernel`) is ported with
-the training slice (ROADMAP B1).
+`forward` is the training path: the norms go through the `rmsnorm` slot
+(the RMSNorm kernel on CUDA, its analytic backward) and attention through
+the `sdpa` slot (`FlashAttention`: the flash forward and backward kernels
+on CUDA); on the CPU both take their plain versions. The serving engine
+(`inference/serving.py`) reads the weights and never calls it.
+`LlamaPretrainingCriterion` is the reference's token-mean CE.
 """
 import math
 
@@ -22,7 +24,8 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from ..ops.pallas.flash_attention import flash_attention_reference
+from ..ops.fused_ce import vocab_parallel_ce_rows
+from ..ops.pallas import rmsnorm, sdpa
 from ..ops.pallas.paged_attention import expand_kv_heads
 
 
@@ -132,15 +135,7 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(hidden_size, device=device))
 
     def forward(self, x):
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "LLaMA forward on CUDA needs the RMSNorm kernel "
-                "(_rms_fwd_kernel), ported with the training slice "
-                "(ROADMAP B1); serving uses LLMEngine")
-        x32 = x.float()
-        var = x32.square().mean(dim=-1, keepdim=True)
-        return (x32 * torch.rsqrt(var + self.eps)
-                * self.weight.float()).to(x.dtype)
+        return rmsnorm(x, self.weight, self.eps)
 
 
 class LlamaAttention(nn.Module):
@@ -173,8 +168,7 @@ class LlamaAttention(nn.Module):
         k = apply_rotary(k, c, sn)
         k = expand_kv_heads(k, self.num_heads)
         v = expand_kv_heads(v, self.num_heads)
-        out, _ = flash_attention_reference(q, k, v, causal=True,
-                                           scale=1.0 / math.sqrt(hd))
+        out = sdpa(q, k, v, True, 1.0 / math.sqrt(hd))
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -238,6 +232,25 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(config, gen, device)
         self.lm_head = Linear(config.hidden_size, config.vocab_size, gen,
                               device)
+        self.criterion = LlamaPretrainingCriterion(config)
 
-    def forward(self, input_ids):
-        return self.lm_head(self.llama(input_ids))
+    def forward(self, input_ids, labels=None):
+        logits = self.lm_head(self.llama(input_ids))
+        if labels is not None:
+            return self.criterion(logits, labels)
+        return logits
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Token-mean softmax CE over the logits, the reference's
+    `ParallelCrossEntropy` + mean at one model-parallel rank: rows labelled
+    `ignore_index` add 0 to the sum and still count in the mean."""
+
+    def __init__(self, config=None, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        loss, _, _ = vocab_parallel_ce_rows(
+            logits.float(), labels, ignore_index=self.ignore_index)
+        return loss.mean()

@@ -6,15 +6,18 @@ nowhere else: a CPU call (the plain version) does not count. A run shows
 that it went through the kernels by resetting the counts, running, and
 reading `kernel_launches()`.
 """
-from .pallas.flash_attention import flash_attention_fwd
+from .pallas.flash_attention import flash_attention_bwd, flash_attention_fwd
 from .pallas.paged_attention import paged_attention, ragged_paged_attention
 from .pallas.quantized_matmul import quantized_matmul
+from .pallas.rms_norm import rms_norm_fwd
 
 _WRAPPERS = {
     "quantized_matmul": quantized_matmul,
     "paged_attention": paged_attention,
     "flash_attention_fwd": flash_attention_fwd,
     "ragged_paged_attention": ragged_paged_attention,
+    "rms_norm": rms_norm_fwd,
+    "flash_attention_bwd": flash_attention_bwd,
 }
 
 

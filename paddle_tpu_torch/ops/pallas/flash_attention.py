@@ -1,17 +1,23 @@
-"""Flash-attention forward (causal) on [b, s, h, d].
+"""Flash attention (causal) on [b, s, h, d]: forward, backward, and the
+differentiable `FlashAttention` built from them.
 
-Counterpart of the forward of `paddle_tpu/ops/pallas/flash_attention.py`
-(`_fwd_kernel` via `_flash_fwd` / `make_flash_attention`). The Pallas TPU
-kernel is replaced by `csrc/flash_attention.cu`; the plain PyTorch
-version beside it (the counterpart of `_xla_ref`) serves CPU tensors and
-is the yardstick the kernel is held against on the card.
+Counterpart of `paddle_tpu/ops/pallas/flash_attention.py`. Its two Pallas
+TPU kernels are replaced by hand-written CUDA: the forward `_fwd_kernel`
+(via `_flash_fwd`) by `csrc/flash_attention.cu`, the fused backward
+`_fused_bwd_kernel` (via `_flash_bwd`) by `csrc/flash_attention_bwd.cu`.
+The plain PyTorch versions beside them (`flash_attention_reference`, the
+counterpart of `_xla_ref`, and `flash_attention_bwd_reference`) serve CPU
+tensors and are the yardsticks the kernels are held against on the card.
+`FlashAttention` is the counterpart of `make_flash_attention`'s custom
+VJP.
 
 Keys at positions >= s_true are masked (padding inside a padded prompt).
-Returns o in the input dtype and lse = logsumexp of each query row's
-scaled logits, [b, h, s] f32 (the residual the training slice's backward
-needs). Additive masks, dropout and the backward kernel belong to later
-slices.
+The forward returns o in the input dtype and lse = logsumexp of each query
+row's scaled logits, [b, h, s] f32, the residual the backward reads.
+Additive masks and dropout are not ported yet (ROADMAP B2).
 """
+import contextlib
+import contextvars
 import ctypes
 import math
 
@@ -22,6 +28,14 @@ from ... import _build
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_qkv(name, q, k, v):
+    if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) \
+            or tuple(v.shape) != tuple(q.shape):
+        raise ValueError(
+            f"{name} takes equal [b, s, h, d] q/k/v; got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
 
 
 def flash_attention_reference(q, k, v, causal=True, scale=None, s_true=None):
@@ -53,11 +67,7 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None):
     A CPU tensor takes the plain version. A CUDA tensor launches
     `csrc/flash_attention.cu` (causal only, d 64 or 128, bf16 or f32) or
     raises; there is no fallback."""
-    if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) \
-            or tuple(v.shape) != tuple(q.shape):
-        raise ValueError(
-            f"flash_attention_fwd takes equal [b, s, h, d] q/k/v; got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    _check_qkv("flash_attention_fwd", q, k, v)
     b, s, h, d = q.shape
     s_true = s if s_true is None else int(s_true)
     if not 0 <= s_true <= s:
@@ -97,3 +107,175 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None):
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                  scale=None, s_true=None):
+    """Plain version of the backward: dense f32 P from the forward's lse,
+    then dV = P^T dO, dS = P (dO V^T - rowsum(dO o)) * scale, dQ = dS K,
+    dK = dS^T Q. Returns (dq, dk, dv) in the inputs' dtypes."""
+    b, s, h, d = q.shape
+    s_true = s if s_true is None else int(s_true)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    cols = torch.arange(s, device=q.device)[None, :]
+    valid = cols < s_true
+    if causal:
+        valid = valid & (torch.arange(s, device=q.device)[:, None] >= cols)
+    p = torch.where(valid, torch.exp(logits - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    del logits
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    delta = (do32 * o.float()).sum(-1).transpose(1, 2)            # [b, h, s]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do32, v32) - delta[..., None]) \
+        * scale
+    del p
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+BWD_TILE = 64   # key tile of csrc/flash_attention_bwd.cu: one dQ partial each
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
+                        s_true=None, mask=None, dropout_p=0.0):
+    """Gradients (dq, dk, dv) of the causal flash attention, from the
+    forward's o and lse and the output cotangent do; all [b, s, h, d]
+    except lse [b, h, s] f32.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches
+    `csrc/flash_attention_bwd.cu` (causal only, d 64 or 128, bf16 or f32)
+    or raises; there is no fallback. delta = rowsum(dO * o) and the sum of
+    the kernel's per-key-tile dQ partials are torch ops around the launch,
+    as they are jnp around the `pallas_call` in the reference's
+    `_flash_bwd`. Additive masks and dropout raise (ROADMAP B2)."""
+    if mask is not None or dropout_p:
+        raise NotImplementedError(
+            "flash_attention_bwd: additive masks and dropout are not ported "
+            "yet (ROADMAP B2)")
+    _check_qkv("flash_attention_bwd", q, k, v)
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must match q {tuple(q.shape)}")
+    b, s, h, d = q.shape
+    if tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} is "
+                         f"not [b, h, s] = {(b, h, s)}")
+    s_true = s if s_true is None else int(s_true)
+    if not 0 <= s_true <= s:
+        raise ValueError(f"s_true={s_true} outside [0, {s}]")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                             scale, s_true)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if not causal:
+        raise ValueError("flash_attention_bwd kernel is causal only")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for t in (k, v, o, do)):
+        raise ValueError(
+            f"flash_attention_bwd kernel takes bf16/f32 q/k/v/o/do of one "
+            f"dtype; got {[str(t.dtype) for t in (q, k, v, o, do)]}")
+    if d not in (64, 128):
+        raise ValueError(f"flash_attention_bwd kernel takes d 64 or 128; "
+                         f"got {d}")
+    dev = q.device
+    if any(t.device != dev for t in (k, v, o, lse, do)):
+        raise ValueError("flash_attention_bwd: operands on different devices")
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    lse = lse.float().contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    nk = -(-s // BWD_TILE)
+    dq_part = torch.empty((nk, b, s, h, d), dtype=torch.float32, device=dev)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if b * h * s == 0:
+        return torch.zeros_like(q), dk, dv
+    code = _build.library().ptt_flash_attention_bwd(
+        *(ctypes.c_void_p(t.data_ptr())
+          for t in (q, k, v, do, lse, delta, dq_part, dk, dv)),
+        b, s, h, d, s_true, float(scale), _DTYPE_CODE[q.dtype], dev.index,
+        _build.stream_ptr(dev))
+    _build.check(code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    dq = (dq_part[0] if nk == 1 else dq_part.sum(0)).to(q.dtype)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class AttnResidualStash:
+    """The forward residuals (o, lse) of every `FlashAttention` call in one
+    checkpointed region, kept from its first run for its recompute.
+
+    This is the port's `checkpoint_name(..., "sdpa_res")` under
+    `save_only_these_names("sdpa_res")` (the reference's
+    `recompute_policy="save_attn"`): the first run of the region records
+    each call's (o, lse); every later run of it (the recompute during
+    backward) replays them in order instead of launching the forward
+    kernel again. Use `with stash.region():` around each run."""
+
+    def __init__(self):
+        self._saved = []
+        self._runs = 0
+        self._replay = None
+
+    @contextlib.contextmanager
+    def region(self):
+        self._replay = iter(list(self._saved)) if self._runs else None
+        token = _STASH.set(self)
+        try:
+            yield self
+        finally:
+            _STASH.reset(token)
+            self._runs += 1
+
+    def residuals(self, compute):
+        """(o, lse): replayed on a recompute, else `compute()` recorded."""
+        if self._replay is not None:
+            try:
+                return next(self._replay)
+            except StopIteration:
+                raise RuntimeError(
+                    "AttnResidualStash: the recompute ran more attention "
+                    "calls than the first run recorded") from None
+        o, lse = compute()
+        self._saved.append((o.detach(), lse.detach()))
+        return o, lse
+
+
+_STASH = contextvars.ContextVar("paddle_tpu_torch_attn_stash", default=None)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable causal flash attention (the counterpart of
+    `make_flash_attention`'s custom VJP): forward `flash_attention_fwd`,
+    backward `flash_attention_bwd`, saving q, k, v, o and lse. Inside an
+    `AttnResidualStash.region()` the forward's (o, lse) go through the
+    stash, so a recompute does not launch the forward kernel again.
+
+    `FlashAttention.apply(q, k, v, causal, scale, s_true)`; returns o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, scale=None, s_true=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+        def compute():
+            return flash_attention_fwd(q, k, v, causal, scale, s_true)
+
+        stash = _STASH.get()
+        o, lse = stash.residuals(compute) if stash is not None else compute()
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale, ctx.s_true = causal, scale, s_true
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                         ctx.scale, ctx.s_true)
+        return dq, dk, dv, None, None, None

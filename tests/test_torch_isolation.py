@@ -2,6 +2,7 @@
 neither jax nor paddle_tpu, no source of the port imports them, and on a
 machine without CUDA its entry points refuse to run unless asked for the
 CPU."""
+import math
 import pathlib
 import re
 import subprocess
@@ -21,6 +22,7 @@ import paddle_tpu_torch
 for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
 importlib.import_module("paddle_tpu_torch.serve_llama")
+importlib.import_module("paddle_tpu_torch.train_llama")
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))
@@ -83,16 +85,36 @@ def test_cb_engine_refuses_cpu_without_being_asked():
 
 
 def test_kernel_wrappers_count_only_kernel_launches():
-    """CPU tensors take the plain versions, which launch nothing."""
+    """CPU tensors take the plain versions, which launch nothing; a
+    training step (every norm, attention forward and backward) on the CPU
+    launches nothing either."""
+    from paddle_tpu_torch.models import SpmdTrainer
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from paddle_tpu_torch.ops.pallas.quantized_matmul import (
         quantize_weights, quantized_matmul)
     reset_kernel_launches()
     wq, sc = quantize_weights(torch.randn(32, 16))
     quantized_matmul(torch.randn(2, 32), wq, sc)
+    tr = SpmdTrainer(LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                                      device="cpu"), recompute=True)
+    ids = torch.randint(0, 128, (2, 8))
+    tr.step(tr.init_state(), ids, ids)
     assert kernel_launches() == {"quantized_matmul": 0, "paged_attention": 0,
                                  "flash_attention_fwd": 0,
-                                 "ragged_paged_attention": 0}
+                                 "ragged_paged_attention": 0, "rms_norm": 0,
+                                 "flash_attention_bwd": 0}
+
+
+def test_training_entry_points_refuse_cpu_without_being_asked():
+    from paddle_tpu_torch.train_llama import run_config
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_config("tiny", steps=1, warmup=0)
+    r = run_config("tiny", steps=1, warmup=1, device="cpu")
+    assert r["device"] == "cpu" and r["mfu"] is None and r["peak_gb"] is None
+    assert len(r["losses"]) == 2 and all(map(math.isfinite, r["losses"]))
 
 
 def test_unsupported_device_raises():

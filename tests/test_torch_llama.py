@@ -1,9 +1,11 @@
 """LLaMA model: paddle_tpu_torch against the JAX reference.
 
 Parameters cross by name with no transposes and come back bit-exact; the
-forward logits of the tiny config (MHA and GQA) match the JAX model on the
-same weights within atol = rtol = 1e-4 in f32 (matmuls and softmax sum in
-another order).
+forward logits of the tiny config (MHA and GQA), and of
+`__graft_entry__.entry()`'s model, match the JAX model on the same weights
+within atol = rtol = 1e-4 in f32 (matmuls and softmax sum in another
+order), with equal argmax ids; the pretraining criterion matches the
+reference's token-mean CE within rtol 1e-6.
 """
 import numpy as np
 import pytest
@@ -85,3 +87,45 @@ def test_rope_cache_matches_jax():
     jc, js = jax_rope(64, 16, 10000.0, jnp.float32)
     np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+def test_forward_matches_graft_entry():
+    """`entry()`'s forward (LlamaConfig.tiny(), paddle.seed(0)) on its own
+    example ids, and on random ones, through the weights it returns."""
+    import jax
+    from __graft_entry__ import entry
+    fn, args = entry()
+    ids, weights = args[0], args[1:]
+    ids2 = np.random.RandomState(9).randint(0, 128, (2, 16)).astype(np.int64)
+    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    names = [n for n, _ in tm.named_parameters()]
+    assert len(names) == len(weights)
+    load_numpy_params(tm, {n: np.asarray(w) for n, w in zip(names, weights)})
+    jfn = jax.jit(fn)
+    for x in (ids, ids2):
+        ref = np.asarray(jfn(x, *weights))
+        with torch.no_grad():
+            got = tm(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+def test_pretraining_criterion_matches_jax():
+    from paddle_tpu.models.llama import (
+        LlamaPretrainingCriterion as JaxCriterion)
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    rs = np.random.RandomState(4)
+    logits = rs.standard_normal((2, 6, 40)).astype(np.float32) * 2
+    labels = rs.randint(0, 40, (2, 6)).astype(np.int64)
+    labels[0, :2] = -100
+    ref = float(JaxCriterion(JaxConfig.tiny())(paddle.to_tensor(logits),
+                                               paddle.to_tensor(labels)))
+    got = LlamaPretrainingCriterion()(torch.from_numpy(logits),
+                                      torch.from_numpy(labels))
+    np.testing.assert_allclose(float(got), ref, rtol=1e-6)
+    tm = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1), device="cpu")
+    ids = torch.from_numpy(labels.clip(0))
+    with torch.no_grad():
+        loss = tm(ids, torch.from_numpy(labels))
+        want = LlamaPretrainingCriterion()(tm(ids), torch.from_numpy(labels))
+    assert torch.equal(loss, want)
