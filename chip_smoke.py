@@ -5,7 +5,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device   the card's name and power limit; TF32 off
   2. build    nvcc builds every kernel under paddle_tpu_torch/csrc
   3. kernels  each kernel against its plain PyTorch version at the serving
-              path's shapes (bf16), with times, bounds and library times
+              path's shapes (bf16), with times, bounds and library times;
+              the decode megakernel at 7B width (one layer, a 2-layer whole
+              step with the head, a constructed argmax tie; bf16 and int8)
+              beside the op chain's time on the same inputs
   4. path     LLaMA-7B (full width, all 32 layers, random weights from a
               seed) served through LLMEngine.generate(device_loop=True),
               bf16 and int8 weights, 12- and 300-token prompt batches;
@@ -14,10 +17,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               kernels) against the same weights on the CPU (f32, plain)
   6. cb_path  LLaMA-7B through ContinuousBatchingEngine (page 64, max_len
               1024, 8 slots, 128-token chunks, prefix cache): 12 ragged
-              requests at decode_block 8 (bf16, int8) and 1 (bf16), each
-              stream twice; a single request with exact launch counts
-  7. cb_parity  the CB engine on the card (bf16, K=8, kernels) against the
-              CPU CB engine (f32, plain versions), 2 layers at 7B width
+              requests at decode_block 8 (bf16, int8) and 1 (bf16) on the
+              op chain (megakernel=False), then through the megakernel
+              ("multi" bf16 and int8, "layer" bf16, K=8), each stream
+              twice; a single request with exact launch counts; one
+              steady-state stretch of fused blocks under torch.profiler
+              (op chain and "multi") for the device's busy share
+  7. cb_parity  the CB engine on the card (bf16, K=8, kernels; op chain and
+              "multi") against the CPU CB engine (f32, plain versions), 2
+              layers at 7B width
   8. train_path  SpmdTrainer.step through paddle_tpu_torch.train_llama at
               bench.py's two configs, full width and depth: llama350m (3
               warmup + 10 timed steps) and llama1p3b (2 + 5), then one
@@ -52,6 +60,7 @@ REPLACES = {
     "ragged_paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:211",
     "rms_norm": "paddle_tpu/ops/pallas/rms_norm.py:45",
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:430",
+    "decode_megakernel": "paddle_tpu/ops/pallas/decode_megakernel.py:272",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
@@ -60,6 +69,7 @@ SOURCES = {
     "ragged_paged_attention": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
     "rms_norm": "paddle_tpu_torch/csrc/rms_norm.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "decode_megakernel": "paddle_tpu_torch/csrc/decode_megakernel.cu",
 }
 
 
@@ -486,6 +496,242 @@ def check_flash_bwd(torch, dev):
     return rows
 
 
+# ---------------------------------------------------------------- phase 3 (B6)
+MK_LENS, MK_ACTIVE = [300, 257, 311, 290], [1, 1, 1, 0]
+MK_TIE = (5, 20, 31000)   # one 32-column slab, then another slab and block
+
+
+def megakernel_inputs(torch, dev, eng, seed):
+    """One decode step's inputs for a 4-slot engine: N(0, 1) pools in every
+    layer, a random page table, lens 300/257/311/290 with the last slot
+    inactive, and random tokens."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for f in eng._k_flat + eng._v_flat:
+        f.copy_(torch.randn(f.shape, generator=g, device=dev))
+    mp = eng.max_pages_per_seq
+    table = torch.randperm(eng.n_pages, generator=g, device=dev)[:4 * mp]
+    table = table.reshape(4, mp).to(torch.int32)
+    lens = torch.tensor(MK_LENS, dtype=torch.int32, device=dev)
+    act = torch.tensor(MK_ACTIVE, dtype=torch.int32, device=dev)
+    tok = torch.randint(0, eng.cfg.vocab_size, (4,), generator=g, device=dev)
+    return tok, table, lens, act
+
+
+def clone_pack(pack):
+    """The same weights over copies of the pools (the plain version's)."""
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import MegakernelPack
+    return MegakernelPack(
+        pack.layers, [f.clone() for f in pack.k_flat], [f.clone() for f in pack.v_flat],
+        pack.cos, pack.sin, nh=pack.nh, nh_kv=pack.nh_kv, hd=pack.hd, eps=pack.eps,
+        page_size=pack.page_size, norm=pack.norm, head=pack.head)
+
+
+def written_rows(pack, table, lens, act):
+    rows = [int(table[i, int(L) // pack.page_size]) * pack.page_size + int(L) % pack.page_size
+            for i, (L, a) in enumerate(zip(lens.tolist(), act.tolist())) if a]
+    return rows + [pack.oob]
+
+
+def pools_diff(pack_a, pack_b, rows, layers):
+    """(max abs diff of the written rows, True when every other row of every
+    layer is equal bit for bit)."""
+    import torch
+    err, same = 0.0, True
+    for li in range(pack_a.n_layers):
+        for fa, fb in ((pack_a.k_flat[li], pack_b.k_flat[li]),
+                       (pack_a.v_flat[li], pack_b.v_flat[li])):
+            mask = torch.ones(fa.shape[0], dtype=torch.bool, device=fa.device)
+            if li in layers:
+                mask[rows] = False
+                err = max(err, max_err(fa[rows[:-1]], fb[rows[:-1]]))
+            same &= bool(torch.equal(fa[mask], fb[mask]))
+    return err, same
+
+
+def set_tie(torch, pack, xn):
+    """Make head columns MK_TIE identical and the largest logit of every
+    row: each becomes the direction of the rows' normed final hidden."""
+    d = xn.float().sum(0)
+    d = d / d.norm()
+    if isinstance(pack.head, tuple):
+        wq, sc = pack.head
+        col = torch.round(127 * d / d.abs().max()).to(torch.int8)
+        for c in MK_TIE:
+            wq[:, c] = col
+            sc[c] = 0.05
+    else:
+        for c in MK_TIE:
+            pack.head[:, c] = (8 * d).to(pack.head.dtype)
+
+
+def megakernel_f32_rows(torch, dev):
+    """Off the main path (the engine computes in bf16 on the card): f32
+    activations with dense f32 and with int8 weights, a small GQA width (4
+    heads over 2, d 64, hidden 256, ffn 512, vocab 1000, page 16), 2 layers
+    and the head, 3 slots with lens 37/0/100 and the last inactive."""
+    from paddle_tpu_torch.models.llama import _rope_cache
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import (
+        MegakernelPack, decode_megakernel, decode_megakernel_reference)
+    from paddle_tpu_torch.ops.pallas.quantized_matmul import quantize_weights
+    H, nh, nh_kv, hd, F, V, p, max_len = 256, 4, 2, 64, 512, 1000, 16, 128
+    lens_l, act_l = [37, 0, 100], [1, 1, 0]
+    R, mp = len(lens_l), max_len // p
+    rows = []
+    for quant in (False, True):
+        g = torch.Generator(device=dev).manual_seed(13)
+
+        def w(k, n):
+            t = torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
+            return quantize_weights(t) if quant else t
+
+        layers = [dict(ln1=1 + 0.1 * torch.randn((H,), generator=g, device=dev),
+                       ln2=1 + 0.1 * torch.randn((H,), generator=g, device=dev),
+                       wq=w(H, nh * hd), wk=w(H, nh_kv * hd), wv=w(H, nh_kv * hd),
+                       wo=w(nh * hd, H), wg=w(H, F), wu=w(H, F), wd=w(F, H))
+                  for _ in range(2)]
+        n_pages = R * mp
+        flat = [torch.randn((n_pages * p + 1, nh_kv, hd), generator=g, device=dev)
+                for _ in range(4)]
+        cos, sin = _rope_cache(max_len, hd, 10000.0, device=dev)
+        pack = MegakernelPack(layers, flat[:2], flat[2:], cos, sin, nh=nh, nh_kv=nh_kv,
+                              hd=hd, eps=1e-6, page_size=p,
+                              norm=1 + 0.1 * torch.randn((H,), generator=g, device=dev),
+                              head=w(H, V))
+        ref = clone_pack(pack)
+        table = torch.randperm(n_pages, generator=g, device=dev).reshape(R, mp)
+        table = table.to(torch.int32)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        act = torch.tensor(act_l, dtype=torch.int32, device=dev)
+        h0 = torch.randn((R, H), generator=g, device=dev)
+        hk, tk, _, lk = decode_megakernel(h0.clone(), pack, table, lens, act, head=True)
+        hr, tr, _, lr = decode_megakernel_reference(h0.clone(), ref, table, lens, act,
+                                                    head=True)
+        torch.cuda.synchronize()
+        err_kv, untouched = pools_diff(pack, ref, written_rows(pack, table, lens, act),
+                                       layers=(0, 1))
+        # f32: the same sums in other orders
+        tol = {n: 1e-4 * float(r.abs().max()) for n, r in (("h", hr), ("logits", lr))}
+        top2 = torch.topk(lr, 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 1e-3
+        errs = dict(h=max_err(hk, hr), kv=err_kv, logits=max_err(lk, lr))
+        rows.append(dict(case="f32 int8" if quant else "f32 dense", R=R, lens=lens_l,
+                         active=act_l, max_abs_err=max(errs.values()), errs=errs, tol=tol,
+                         untouched_rows_equal=untouched,
+                         tok_equal_where_decided=bool((tk == tr)[decided].all()),
+                         ok=(errs["h"] <= tol["h"] and errs["kv"] <= tol["h"]
+                             and errs["logits"] <= tol["logits"] and untouched
+                             and bool((tk == tr)[decided].all()))))
+    return rows
+
+
+def check_megakernel(torch, dev):
+    """B6 at 7B width (hidden 4096, 32 heads, d 128, ffn 11008, vocab 32000,
+    page 64), R = 4 slots with lens 300/257/311 and one inactive slot, bf16
+    and int8 weights: one layer ("layer") and a 2-layer whole step with the
+    head ("multi") against the plain version on the same inputs, a
+    constructed argmax tie, times beside the engine's op chain."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import (
+        decode_megakernel, decode_megakernel_reference, megakernel_weight_bytes)
+    from paddle_tpu_torch.ops.pallas.rms_norm import rms_rows
+
+    cfg = LlamaConfig(hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=2, num_attention_heads=32)   # 7B width
+    model = LlamaForCausalLM(cfg, device=dev, seed=11)
+    rows = []
+    for wname, quant in (("bf16", None), ("int8", "int8")):
+        kw = dict(max_len=512, page_size=64, max_batch=4, quant=quant,
+                  weight_dtype="bfloat16", device=dev)
+        eng = ContinuousBatchingEngine(model, megakernel="multi", **kw)
+        oc = ContinuousBatchingEngine(model, megakernel=False, **kw)
+        tok, table, lens, act = megakernel_inputs(torch, dev, eng, seed=12)
+        for a, b in zip(oc._k_flat + oc._v_flat, eng._k_flat + eng._v_flat):
+            a.copy_(b)
+        pack = eng._mk_pack
+        h0 = eng.weights["emb"][tok].to(pack.dtype)
+        wrows = written_rows(pack, table, lens, act)
+        # 1. one layer
+        ref = clone_pack(pack)
+        h_k = decode_megakernel(h0.clone(), pack, table, lens, act, layer=0)
+        h_r = decode_megakernel_reference(h0.clone(), ref, table, lens, act, layer=0)
+        torch.cuda.synchronize()
+        err_h1 = max_err(h_k, h_r)
+        err_kv1, untouched1 = pools_diff(pack, ref, wrows, layers=(0,))
+        # 2. the whole step, from the same pools on both sides
+        ref = clone_pack(pack)
+        hk, tk, mk, lk = decode_megakernel(h0.clone(), pack, table, lens, act, head=True)
+        hr, tr, mr, lr = decode_megakernel_reference(h0.clone(), ref, table, lens, act,
+                                                     head=True)
+        torch.cuda.synchronize()
+        err_h2, err_logits = max_err(hk, hr), max_err(lk, lr)
+        err_kv2, untouched2 = pools_diff(pack, ref, wrows, layers=(0, 1))
+        top2 = torch.topk(lr.float(), 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 0.1
+        tok_ok = bool((tk == tr)[decided].all())
+        # bf16 keeps 8 significant bits: the kernel and the op chain round
+        # the same values at the same points but sum in other orders, so an
+        # emitted value may differ by one rounding (2^-8 of its magnitude),
+        # and such differences pass through the following layers; hold each
+        # output to 2^-5 of its largest entry (a few roundings)
+        tol = {n: 2 ** -5 * float(r.float().abs().max()) for n, r in
+               (("h1", h_r), ("h2", hr), ("logits", lr))}
+        # 3. the tie: three identical columns, made each row's maximum
+        set_tie(torch, pack, rms_rows(hr, pack.norm, pack.eps))
+        ref = clone_pack(pack)
+        _, t_tie, _, l_tie = decode_megakernel(h0.clone(), pack, table, lens, act, head=True)
+        _, t_tie_r, _, _ = decode_megakernel_reference(h0.clone(), ref, table, lens, act,
+                                                       head=True)
+        torch.cuda.synchronize()
+        c0 = MK_TIE[0]
+        tie_ok = (all(torch.equal(l_tie[:, c0], l_tie[:, c]) for c in MK_TIE)
+                  and bool((l_tie.argmax(-1) == c0).all())
+                  and t_tie.tolist() == [c0] * 4 and t_tie_r.tolist() == [c0] * 4)
+        grid = decode_megakernel.grid
+        row = dict(weights=wname, R=4, lens=MK_LENS, active=MK_ACTIVE, layers=2,
+                   grid=grid, max_abs_err=max(err_h2, err_logits),
+                   layer_h_err=err_h1, layer_kv_err=err_kv1, step_h_err=err_h2,
+                   step_kv_err=err_kv2, logits_err=err_logits, tol=tol,
+                   untouched_rows_equal=untouched1 and untouched2,
+                   tok_decided=int(decided.sum()), tok_equal_where_decided=tok_ok,
+                   tie_cols=list(MK_TIE), tie_tok=t_tie.tolist(), tie_ok=tie_ok)
+        row["ok"] = (err_h1 <= tol["h1"] and err_kv1 <= tol["h1"] and err_h2 <= tol["h2"]
+                     and err_kv2 <= tol["h2"] and err_logits <= tol["logits"]
+                     and row["untouched_rows_equal"] and tok_ok and tie_ok)
+        # times: the kernel (h restored before each call), the plain
+        # version, one "layer" launch, and the engine's op chain on the
+        # same inputs (norms, projections, B3 attention, B4 if int8, head)
+        h_t = h0.clone()
+
+        def run(**kw):
+            h_t.copy_(h0)
+            return decode_megakernel(h_t, pack, table, lens, act, **kw)
+
+        row["ms"] = time_ms(torch, lambda: run(head=True))
+        row["layer_ms"] = time_ms(torch, lambda: run(layer=0))
+        row["plain_ms"] = time_ms(torch, lambda: decode_megakernel_reference(
+            h0.clone(), ref, table, lens, act, head=True), iters=3)
+        t64, l64, a_b = table.long(), lens.long(), act.bool()
+        row["opchain_ms"] = time_ms(torch, lambda: oc._decode_math(tok, t64, l64, a_b))
+        row["library_ms"] = None      # no one PyTorch call computes a decode step
+        live = sum(L + 1 for L, a in zip(MK_LENS, MK_ACTIVE) if a)
+        kv_bytes = 2 * live * pack.nh_kv * pack.hd * 2 * pack.n_layers
+        w_bytes = megakernel_weight_bytes(pack)
+        n_bytes = w_bytes + kv_bytes + 2 * 4 * pack.H * 2 + 4 * pack.V * 2
+        params = sum(t.numel() for ws in pack.layers for k in
+                     ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+                     for t in [ws[k][0] if isinstance(ws[k], tuple) else ws[k]])
+        row["weight_gb"] = w_bytes / 1e9
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            n_bytes, 2 * 4 * (params + pack.H * pack.V))
+        rows.append(row)
+        del eng, oc, pack, ref
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return rows + megakernel_f32_rows(torch, dev)
+
+
 # ---------------------------------------------------------------- phase 4
 def weight_bytes_per_step(torch, eng):
     """Bytes of every weight a decode step reads (the embedding excluded:
@@ -675,6 +921,57 @@ def drive_cb(torch, eng, prompts, budgets):
     return outs, wall, (1e3 * dec_s / dec_n if dec_n else None)
 
 
+# the stream's runs: name, decode_block, quant, megakernel. The first three
+# are pinned to the op chain so that their rows stay comparable with the
+# runs before the megakernel existed (auto turns it on on CUDA); the other
+# three take the megakernel and are compared with the op-chain run of the
+# same K and weights.
+CB_RUNS = (("K=8 bf16", 8, None, False), ("K=8 int8", 8, "int8", False),
+           ("K=1 bf16", 1, None, False), ("multi K=8 bf16", 8, None, "multi"),
+           ("multi K=8 int8", 8, "int8", "multi"), ("layer K=8 bf16", 8, None, "layer"))
+
+
+def profile_blocks(torch, eng, vocab, n_steps=3):
+    """Device busy share of a steady decode stretch: 8 requests (64-token
+    prompts, budget 48) are admitted and prefilled, one decode block runs,
+    then `n_steps` engine steps (fused blocks) are timed. The stretch runs
+    twice, the second time under torch.profiler: the share is the device
+    time of every CUDA event in the profiled window over the unprofiled
+    window's wall time (the profiler slows the host, not the device)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def stretch(prof=None):
+        rng = np.random.RandomState(5)
+        for _ in range(8):
+            eng.add_request(rng.randint(0, vocab, 64).astype(np.int64), 48)
+        while any(r is None or r.state != "decode" for r in eng._slots):
+            eng.step()
+        eng.step()                  # the first decode block (chains the next)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.start()
+        t = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+        if prof is not None:
+            prof.stop()
+        eng.drain()
+        return wall_ms
+
+    wall_ms = stretch()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof_wall_ms = stretch(prof)
+    busy_ms = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return dict(steps=n_steps, microsteps=n_steps * eng.decode_block, wall_ms=wall_ms,
+                profiled_wall_ms=prof_wall_ms, busy_ms=busy_ms or None,
+                busy_share=busy_ms / wall_ms if busy_ms else None)
+
+
 def serve_cb_7b(torch, dev):
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -689,10 +986,10 @@ def serve_cb_7b(torch, dev):
                 prefix_cache=True, weight_dtype="bfloat16", device=dev)
     prompts, budgets = cb_stream(cfg)
     prompt_tokens = int(sum(p.size for p in prompts))
-    results, launches = [], {}
-    for name, K, quant in (("K=8 bf16", 8, None), ("K=8 int8", 8, "int8"),
-                           ("K=1 bf16", 1, None)):
-        eng = ContinuousBatchingEngine(model, decode_block=K, quant=quant, **geom)
+    results, launches, base, busy = [], {}, {}, {}
+    for name, K, quant, mk in CB_RUNS:
+        eng = ContinuousBatchingEngine(model, decode_block=K, quant=quant,
+                                       megakernel=mk, **geom)
         torch.cuda.synchronize()
         reset_kernel_launches()
         outs, wall, dec_ms = drive_cb(torch, eng, prompts, budgets)
@@ -701,16 +998,42 @@ def serve_cb_7b(torch, dev):
         outs2, wall2, _ = drive_cb(torch, eng, prompts, budgets)   # warm cache
         h2 = eng.health()
         gen = int(sum(o.size - p.size for o, p in zip(outs, prompts)))
+        dec = h1["decode_steps"]
         n_blk_pf = counts["ragged_paged_attention"] // L
-        expect_qmm = (7 * L + 1) * ((n_blk_pf if K > 1 else h1["prefill_steps"])
-                                    + h1["decode_steps"]) if quant else 0
+        pf_calls = n_blk_pf if K > 1 else h1["prefill_steps"]
+        # int8: 7L+1 matmul launches per prefill block (or chunk); per decode
+        # step 7L+1 on the op chain, 1 (the head) in "layer" mode, 0 in "multi"
+        per_dec = {False: 7 * L + 1, "layer": 1, "multi": 0}[mk]
+        expect_qmm = (7 * L + 1) * pf_calls + per_dec * dec if quant else 0
+        expect_mk = {False: 0, "layer": L * dec, "multi": dec}[mk]
         launch_ok = (counts["flash_attention_fwd"] == 0
-                     and counts["paged_attention"] == L * h1["decode_steps"] > 0
+                     and counts["paged_attention"] == (0 if mk else L * dec)
+                     and counts["decode_megakernel"] == expect_mk
+                     and dec > 0
                      and counts["quantized_matmul"] == expect_qmm
                      and (counts["quantized_matmul"] > 0) == bool(quant)
                      and counts["ragged_paged_attention"] % L == 0
                      and ((counts["ragged_paged_attention"] > 0) if K > 1
                           else counts["ragged_paged_attention"] == 0))
+        row = dict(run=name, decode_block=K, weights=quant or "bf16",
+                   megakernel=h1["megakernel"], requests=len(prompts),
+                   prompt_tokens=prompt_tokens, generated_tokens=gen)
+        if mk:
+            # the op-chain run of the same K and weights: the same schedule
+            # (no EOS, so blocks do not depend on the tokens), so the same
+            # decode steps and prefill launches; the token share is
+            # position-wise over the generated tokens
+            ref = base[(K, quant)]
+            launch_ok = (launch_ok and dec == ref["decode_steps"]
+                         and counts["ragged_paged_attention"] == ref["ragged"]
+                         and h1["megakernel"] == mk
+                         and h1["megakernel_whole_step"] == (mk == "multi"))
+            same = sum(int((o[p.size:] == r[p.size:]).sum())
+                       for o, r, p in zip(outs, ref["outs"], prompts))
+            row["tokens_equal_to_op_chain"] = same / gen
+        else:
+            base[(K, quant)] = dict(decode_steps=dec, outs=outs,
+                                    ragged=counts["ragged_paged_attention"])
         repeat = all(np.array_equal(a, b) for a, b in zip(outs, outs2))
         in_vocab = all(bool(((o >= 0) & (o < V)).all()) for o in outs)
         budget_ok = all(o.size == p.size + n for o, p, n in zip(outs, prompts, budgets))
@@ -720,26 +1043,27 @@ def serve_cb_7b(torch, dev):
               and h1["done"] == len(prompts) and h2["done"] == 2 * len(prompts)
               and (h1["fused_blocks"] > 0) == (K > 1)
               and h2["prefix_hits"] > 0 and h2["cow_copies"] > 0)
-        results.append(dict(
-            run=name, decode_block=K, weights=quant or "bf16", requests=len(prompts),
-            prompt_tokens=prompt_tokens, generated_tokens=gen, wall_s=wall,
-            generated_tokens_per_s=gen / wall, wall_s_warm_cache=wall2,
+        row.update(
+            wall_s=wall, generated_tokens_per_s=gen / wall, wall_s_warm_cache=wall2,
             ms_per_decode_microstep=dec_ms,
             fused_blocks=h1["fused_blocks"], chained_blocks=h1["chained_blocks"],
-            prefill_steps=h1["prefill_steps"], decode_steps=h1["decode_steps"],
+            prefill_steps=h1["prefill_steps"], decode_steps=dec,
             prefill_blocks=n_blk_pf if K > 1 else None,
             prefix_hits=[h1["prefix_hits"], h2["prefix_hits"] - h1["prefix_hits"]],
             cow_copies=[h1["cow_copies"], h2["cow_copies"] - h1["cow_copies"]],
-            launches=counts, expected_qmm=expect_qmm, launches_ok=launch_ok,
-            repeat_identical=repeat, ids_in_vocab=in_vocab, budgets_met=budget_ok,
-            no_leak=no_leak, tail=outs[0][-4:].tolist(), ok=ok))
+            launches=counts, expected_qmm=expect_qmm, expected_megakernel=expect_mk,
+            launches_ok=launch_ok, repeat_identical=repeat, ids_in_vocab=in_vocab,
+            budgets_met=budget_ok, no_leak=no_leak, tail=outs[0][-4:].tolist(), ok=ok)
+        if name in ("K=8 bf16", "multi K=8 bf16"):
+            busy[name] = row["profile"] = profile_blocks(torch, eng, V)
+        results.append(row)
         for kname, c in counts.items():
             launches[kname] = launches.get(kname, 0) + c
         del eng
         torch.cuda.empty_cache()
-    # one request on a fresh engine: three prefill-only blocks (300 tokens
-    # in chunks of 128), then two decode blocks of 8, the second chained
-    eng = ContinuousBatchingEngine(model, decode_block=8, **geom)
+    # one request on a fresh op-chain engine: three prefill-only blocks (300
+    # tokens in chunks of 128), then two decode blocks of 8, the second chained
+    eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=False, **geom)
     ids = np.random.RandomState(1).randint(0, V, 300).astype(np.int64)
     reset_kernel_launches()
     out = eng.generate_many([ids], max_new_tokens=17)[0]
@@ -757,15 +1081,16 @@ def serve_cb_7b(torch, dev):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del eng, model
     torch.cuda.empty_cache()
-    return dict(runs=results, single=single, peak_gb=peak_gb), launches
+    return dict(runs=results, single=single, peak_gb=peak_gb, busy=busy), launches
 
 
 # ---------------------------------------------------------------- phase 7
 def parity_cb_2layer(torch, dev):
-    """The CB engine on the card (bf16, K=8, kernels) against the same
-    weights in the CPU CB engine (f32, plain versions) on 4 ragged
-    requests; greedy ids compared wherever the CPU's top-2 margin (from
-    the static CPU engine's prefill_logits) exceeds the tolerance."""
+    """The CB engine on the card (bf16, K=8, kernels; the op chain and the
+    "multi" megakernel) against the same weights in the CPU CB engine (f32,
+    plain versions) on 4 ragged requests; greedy ids compared wherever the
+    CPU's top-2 margin (from the static CPU engine's prefill_logits) exceeds
+    the tolerance. Returns one row per card run."""
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     from paddle_tpu_torch.inference.serving import LLMEngine
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -783,26 +1108,32 @@ def parity_cb_2layer(torch, dev):
               decode_block=8)
     outs_cpu = ContinuousBatchingEngine(model, device="cpu", **kw).generate_many(
         prompts, max_new_tokens=n_new)
-    gpu = ContinuousBatchingEngine(model, device=dev, weight_dtype="bfloat16", **kw)
-    outs_gpu = gpu.generate_many(prompts, max_new_tokens=n_new)
     ref = LLMEngine(model, device="cpu", max_len=512, page_size=64, max_batch=1)
-    compared = equal = 0
-    for p, oc, og in zip(prompts, outs_cpu, outs_gpu):
-        t0 = p.size
-        for t in range(n_new):
-            lg = ref.prefill_logits(oc[None, :t0 + t])[0]
-            top2 = torch.topk(lg, 2).values
-            same = oc[t0 + t] == og[t0 + t]
-            if float(top2[0] - top2[1]) > tol:
-                compared += 1
-                equal += int(same)
-            if not same:
-                break
-    del gpu
-    torch.cuda.empty_cache()
-    return dict(requests=len(prompts), prompt_lens=[int(p.size) for p in prompts],
-                tol=tol, greedy_compared=compared, greedy_equal=equal,
-                ok=compared > 0 and equal == compared)
+    margins = [[float(torch.topk(ref.prefill_logits(oc[None, :p.size + t])[0], 2)
+                      .values.diff().neg()) for t in range(n_new)]
+               for p, oc in zip(prompts, outs_cpu)]
+    rows = []
+    for mk in (False, "multi"):
+        gpu = ContinuousBatchingEngine(model, device=dev, weight_dtype="bfloat16",
+                                       megakernel=mk, **kw)
+        outs_gpu = gpu.generate_many(prompts, max_new_tokens=n_new)
+        compared = equal = 0
+        for p, oc, og, mg in zip(prompts, outs_cpu, outs_gpu, margins):
+            t0 = p.size
+            for t in range(n_new):
+                same = oc[t0 + t] == og[t0 + t]
+                if mg[t] > tol:
+                    compared += 1
+                    equal += int(same)
+                if not same:
+                    break
+        rows.append(dict(megakernel=gpu.health()["megakernel"], requests=len(prompts),
+                         prompt_lens=[int(p.size) for p in prompts], tol=tol,
+                         greedy_compared=compared, greedy_equal=equal,
+                         ok=compared > 0 and equal == compared))
+        del gpu
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------- phase 8
@@ -930,7 +1261,8 @@ def main():
               ("paged_attention", check_paged_attention),
               ("flash_attention_fwd", check_flash),
               ("ragged_paged_attention", check_ragged),
-              ("rms_norm", check_rms), ("flash_attention_bwd", check_flash_bwd))
+              ("rms_norm", check_rms), ("flash_attention_bwd", check_flash_bwd),
+              ("decode_megakernel", check_megakernel))
     for name, check in checks:
         rows = check(torch, dev)
         for r in rows:
@@ -971,13 +1303,14 @@ def main():
     for r in cb["runs"] + [cb["single"]]:
         emit(dict(phase="cb_path", **r))
         ok &= r["ok"]
-    emit(dict(phase="cb_path", peak_gb=cb["peak_gb"],
+    emit(dict(phase="cb_path", peak_gb=cb["peak_gb"], busy=cb["busy"],
               elapsed_s=time.perf_counter() - t_start))
 
     # 7. continuous-batching parity on the card
-    r = parity_cb_2layer(torch, dev)
-    emit(dict(phase="cb_parity", **r, elapsed_s=time.perf_counter() - t_start))
-    ok &= r["ok"]
+    for r in parity_cb_2layer(torch, dev):
+        emit(dict(phase="cb_parity", **r))
+        ok &= r["ok"]
+    emit(dict(phase="cb_parity", elapsed_s=time.perf_counter() - t_start))
 
     # 8. the training path; counts are zeroed just before each
     # configuration's run inside train_path and read just after it

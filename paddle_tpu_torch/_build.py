@@ -44,6 +44,8 @@ SIGNATURES = {
     "ptt_rms_norm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "ptt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # (args struct, dtype, weight kind, device, stream, grid out)
+    "ptt_decode_megakernel": [_P, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -4,6 +4,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace ptt {
 
 constexpr float kNegInf = -1e30f;  // the reference kernels' finite "-inf"
@@ -149,6 +151,161 @@ __device__ __forceinline__ void online_softmax_page(
     }
   }
   __syncthreads();  // s_s and a_s are rewritten by the next page
+}
+
+// ---------------------------------------------------------------- GEMV slab
+// The weight-streaming GEMV of the int8 matmul's decode path
+// (quantized_matmul.cu `qmm_gemv_kernel`), shared with the decode
+// megakernel (decode_megakernel.cu) so that an int8 projection inside the
+// megakernel sums in the same order, and gives the same bits, as the
+// standalone kernel on the same x.
+//
+// One block of kSlabThreads threads owns a slab of kSlabCols output
+// columns and walks all of k. kColThreads threads cover the slab's width
+// with one 16-byte weight load each (int8: 2 threads x 16 columns, so a k
+// row of the slab is one 32-byte sector read whole; bf16: 4 x 8; f32:
+// 8 x 4); the block takes kSlabThreads / kColThreads k rows per pass,
+// kSlabUnroll passes of loads in flight per thread. Every thread keeps f32
+// sums for its columns and all M rows (one fmaf chain per (row, column) in
+// k order). The k partial sums are reduced by xor shuffles across the
+// lanes that share a column, then across warps in shared memory, in warp
+// order; `emit(i, col, sum)` receives each finished f32 sum. Rows at or
+// past mrows are computed as zeros and never emitted; loads past k or n
+// read zeros, so ragged edges need no padded copy.
+constexpr int kSlabThreads = 256;
+constexpr int kSlabCols = 32;
+constexpr int kSlabUnroll = 4;
+
+template <typename WT>
+struct SlabW;
+template <>
+struct SlabW<int8_t> {
+  static constexpr int kCols = 16;
+  union Pack {
+    int4 v;
+    int8_t e[16];
+  };
+  static __device__ __forceinline__ float at(const Pack& p, int j) {
+    return static_cast<float>(p.e[j]);
+  }
+};
+template <>
+struct SlabW<__nv_bfloat16> {
+  static constexpr int kCols = 8;
+  union Pack {
+    int4 v;
+    unsigned short e[8];  // raw bf16 bits
+  };
+  static __device__ __forceinline__ float at(const Pack& p, int j) {
+    return __uint_as_float(static_cast<unsigned>(p.e[j]) << 16);  // exact
+  }
+};
+template <>
+struct SlabW<float> {
+  static constexpr int kCols = 4;
+  union Pack {
+    int4 v;
+    float e[4];
+  };
+  static __device__ __forceinline__ float at(const Pack& p, int j) { return p.e[j]; }
+};
+
+// 16 bytes of row `row` of a [k, n] weight from column `col`; columns past
+// n read zeros. vec: rows start 16-byte aligned (n * sizeof(WT) % 16 == 0
+// and an aligned base).
+template <typename WT>
+__device__ __forceinline__ typename SlabW<WT>::Pack load_w(const WT* w, int row, int col,
+                                                           int n, bool vec) {
+  using Pack = typename SlabW<WT>::Pack;
+  constexpr int kCols = SlabW<WT>::kCols;
+  Pack p;
+  const WT* src = w + (size_t)row * n + col;
+  if (vec && col + kCols <= n) {
+    p.v = __ldg(reinterpret_cast<const int4*>(src));
+  } else {
+    using E = typename std::remove_reference<decltype(p.e[0])>::type;
+    const E* se = reinterpret_cast<const E*>(src);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) p.e[j] = (col + j < n) ? se[j] : E(0);
+  }
+  return p;
+}
+
+template <typename WT>
+__host__ __device__ inline bool slab_vec_ok(const void* w, int n) {
+  return ((size_t)n * sizeof(WT)) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+}
+
+// Block-cooperative: every thread of a kSlabThreads block calls it.
+// x_at(i, r): x[i, r] as f32 for i < mrows. red: kSlabThreads / 32 * M *
+// kSlabCols floats of shared memory. Ends with a block barrier, so a block
+// can run slab after slab.
+template <typename WT, int M, typename XAt, typename Emit>
+__device__ __forceinline__ void gemv_slab(XAt x_at, const WT* __restrict__ w, int mrows, int k,
+                                          int n, int slab, bool vec, float* red, Emit emit) {
+  using SW = SlabW<WT>;
+  constexpr int kCols = SW::kCols;
+  constexpr int kColThreads = kSlabCols / kCols;
+  constexpr int kKRows = kSlabThreads / kColThreads;
+  const int tid = threadIdx.x;
+  const int ct = tid % kColThreads;
+  const int kr = tid / kColThreads;
+  const int col0 = slab * kSlabCols + ct * kCols;
+
+  float acc[M][kCols];
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+
+  auto fma_row = [&](const typename SW::Pack& p, int row) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const float xv = (i < mrows) ? x_at(i, row) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(xv, SW::at(p, j), acc[i][j]);
+    }
+  };
+
+  int row = kr;
+  for (; row + (kSlabUnroll - 1) * kKRows < k; row += kSlabUnroll * kKRows) {
+    typename SW::Pack p[kSlabUnroll];
+#pragma unroll
+    for (int u = 0; u < kSlabUnroll; ++u) p[u] = load_w<WT>(w, row + u * kKRows, col0, n, vec);
+#pragma unroll
+    for (int u = 0; u < kSlabUnroll; ++u) fma_row(p[u], row + u * kKRows);
+  }
+  for (; row < k; row += kKRows) fma_row(load_w<WT>(w, row, col0, n, vec), row);
+
+  // lanes with the same column group share a slab: sum them across the warp
+  const int lane = tid % 32, warp = tid / 32;
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      float v = acc[i][j];
+      for (int o = kColThreads; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      acc[i][j] = v;
+    }
+  if (lane < kColThreads) {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        red[(warp * M + i) * kSlabCols + lane * kCols + j] = acc[i][j];
+  }
+  __syncthreads();
+  for (int e = tid; e < M * kSlabCols; e += kSlabThreads) {
+    const int i = e / kSlabCols, c = e % kSlabCols;
+    const int col = slab * kSlabCols + c;
+    if (i < mrows && col < n) {
+      float s = 0.f;
+#pragma unroll
+      for (int wv = 0; wv < kSlabThreads / 32; ++wv) s += red[(wv * M + i) * kSlabCols + c];
+      emit(i, col, s);
+    }
+  }
+  __syncthreads();  // red is rewritten by the next slab
 }
 
 // Dynamic shared memory above 48 KB needs an explicit opt-in per kernel.

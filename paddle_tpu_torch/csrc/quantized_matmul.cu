@@ -12,8 +12,10 @@
 // a GEMM bounded by the tensor cores' bf16 rate.
 //
 // Design:
-//  - GEMV path (m <= 8, and any m for f32 x, in chunks of 8 rows): each
-//    block owns a slab of 32 output columns and walks all of k. Two
+//  - GEMV path (m <= 8, and any m for f32 x, in chunks of 8 rows): the
+//    routine `ptt::gemv_slab` (common.cuh), which the decode megakernel
+//    runs too. Each block owns a slab of 32 output columns and walks all
+//    of k. Two
 //    threads cover the slab's width with one 16-byte int8 load each, so
 //    a k row of the slab is one 32-byte sector read whole; 128 such
 //    thread pairs take 128 k rows at a time, four rows of loads in
@@ -35,101 +37,23 @@
 namespace {
 
 using ptt::from_f32;
+using ptt::kSlabThreads;
 using ptt::to_f32;
 
-constexpr int kGemvThreads = 256;
-constexpr int kColsPerThread = 16;                       // one int4 of int8
-constexpr int kColThreads = 2;                           // threads across n
-constexpr int kGemvBN = kColsPerThread * kColThreads;    // 32 columns
-constexpr int kKRows = kGemvThreads / kColThreads;       // 128 k rows / pass
-constexpr int kUnroll = 4;
-
-union Pack16 {
-  int4 v;
-  int8_t b[16];
-};
-
-__device__ __forceinline__ Pack16 load_w(const int8_t* w, int row, int col,
-                                         int n, bool vec) {
-  Pack16 p;
-  const int8_t* src = w + (size_t)row * n + col;
-  if (vec && col + 16 <= n) {
-    p.v = __ldg(reinterpret_cast<const int4*>(src));
-  } else {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) p.b[j] = (col + j < n) ? src[j] : int8_t(0);
-  }
-  return p;
-}
-
 template <typename T, int M>
-__global__ void __launch_bounds__(kGemvThreads)
+__global__ void __launch_bounds__(kSlabThreads)
 qmm_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                 const float* __restrict__ scales, T* __restrict__ out,
                 int m, int k, int n, bool vec) {
-  __shared__ float red[kGemvThreads / 32][M][kGemvBN];
-  const int tid = threadIdx.x;
-  const int ct = tid % kColThreads;
-  const int kr = tid / kColThreads;
-  const int col0 = blockIdx.x * kGemvBN + ct * kColsPerThread;
+  __shared__ float red[kSlabThreads / 32 * M * ptt::kSlabCols];
   const int row0 = blockIdx.y * M;
   const int mrows = min(M, m - row0);
   const T* xr = x + (size_t)row0 * k;
-
-  float acc[M][kColsPerThread];
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
-
-  auto fma_row = [&](const Pack16& p, int row) {
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const float xv = (i < mrows) ? to_f32(xr[(size_t)i * k + row]) : 0.f;
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        acc[i][j] = fmaf(xv, static_cast<float>(p.b[j]), acc[i][j]);
-    }
-  };
-
-  int row = kr;
-  for (; row + (kUnroll - 1) * kKRows < k; row += kUnroll * kKRows) {
-    Pack16 p[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) p[u] = load_w(w, row + u * kKRows, col0, n, vec);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) fma_row(p[u], row + u * kKRows);
-  }
-  for (; row < k; row += kKRows) fma_row(load_w(w, row, col0, n, vec), row);
-
-  // lanes with the same column half share a slab: sum them across the warp
-  const int lane = tid % 32, warp = tid / 32;
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      float v = acc[i][j];
-      for (int o = kColThreads; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      acc[i][j] = v;
-    }
-  if (lane < kColThreads) {
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        red[warp][i][lane * kColsPerThread + j] = acc[i][j];
-  }
-  __syncthreads();
-  for (int e = tid; e < M * kGemvBN; e += kGemvThreads) {
-    const int i = e / kGemvBN, c = e % kGemvBN;
-    const int col = blockIdx.x * kGemvBN + c;
-    if (i < mrows && col < n) {
-      float s = 0.f;
-#pragma unroll
-      for (int wv = 0; wv < kGemvThreads / 32; ++wv) s += red[wv][i][c];
-      out[(size_t)(row0 + i) * n + col] = from_f32<T>(s * scales[col]);
-    }
-  }
+  ptt::gemv_slab<int8_t, M>(
+      [&](int i, int r) { return to_f32(xr[(size_t)i * k + r]); }, w, mrows, k, n,
+      blockIdx.x, vec, red, [&](int i, int col, float s) {
+        out[(size_t)(row0 + i) * n + col] = from_f32<T>(s * scales[col]);
+      });
 }
 
 // ---------------------------------------------------------------- tiled
@@ -180,15 +104,15 @@ qmm_tiled_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     {
       const int r = tid / (kTBN / 16), cc = (tid % (kTBN / 16)) * 16;
       const int gr = k0 + r, gc = n0 + cc;
-      Pack16 p;
+      ptt::SlabW<int8_t>::Pack p;
       if (gr < k) {
-        p = load_w(w, gr, gc, n, wvec);
+        p = ptt::load_w<int8_t>(w, gr, gc, n, wvec);
       } else {
         p.v = make_int4(0, 0, 0, 0);
       }
 #pragma unroll
       for (int j = 0; j < 16; ++j)
-        Bs[r][cc + j] = __float2bfloat16(static_cast<float>(p.b[j]));
+        Bs[r][cc + j] = __float2bfloat16(static_cast<float>(p.e[j]));
     }
     __syncthreads();
 #pragma unroll
@@ -226,9 +150,9 @@ qmm_tiled_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 template <typename T, int M>
 void launch_gemv(const void* x, const int8_t* w, const float* scales, void* out,
                  int m, int k, int n, cudaStream_t s) {
-  const bool vec = (n % 16 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  dim3 grid((n + kGemvBN - 1) / kGemvBN, (m + M - 1) / M);
-  qmm_gemv_kernel<T, M><<<grid, kGemvThreads, 0, s>>>(
+  const bool vec = ptt::slab_vec_ok<int8_t>(w, n);
+  dim3 grid((n + ptt::kSlabCols - 1) / ptt::kSlabCols, (m + M - 1) / M);
+  qmm_gemv_kernel<T, M><<<grid, kSlabThreads, 0, s>>>(
       static_cast<const T*>(x), w, scales, static_cast<T*>(out), m, k, n, vec);
 }
 

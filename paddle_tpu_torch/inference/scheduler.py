@@ -26,6 +26,12 @@ Scheduling model (as in the reference):
     length, active flag, remaining budget) stay on the device, with EOS and
     budget retirement computed there. The host reads a block's tokens once;
     in a pure-decode steady state block N+1 is queued before block N is read.
+  - megakernel="layer" | "multi": each decode step runs its layers through
+    `decode_megakernel`, one launch per layer ("layer", the final norm and
+    the lm_head stay the op chain) or one launch per step ("multi", the
+    final norm, the lm_head and the greedy argmax inside). The kernel reads
+    the engine's own weights and pools through a pointer table
+    (`MegakernelPack`), rebuilt whenever the pools are.
 
 Where the reference compiles a program per shape and donates the KV pools
 to it, this port runs the same math eagerly and updates the pools in place
@@ -35,8 +41,8 @@ slots); torch has no drop mode, so masked rows are redirected to one
 scratch row past the end of the pool, which no page table can name.
 
 Not ported yet (each raises, naming its ROADMAP item): sampling,
-speculation, the megakernel, tenants and preemption, KV tiering, adapters,
-telemetry, tensor parallelism, PTQ scales, the fleet prefix index, and KV
+speculation, tenants and preemption, KV tiering, adapters, telemetry,
+tensor parallelism, PTQ scales, the fleet prefix index, and KV
 export/import. The reference's fault points wait for the port of
 `failsafe.py`.
 """
@@ -49,6 +55,9 @@ import torch
 
 from .serving import EngineFullError, LLMEngine, PageAllocator, _as_numpy, \
     _mm, _rms
+from ..ops.pallas.decode_megakernel import (MAX_ROWS, MegakernelPack,
+                                            decode_megakernel,
+                                            megakernel_supported)
 from ..ops.pallas.paged_attention import (expand_kv_heads, paged_attention,
                                           ragged_paged_attention)
 
@@ -346,6 +355,12 @@ class ContinuousBatchingEngine(LLMEngine):
         CPU (the form that keeps K > 1 equal to K = 1 there); True forces
         `ragged_paged_attention` (its plain version on the CPU), False the
         dense gathered form.
+      megakernel: the decode step's layers through `decode_megakernel`.
+        None (default) = "layer" on CUDA where the kernel takes the
+        geometry and the weights, off on the CPU; False = the op chain;
+        True / "layer" = one launch per layer; "multi" = one launch per
+        step with the final norm, the lm_head and the greedy argmax inside.
+        On the CPU a forced mode runs the kernel's plain version.
 
     Failure posture: a request that fails at a per-request boundary
     (admission, deadline, cancel) retires alone with a RequestFailure
@@ -364,9 +379,6 @@ class ContinuousBatchingEngine(LLMEngine):
         if do_sample:
             raise _not_ported("sampling (do_sample=True)",
                               "A5(c), inference/sampling.py")
-        if megakernel not in (None, False):
-            raise _not_ported(f"megakernel={megakernel!r}",
-                              "A6, the decode megakernel")
         if speculate not in (None, False, 0, 1):
             raise _not_ported(f"speculate={speculate!r}",
                               "A5(d), speculation")
@@ -423,6 +435,10 @@ class ContinuousBatchingEngine(LLMEngine):
         self.fused_blocks = 0
         self.chained_blocks = 0         # blocks queued before the previous
         #                                 block's read-back
+        self._mk_pack = None
+        self.megakernel = self._resolve_megakernel(megakernel)
+        if self.megakernel:
+            self._build_mk_pack()
 
     # -- public ------------------------------------------------------------
     def add_request(self, ids, max_new_tokens=32, eos_token_id=None,
@@ -618,6 +634,8 @@ class ContinuousBatchingEngine(LLMEngine):
             "decode_block": self.decode_block,
             "fused_blocks": self.fused_blocks,
             "chained_blocks": self.chained_blocks,
+            "megakernel": self.megakernel or "off",
+            "megakernel_whole_step": self.megakernel == "multi",
         }
 
     def generate_many(self, prompts, max_new_tokens=32, eos_token_id=None):
@@ -787,6 +805,8 @@ class ContinuousBatchingEngine(LLMEngine):
         self.v_pages = [f[:rows].view(pool) for f in self._v_flat]
         self._oob = rows                 # the scratch row's flat index
         self.allocator = PageAllocator(self.n_pages)
+        if getattr(self, "_mk_pack", None) is not None:
+            self._build_mk_pack()        # its table held the old pools
 
     def _write_kv(self, li, slots, k, v):
         """Write k/v rows into layer li's pool at flat slot ids; rows the
@@ -859,8 +879,11 @@ class ContinuousBatchingEngine(LLMEngine):
     def _decode_math(self, tok, tables, lens, active):
         """One decode step at slot width w = tok.shape[0]: tok [w] is the
         token at position lens [w]; inactive slots write nothing and
-        attend nothing (the paged kernel's active mask). Returns logits
-        [w, V]."""
+        attend nothing (the paged kernel's active mask). Returns (logits
+        [w, V], the greedy token [w]): the argmax of the logits, or in
+        "multi" mode the kernel's own."""
+        if self.megakernel:
+            return self._decode_math_mk(tok, tables, lens, active)
         W = self.weights
         p = self.page_size
         w = tok.shape[0]
@@ -878,7 +901,89 @@ class ContinuousBatchingEngine(LLMEngine):
                                    active=act)
             h = self._layer_tail(W, wset, h, attn[:, None])
         h = _rms(h, W["norm"], W["eps"])
-        return _mm(h, W["head"])[:, 0]
+        logits = _mm(h, W["head"])[:, 0]
+        return logits, logits.argmax(-1)
+
+    # -- megakernel ----------------------------------------------------------
+    def _resolve_megakernel(self, val):
+        """megakernel= knob -> False / "layer" / "multi". Auto (None) turns
+        the per-layer kernel on only on CUDA, where the kernel takes the
+        geometry (megakernel_supported, at most MAX_ROWS slots) and the
+        weights (norms and dense weights in the compute dtype); the CPU
+        keeps the op chain, as the reference does in interpret mode. A
+        forced mode on CUDA with a geometry the kernel does not take
+        raises here, with the reason."""
+        cfg = self.cfg
+        ok = (megakernel_supported(self.nh, self.nh_kv, self.hd,
+                                   cfg.hidden_size, cfg.intermediate_size)
+              and self.max_batch <= MAX_ROWS)
+        if val is None:
+            if self.device.type != "cuda" or not ok:
+                return False
+            W = self.weights
+            dense = [W["norm"]] + [w for ws in W["layers"]
+                                   for w in ws.values()
+                                   if not isinstance(w, tuple)]
+            return "layer" if all(w.dtype == self.kv_dtype
+                                  for w in dense) else False
+        if val is False:
+            return False
+        if val in (True, "layer"):
+            mode = "layer"
+        elif val == "multi":
+            mode = "multi"
+        else:
+            raise ValueError(
+                f"megakernel must be None, False, True, 'layer' or 'multi', "
+                f"got {val!r}")
+        if self.device.type == "cuda" and not ok:
+            raise ValueError(
+                f"megakernel={mode!r} forced on CUDA but the kernel does not "
+                f"take this geometry (nh={self.nh}, nh_kv={self.nh_kv}, "
+                f"hd={self.hd}, hidden={cfg.hidden_size}, "
+                f"ffn={cfg.intermediate_size}, max_batch={self.max_batch}); "
+                f"see megakernel_supported and MAX_ROWS={MAX_ROWS}")
+        return mode
+
+    def _build_mk_pack(self):
+        """The pointer table over this engine's weights and pools (built at
+        construction and again by every _reset_kv). "multi" also points at
+        the final norm and the lm_head."""
+        W = self.weights
+        whole = self.megakernel == "multi"
+        self._mk_pack = MegakernelPack(
+            W["layers"], self._k_flat, self._v_flat, W["cos"], W["sin"],
+            nh=self.nh, nh_kv=self.nh_kv, hd=self.hd, eps=W["eps"],
+            page_size=self.page_size, norm=W["norm"] if whole else None,
+            head=W["head"] if whole else None)
+
+    def _mk_walk(self, h, tables, lens, act):
+        """The layers of one decode step through the megakernel: one launch
+        ("multi", with the head) or one per layer ("layer"). Returns (h,
+        greedy token or None, logits or None)."""
+        pack = self._mk_pack
+        if self.megakernel == "multi":
+            h, tok, _, logits = decode_megakernel(h, pack, tables, lens, act,
+                                                  head=True)
+            return h, tok, logits
+        for li in range(pack.n_layers):
+            h = decode_megakernel(h, pack, tables, lens, act, layer=li)
+        return h, None, None
+
+    def _decode_math_mk(self, tok, tables, lens, active):
+        """_decode_math through the megakernel: the same math and the same
+        pool writes. In "layer" mode the final norm and the lm_head stay
+        the op chain, as in the reference."""
+        W = self.weights
+        h = W["emb"][tok].to(self.kv_dtype)
+        i32 = torch.int32
+        h, greedy, logits = self._mk_walk(h, tables.to(i32), lens.to(i32),
+                                          active.to(i32))
+        if greedy is None:
+            logits = _mm(_rms(h[:, None], W["norm"], W["eps"]),
+                         W["head"])[:, 0]
+            greedy = logits.argmax(-1)
+        return logits, greedy
 
     def _prefill_phase(self, ids, tables, starts, ends, pf_act, dense=False):
         """Prefill: every active slot advances one chunk at its own offset
@@ -924,8 +1029,8 @@ class ContinuousBatchingEngine(LLMEngine):
         tok, lens, act, rem)."""
         toks, emitted = [], []
         for _ in range(self.decode_block):
-            logits = self._decode_math(tok, tables, lens, act)
-            nxt = torch.where(act, logits.argmax(-1), tok)
+            _, greedy = self._decode_math(tok, tables, lens, act)
+            nxt = torch.where(act, greedy, tok)
             emitted.append(act)
             rem = torch.where(act, rem - 1, rem)
             lens = torch.where(act, lens + 1, lens)
@@ -992,10 +1097,10 @@ class ContinuousBatchingEngine(LLMEngine):
         for r in decodes:
             active[r.slot] = True
         t_dev = time.perf_counter()
-        logits = self._decode_math(
+        _, greedy = self._decode_math(
             self._to_dev(self._tok_np[:w]), self._to_dev(self._tables_np[:w]),
             self._to_dev(self._lens_np[:w]), self._to_dev(active))
-        toks = logits.argmax(-1).cpu().numpy()
+        toks = greedy.cpu().numpy()
         self.dispatch_seconds += time.perf_counter() - t_dev
         for r in decodes:
             self._lens_np[r.slot] += 1

@@ -28,6 +28,7 @@ from ..models.llama import LlamaForCausalLM, _rope_cache
 from ..ops.pallas.flash_attention import flash_attention_fwd
 from ..ops.pallas.paged_attention import expand_kv_heads, paged_attention
 from ..ops.pallas.quantized_matmul import quantize_weights, quantized_matmul
+from ..ops.pallas.rms_norm import rms_rows as _rms
 
 LOOP_BUCKET = 32   # device-loop step counts round up to a multiple of this
 
@@ -234,14 +235,6 @@ def _mm(x, w):
         out = quantized_matmul(flat, wq, sc, out_dtype=x.dtype)
         return out.reshape(*x.shape[:-1], -1)
     return x @ w.to(x.dtype)
-
-
-def _rms(x, w, eps):
-    """RMSNorm in the serving cast order: x * rsqrt in f32, cast to x's
-    dtype, then the weight multiply in x's dtype."""
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 
 _WEIGHT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,

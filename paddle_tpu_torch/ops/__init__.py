@@ -6,6 +6,7 @@ nowhere else: a CPU call (the plain version) does not count. A run shows
 that it went through the kernels by resetting the counts, running, and
 reading `kernel_launches()`.
 """
+from .pallas.decode_megakernel import decode_megakernel
 from .pallas.flash_attention import flash_attention_bwd, flash_attention_fwd
 from .pallas.paged_attention import paged_attention, ragged_paged_attention
 from .pallas.quantized_matmul import quantized_matmul
@@ -18,6 +19,7 @@ _WRAPPERS = {
     "ragged_paged_attention": ragged_paged_attention,
     "rms_norm": rms_norm_fwd,
     "flash_attention_bwd": flash_attention_bwd,
+    "decode_megakernel": decode_megakernel,
 }
 
 

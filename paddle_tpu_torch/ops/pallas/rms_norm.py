@@ -9,10 +9,10 @@ the plain version (the counterpart of `nn/functional/norm.py`
 held against on the card.
 
 Training cast order: y = (x * rsqrt(mean(x^2) + eps) * w) in f32, rounded
-once to x's dtype. The serving engine's `_rms` casts x * rsqrt back to
-x's dtype BEFORE the weight multiply (the reference's `rms_rows`); the
-two give different bits in bf16, so serving keeps its own
-(`inference/serving.py`) and the two are not merged.
+once to x's dtype. The serving engine casts x * rsqrt back to x's dtype
+BEFORE the weight multiply (`rms_rows`, the reference's function of that
+name, used by `inference/serving.py` and the decode megakernel's plain
+version); the two give different bits in bf16, so both are kept.
 """
 import ctypes
 
@@ -21,6 +21,14 @@ import torch
 from ... import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rms_rows(x, w, eps):
+    """RMSNorm in the serving cast order: x * rsqrt in f32, cast to x's
+    dtype, then the weight multiply in x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 
 def rms_norm_reference(x, w, eps=1e-6):

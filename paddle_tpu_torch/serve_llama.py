@@ -8,6 +8,8 @@ random, drawn from a seed.
 
     python -m paddle_tpu_torch.serve_llama --model 7b --quant int8
     python -m paddle_tpu_torch.serve_llama --scheduler --decode-block 8
+    python -m paddle_tpu_torch.serve_llama --model 7b --scheduler \
+        --decode-block 8 --megakernel multi
     python -m paddle_tpu_torch.serve_llama --model tiny --device cpu
 """
 import argparse
@@ -21,6 +23,7 @@ from .inference.scheduler import (ContinuousBatchingEngine, EngineBusyError,
 from .inference.serving import LLMEngine
 from .models.llama import LlamaConfig, LlamaForCausalLM
 
+MEGAKERNEL = {"auto": None, "off": False, "layer": "layer", "multi": "multi"}
 GEOMETRIES = {
     "tiny": dict(cfg=LlamaConfig.tiny(), max_len=64, page=16, bs=2),
     "350m": dict(cfg=LlamaConfig(vocab_size=32000, hidden_size=1024,
@@ -49,6 +52,11 @@ def main(argv=None):
                     help="--scheduler: bounded admission queue")
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="--scheduler: default per-request deadline")
+    ap.add_argument("--megakernel", choices=sorted(MEGAKERNEL),
+                    default="auto",
+                    help="--scheduler: decode through the megakernel, one "
+                         "launch per layer or per step (auto: per layer on "
+                         "CUDA where the kernel takes the model)")
     args = ap.parse_args(argv)
 
     g = GEOMETRIES[args.model]
@@ -83,7 +91,8 @@ def serve_scheduler(args, g, model, quant, weight_dtype, device):
         model, max_len=g["max_len"], page_size=g["page"],
         max_batch=max(2, g["bs"]), quant=quant, weight_dtype=weight_dtype,
         queue_limit=args.queue_limit, default_deadline_ms=args.deadline_ms,
-        decode_block=args.decode_block, device=device)
+        decode_block=args.decode_block,
+        megakernel=MEGAKERNEL[args.megakernel], device=device)
     del model
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -106,7 +115,8 @@ def serve_scheduler(args, g, model, quant, weight_dtype, device):
     h = engine.health()
     fused = (f"{h['fused_blocks']} fused blocks ({h['chained_blocks']} "
              f"chained), " if args.decode_block > 1 else "")
-    print(f"model={args.model} quant={args.quant} scheduler: "
+    print(f"model={args.model} quant={args.quant} scheduler "
+          f"(megakernel {h['megakernel']}): "
           f"{len(submitted)} ragged requests in {h['steps']} steps "
           f"({h['prefill_steps']} prefill / {h['decode_steps']} decode), "
           f"{fused}{h['prefix_hits']} prefix-page hits, "

@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -86,8 +87,9 @@ def test_cb_engine_refuses_cpu_without_being_asked():
 
 def test_kernel_wrappers_count_only_kernel_launches():
     """CPU tensors take the plain versions, which launch nothing; a
-    training step (every norm, attention forward and backward) on the CPU
-    launches nothing either."""
+    training step (every norm, attention forward and backward) and
+    megakernel decode steps on the CPU launch nothing either."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     from paddle_tpu_torch.models import SpmdTrainer
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
@@ -100,10 +102,15 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                       device="cpu"), recompute=True)
     ids = torch.randint(0, 128, (2, 8))
     tr.step(tr.init_state(), ids, ids)
+    eng = ContinuousBatchingEngine(tr.model, max_len=32, page_size=8,
+                                   max_batch=2, megakernel="multi",
+                                   device="cpu")
+    eng.generate_many([np.arange(5), np.arange(3)], max_new_tokens=3)
     assert kernel_launches() == {"quantized_matmul": 0, "paged_attention": 0,
                                  "flash_attention_fwd": 0,
                                  "ragged_paged_attention": 0, "rms_norm": 0,
-                                 "flash_attention_bwd": 0}
+                                 "flash_attention_bwd": 0,
+                                 "decode_megakernel": 0}
 
 
 def test_training_entry_points_refuse_cpu_without_being_asked():

@@ -267,10 +267,10 @@ def test_health_keys_and_unported_options():
         "pages_total", "prefix_pages", "prefix_hits", "done", "failed",
         "cancelled", "steps", "prefill_steps", "decode_steps", "admissions",
         "failures", "deadline_expiries", "cow_copies", "decode_block",
-        "fused_blocks", "chained_blocks"}
+        "fused_blocks", "chained_blocks", "megakernel",
+        "megakernel_whole_step"}
     _, tm = _pair()
     for kw, item in ((dict(speculate=4), "A5\\(d\\)"),
-                     (dict(megakernel="multi"), "A6"),
                      (dict(tenants={"a": {}}), "A5\\(e\\)"),
                      (dict(kv_tier="host"), "A7.4"),
                      (dict(adapters=True), "A7.2"),
