@@ -8,7 +8,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               path's shapes (bf16), with times, bounds and library times;
               the decode megakernel at 7B width (one layer, a 2-layer whole
               step with the head, a constructed argmax tie; bf16 and int8)
-              beside the op chain's time on the same inputs
+              beside the op chain's time on the same inputs; its top-K
+              fold (head_k 8 and 128, R 4 and 8, bf16 and int8) against a
+              stable top-K of the greedy launch's logits, a cross-block
+              tie, no logits buffer
   4. path     LLaMA-7B (full width, all 32 layers, random weights from a
               seed) served through LLMEngine.generate(device_loop=True),
               bf16 and int8 weights, 12- and 300-token prompt batches;
@@ -22,10 +25,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
               ("multi" bf16 and int8, "layer" bf16, K=8), each stream
               twice; a single request with exact launch counts; one
               steady-state stretch of fused blocks under torch.profiler
-              (op chain and "multi") for the device's busy share
+              (op chain and "multi") for the device's busy share;
+              cb_sampled: the stream with greedy and sampled requests
+              mixed ("multi" bf16 and int8 through the top-K fold, the op
+              chain), each twice; proc: one request with a repetition
+              penalty and a JSON-schema grammar over synthetic tokens
   7. cb_parity  the CB engine on the card (bf16, K=8, kernels; op chain and
               "multi") against the CPU CB engine (f32, plain versions), 2
-              layers at 7B width
+              layers at 7B width; cb_sampled_parity: the sampled "multi"
+              stream (bf16 on the card) against the CPU's under the same
+              margin rule
   8. train_path  SpmdTrainer.step through paddle_tpu_torch.train_llama at
               bench.py's two configs, full width and depth: llama350m (3
               warmup + 10 timed steps) and llama1p3b (2 + 5), then one
@@ -61,6 +70,7 @@ REPLACES = {
     "rms_norm": "paddle_tpu/ops/pallas/rms_norm.py:45",
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:430",
     "decode_megakernel": "paddle_tpu/ops/pallas/decode_megakernel.py:272",
+    "decode_megakernel_topk": "paddle_tpu/ops/pallas/decode_megakernel.py:616",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
@@ -70,6 +80,7 @@ SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/rms_norm.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "decode_megakernel": "paddle_tpu_torch/csrc/decode_megakernel.cu",
+    "decode_megakernel_topk": "paddle_tpu_torch/csrc/decode_megakernel.cu",
 }
 
 
@@ -732,6 +743,150 @@ def check_megakernel(torch, dev):
     return rows + megakernel_f32_rows(torch, dev)
 
 
+# the fold's rows: R = 4 as the greedy row (MK_LENS, one inactive slot) and
+# R = 8, the CB engine's full bucket (two inactive slots)
+TOPK_LENS = {4: MK_LENS, 8: [300, 257, 311, 290, 120, 64, 500, 33]}
+TOPK_ACTIVE = {4: MK_ACTIVE, 8: [1, 1, 1, 0, 1, 1, 0, 1]}
+TOPK_KS = (8, 128)
+
+
+def topk_inputs(torch, dev, eng, R, seed):
+    """megakernel_inputs for R rows (TOPK_LENS / TOPK_ACTIVE)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for f in eng._k_flat + eng._v_flat:
+        f.copy_(torch.randn(f.shape, generator=g, device=dev))
+    mp = eng.max_pages_per_seq
+    table = torch.randperm(eng.n_pages, generator=g, device=dev)[:R * mp]
+    table = table.reshape(R, mp).to(torch.int32)
+    lens = torch.tensor(TOPK_LENS[R], dtype=torch.int32, device=dev)
+    act = torch.tensor(TOPK_ACTIVE[R], dtype=torch.int32, device=dev)
+    tok = torch.randint(0, eng.cfg.vocab_size, (R,), generator=g, device=dev)
+    return tok, table, lens, act
+
+
+def check_megakernel_topk(torch, dev, ptxas):
+    """The megakernel's top-K fold (head_k > 1) at 7B width, 2 layers and
+    the head, bf16 and int8, R = 4 and 8, K = 8 and 128. Gates, each exact:
+    (topv, topi) equal a stable top-K of a head_k = 1 launch's logits on
+    the same inputs, column 0 that launch's token, h equal; a constructed
+    cross-block tie (columns MK_TIE) comes out id-ascending; a fold launch
+    allocates no logits buffer. Against the plain version: values within
+    2^-5 of the largest logit (bf16 roundings, as the greedy row), ids
+    equal where the plain top-(K+1) gaps exceed 0.1. Times: the fold, the
+    greedy head, the library arm (the greedy launch plus a stable sort of
+    its logits), the plain version; the bound is the greedy head's."""
+    from paddle_tpu_torch.inference.sampling import top_k
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import (
+        decode_megakernel, decode_megakernel_reference, megakernel_weight_bytes)
+    from paddle_tpu_torch.ops.pallas.rms_norm import rms_rows
+
+    cfg = LlamaConfig(hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=2, num_attention_heads=32)   # 7B width
+    model = LlamaForCausalLM(cfg, device=dev, seed=11)
+    regs = [ln for ln in ptxas if "decode_megakernel" in ln]
+    rows = []
+    for wname, quant in (("bf16", None), ("int8", "int8")):
+        for R in (4, 8):
+            eng = ContinuousBatchingEngine(
+                model, megakernel="multi", max_len=512, page_size=64, max_batch=R,
+                quant=quant, weight_dtype="bfloat16", device=dev)
+            tok, table, lens, act = topk_inputs(torch, dev, eng, R, seed=12)
+            pack = eng._mk_pack
+            h0 = eng.weights["emb"][tok].to(pack.dtype)
+            # the greedy launch and the plain version, from the same pools
+            p_g = clone_pack(pack)
+            h_g, tok_g, _, lg = decode_megakernel(h0.clone(), p_g, table, lens, act,
+                                                  head=True)
+            p_r = clone_pack(pack)
+            h_r, _, _, lr = decode_megakernel_reference(h0.clone(), p_r, table, lens,
+                                                        act, head=True)
+            torch.cuda.synchronize()
+            tol = 2 ** -5 * float(lr.float().abs().max())
+            live = sum(L + 1 for L, a in zip(TOPK_LENS[R], TOPK_ACTIVE[R]) if a)
+            kv_bytes = 2 * live * pack.nh_kv * pack.hd * 2 * pack.n_layers
+            n_bytes = megakernel_weight_bytes(pack) + kv_bytes + 2 * R * pack.H * 2
+            params = sum(t.numel() for ws in pack.layers for k in
+                         ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+                         for t in [ws[k][0] if isinstance(ws[k], tuple) else ws[k]])
+            h_t = h0.clone()
+
+            def run(**kw):
+                h_t.copy_(h0)
+                return decode_megakernel(h_t, pack, table, lens, act, head=True, **kw)
+
+            greedy_ms = time_ms(torch, lambda: run())
+            for K in TOPK_KS:
+                p_k = clone_pack(pack)
+                h_k, topv, topi = decode_megakernel(h0.clone(), p_k, table, lens, act,
+                                                    head=True, head_k=K)
+                outputs = decode_megakernel.outputs
+                torch.cuda.synchronize()
+                sv, si = top_k(lg, K)
+                identical = (torch.equal(topv, sv.float()) and torch.equal(topi, si.int())
+                             and torch.equal(topi[:, 0], tok_g) and torch.equal(h_k, h_g))
+                pv, pi = top_k(lr, K + 1)
+                pv = pv.float()
+                gaps = pv[:, :-1] - pv[:, 1:]
+                # a plain id is held where it is separated from both neighbours
+                sep = torch.ones_like(gaps[:, :1], dtype=torch.bool)
+                decided = (gaps > 0.1) & torch.cat([sep, gaps[:, :-1] > 0.1], 1)
+                ids_ok = bool((topi == pi[:, :K].int())[decided].all())
+                err = max_err(topv, pv[:, :K])
+                plain_ms = time_ms(torch, lambda: decode_megakernel_reference(
+                    h0.clone(), p_r, table, lens, act, head=True, head_k=K), iters=3)
+
+                def library():
+                    _, _, _, logits = run()
+                    return top_k(logits, K)
+
+                row = dict(weights=wname, R=R, head_k=K, lens=TOPK_LENS[R],
+                           active=TOPK_ACTIVE[R], layers=2, grid=decode_megakernel.grid,
+                           topk_fold_identical=identical, outputs=list(outputs),
+                           no_logits_buffer=tuple(outputs) == ("topi", "topv"),
+                           max_abs_err=err, tol=tol, ids_decided=int(decided.sum()),
+                           ids_equal_where_decided=ids_ok,
+                           ms=time_ms(torch, lambda: run(head_k=K)),
+                           greedy_ms=greedy_ms, library_ms=time_ms(torch, library),
+                           library="the greedy launch + a stable torch.sort top-K of "
+                                   "its [R, V] logits", plain_ms=plain_ms)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    n_bytes, 2 * R * (params + pack.H * pack.V))
+                row["ok"] = (identical and row["no_logits_buffer"] and err <= tol
+                             and ids_ok)
+                rows.append(row)
+                del p_k
+            # the tie: MK_TIE columns identical and each row's maximum, on
+            # slabs of different blocks (slab 0 and slab 968 of 132 blocks)
+            set_tie(torch, pack, rms_rows(h_r, pack.norm, pack.eps))
+            _, _, _, l_tie = decode_megakernel(h0.clone(), clone_pack(pack), table,
+                                               lens, act, head=True)
+            _, tv, ti = decode_megakernel(h0.clone(), clone_pack(pack), table, lens,
+                                          act, head=True, head_k=8)
+            torch.cuda.synchronize()
+            n = len(MK_TIE)
+            # rows whose maximum is the tie must list its columns first, in
+            # id order; every row must equal the stable top-8 of the greedy
+            # launch's logits
+            at_max = (l_tie.argmax(-1) == MK_TIE[0]).tolist()
+            front = [ti[i, :n].tolist() == list(MK_TIE)
+                     and bool((tv[i, :n] == tv[i, 0]).all())
+                     for i in range(R) if at_max[i]]
+            tie_ok = (len(front) > 0 and all(front)
+                      and torch.equal(ti, top_k(l_tie, 8)[1].int()))
+            rows.append(dict(weights=wname, R=R, head_k=8, case="cross-block tie",
+                             tie_cols=list(MK_TIE), rows_at_tie=sum(at_max),
+                             tie_ids=ti[:, :n].tolist(), ok=tie_ok))
+            del eng, pack, p_g, p_r
+            torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["ptxas"] = regs
+    return rows
+
+
 # ---------------------------------------------------------------- phase 4
 def weight_bytes_per_step(torch, eng):
     """Bytes of every weight a decode step reads (the embedding excluded:
@@ -900,10 +1055,14 @@ def cb_stream(cfg):
     return prompts, budgets
 
 
-def drive_cb(torch, eng, prompts, budgets):
-    """Submit the stream, step to idle; returns (outputs, wall seconds,
-    ms per decode micro-step over the steps that ran decode only)."""
-    uids = [eng.add_request(p, n) for p, n in zip(prompts, budgets)]
+def drive_cb(torch, eng, prompts, budgets, specs=None):
+    """Submit the stream (specs: one SamplingParams kwargs dict or None per
+    request), step to idle; returns (outputs, wall seconds, ms per decode
+    micro-step over the steps that ran decode only)."""
+    from paddle_tpu_torch.inference.sampling import SamplingParams
+    specs = specs or [None] * len(prompts)
+    uids = [eng.add_request(p, n, sampling=None if sp is None else SamplingParams(**sp))
+            for p, n, sp in zip(prompts, budgets, specs)]
     torch.cuda.synchronize()
     dec_s, dec_n = 0.0, 0
     t_all = time.perf_counter()
@@ -1061,6 +1220,8 @@ def serve_cb_7b(torch, dev):
             launches[kname] = launches.get(kname, 0) + c
         del eng
         torch.cuda.empty_cache()
+    sampled = sampled_cb_runs(torch, model, geom, prompts, budgets, results, launches)
+    proc = proc_run(torch, model, geom, launches)
     # one request on a fresh op-chain engine: three prefill-only blocks (300
     # tokens in chunks of 128), then two decode blocks of 8, the second chained
     eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=False, **geom)
@@ -1081,7 +1242,189 @@ def serve_cb_7b(torch, dev):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del eng, model
     torch.cuda.empty_cache()
-    return dict(runs=results, single=single, peak_gb=peak_gb, busy=busy), launches
+    return dict(runs=results, single=single, sampled=sampled, proc=proc,
+                peak_gb=peak_gb, busy=busy), launches
+
+
+# the sampled stream: the cb_stream prompts and budgets; every third request
+# (1, 4, 7, 10) greedy, the others sampled at temperature 0.8, top_p 0.9,
+# min_p 0.05, top_k 8 or 4 (sample_k = 8), seed 1000 + i
+def sampled_specs(n):
+    return [None if i % 3 == 1 else
+            dict(do_sample=True, temperature=0.8, top_p=0.9, min_p=0.05,
+                 top_k=8 if i % 3 == 0 else 4, seed=1000 + i) for i in range(n)]
+
+
+# name, quant, megakernel, the greedy run of cb_path it is compared with
+SAMPLED_RUNS = (("sampled multi K=8 bf16", None, "multi", "multi K=8 bf16"),
+                ("sampled multi K=8 int8", "int8", "multi", "multi K=8 int8"),
+                ("sampled K=8 bf16", None, False, "K=8 bf16"))
+
+
+def count_sampled_steps(eng):
+    """Wrap the engine's fused scan to count the micro-steps it runs in
+    "sampled" mode (each one launch of the fold in "multi" mode). The
+    wrapper refers to the engine: `del eng._decode_scan` before dropping
+    the engine, or its memory waits for the cycle collector."""
+    counter = {"sampled": 0}
+    scan = eng._decode_scan
+
+    def counted(tables, tok, lens, act, rem, eos, mode="greedy", ex=None):
+        if mode == "sampled":
+            counter["sampled"] += eng.decode_block
+        return scan(tables, tok, lens, act, rem, eos, mode, ex)
+
+    eng._decode_scan = counted
+    return counter
+
+
+def sampled_cb_runs(torch, model, geom, prompts, budgets, greedy_rows, launches):
+    """The CB stream with a mix of greedy and sampled requests at full 7B
+    width, K=8: "multi" bf16 and int8 (the top-K fold) and the op chain,
+    each twice. Gates: every request finishes its budget, the second run
+    (the same seeds) gives the same ids, the fold launches once per
+    sampled micro-step and the megakernel once per micro-step. Reports ms
+    per decode micro-step and generated tok/s beside the greedy run's."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    import numpy as np
+
+    L, V = model.config.num_hidden_layers, model.config.vocab_size
+    specs = sampled_specs(len(prompts))
+    greedy = {r["run"]: r for r in greedy_rows}
+    rows, outs_by = [], {}
+    for name, quant, mk, gname in SAMPLED_RUNS:
+        eng = ContinuousBatchingEngine(model, decode_block=8, quant=quant, megakernel=mk,
+                                       sample_k=8, **geom)
+        steps = count_sampled_steps(eng)
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        outs, wall, dec_ms = drive_cb(torch, eng, prompts, budgets, specs)
+        counts = kernel_launches()
+        h1 = eng.health()
+        n_sampled = steps["sampled"]
+        outs2, _, _ = drive_cb(torch, eng, prompts, budgets, specs)
+        h2 = eng.health()
+        dec = h1["decode_steps"]
+        gen = int(sum(o.size - p.size for o, p in zip(outs, prompts)))
+        if mk == "multi":
+            launch_ok = (counts["decode_megakernel"] == dec
+                         and counts["decode_megakernel_topk"] == n_sampled > 0
+                         and counts["paged_attention"] == 0)
+        else:
+            launch_ok = (counts["decode_megakernel"] == 0
+                         and counts["decode_megakernel_topk"] == 0
+                         and counts["paged_attention"] == L * dec)
+        outs_by[name] = outs
+        g = greedy[gname]
+        row = dict(run=name, decode_block=8, weights=quant or "bf16",
+                   megakernel=h1["megakernel"], requests=len(prompts),
+                   sampled_requests=h1["sampled_requests"], generated_tokens=gen,
+                   wall_s=wall, generated_tokens_per_s=gen / wall,
+                   ms_per_decode_microstep=dec_ms, decode_steps=dec,
+                   sampled_microsteps=n_sampled, launches=counts,
+                   greedy_run=gname, greedy_ms_per_decode_microstep=g["ms_per_decode_microstep"],
+                   greedy_generated_tokens_per_s=g["generated_tokens_per_s"],
+                   ms_ratio_sampled_over_greedy=(dec_ms / g["ms_per_decode_microstep"]
+                                                 if dec_ms and g["ms_per_decode_microstep"]
+                                                 else None),
+                   launches_ok=launch_ok,
+                   all_finished=h1["done"] == len(prompts) and h2["done"] == 2 * len(prompts),
+                   budgets_met=all(o.size == p.size + n
+                                   for o, p, n in zip(outs, prompts, budgets)),
+                   repeat_identical=all(np.array_equal(a, b) for a, b in zip(outs, outs2)),
+                   ids_in_vocab=all(bool(((o >= 0) & (o < V)).all()) for o in outs),
+                   no_leak=all(h["pages_free"] + h["prefix_pages"] == h["pages_total"]
+                               for h in (h1, h2)),
+                   tail=outs[0][-4:].tolist())
+        row["ok"] = (launch_ok and row["all_finished"] and row["budgets_met"]
+                     and row["repeat_identical"] and row["ids_in_vocab"] and row["no_leak"])
+        rows.append(row)
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+        del eng._decode_scan, eng
+        torch.cuda.empty_cache()
+    ref = outs_by["sampled K=8 bf16"]
+    for row in rows:
+        outs = outs_by[row["run"]]
+        same = sum(int((o[p.size:] == r[p.size:]).sum())
+                   for o, r, p in zip(outs, ref, prompts))
+        row["tokens_equal_to_op_chain"] = same / row["generated_tokens"]
+    return rows
+
+
+def proc_vocab(V):
+    """Synthetic token strings for the grammar run: digits, brackets, a
+    comma and a minus at ids 100-113, a few multi-character tokens, and
+    random lowercase words elsewhere (ids 0-2 empty: unk, bos, eos)."""
+    import numpy as np
+    rng = np.random.RandomState(3)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    toks = ["".join(rng.choice(letters, rng.randint(1, 5))) for _ in range(V)]
+    toks[0] = toks[1] = toks[2] = ""
+    for d in range(10):
+        toks[100 + d] = str(d)
+    toks[110:114] = ["[", "]", ",", "-"]
+    toks[114:118] = ["12", "],", "[1", "0]"]
+    return toks
+
+
+def proc_run(torch, model, geom, launches):
+    """One request through the processor chain at 7B width ("multi" bf16,
+    K=8): repetition_penalty 1.2 and a grammar, a TokenMaskAutomaton of the
+    JSON schema {"type": "array", "items": {"type": "integer"}, "maxItems":
+    3} over proc_vocab. Gates: every emitted token is allowed by the
+    automaton from the state before it, EOS only in an accepting state, the
+    same ids on a second run, no chained block (proc blocks never chain)."""
+    from paddle_tpu_torch.inference.sampling import SamplingParams, TokenMaskAutomaton
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    import numpy as np
+
+    V = model.config.vocab_size
+    toks = proc_vocab(V)
+    t = time.perf_counter()
+    auto = TokenMaskAutomaton.from_json_schema(
+        {"type": "array", "items": {"type": "integer"}, "maxItems": 3}, toks, eos_id=2)
+    build_s = time.perf_counter() - t
+    eng = ContinuousBatchingEngine(model, decode_block=8, megakernel="multi", **geom)
+    prompt = np.random.RandomState(4).randint(3, V, 40).astype(np.int64)
+    sp = SamplingParams(do_sample=True, temperature=0.8, seed=7, repetition_penalty=1.2,
+                        grammar=auto)
+    outs = []
+    reset_kernel_launches()
+    for _ in range(2):
+        u = eng.add_request(prompt, 24, eos_token_id=2, sampling=sp)
+        eng.drain()
+        outs.append(eng.result(u))
+    counts = kernel_launches()
+    for kname, c in counts.items():
+        launches[kname] = launches.get(kname, 0) + c
+    gen = outs[0][prompt.size:]
+    state, allowed, eos_ok, text = 0, True, True, ""
+    for tok in gen.tolist():
+        if not auto.mask[state, tok]:
+            allowed = False
+            break
+        if tok == 2:
+            eos_ok = state in auto.accept_states
+            break
+        text += toks[tok]
+        state = auto.advance(state, tok)
+    h = eng.health()
+    row = dict(run="proc multi K=8 bf16", automaton_states=auto.n_states,
+               automaton_build_s=build_s, generated=gen.tolist(), text=text,
+               all_allowed=allowed, eos_in_accept_state=eos_ok,
+               repeat_identical=bool(np.array_equal(outs[0], outs[1])),
+               chained_blocks=h["chained_blocks"], launches=counts,
+               no_leak=h["pages_free"] + h["prefix_pages"] == h["pages_total"])
+    row["ok"] = (allowed and eos_ok and row["repeat_identical"] and h["chained_blocks"] == 0
+                 and counts["decode_megakernel_topk"] == 0
+                 and counts["decode_megakernel"] == h["decode_steps"]
+                 and row["no_leak"] and h["done"] == 2)
+    del eng
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1134,6 +1477,81 @@ def parity_cb_2layer(torch, dev):
         del gpu
         torch.cuda.empty_cache()
     return rows
+
+
+def parity_cb_sampled(torch, dev):
+    """The sampled CB stream on the card (bf16, "multi", the top-K fold,
+    K=8) against the same weights in the CPU CB engine (f32, plain
+    versions), 2 layers at 7B width, 8 ragged requests, all sampled. The
+    margin rule of parity_cb_2layer carried to a draw: a token is compared
+    where the CPU's draw (from the static CPU engine's prefill_logits at
+    its key) is unchanged when every logit moves by up to tol / 2, tried
+    with 32 seeded perturbations (a draw's Gumbel noise belongs to a rank,
+    so near-equal candidates that swap ranks swap noise too: a gap between
+    two selection scores alone does not decide it); a request is followed
+    until the runs part. Also reports the share of generated tokens equal
+    position by position."""
+    from paddle_tpu_torch.inference.sampling import fold_keys, selection_scores, top_k
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    import numpy as np
+
+    cfg = LlamaConfig(hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=2, num_attention_heads=32)   # 7B width
+    model = LlamaForCausalLM(cfg, device="cpu", seed=7)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, t).astype(np.int64)
+               for t in (12, 300, 140, 65, 33, 200, 90, 7)]
+    specs = [dict(do_sample=True, temperature=0.8, top_p=0.9, min_p=0.05, top_k=8,
+                  seed=2000 + i) for i in range(len(prompts))]
+    n_new, tol = 8, 0.1       # tol as phase 7, in logit units
+    kw = dict(max_len=512, page_size=64, max_batch=4, prefill_chunk=128,
+              decode_block=8, megakernel="multi", sample_k=8)
+    cpu = ContinuousBatchingEngine(model, device="cpu", **kw)
+    outs_cpu, _, _ = drive_cb(torch, cpu, prompts, [n_new] * len(prompts), specs)
+    ref = LLMEngine(model, device="cpu", max_len=512, page_size=64, max_batch=1)
+
+    def decided(lg, sp, pos, trials=32):
+        v, ids = top_k(lg, 64)          # a move of tol / 2 reaches no further
+        n = trials + 1
+        keys = fold_keys(torch.full((n,), sp["seed"]), torch.full((n,), pos))
+        g = torch.Generator().manual_seed(pos)
+        vals = v.float() + torch.cat([torch.zeros((1, 64)),
+                                      (torch.rand((trials, 64), generator=g) - 0.5) * tol])
+        tv, ti = top_k(vals, 8)
+        sc = selection_scores(tv, keys, torch.full((n,), sp["temperature"]),
+                              torch.full((n,), sp["top_k"]), torch.full((n,), sp["top_p"]),
+                              torch.full((n,), sp["min_p"]))
+        picks = ids.expand(n, -1).gather(1, ti.gather(1, sc.argmax(-1, keepdim=True)))
+        return bool((picks == picks[0]).all())
+
+    decided_at = [[decided(ref.prefill_logits(oc[None, :p.size + t]), sp, p.size + t)
+                   for t in range(n_new)] for p, oc, sp in zip(prompts, outs_cpu, specs)]
+    gpu = ContinuousBatchingEngine(model, device=dev, weight_dtype="bfloat16", **kw)
+    reset_kernel_launches()
+    outs_gpu, _, _ = drive_cb(torch, gpu, prompts, [n_new] * len(prompts), specs)
+    fold = kernel_launches()["decode_megakernel_topk"]
+    compared = equal = same_all = 0
+    for p, oc, og, dec in zip(prompts, outs_cpu, outs_gpu, decided_at):
+        t0 = p.size
+        same_all += int((oc[t0:] == og[t0:]).sum())
+        for t in range(n_new):
+            same = oc[t0 + t] == og[t0 + t]
+            if dec[t]:
+                compared += 1
+                equal += int(same)
+            if not same:
+                break
+    row = dict(weights="bf16", megakernel=gpu.health()["megakernel"], requests=len(prompts),
+               prompt_lens=[int(p.size) for p in prompts], tol=tol, fold_launches=fold,
+               sampled_compared=compared, sampled_equal=equal,
+               share_equal=same_all / (n_new * len(prompts)),
+               ok=fold > 0 and compared > 0 and equal == compared)
+    del gpu
+    torch.cuda.empty_cache()
+    return [row]
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1252,8 +1670,9 @@ def main():
     t = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t
+    ptxas = ptxas_summary(_build.build_log() or "")
     emit(dict(phase="build", seconds=build_s, path=_build.build_info()["path"],
-              ptxas=ptxas_summary(_build.build_log() or "")))
+              ptxas=ptxas))
 
     # 3. kernels
     main_rows = {}
@@ -1262,16 +1681,20 @@ def main():
               ("flash_attention_fwd", check_flash),
               ("ragged_paged_attention", check_ragged),
               ("rms_norm", check_rms), ("flash_attention_bwd", check_flash_bwd),
-              ("decode_megakernel", check_megakernel))
+              ("decode_megakernel", check_megakernel),
+              ("decode_megakernel_topk",
+               lambda torch, dev: check_megakernel_topk(torch, dev, ptxas)))
     for name, check in checks:
         rows = check(torch, dev)
         for r in rows:
             emit(dict(phase="kernels", kernel=name, **r))
             ok &= r["ok"]
         # the row at the main path's shape (the first with a time;
-        # quantized_matmul: the decode GEMV of gate/up)
+        # quantized_matmul: the decode GEMV of gate/up; the fold: 8 slots
+        # at sample_k 8 in bf16, the cb_sampled stream's)
         main_rows[name] = next(r for r in rows if "ms" in r and (
-            name != "quantized_matmul" or (r["m"] == 4 and r["n"] == 11008)))
+            name != "quantized_matmul" or (r["m"] == 4 and r["n"] == 11008)) and (
+            name != "decode_megakernel_topk" or (r["R"] == 8 and r["head_k"] == 8)))
     emit(dict(phase="kernels", elapsed_s=time.perf_counter() - t_start))
 
     # 4. the serving path; counts are zeroed just before each generate
@@ -1303,12 +1726,20 @@ def main():
     for r in cb["runs"] + [cb["single"]]:
         emit(dict(phase="cb_path", **r))
         ok &= r["ok"]
+    for r in cb["sampled"]:
+        emit(dict(phase="cb_sampled", **r))
+        ok &= r["ok"]
+    emit(dict(phase="proc", **cb["proc"]))
+    ok &= cb["proc"]["ok"]
     emit(dict(phase="cb_path", peak_gb=cb["peak_gb"], busy=cb["busy"],
               elapsed_s=time.perf_counter() - t_start))
 
     # 7. continuous-batching parity on the card
     for r in parity_cb_2layer(torch, dev):
         emit(dict(phase="cb_parity", **r))
+        ok &= r["ok"]
+    for r in parity_cb_sampled(torch, dev):
+        emit(dict(phase="cb_sampled_parity", **r))
         ok &= r["ok"]
     emit(dict(phase="cb_parity", elapsed_s=time.perf_counter() - t_start))
 

@@ -3,7 +3,8 @@
 // in one persistent cooperative launch.
 //
 // Replaces: paddle_tpu/ops/pallas/decode_megakernel.py `_mk_kernel` (seg
-// "full", tq = 1, greedy head), called from `decode_megakernel`. On the TPU
+// "full", tq = 1, the greedy head and the head_k > 1 top-K fold of
+// decode_megakernel.py:616-656), called from `decode_megakernel`. On the TPU
 // one core walks a static schedule of weight tiles in order and keeps the
 // activations in VMEM between tiles; here 132 SMs work at once, so the walk
 // becomes phases of independent work units separated by grid-wide barriers,
@@ -53,6 +54,25 @@
 // equal one goes to the smaller id. That is the first-max-wins rule of
 // argmax over the whole row.
 //
+// The top-K fold (head_k = K > 1, the sampling path): no logits are written.
+// Each block keeps, per row, a sorted list of its best K (value, id) pairs
+// in shared memory, ordered by value descending then id ascending (the
+// order of lax.top_k; a block's slabs are strided over the vocabulary, so
+// the order key is the pair, never the arrival order). After each slab one
+// warp per row ranks the slab's 32 candidates by shuffles and merges them
+// into its list (`warp_merge`: every entry's output position is its index
+// plus the number of entries of the other list ahead of it, found by a
+// binary search; equal keys put the list first). Pad columns carry -inf
+// and ids >= V, so they never pass a real column. The blocks then write
+// their lists to a [grid, R, K] scratch and merge them pairwise in
+// ceil(log2 grid) rounds, one grid barrier each; block 0 writes the final
+// (topv, topi). Only selection happens, so the result equals a stable
+// top-K of the cast logits bit for bit. The lists live in shared memory
+// (24 R max(K, 32) bytes), not registers: the kernel is at 255 registers.
+// The fold is an out-of-line function (`head_fold`): inlined, it changed
+// the register allocation of the layer phases and slowed the R = 8 whole
+// step (PERF.md).
+//
 // Memory ordering: values one phase writes and another block reads after a
 // barrier (h, qkv, attn, act, the partials) are read with ld.global.cg
 // (L2, never a stale L1 line); pool rows are written and read back by the
@@ -83,9 +103,14 @@ struct PttMkArgs {
   float* maxv;            // [R]
   float* part_v;          // [max_grid, R]
   int* part_i;
+  float* topv;            // [R, head_k] (head_k > 1)
+  int* topi;
+  float* fold_v;          // [max_grid, R, head_k] per-block lists
+  int* fold_i;
   int layer0, n_layers, head_row;  // head_row < 0: no head
   int R, H, nh, nh_kv, hd, F, V;
   int p, n_pages, max_pages, oob, max_len, max_grid;
+  int head_k;             // 1: greedy argmax; 2..128: the top-K fold
   float eps, scale;
 };
 
@@ -177,6 +202,161 @@ __device__ void block_norm(const T* h, const T* w, T* xs, int R, int H, float ep
       }
   }
   __syncthreads();
+}
+
+// the fold's order: (v1, i1) before (v2, i2)
+__device__ __forceinline__ bool ahead(float v1, int i1, float v2, int i2) {
+  return v1 > v2 || (v1 == v2 && i1 < i2);
+}
+
+// entries of the sorted list (v, ix)[0, n) ahead of (x, xi); with kOrEq
+// also those equal to it
+template <bool kOrEq>
+__device__ __forceinline__ int count_ahead(const float* v, const int* ix, int n, float x, int xi) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool before = kOrEq ? !ahead(x, xi, v[mid], ix[mid]) : ahead(v[mid], ix[mid], x, xi);
+    if (before)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// One warp: the best K of the sorted lists A (na entries) and B (nb) into
+// out (sorted). An entry's output position is its index plus the entries of
+// the other list ahead of it, equal keys putting A first, so the positions
+// are a permutation and the merge is stable.
+__device__ void warp_merge(const float* av, const int* ai, int na, const float* bv, const int* bi,
+                           int nb, float* ov, int* oi, int K) {
+  const int lane = threadIdx.x % 32;
+  for (int j = lane; j < na; j += 32) {
+    const int pos = j + count_ahead<false>(bv, bi, nb, av[j], ai[j]);
+    if (pos < K) {
+      ov[pos] = av[j];
+      oi[pos] = ai[j];
+    }
+  }
+  for (int j = lane; j < nb; j += 32) {
+    const int pos = j + count_ahead<true>(av, ai, na, bv[j], bi[j]);
+    if (pos < K) {
+      ov[pos] = bv[j];
+      oi[pos] = bi[j];
+    }
+  }
+  __syncwarp();
+}
+
+// bytes of the [R, H] rows (or the attention scratch) in shared memory
+__host__ __device__ inline size_t xs_bytes(const PttMkArgs& a, size_t t_size) {
+  const size_t rep = a.nh / a.nh_kv;
+  const size_t attn = 4 * (rep * a.hd + rep * a.p + 3 * rep);
+  size_t xs = (size_t)a.R * a.H * t_size;
+  if (attn > xs) xs = attn;
+  return (xs + 15) / 16 * 16;
+}
+
+// row stride of the fold's lists in shared memory
+__host__ __device__ inline int fold_stride(const PttMkArgs& a) {
+  return a.head_k > kSlabCols ? a.head_k : kSlabCols;
+}
+
+// The head's top-K fold (head_k > 1), after the final norm (xs holds the
+// normed rows): the lm_head slabs into per-row sorted lists, then the
+// blocks' lists merged pairwise across the grid; block 0 writes (topv,
+// topi). Out of line, so its registers do not add to the layer phases'.
+template <typename T, typename WT>
+__device__ __noinline__ void head_fold(const PttMkArgs& a, const T* xs, const WT* wh,
+                                       const float* shs, bool vh, float* red, float* stage) {
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int R = a.R, H = a.H;
+  const float neg_inf = -__int_as_float(0x7f800000);
+  const int n_slabs = (a.V + kSlabCols - 1) / kSlabCols;
+  auto x_smem = [=](int i, int r) { return to_f32(xs[(size_t)i * H + r]); };
+  // the top-K fold: per-row lists in shared memory after xs; lv/li the
+  // block's list, ov/oi the merge output, bv/bi the incoming candidates
+  const int K = a.head_k, KS = fold_stride(a);
+  float* lv = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(const_cast<T*>(xs)) + xs_bytes(a, sizeof(T)));
+  int* li = reinterpret_cast<int*>(lv + kMaxRows * KS);
+  float* ov = reinterpret_cast<float*>(li + kMaxRows * KS);
+  int* oi = reinterpret_cast<int*>(ov + kMaxRows * KS);
+  float* bv = reinterpret_cast<float*>(oi + kMaxRows * KS);
+  int* bi = reinterpret_cast<int*>(bv + kMaxRows * KS);
+  float* rv = lv + warp * KS;  // this warp's row
+  int* ri = li + warp * KS;
+  float* rov = ov + warp * KS;
+  int* roi = oi + warp * KS;
+  float* rbv = bv + warp * KS;
+  int* rbi = bi + warp * KS;
+  for (int e = tid; e < kMaxRows * KS; e += kThreads) {
+    lv[e] = neg_inf;  // sentinels: behind every column
+    li[e] = 0x7fffffff;
+  }
+  __syncthreads();  // a block with no slab writes its sentinels below
+  for (int u = blockIdx.x; u < n_slabs; u += gridDim.x) {
+    for (int e = tid; e < kMaxRows * kSlabCols; e += kThreads) stage[e] = neg_inf;
+    ptt::gemv_slab<WT, kMaxRows>(x_smem, wh, R, H, a.V, u, vh, red,
+                                 [&](int i, int col, float s) {
+                                   stage[i * kSlabCols + col % kSlabCols] =
+                                       to_f32(emit_t<T>(s, shs, col));
+                                 });
+    if (warp < R) {  // one warp per row: rank the slab, merge it in
+      const float v = stage[warp * kSlabCols + lane];
+      const int c = u * kSlabCols + lane;  // pads: -inf, ids >= V
+      int rank = 0;
+      for (int o = 0; o < 32; ++o) {
+        const float w_v = __shfl_sync(0xffffffffu, v, o);
+        const int w_c = __shfl_sync(0xffffffffu, c, o);
+        rank += ahead(w_v, w_c, v, c) ? 1 : 0;
+      }
+      rbv[rank] = v;
+      rbi[rank] = c;
+      __syncwarp();
+      warp_merge(rv, ri, K, rbv, rbi, kSlabCols, rov, roi, K);
+      for (int j = lane; j < K; j += 32) {
+        rv[j] = rov[j];
+        ri[j] = roi[j];
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  // the blocks' lists, merged pairwise across the grid
+  const int G = gridDim.x, b = blockIdx.x;
+  if (warp < R)
+    for (int j = lane; j < K; j += 32) {
+      a.fold_v[((size_t)b * R + warp) * K + j] = rv[j];
+      a.fold_i[((size_t)b * R + warp) * K + j] = ri[j];
+    }
+  for (int stride = 1; stride < G; stride <<= 1) {
+    grid.sync();
+    if (b % (2 * stride) == 0 && b + stride < G && warp < R) {
+      const size_t src = ((size_t)(b + stride) * R + warp) * K;
+      for (int j = lane; j < K; j += 32) {
+        rbv[j] = ld_cg(a.fold_v + src + j);
+        rbi[j] = ld_cg(a.fold_i + src + j);
+      }
+      __syncwarp();
+      warp_merge(rv, ri, K, rbv, rbi, K, rov, roi, K);
+      const size_t dst = ((size_t)b * R + warp) * K;
+      for (int j = lane; j < K; j += 32) {
+        rv[j] = rov[j];
+        ri[j] = roi[j];
+        a.fold_v[dst + j] = rov[j];
+        a.fold_i[dst + j] = roi[j];
+      }
+      __syncwarp();
+    }
+  }
+  if (b == 0 && warp < R)
+    for (int j = lane; j < K; j += 32) {
+      a.topv[(size_t)warp * K + j] = rv[j];
+      a.topi[(size_t)warp * K + j] = ri[j];
+    }
 }
 
 template <typename T, typename WT>
@@ -355,13 +535,18 @@ __global__ void __launch_bounds__(kThreads) decode_megakernel_kernel(const PttMk
   const WT* wh = ptr<const WT*>(P, P_WH);
   const float* shs = ptr<const float*>(P, P_SH);
   const bool vh = ptt::slab_vec_ok<WT>(wh, a.V);
-  T* logits = static_cast<T*>(a.logits);
   const float neg_inf = -__int_as_float(0x7f800000);
+  const int n_slabs = (a.V + kSlabCols - 1) / kSlabCols;
+  if (a.head_k > 1) {  // the top-K fold, out of line: its own registers
+    head_fold<T, WT>(a, xs, wh, shs, vh, red, stage);
+    return;
+  }
+  T* logits = static_cast<T*>(a.logits);
   if (tid < kMaxRows) {
     best_v[tid] = neg_inf;
     best_i[tid] = 0x7fffffff;
   }
-  for (int u = blockIdx.x; u < (a.V + kSlabCols - 1) / kSlabCols; u += gridDim.x) {
+  for (int u = blockIdx.x; u < n_slabs; u += gridDim.x) {
     for (int e = tid; e < kMaxRows * kSlabCols; e += kThreads) stage[e] = neg_inf;
     ptt::gemv_slab<WT, kMaxRows>(x_smem, wh, R, H, a.V, u, vh, red,
                                  [&](int i, int col, float s) {
@@ -410,11 +595,9 @@ __global__ void __launch_bounds__(kThreads) decode_megakernel_kernel(const PttMk
 }
 
 size_t smem_bytes(const PttMkArgs& a, size_t t_size) {
-  const size_t rep = a.nh / a.nh_kv;
-  const size_t attn = 4 * (rep * a.hd + rep * a.p + 3 * rep);
-  size_t xs = (size_t)a.R * a.H * t_size;
-  if (attn > xs) xs = attn;
-  return (kRed + kAux) * sizeof(float) + (xs + 15) / 16 * 16;
+  size_t fold = 0;  // six [kMaxRows, stride] lists of 4-byte words
+  if (a.head_row >= 0 && a.head_k > 1) fold = (size_t)6 * kMaxRows * fold_stride(a) * 4;
+  return (kRed + kAux) * sizeof(float) + xs_bytes(a, t_size) + fold;
 }
 
 template <typename T, typename WT>
@@ -456,7 +639,9 @@ extern "C" int ptt_decode_megakernel(const PttMkArgs* args, int dtype, int wkind
   const PttMkArgs& a = *args;
   if (a.R < 1 || a.R > kMaxRows || a.nh_kv <= 0 || a.nh % a.nh_kv != 0 || a.hd % 16 != 0 ||
       a.hd > 32 * ptt::kPageMaxDLane || (a.nh / a.nh_kv) * a.hd > kAttnAcc * kThreads ||
-      a.p <= 0 || a.max_len <= 0 || a.n_layers < 0 || (a.head_row >= 0 && a.V <= 0))
+      a.p <= 0 || a.max_len <= 0 || a.n_layers < 0 || (a.head_row >= 0 && a.V <= 0) ||
+      (a.head_row >= 0 && (a.head_k < 1 || a.head_k > 128 || a.head_k > a.V)) ||
+      (a.head_k > 1 && (a.topv == nullptr || a.fold_v == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && wkind == 0)

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler over the paged-KV serving engine.
 
 Counterpart of `paddle_tpu/inference/scheduler.py` (`ContinuousBatchingEngine`,
-greedy decoding):
+greedy and sampled decoding):
 
   ContinuousBatchingEngine(model, ...).add_request(ids, ...) -> uid
   .step()          one engine iteration (admit / prefill chunk / decode)
@@ -26,6 +26,16 @@ Scheduling model (as in the reference):
     length, active flag, remaining budget) stay on the device, with EOS and
     budget retirement computed there. The host reads a block's tokens once;
     in a pure-decode steady state block N+1 is queued before block N is read.
+  - sampling (inference/sampling.py): per-request SamplingParams; the token
+    entering position pos is drawn with fold_in(key(seed), pos), so a
+    stream depends only on (seed, position). A dispatch runs in one of three
+    modes (`_block_mode`): "greedy" (no randomness), "sampled" (selection
+    from the top `sample_k` (value, id) pairs: in "multi" megakernel mode
+    the kernel's in-kernel top-K fold, so the [w, V] logits never exist;
+    otherwise `top_k` of the materialized logits, the same bits) and "proc"
+    (penalties and grammar masks over materialized logits; penalty counts
+    and the grammar state are advanced by the host at block boundaries).
+    Stop sequences retire on the host.
   - megakernel="layer" | "multi": each decode step runs its layers through
     `decode_megakernel`, one launch per layer ("layer", the final norm and
     the lm_head stay the op chain) or one launch per step ("multi", the
@@ -40,15 +50,16 @@ masked KV writes (`.at[slots].set(..., mode="drop")` with out-of-range
 slots); torch has no drop mode, so masked rows are redirected to one
 scratch row past the end of the pool, which no page table can name.
 
-Not ported yet (each raises, naming its ROADMAP item): sampling,
-speculation, tenants and preemption, KV tiering, adapters, telemetry,
-tensor parallelism, PTQ scales, the fleet prefix index, and KV
-export/import. The reference's fault points wait for the port of
-`failsafe.py`.
+Not ported yet (each raises, naming its ROADMAP item): speculation (also
+for sampled requests), tenants and preemption, KV tiering, adapters,
+telemetry, tensor parallelism, PTQ scales, the fleet prefix index, and KV
+and request export/import (with the sampling state they carry). The
+reference's fault points wait for the port of `failsafe.py`.
 """
 import collections
 import math
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -60,6 +71,9 @@ from ..ops.pallas.decode_megakernel import (MAX_ROWS, MegakernelPack,
                                             megakernel_supported)
 from ..ops.pallas.paged_attention import (expand_kv_heads, paged_attention,
                                           ragged_paged_attention)
+from .sampling import (GREEDY, NEG, SamplingParams, TokenMaskAutomaton,
+                       apply_penalties, fold_keys, gumbel, select_from_topk,
+                       stop_hit, top_k)
 
 QUEUED, PREFILL, DECODE, DONE, FAILED, CANCELLED = \
     "queued", "prefill", "decode", "done", "failed", "cancelled"
@@ -134,10 +148,11 @@ class Request:
     __slots__ = ("uid", "ids", "t0", "max_new_tokens", "eos_token_id",
                  "state", "slot", "pages", "shared_idx", "cow_reserve",
                  "filled", "tok", "out", "result", "pages_shared",
-                 "deadline", "ttl_steps", "born_step", "error")
+                 "deadline", "ttl_steps", "born_step", "error", "sampling",
+                 "counts", "gstate")
 
     def __init__(self, uid, ids, max_new_tokens, eos_token_id,
-                 deadline=None, ttl_steps=None, born_step=0):
+                 deadline=None, ttl_steps=None, born_step=0, sampling=None):
         self.uid = uid
         self.ids = ids                  # np.int64 [t0]
         self.t0 = int(ids.size)
@@ -158,6 +173,11 @@ class Request:
         self.ttl_steps = ttl_steps      # engine-step budget (deterministic)
         self.born_step = born_step      # engine step count at submission
         self.error = None               # RequestFailure when retired bad
+        self.sampling = sampling or GREEDY
+        self.counts = {}                # token -> occurrences among the
+        #                                 generated tokens (penalties)
+        self.gstate = 0                 # grammar automaton state (host-
+        #                                 authoritative)
 
 
 class PrefixCache:
@@ -315,7 +335,8 @@ class _FusedBlock:
 
     __slots__ = ("w", "K", "pf_items", "dec_items", "tables", "eos_dev",
                  "first", "toks", "emitted", "tok_fin", "lens_fin",
-                 "act_fin", "rem_fin", "has_prefill", "has_decode")
+                 "act_fin", "rem_fin", "has_prefill", "has_decode", "mode",
+                 "extras")
 
     def __init__(self, w, K):
         self.w = w
@@ -330,6 +351,8 @@ class _FusedBlock:
         self.tok_fin = self.lens_fin = self.act_fin = self.rem_fin = None
         self.has_prefill = False
         self.has_decode = False
+        self.mode = "greedy"        # _block_mode of the participants
+        self.extras = None          # device sampling inputs (_row_params)
 
 
 def _not_ported(name, item):
@@ -338,7 +361,8 @@ def _not_ported(name, item):
 
 
 class ContinuousBatchingEngine(LLMEngine):
-    """Request-at-a-time greedy serving over the paged-KV engine.
+    """Request-at-a-time serving over the paged-KV engine, greedy or
+    sampled per request.
 
     Knobs on top of LLMEngine's:
       prefill_chunk: prompt tokens per prefill step (default page_size).
@@ -359,8 +383,16 @@ class ContinuousBatchingEngine(LLMEngine):
         None (default) = "layer" on CUDA where the kernel takes the
         geometry and the weights, off on the CPU; False = the op chain;
         True / "layer" = one launch per layer; "multi" = one launch per
-        step with the final norm, the lm_head and the greedy argmax inside.
-        On the CPU a forced mode runs the kernel's plain version.
+        step with the final norm, the lm_head and the greedy argmax (or the
+        sampling path's top-K fold) inside. On the CPU a forced mode runs
+        the kernel's plain version.
+      do_sample / temperature / top_k / top_p / seed: deprecated engine-
+        level sampling, now only the default SamplingParams of requests
+        submitted without one (its seed folded with the request uid).
+      sample_k: size of the top-K candidate set every sampled selection
+        draws from (1..128, default 8); a request's top_k must be <= it.
+      sample_fold: False selects sampled tokens from materialized logits
+        even in "multi" mode (the same tokens; the fold is selection only).
 
     Failure posture: a request that fails at a per-request boundary
     (admission, deadline, cancel) retires alone with a RequestFailure
@@ -373,12 +405,10 @@ class ContinuousBatchingEngine(LLMEngine):
                  prefill_chunk=None, slot_buckets=None, prefix_cache=True,
                  queue_limit=None, default_deadline_ms=None,
                  decode_block=1, ragged_kernel=None, do_sample=False,
-                 megakernel=None, speculate=None, tenants=None,
-                 kv_tier=None, oversubscribe=None, tier_idle_steps=None,
-                 telemetry=None, adapters=None, **kw):
-        if do_sample:
-            raise _not_ported("sampling (do_sample=True)",
-                              "A5(c), inference/sampling.py")
+                 temperature=1.0, top_k=0, top_p=1.0, seed=0, sample_k=8,
+                 sample_fold=True, megakernel=None, speculate=None,
+                 tenants=None, kv_tier=None, oversubscribe=None,
+                 tier_idle_steps=None, telemetry=None, adapters=None, **kw):
         if speculate not in (None, False, 0, 1):
             raise _not_ported(f"speculate={speculate!r}",
                               "A5(d), speculation")
@@ -397,6 +427,30 @@ class ContinuousBatchingEngine(LLMEngine):
                          max_batch=max_batch, **kw)
         self.prefill_chunk = int(prefill_chunk or page_size)
         self.decode_block = max(1, int(decode_block))
+        # deprecated engine-level sampling: only the source of the default
+        # SamplingParams (_default_sampling)
+        self._sampling = (bool(do_sample), float(temperature), int(top_k),
+                          float(top_p))
+        self._engine_seed = int(seed) & 0xFFFFFFFF
+        self.sample_k = int(sample_k)
+        if not 1 <= self.sample_k <= 128:
+            raise ValueError(
+                f"sample_k must be in [1, 128] (the megakernel's top-K fold "
+                f"keeps at most 128 pairs per row), got {sample_k}")
+        self.sample_fold = bool(sample_fold)
+        if do_sample:
+            warnings.warn(
+                "engine-level do_sample/temperature/top_k/top_p are "
+                "deprecated: pass add_request(sampling=SamplingParams("
+                "...)) per request. The engine-level values now form a "
+                "per-request default whose seed folds in the request uid.",
+                DeprecationWarning, stacklevel=2)
+        if int(top_k) and int(top_k) > self.sample_k:
+            raise ValueError(
+                f"engine default top_k={top_k} exceeds sample_k="
+                f"{self.sample_k}: the sampled path selects from the "
+                "top-sample_k candidate set")
+        self._trivial_gram = None
         self.ragged_kernel = ragged_kernel
         if slot_buckets is None:
             slot_buckets = []
@@ -435,6 +489,7 @@ class ContinuousBatchingEngine(LLMEngine):
         self.fused_blocks = 0
         self.chained_blocks = 0         # blocks queued before the previous
         #                                 block's read-back
+        self.sampled_requests = 0       # admitted with do_sample=True
         self._mk_pack = None
         self.megakernel = self._resolve_megakernel(megakernel)
         if self.megakernel:
@@ -450,11 +505,14 @@ class ContinuousBatchingEngine(LLMEngine):
           unfinished when it expires retires with a DeadlineExceededError
           record (queued requests are shed without ever running).
         ttl_steps: the same contract counted in engine steps.
+        sampling: a SamplingParams (or its to_spec() dict) for this request:
+          do_sample / temperature / top_k / top_p / min_p under the
+          (seed, position) key stream, repetition / presence / frequency
+          penalties, stop sequences and a grammar (TokenMaskAutomaton).
+          None takes the engine default (greedy unless the deprecated
+          engine-level do_sample was set).
         Raises EngineBusyError (nothing enqueued) when the admission queue
         is at queue_limit."""
-        if sampling is not None:
-            raise _not_ported("per-request sampling (SamplingParams)",
-                              "A5(c), inference/sampling.py")
         if tenant is not None or priority is not None:
             raise _not_ported("tenant/priority admission",
                               "A5(e), tenants and preemption")
@@ -478,6 +536,19 @@ class ContinuousBatchingEngine(LLMEngine):
                 f"requests at queue_limit={self.queue_limit} "
                 f"({sum(1 for s in self._slots if s)} running); retry "
                 "later or raise queue_limit")
+        sp = (SamplingParams.from_spec(sampling) if sampling is not None
+              else self._default_sampling(self._next_uid))
+        if sp.do_sample and sp.top_k > self.sample_k:
+            raise ValueError(
+                f"sampling.top_k={sp.top_k} exceeds this engine's "
+                f"sample_k={self.sample_k}: the sampled path selects from "
+                "the top-sample_k candidate set (raise sample_k= at engine "
+                "build)")
+        if sp.grammar is not None and \
+                sp.grammar.vocab != self.cfg.vocab_size:
+            raise ValueError(
+                f"grammar automaton vocab {sp.grammar.vocab} != model "
+                f"vocab {self.cfg.vocab_size}")
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms
         deadline = (time.monotonic() + deadline_ms / 1e3
@@ -485,7 +556,9 @@ class ContinuousBatchingEngine(LLMEngine):
         r = Request(self._next_uid, ids, max_new_tokens, eos_token_id,
                     deadline=deadline,
                     ttl_steps=None if ttl_steps is None else int(ttl_steps),
-                    born_step=self.steps)
+                    born_step=self.steps, sampling=sp)
+        if sp.do_sample:
+            self.sampled_requests += 1
         self._next_uid += 1
         self._requests[r.uid] = r
         self._queue.append(r)
@@ -636,6 +709,9 @@ class ContinuousBatchingEngine(LLMEngine):
             "chained_blocks": self.chained_blocks,
             "megakernel": self.megakernel or "off",
             "megakernel_whole_step": self.megakernel == "multi",
+            "sampled_requests": self.sampled_requests,
+            "sample_k": self.sample_k,
+            "sample_fold": self.sample_fold,
         }
 
     def generate_many(self, prompts, max_new_tokens=32, eos_token_id=None):
@@ -851,6 +927,152 @@ class ContinuousBatchingEngine(LLMEngine):
             if idx in r.shared_idx:
                 self._cow(r, idx)
 
+    # -- sampling ------------------------------------------------------------
+    def _default_sampling(self, uid):
+        """The SamplingParams of a request submitted without one: the
+        deprecated engine-level knobs, with the engine seed folded with the
+        request uid (Knuth multiplicative hash), so even defaulted sampled
+        requests draw their own key streams."""
+        dos, temp, tk, tp_ = self._sampling
+        if not dos:
+            return GREEDY
+        return SamplingParams(
+            do_sample=True, temperature=temp, top_k=tk, top_p=tp_,
+            seed=(self._engine_seed ^ ((uid * 2654435761) & 0xFFFFFFFF)))
+
+    @staticmethod
+    def _block_mode(requests):
+        """The math a dispatch needs for these participants: "proc" when
+        any request needs the materialized processor chain, "sampled" when
+        any samples, else "greedy" (no randomness, no extra inputs)."""
+        mode = "greedy"
+        for r in requests:
+            sp = r.sampling
+            if sp.needs_processors:
+                return "proc"
+            if sp.do_sample:
+                mode = "sampled"
+        return mode
+
+    def _row_params(self, rows, mode):
+        """Per-row sampling inputs of a "sampled" / "proc" dispatch as
+        device tensors, assembled fresh from the participants (rows: one
+        Request or None per batch row; empty rows keep neutral values and
+        never emit). Returns a dict: seeds, dos, temp, topk, topp, minp;
+        "proc" adds rep, pres, frq, counts [w, V], gid, gstate and the
+        stacked automaton table / mask [G, S, V] (grammar 0 = allow all)."""
+        n = len(rows)
+        seeds = np.zeros(n, np.int64)
+        dos = np.zeros(n, bool)
+        temp = np.ones(n, np.float32)
+        tkk = np.zeros(n, np.int64)
+        tpp = np.ones(n, np.float32)
+        minp = np.zeros(n, np.float32)
+        for i, r in enumerate(rows):
+            if r is None:
+                continue
+            sp = r.sampling
+            seeds[i] = sp.seed
+            dos[i] = sp.do_sample
+            temp[i] = sp.temperature
+            tkk[i] = sp.top_k
+            tpp[i] = sp.top_p
+            minp[i] = sp.min_p
+        ex = dict(seeds=seeds, dos=dos, temp=temp, topk=tkk, topp=tpp,
+                  minp=minp)
+        if mode == "proc":
+            V = self.cfg.vocab_size
+            rep = np.ones(n, np.float32)
+            pres = np.zeros(n, np.float32)
+            frq = np.zeros(n, np.float32)
+            counts = np.zeros((n, V), np.int32)
+            gid = np.zeros(n, np.int64)
+            gstate = np.zeros(n, np.int64)
+            if self._trivial_gram is None or \
+                    self._trivial_gram.vocab != V:
+                self._trivial_gram = TokenMaskAutomaton.trivial(V)
+            grams = [self._trivial_gram]
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                sp = r.sampling
+                rep[i] = sp.repetition_penalty
+                pres[i] = sp.presence_penalty
+                frq[i] = sp.frequency_penalty
+                for t, c in r.counts.items():
+                    counts[i, t] = c
+                if sp.grammar is not None:
+                    gid[i] = len(grams)
+                    grams.append(sp.grammar)
+                    gstate[i] = r.gstate
+            S = max(g.n_states for g in grams)
+            gtab = np.zeros((len(grams), S, V), np.int64)
+            gmask = np.zeros((len(grams), S, V), bool)
+            gmask[0] = True                # trivial: everything allowed
+            for i, g in enumerate(grams):
+                gtab[i, :g.n_states] = g.table
+                gmask[i, :g.n_states] = g.mask
+            ex.update(rep=rep, pres=pres, frq=frq, counts=counts, gid=gid,
+                      gstate=gstate, gtab=gtab, gmask=gmask)
+        return {k: self._to_dev(v) for k, v in ex.items()}
+
+    def _block_extras(self, blk):
+        """The device sampling inputs of a fused block (None for greedy)."""
+        if blk.mode == "greedy":
+            return None
+        rows = [None] * blk.w
+        for r, _end in blk.pf_items:
+            rows[r.slot] = r
+        for r in blk.dec_items:
+            rows[r.slot] = r
+        return self._row_params(rows, blk.mode)
+
+    def _topk(self, logits):
+        """The top-sample_k (f32 values, ids) of materialized logits, in
+        lax.top_k's order: the same bits as the megakernel's fold."""
+        v, i = top_k(logits, self.sample_k)
+        return v.float(), i
+
+    def _sample_rows(self, ex, positions, mode, logits=None, topv=None,
+                     topi=None, counts=None, gstate=None, noise=None):
+        """The sampled / proc selection of one dispatch: the processor
+        chain over materialized logits ("proc": penalties, then the
+        grammar mask), the top-sample_k candidates, then select_from_topk
+        with each row's key fold_keys(seed, position). counts / gstate
+        default to the dispatch's own (the fused scan passes its carries,
+        and the rows' Gumbel noise drawn for the whole block). Returns [w]
+        int64 tokens on the device."""
+        if logits is not None:
+            if mode == "proc":
+                counts = ex["counts"] if counts is None else counts
+                gstate = ex["gstate"] if gstate is None else gstate
+                logits = apply_penalties(logits.float(), counts, ex["rep"],
+                                         ex["pres"], ex["frq"])
+                logits = torch.where(ex["gmask"][ex["gid"], gstate], logits,
+                                     torch.full_like(logits, NEG))
+            topv, topi = self._topk(logits)
+        keys = None if noise is not None else fold_keys(ex["seeds"],
+                                                         positions)
+        return select_from_topk(topv, topi.long(), keys, ex["dos"],
+                                ex["temp"], ex["topk"], ex["topp"],
+                                ex["minp"], noise=noise)
+
+    def _select_tokens(self, rows, positions, mode, logits=None, topv=None,
+                       topi=None, greedy=None):
+        """Token selection of the per-step (decode_block=1) and chunked-
+        prefill paths: the same math as the fused scan, applied to one
+        dispatch's rows. positions [w] are the absolute positions the new
+        tokens occupy (their key counters). Greedy dispatches take the
+        decode math's own token (or the argmax of the logits). Returns a
+        numpy array."""
+        if mode == "greedy":
+            tok = greedy if greedy is not None else logits.argmax(-1)
+            return tok.cpu().numpy()
+        ex = self._row_params(rows, mode)
+        toks = self._sample_rows(ex, self._to_dev(np.asarray(positions)),
+                                 mode, logits=logits, topv=topv, topi=topi)
+        return toks.cpu().numpy()
+
     # -- math --------------------------------------------------------------
     def _clamp_pos(self, pos):
         """Positions for the rope-table and page-table gathers, clamped to
@@ -876,14 +1098,17 @@ class ContinuousBatchingEngine(LLMEngine):
         wts = torch.softmax(logits.float(), dim=-1).to(q.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", wts, cv)
 
-    def _decode_math(self, tok, tables, lens, active):
+    def _decode_math(self, tok, tables, lens, active, topk=None):
         """One decode step at slot width w = tok.shape[0]: tok [w] is the
         token at position lens [w]; inactive slots write nothing and
         attend nothing (the paged kernel's active mask). Returns (logits
         [w, V], the greedy token [w]): the argmax of the logits, or in
-        "multi" mode the kernel's own."""
+        "multi" mode the kernel's own. topk=K (the sampling fold) returns
+        instead (topv [w, K] f32, topi [w, K]) in lax.top_k's order: in
+        "multi" mode from the kernel's in-kernel fold (no logits), else
+        the top K of the materialized logits (the same bits)."""
         if self.megakernel:
-            return self._decode_math_mk(tok, tables, lens, active)
+            return self._decode_math_mk(tok, tables, lens, active, topk)
         W = self.weights
         p = self.page_size
         w = tok.shape[0]
@@ -902,6 +1127,8 @@ class ContinuousBatchingEngine(LLMEngine):
             h = self._layer_tail(W, wset, h, attn[:, None])
         h = _rms(h, W["norm"], W["eps"])
         logits = _mm(h, W["head"])[:, 0]
+        if topk is not None:
+            return self._topk(logits)
         return logits, logits.argmax(-1)
 
     # -- megakernel ----------------------------------------------------------
@@ -957,33 +1184,42 @@ class ContinuousBatchingEngine(LLMEngine):
             page_size=self.page_size, norm=W["norm"] if whole else None,
             head=W["head"] if whole else None)
 
-    def _mk_walk(self, h, tables, lens, act):
+    def _mk_walk(self, h, tables, lens, act, topk=None):
         """The layers of one decode step through the megakernel: one launch
         ("multi", with the head) or one per layer ("layer"). Returns (h,
-        greedy token or None, logits or None)."""
+        greedy token or None, logits or None), or with topk=K in "multi"
+        mode (h, topv, topi) from the kernel's top-K fold."""
         pack = self._mk_pack
         if self.megakernel == "multi":
-            h, tok, _, logits = decode_megakernel(h, pack, tables, lens, act,
-                                                  head=True)
+            if topk is not None and topk > 1:
+                return decode_megakernel(h, pack, tables, lens, act,
+                                         head=True, head_k=topk)
+            h, tok, maxv, logits = decode_megakernel(h, pack, tables, lens,
+                                                     act, head=True)
+            if topk is not None:       # the top 1: the greedy pair
+                return h, maxv[:, None], tok[:, None]
             return h, tok, logits
         for li in range(pack.n_layers):
             h = decode_megakernel(h, pack, tables, lens, act, layer=li)
         return h, None, None
 
-    def _decode_math_mk(self, tok, tables, lens, active):
+    def _decode_math_mk(self, tok, tables, lens, active, topk=None):
         """_decode_math through the megakernel: the same math and the same
         pool writes. In "layer" mode the final norm and the lm_head stay
         the op chain, as in the reference."""
         W = self.weights
         h = W["emb"][tok].to(self.kv_dtype)
         i32 = torch.int32
-        h, greedy, logits = self._mk_walk(h, tables.to(i32), lens.to(i32),
-                                          active.to(i32))
-        if greedy is None:
-            logits = _mm(_rms(h[:, None], W["norm"], W["eps"]),
-                         W["head"])[:, 0]
-            greedy = logits.argmax(-1)
-        return logits, greedy
+        h, a, b = self._mk_walk(h, tables.to(i32), lens.to(i32),
+                                active.to(i32), topk=topk)
+        if a is not None and topk is not None:
+            return a, b                 # the kernel's (topv, topi)
+        if a is not None:
+            return b, a                 # (logits, the kernel's token)
+        logits = _mm(_rms(h[:, None], W["norm"], W["eps"]), W["head"])[:, 0]
+        if topk is not None:
+            return self._topk(logits)
+        return logits, logits.argmax(-1)
 
     def _prefill_phase(self, ids, tables, starts, ends, pf_act, dense=False):
         """Prefill: every active slot advances one chunk at its own offset
@@ -1021,22 +1257,56 @@ class ContinuousBatchingEngine(LLMEngine):
         h_last = _rms(h_last, W["norm"], W["eps"])
         return _mm(h_last, W["head"])[:, 0]
 
-    def _decode_scan(self, tables, tok, lens, act, rem, eos):
+    def _decode_scan(self, tables, tok, lens, act, rem, eos, mode="greedy",
+                     ex=None):
         """K decode steps with every carry on the device (the reference's
         lax.scan as a loop with no host read): a slot retires on the
         device at its own EOS or budget and stops writing and attending
-        for the rest of the block. Returns (toks [K, w], emitted [K, w],
-        tok, lens, act, rem)."""
+        for the rest of the block. mode "sampled" / "proc" draws every
+        token with fold_keys(seed, lens + 1) from the dispatch's sampling
+        inputs `ex`; "proc" carries the penalty counts and grammar states
+        (the host recomputes both in _push_token). Returns (toks [K, w],
+        emitted [K, w], tok, lens, act, rem)."""
         toks, emitted = [], []
-        for _ in range(self.decode_block):
-            _, greedy = self._decode_math(tok, tables, lens, act)
-            nxt = torch.where(act, greedy, tok)
-            emitted.append(act)
+        K = self.decode_block
+        fold = mode == "sampled" and self.sample_fold
+        counts = gstate = noise = None
+        if mode != "greedy":
+            # every micro-step's key and Gumbel noise in one draw: the row
+            # fed at lens + k (while active) emits at position lens + 1 + k;
+            # a row's noise after it retires is never used
+            ks = self._ar(K)[:, None]
+            keys = fold_keys(ex["seeds"].expand(K, -1), lens[None] + 1 + ks)
+            noise = gumbel(keys, (self.sample_k,))
+        if mode == "proc":
+            counts, gstate = ex["counts"].clone(), ex["gstate"].clone()
+            rows = self._ar(tok.shape[0])
+        for k in range(K):
+            if mode == "greedy":
+                _, nxt = self._decode_math(tok, tables, lens, act)
+            elif fold:
+                topv, topi = self._decode_math(tok, tables, lens, act,
+                                               topk=self.sample_k)
+                nxt = self._sample_rows(ex, None, mode, topv=topv, topi=topi,
+                                        noise=noise[k])
+            else:
+                logits, _ = self._decode_math(tok, tables, lens, act)
+                nxt = self._sample_rows(ex, None, mode, logits=logits,
+                                        counts=counts, gstate=gstate,
+                                        noise=noise[k])
+            nxt = torch.where(act, nxt.to(tok.dtype), tok)
+            emit = act
+            emitted.append(emit)
             rem = torch.where(act, rem - 1, rem)
             lens = torch.where(act, lens + 1, lens)
             act = act & (rem > 0) & (nxt != eos)
             tok = nxt
             toks.append(nxt)
+            if mode == "proc":
+                counts = counts.index_put((rows, nxt), emit.to(counts.dtype),
+                                          accumulate=True)
+                gstate = torch.where(emit, ex["gtab"][ex["gid"], gstate, nxt],
+                                     gstate)
         return torch.stack(toks), torch.stack(emitted), tok, lens, act, rem
 
     def _to_dev(self, a):
@@ -1062,10 +1332,12 @@ class ContinuousBatchingEngine(LLMEngine):
         if end < r.t0:
             return
         # prompt complete: publish full prompt pages to the prefix cache
-        # (before the first decode write), then take the first token
+        # (before the first decode write), then take the first token; it
+        # enters position t0, its key counter
         self._publish_prefix(r)
         t_dev = time.perf_counter()
-        tok = int(logits.argmax(-1)[0])
+        tok = self._select_tokens([r], [r.t0], self._block_mode([r]),
+                                  logits=logits)[0]
         self.dispatch_seconds += time.perf_counter() - t_dev
         self._lens_np[r.slot] = r.t0
         r.state = DECODE
@@ -1094,13 +1366,25 @@ class ContinuousBatchingEngine(LLMEngine):
             self._tok_np[r.slot] = r.tok
         w = self._bucket(max(r.slot for r in decodes))
         active = np.zeros(w, bool)
+        rows = [None] * w
         for r in decodes:
             active[r.slot] = True
+            rows[r.slot] = r
+        mode = self._block_mode(decodes)
+        fold = mode == "sampled" and self.sample_fold
+        # the token fed at position lens enters position lens + 1: its key
+        # counter
+        positions = self._lens_np[:w] + 1
         t_dev = time.perf_counter()
-        _, greedy = self._decode_math(
+        a, b = self._decode_math(
             self._to_dev(self._tok_np[:w]), self._to_dev(self._tables_np[:w]),
-            self._to_dev(self._lens_np[:w]), self._to_dev(active))
-        toks = greedy.cpu().numpy()
+            self._to_dev(self._lens_np[:w]), self._to_dev(active),
+            topk=self.sample_k if fold else None)
+        if fold:
+            toks = self._select_tokens(rows, positions, mode, topv=a, topi=b)
+        else:
+            toks = self._select_tokens(rows, positions, mode, logits=a,
+                                       greedy=b)
         self.dispatch_seconds += time.perf_counter() - t_dev
         for r in decodes:
             self._lens_np[r.slot] += 1
@@ -1189,20 +1473,29 @@ class ContinuousBatchingEngine(LLMEngine):
             blk.dec_items.append(r)
         blk.has_prefill = bool(prefills)
         blk.has_decode = bool(decodes)
+        blk.mode = self._block_mode(prefills + decodes)
+        blk.extras = self._block_extras(blk)
         blk.tables = self._to_dev(self._tables_np[:w])
         blk.eos_dev = self._to_dev(eos)
         t_dev = time.perf_counter()
         if blk.has_prefill:
+            pf_end_dev = self._to_dev(pf_end)
             logits = self._prefill_phase(
                 self._to_dev(pf_ids), blk.tables, self._to_dev(pf_start),
-                self._to_dev(pf_end), self._to_dev(pf_act))
-            blk.first = logits.argmax(-1)
+                pf_end_dev, self._to_dev(pf_act))
+            if blk.mode == "greedy":
+                blk.first = logits.argmax(-1)
+            else:
+                # the chunk's last token sits at pf_end - 1; the token it
+                # emits enters position pf_end, its key counter
+                blk.first = self._sample_rows(blk.extras, pf_end_dev,
+                                              blk.mode, logits=logits)
         if blk.has_decode:
             (blk.toks, blk.emitted, blk.tok_fin, blk.lens_fin, blk.act_fin,
              blk.rem_fin) = self._decode_scan(
                 blk.tables, self._to_dev(self._tok_np[:w]),
                 self._to_dev(self._lens_np[:w]), self._to_dev(act),
-                self._to_dev(rem), blk.eos_dev)
+                self._to_dev(rem), blk.eos_dev, blk.mode, blk.extras)
         self.dispatch_seconds += time.perf_counter() - t_dev
         self.fused_blocks += 1
         # steps advance by the block's device micro-steps, so TTLs stay
@@ -1225,6 +1518,11 @@ class ContinuousBatchingEngine(LLMEngine):
             return False
         if any(s is not None and s.state == PREFILL for s in self._slots):
             return False
+        if blk.mode == "proc":
+            # penalty counts and grammar states advance on the host in
+            # _push_token; a chained block would run the processor chain
+            # against stale state
+            return False
         ok = False
         for r in blk.dec_items:
             if r.state != DECODE:
@@ -1232,6 +1530,10 @@ class ContinuousBatchingEngine(LLMEngine):
             if r.deadline is not None or r.ttl_steps is not None:
                 return False
             if r.shared_idx:
+                return False
+            if r.sampling.stop:
+                # stop sequences retire on the host; a chained block would
+                # keep writing KV into pages the retirement frees
                 return False
             if r.max_new_tokens - len(r.out) > blk.K:
                 ok = True
@@ -1247,11 +1549,13 @@ class ContinuousBatchingEngine(LLMEngine):
         nxt.tables = blk.tables
         nxt.eos_dev = blk.eos_dev
         nxt.has_decode = True
-        t_dev = time.perf_counter()
+        nxt.mode = blk.mode             # sampling inputs are static across
+        nxt.extras = blk.extras         # a chain; the key counters ride the
+        t_dev = time.perf_counter()     # device lens
         (nxt.toks, nxt.emitted, nxt.tok_fin, nxt.lens_fin, nxt.act_fin,
          nxt.rem_fin) = self._decode_scan(
             blk.tables, blk.tok_fin, blk.lens_fin, blk.act_fin, blk.rem_fin,
-            blk.eos_dev)
+            blk.eos_dev, nxt.mode, nxt.extras)
         self.dispatch_seconds += time.perf_counter() - t_dev
         self.fused_blocks += 1
         self.chained_blocks += 1
@@ -1294,8 +1598,19 @@ class ContinuousBatchingEngine(LLMEngine):
         tok = int(tok)
         r.out.append(tok)
         r.tok = tok
+        if r.sampling.needs_processors:
+            # host-authoritative processor state (the fused scan's carries
+            # are recomputed here)
+            r.counts[tok] = r.counts.get(tok, 0) + 1
+            g = r.sampling.grammar
+            if g is not None:
+                r.gstate = int(g.advance(r.gstate, tok))
         if (r.eos_token_id is not None and tok == r.eos_token_id) or \
                 len(r.out) >= r.max_new_tokens:
+            self._retire(r)
+        elif r.sampling.stop and stop_hit(r.out, r.sampling.stop):
+            # stop sequences retire here, on the host: the device scan does
+            # not see them (so _can_chain refuses blocks that carry any)
             self._retire(r)
 
     # -- retirement / failure ----------------------------------------------

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from . import sampling
 from ..models.generation import _sample
 from ..models.llama import LlamaForCausalLM, _rope_cache
 from ..ops.pallas.flash_attention import flash_attention_fwd
@@ -549,21 +550,31 @@ class LLMEngine:
         need = -(-max(t_pad, t0 + 1 + max(n_rest, n_loop))
                  // self.page_size)
         tables_np, seq_pages = self._claim_pages(b, need)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        # the reference's key flow: key(seed), then one split before every
+        # token (the prefill token included); the device loop continues
+        # the same chain
+        key = sampling.key(seed, device=self.device)
+
+        def draw(logits):
+            nonlocal key
+            if do_sample:
+                key, sub = sampling.split(key)
+            else:
+                sub = None
+            return _sample(logits, sub, do_sample, temperature, top_k, top_p)
+
         ok = False
         try:
             tables = torch.as_tensor(tables_np, device=self.device)
             logits = self._prefill(ids_t, tables, t0)
-            tok = _sample(logits, gen, do_sample, temperature, top_k, top_p)
+            tok = draw(logits)
             lens = torch.full((b,), t0, dtype=torch.int64,
                               device=self.device)
             if device_loop and n_rest > 0:
                 toks = [tok]
                 for _ in range(n_loop):
                     logits = self._step(tok, tables, lens)
-                    tok = _sample(logits, gen, do_sample, temperature,
-                                  top_k, top_p)
+                    tok = draw(logits)
                     lens = lens + 1
                     toks.append(tok)
                 out = [torch.stack(toks, 1).cpu().numpy()[:, :1 + n_rest]]
@@ -578,8 +589,7 @@ class LLMEngine:
                     if eos_token_id is not None and done.all():
                         break
                     logits = self._step(tok, tables, lens)
-                    tok = _sample(logits, gen, do_sample, temperature,
-                                  top_k, top_p)
+                    tok = draw(logits)
                     lens = lens + 1
                     out.append(tok.cpu().numpy()[:, None])
                     if eos_token_id is not None:

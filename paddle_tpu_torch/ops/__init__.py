@@ -4,7 +4,9 @@ Every wrapper counts the launches of its CUDA kernel in a plain integer
 (`wrapper.launches`), raised by one where it launches the kernel and
 nowhere else: a CPU call (the plain version) does not count. A run shows
 that it went through the kernels by resetting the counts, running, and
-reading `kernel_launches()`.
+reading `kernel_launches()`. The decode megakernel's top-K fold (its
+`head_k > 1` branch) is also counted on its own, as
+"decode_megakernel_topk" (those launches are in "decode_megakernel" too).
 """
 from .pallas.decode_megakernel import decode_megakernel
 from .pallas.flash_attention import flash_attention_bwd, flash_attention_fwd
@@ -25,9 +27,12 @@ _WRAPPERS = {
 
 def kernel_launches():
     """{kernel name: launches since the last reset}."""
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    out = {name: fn.launches for name, fn in _WRAPPERS.items()}
+    out["decode_megakernel_topk"] = decode_megakernel.fold_launches
+    return out
 
 
 def reset_kernel_launches():
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    decode_megakernel.fold_launches = 0

@@ -3,7 +3,8 @@ in whole-step mode, the final norm, the lm_head and the greedy argmax) in
 one kernel launch.
 
 Counterpart of `paddle_tpu/ops/pallas/decode_megakernel.py`. The Pallas TPU
-kernel `_mk_kernel` (seg "full", tq = 1, the greedy head) is replaced by
+kernel `_mk_kernel` (seg "full", tq = 1, the greedy head and the top-K
+fold of `head_k > 1`) is replaced by
 `csrc/decode_megakernel.cu`, a persistent cooperative CUDA kernel; the plain
 PyTorch version `decode_megakernel_reference` beside it serves CPU tensors
 and is the yardstick the kernel is held against on the card.
@@ -27,12 +28,15 @@ table[r, lens // p] * p + lens % p before attending (inactive slots write
 the pool's scratch row and attend nothing); attention covers lens + 1
 positions. With head=True the call also returns the greedy token (argmax
 over the logits cast to the compute dtype, the first maximum winning), its
-logit as f32, and the [R, V] logits.
+logit as f32, and the [R, V] logits. With head_k = K > 1 (the sampling
+fold) it returns instead the top K of each row of those cast logits as
+(topv [R, K] f32, topi [R, K] int32), ordered value descending with ties
+to the smaller vocab id (`lax.top_k`'s order, bit for bit: selection only,
+no arithmetic), and no [R, V] logits buffer is allocated or written.
 
 Not ported yet (ROADMAP B6): the tq > 1 speculative-verify schedule (with
-speculation, A5(d)), the head_k > 1 sampled top-K fold (with
-inference/sampling.py, A5(c)) and the tensor-parallel segments qkv / tail /
-down (with inference/tp.py, A7.10).
+speculation, A5(d)) and the tensor-parallel segments qkv / tail / down
+(with inference/tp.py, A7.10).
 """
 import ctypes
 import math
@@ -45,8 +49,10 @@ from .quantized_matmul import quantized_matmul_reference
 from .rms_norm import rms_rows
 
 MAX_ROWS = 8            # slot rows per launch (the kernel's register sums)
+MAX_HEAD_K = 128        # longest top-K list of the fold
 MAX_SMEM = 232448       # dynamic shared memory one H100 block may use
 _AUX_SMEM = 10592       # the kernel's shared memory besides the [R, H] rows
+_FOLD_SMEM = 6 * MAX_ROWS * MAX_HEAD_K * 4   # the fold's lists (head_k > 1)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "wg", "wu", "wd")
 PTRS = 18               # addresses per row of the pointer table
@@ -62,7 +68,7 @@ def megakernel_supported(nh, nh_kv, hd, hidden, ffn):
         return False
     return (hd % 16 == 0 and hd <= MAX_D and (nh // nh_kv) * hd <= MAX_REP_D
             and nh * hd == hidden
-            and MAX_ROWS * hidden * 2 + _AUX_SMEM <= MAX_SMEM)
+            and MAX_ROWS * hidden * 2 + _AUX_SMEM + _FOLD_SMEM <= MAX_SMEM)
 
 
 def megakernel_weight_bytes(pack):
@@ -187,6 +193,19 @@ class MegakernelPack:
             self._scratch[R] = s
         return s
 
+    def fold_scratch(self, R, K):
+        """The top-K fold's per-block lists ([max_grid, R, K] values and
+        ids), allocated once per (R, K)."""
+        s = self._scratch.get((R, K))
+        if s is None:
+            shape = (self.max_grid, R, K)
+            s = dict(fold_v=torch.empty(shape, dtype=torch.float32,
+                                        device=self.device),
+                     fold_i=torch.empty(shape, dtype=torch.int32,
+                                        device=self.device))
+            self._scratch[(R, K)] = s
+        return s
+
     @property
     def max_grid(self):
         """Blocks a launch may use: 8 per SM (2048 threads / 256)."""
@@ -198,11 +217,12 @@ class _MkArgs(ctypes.Structure):
     """PttMkArgs of csrc/decode_megakernel.cu, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "ptrs", "h", "qkv", "attn", "act", "table", "lens", "active", "cos",
-        "sin", "logits", "tok", "maxv", "part_v", "part_i")] + \
+        "sin", "logits", "tok", "maxv", "part_v", "part_i", "topv", "topi",
+        "fold_v", "fold_i")] + \
         [(n, ctypes.c_int) for n in (
             "layer0", "n_layers", "head_row", "R", "H", "nh", "nh_kv", "hd",
             "F", "V", "p", "n_pages", "max_pages", "oob", "max_len",
-            "max_grid")] + \
+            "max_grid", "head_k")] + \
         [("eps", ctypes.c_float), ("scale", ctypes.c_float)]
 
 
@@ -214,14 +234,29 @@ def _proj(x, w):
     return x @ w.to(x.dtype)
 
 
+def head_outputs(R, V, head_k, dtype, device):
+    """The output buffers a head launch writes: the greedy head's token,
+    logit and [R, V] logits, or for head_k > 1 only the top-K values and
+    ids (no logits buffer: the fold's point is that the row never
+    exists)."""
+    i32, f32 = torch.int32, torch.float32
+    if head_k > 1:
+        return dict(topv=torch.empty((R, head_k), dtype=f32, device=device),
+                    topi=torch.empty((R, head_k), dtype=i32, device=device))
+    return dict(logits=torch.empty((R, V), dtype=dtype, device=device),
+                tok=torch.empty((R,), dtype=i32, device=device),
+                maxv=torch.empty((R,), dtype=f32, device=device))
+
+
 def decode_megakernel_reference(h, pack, tables, lens, active, layer=None,
-                                head=False):
+                                head=False, head_k=1):
     """Plain version: the engine's op chain (inference/serving.py
     `_layer_qkv` / `_layer_tail`, scheduler.py `_decode_math`) with the
     same cast points: norms in serving order, projections emitted in h's
     dtype, the half-split rope with each product rounded, the pool write,
     `paged_attention_reference`, SiLU in f32 then cast, argmax over the
-    cast logits. Updates h and the pools in place."""
+    cast logits (head_k > 1: a stable top-K of them, then f32). Updates h
+    and the pools in place."""
     R = h.shape[0]
     p = pack.page_size
     nh, nh_kv, hd = pack.nh, pack.nh_kv, pack.hd
@@ -261,17 +296,25 @@ def decode_megakernel_reference(h, pack, tables, lens, active, layer=None,
     if not head:
         return h
     logits = _proj(rms_rows(h, pack.norm, pack.eps), pack.head)
+    if head_k > 1:
+        # imported here: the inference package imports this module
+        from ...inference.sampling import top_k
+        topv, topi = top_k(logits, head_k)
+        return h, topv.float(), topi.to(torch.int32)
     tok = logits.argmax(-1).to(torch.int32)
     return h, tok, logits.max(-1).values.float(), logits
 
 
-def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False):
+def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False,
+                      head_k=1):
     """One decode step's layers through the megakernel. h [R, H] in the
     pack's dtype (updated in place); tables [R, max_pages], lens [R]
     (tokens cached before this step), active [R]. layer=None runs every
     layer in one launch, layer=i only layer i. head=True (whole-step mode,
     every layer) adds the final norm, the lm_head and the greedy argmax and
     returns (h, tok [R] int32, maxv [R] f32, logits [R, V]); else h.
+    head_k = K in [2, min(128, V)] replaces the argmax by the running
+    top-K fold and returns (h, topv [R, K] f32, topi [R, K] int32).
 
     A CPU tensor takes the plain version. A CUDA tensor launches
     `csrc/decode_megakernel.cu` (cooperatively, one block per SM times the
@@ -289,9 +332,15 @@ def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False):
                          "with the lm_head, and every layer (layer=None)")
     if layer is not None and not 0 <= layer < pack.n_layers:
         raise ValueError(f"decode_megakernel: no layer {layer}")
+    head_k = int(head_k)
+    if head_k != 1 and not (head and 1 <= head_k <= min(MAX_HEAD_K,
+                                                          pack.V)):
+        raise ValueError(
+            f"decode_megakernel: head_k must be in [1, min({MAX_HEAD_K}, "
+            f"V={pack.V})] and needs head=True; got {head_k}")
     if h.device.type == "cpu":
         return decode_megakernel_reference(h, pack, tables, lens, active,
-                                           layer, head)
+                                           layer, head, head_k)
     if h.device.type != "cuda":
         raise ValueError(f"decode_megakernel: unsupported device {h.device}")
     if h.device != pack.device or h.dtype != pack.dtype \
@@ -313,12 +362,10 @@ def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False):
     table = tables.to(device=dev, dtype=i32).contiguous()
     lens_i = lens.to(device=dev, dtype=i32).contiguous()
     act_i = active.to(device=dev, dtype=i32).contiguous()
-    scr = pack.scratch(R)
-    out = {}
-    if head:
-        out = dict(logits=torch.empty((R, pack.V), dtype=h.dtype, device=dev),
-                   tok=torch.empty((R,), dtype=i32, device=dev),
-                   maxv=torch.empty((R,), dtype=torch.float32, device=dev))
+    scr = dict(pack.scratch(R))
+    out = head_outputs(R, pack.V, head_k, h.dtype, dev) if head else {}
+    if head_k > 1:
+        scr.update(pack.fold_scratch(R, head_k))
     args = _MkArgs(
         ptrs=pack.ptrs.data_ptr(), h=h.data_ptr(), table=table.data_ptr(),
         lens=lens_i.data_ptr(), active=act_i.data_ptr(),
@@ -330,8 +377,8 @@ def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False):
         head_row=pack.n_layers if head else -1, R=R, H=pack.H, nh=pack.nh,
         nh_kv=pack.nh_kv, hd=pack.hd, F=pack.F, V=pack.V, p=pack.page_size,
         n_pages=pack.n_pages, max_pages=table.shape[1], oob=pack.oob,
-        max_len=pack.max_len, max_grid=pack.max_grid, eps=pack.eps,
-        scale=1.0 / math.sqrt(pack.hd))
+        max_len=pack.max_len, max_grid=pack.max_grid, head_k=head_k,
+        eps=pack.eps, scale=1.0 / math.sqrt(pack.hd))
     grid = ctypes.c_int(0)
     lib = _build.library()
     code = lib.ptt_decode_megakernel(
@@ -339,11 +386,18 @@ def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False):
         _build.stream_ptr(dev), ctypes.byref(grid))
     _build.check(code, "decode_megakernel")
     decode_megakernel.launches += 1
+    if head_k > 1:
+        decode_megakernel.fold_launches += 1
     decode_megakernel.grid = grid.value
+    decode_megakernel.outputs = tuple(sorted(out))
     if not head:
         return h
+    if head_k > 1:
+        return h, out["topv"], out["topi"]
     return h, out["tok"], out["maxv"], out["logits"]
 
 
 decode_megakernel.launches = 0
+decode_megakernel.fold_launches = 0   # launches with head_k > 1 (of .launches)
 decode_megakernel.grid = None     # blocks of the last launch
+decode_megakernel.outputs = ()    # output buffers the last launch allocated

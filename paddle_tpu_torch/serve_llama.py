@@ -1,18 +1,23 @@
 """Serve LLaMA through paddle_tpu_torch's engines.
 
 Two modes of `examples/serve_llama.py`. The default: one batch of random
-prompts, greedy, `LLMEngine.generate(device_loop=True)`. `--scheduler`:
-three ragged requests through `ContinuousBatchingEngine`, the second
-sharing the first's prompt prefix (prefix-cache hits), greedy. Weights are
-random, drawn from a seed.
+prompts, `LLMEngine.generate(device_loop=True)`. `--scheduler`: three
+ragged requests through `ContinuousBatchingEngine`, the second sharing the
+first's prompt prefix (prefix-cache hits). Greedy unless `--temperature` is
+given: then every request samples (request i with seed `--seed` + i, its
+own key stream), or every other one with `--sample-rotate` (a mixed
+greedy / sampled batch). Weights are random, drawn from a seed.
 
     python -m paddle_tpu_torch.serve_llama --model 7b --quant int8
     python -m paddle_tpu_torch.serve_llama --scheduler --decode-block 8
     python -m paddle_tpu_torch.serve_llama --model 7b --scheduler \
         --decode-block 8 --megakernel multi
     python -m paddle_tpu_torch.serve_llama --model tiny --device cpu
+    python -m paddle_tpu_torch.serve_llama --scheduler --megakernel multi \
+        --decode-block 4 --temperature 0.8 --top-k 6 --top-p 0.95 --seed 42
 """
 import argparse
+import warnings
 
 import numpy as np
 import torch
@@ -57,7 +62,30 @@ def main(argv=None):
                     help="--scheduler: decode through the megakernel, one "
                          "launch per layer or per step (auto: per layer on "
                          "CUDA where the kernel takes the model)")
+    ap.add_argument("--temperature", type=float, default=None,
+                    help="sampled decoding: softmax temperature (unset = "
+                         "greedy). With --scheduler --megakernel multi the "
+                         "top-K candidates come out of the whole-step "
+                         "kernel and the [batch, vocab] logits never exist")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sampled decoding: keep the k most likely tokens "
+                         "(0 = no cut; at most the engine's sample_k in "
+                         "--scheduler mode)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="sampled decoding: nucleus cutoff (1.0 = off)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="sampled decoding: base seed; in --scheduler mode "
+                         "request i draws from seed + i")
+    ap.add_argument("--sample-rotate", action="store_true",
+                    help="--scheduler: alternate sampled and greedy "
+                         "requests (a mixed batch; needs --temperature)")
     args = ap.parse_args(argv)
+    if args.temperature is None and (args.top_k or args.top_p != 1.0
+                                     or args.seed or args.sample_rotate):
+        warnings.warn(
+            "--top-k/--top-p/--seed/--sample-rotate do nothing without "
+            "--temperature (decoding stays greedy); set --temperature to "
+            "sample", DeprecationWarning, stacklevel=1)
 
     g = GEOMETRIES[args.model]
     device = resolve_device(args.device)
@@ -77,16 +105,28 @@ def main(argv=None):
     rng = np.random.RandomState(0)
     prompts = rng.randint(0, g["cfg"].vocab_size,
                           (g["bs"], args.prompt_len)).astype(np.int64)
+    sample_kw = {}
+    if args.temperature is not None:
+        sample_kw = dict(do_sample=True, temperature=args.temperature,
+                         top_k=args.top_k, top_p=args.top_p, seed=args.seed)
     out = engine.generate(prompts, max_new_tokens=args.max_new_tokens,
-                          device_loop=True)
+                          device_loop=True, **sample_kw)
     print(f"model={args.model} quant={args.quant} "
           f"prompt={prompts.shape} -> generated={out.shape}")
     print("first sequence tail:", out[0, -args.max_new_tokens:].tolist())
 
 
+def sampling_for(args, i):
+    """The sampling spec of demo request i (None: greedy)."""
+    if args.temperature is None or (args.sample_rotate and i % 2 == 1):
+        return None
+    return {"do_sample": True, "temperature": args.temperature,
+            "top_k": args.top_k, "top_p": args.top_p, "seed": args.seed + i}
+
+
 def serve_scheduler(args, g, model, quant, weight_dtype, device):
-    """Three ragged greedy requests; request 1 is the first page of
-    request 0's prompt and arrives once request 0 has published it."""
+    """Three ragged requests; request 1 is the first page of request 0's
+    prompt and arrives once request 0 has published it."""
     engine = ContinuousBatchingEngine(
         model, max_len=g["max_len"], page_size=g["page"],
         max_batch=max(2, g["bs"]), quant=quant, weight_dtype=weight_dtype,
@@ -103,12 +143,14 @@ def serve_scheduler(args, g, model, quant, weight_dtype, device):
     # it on its first write (its last prompt token re-runs there)
     prompts = [base, base[:page],
                rng.randint(0, g["cfg"].vocab_size, (5,)).astype(np.int64)]
-    submitted = [(0, engine.add_request(prompts[0], args.max_new_tokens))]
+    submitted = [(0, engine.add_request(prompts[0], args.max_new_tokens,
+                                        sampling=sampling_for(args, 0)))]
     while engine.status(submitted[0][1]) in ("queued", "prefill"):
         engine.step()            # request 0 publishes its prompt pages
     for i, p in enumerate(prompts[1:], start=1):
         try:
-            submitted.append((i, engine.add_request(p, args.max_new_tokens)))
+            submitted.append((i, engine.add_request(
+                p, args.max_new_tokens, sampling=sampling_for(args, i))))
         except EngineBusyError as e:
             print(f"  request {i} shed by backpressure: {e}")
     engine.drain()
@@ -120,7 +162,8 @@ def serve_scheduler(args, g, model, quant, weight_dtype, device):
           f"{len(submitted)} ragged requests in {h['steps']} steps "
           f"({h['prefill_steps']} prefill / {h['decode_steps']} decode), "
           f"{fused}{h['prefix_hits']} prefix-page hits, "
-          f"{h['cow_copies']} copy-on-writes")
+          f"{h['cow_copies']} copy-on-writes, "
+          f"{h['sampled_requests']} sampled")
     for i, u in submitted:
         try:
             o = engine.result(u)

@@ -24,6 +24,7 @@ for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
 importlib.import_module("paddle_tpu_torch.serve_llama")
 importlib.import_module("paddle_tpu_torch.train_llama")
+assert "paddle_tpu_torch.inference.sampling" in sys.modules
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))
@@ -38,7 +39,7 @@ def test_import_loads_neither_jax_nor_paddle_tpu():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     n_loaded = int(r.stdout.split("LOADED ")[1].split()[0])
-    assert n_loaded >= 12, r.stdout
+    assert n_loaded >= 13, r.stdout
 
 
 _FORBIDDEN = re.compile(
@@ -88,7 +89,9 @@ def test_cb_engine_refuses_cpu_without_being_asked():
 def test_kernel_wrappers_count_only_kernel_launches():
     """CPU tensors take the plain versions, which launch nothing; a
     training step (every norm, attention forward and backward) and
-    megakernel decode steps on the CPU launch nothing either."""
+    megakernel decode steps on the CPU, greedy and sampled through the
+    top-K fold, launch nothing either."""
+    from paddle_tpu_torch.inference.sampling import SamplingParams
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     from paddle_tpu_torch.models import SpmdTrainer
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -106,11 +109,15 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                    max_batch=2, megakernel="multi",
                                    device="cpu")
     eng.generate_many([np.arange(5), np.arange(3)], max_new_tokens=3)
+    eng.add_request(np.arange(4), 3,
+                    sampling=SamplingParams(do_sample=True, seed=1))
+    eng.drain()
     assert kernel_launches() == {"quantized_matmul": 0, "paged_attention": 0,
                                  "flash_attention_fwd": 0,
                                  "ragged_paged_attention": 0, "rms_norm": 0,
                                  "flash_attention_bwd": 0,
-                                 "decode_megakernel": 0}
+                                 "decode_megakernel": 0,
+                                 "decode_megakernel_topk": 0}
 
 
 def test_training_entry_points_refuse_cpu_without_being_asked():

@@ -9,7 +9,10 @@ same int8 values and scales on both sides), one layer and a 2-layer whole
 step with the head: h, the k/v rows and the logits within 1e-5 in f32 (the
 two sum in other orders), the greedy token exactly equal. The first-max-
 wins tie rule is pinned on a constructed tie (exact: identical columns give
-identical logits).
+identical logits). The top-K fold (head_k = 8): ids exactly equal to the
+JAX kernel's, values within 1e-5 of them, and both bit for bit a stable
+top-K of the port's own logits; constructed ties come out id-ascending;
+no logits buffer is part of a fold launch's outputs.
 
 Engine level (exact): greedy ids of the port's engine with megakernel
 "layer" and "multi" at decode_block 1 and 8 equal the JAX engine's with
@@ -96,7 +99,7 @@ def _jax_w(w):
     return jnp.asarray(w)
 
 
-def _run_jax(st, act, head):
+def _run_jax(st, act, head, head_k=None):
     L = len(st["layers"])
     packs = [pack_decode_layer({k: _jax_w(v) for k, v in ws.items()})
              for ws in st["layers"]]
@@ -106,7 +109,8 @@ def _run_jax(st, act, head):
     kw = dict(nh=NH, nh_kv=NH_KV, hd=HD, eps=EPS, interpret=True)
     if head:
         kw.update(head=pack_lm_head(_jax_w(st["head"]),
-                                    jnp.asarray(st["norm"])), head_v=V)
+                                    jnp.asarray(st["norm"])), head_v=V,
+                  head_k=head_k)
     out = jax_megakernel(jnp.asarray(st["h"]), mk, jnp.asarray(kpg),
                          jnp.asarray(vpg), jnp.asarray(st["tbl"]),
                          jnp.asarray(LENS.astype(np.int32)),
@@ -149,12 +153,12 @@ def _slots(st, act):
     return np.where(act > 0, s, N_PAGES * P)
 
 
-def _run_port(st, act, head, layer=None):
+def _run_port(st, act, head, layer=None, head_k=1):
     pack = _port_pack(st, head)
     h = torch.tensor(st["h"])
     args = (h, pack, torch.tensor(st["tbl"]), torch.tensor(LENS),
             torch.tensor(act))
-    out = decode_megakernel(*args, head=True) if head else \
+    out = decode_megakernel(*args, head=True, head_k=head_k) if head else \
         decode_megakernel(*args, layer=layer)
     return pack, out
 
@@ -226,6 +230,59 @@ def test_head_argmax_tie_rule():
     assert tok.tolist() == [3, 3]
     tok_j = _run_jax(st, act, head=True)[3]
     assert tok_j.tolist() == [3, 3]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+def test_topk_fold_matches_jax(quant):
+    """head_k = 8 on a 2-layer whole step. Exact: the ids equal the JAX
+    kernel's (head_k=8, interpret mode); (topv, topi) equal bit for bit a
+    stable top-8 of the port's own head_k=1 logits, column 0 its greedy
+    pair. Tolerance 1e-5 (f32, other summation orders): the values against
+    JAX's."""
+    act = np.array([1, 1])
+    st = _kstate(2, quant, seed=1)
+    _, _, _, ids_j, vals_j = _run_jax(st, act, head=True, head_k=8)
+    _, (h, topv, topi) = _run_port(st, act, head=True, head_k=8)
+    _, (h1, tok, maxv, logits) = _run_port(st, act, head=True)
+    assert topv.dtype == torch.float32 and topi.dtype == torch.int32
+    assert tuple(topv.shape) == (B, 8) and tuple(topi.shape) == (B, 8)
+    np.testing.assert_array_equal(topi.numpy(), ids_j)
+    np.testing.assert_allclose(topv.numpy(), vals_j, atol=TOL, rtol=0)
+    assert torch.equal(h, h1)
+    sv, si = torch.sort(logits, dim=-1, descending=True, stable=True)
+    assert torch.equal(topv, sv[:, :8].float())
+    assert torch.equal(topi, si[:, :8].int())
+    assert torch.equal(topi[:, 0], tok) and torch.equal(topv[:, 0], maxv)
+
+
+def test_topk_fold_ties_and_no_logits_buffer():
+    """Exact: five identical head columns (3, 9 in one slab, 33, 40 and 49
+    in the next) made each row's largest logit come out id-ascending at
+    the front of the top-8, as in the JAX kernel; a fold launch's outputs
+    hold only topv and topi (no [R, V] logits), and head_k outside
+    [1, min(128, V)] raises."""
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import head_outputs
+    act = np.array([1, 1])
+    st = _kstate(1, quant=False, seed=2)
+    _, (h, _, _, _) = _run_port(st, act, head=True)
+    xn = rms_rows(h, torch.tensor(st["norm"]), EPS).numpy()
+    st = _kstate(1, quant=False, seed=2)
+    st["head"] *= 0.01
+    ties = (3, 9, 33, 40, 49)
+    for c in ties:
+        st["head"][:, c] = xn[0] + xn[1]
+    _, (_, topv, topi) = _run_port(st, act, head=True, head_k=8)
+    assert topi[:, :5].tolist() == [list(ties)] * 2
+    assert (topv[:, :5] == topv[:, :1]).all()
+    ids_j = _run_jax(st, act, head=True, head_k=8)[3]
+    np.testing.assert_array_equal(topi.numpy(), ids_j)
+    outs = head_outputs(2, V, 8, torch.float32, "cpu")
+    assert sorted(outs) == ["topi", "topv"]
+    assert sorted(head_outputs(2, V, 1, torch.float32, "cpu")) == \
+        ["logits", "maxv", "tok"]
+    for bad in (0, 129, V + 1):
+        with pytest.raises(ValueError, match="head_k"):
+            _run_port(st, act, head=True, head_k=bad)
 
 
 # ---------------------------------------------------------------- engine
@@ -337,13 +394,17 @@ def test_knob_resolution_health_and_refusals():
     with pytest.raises(ValueError, match="megakernel must be"):
         ContinuousBatchingEngine(tm, device="cpu", megakernel="whole",
                                  **ENGINE_KW)
-    # the features a forced megakernel would compose with are not ported
+    # the features a forced megakernel would compose with: sampling is
+    # ported (the engine-level knob is deprecated), the others are not
     for kw, item in ((dict(speculate=4), "A5\\(d\\)"),
-                     (dict(do_sample=True), "A5\\(c\\)"),
                      (dict(adapters=True), "A7.2")):
         with pytest.raises(NotImplementedError, match=item):
             ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
                                      **kw, **ENGINE_KW)
+    with pytest.warns(DeprecationWarning):
+        eng = ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
+                                       do_sample=True, **ENGINE_KW)
+    assert eng.megakernel == "multi" and eng.sample_k == 8
     with pytest.raises(ValueError, match="tp"):
         ContinuousBatchingEngine(tm, device="cpu", megakernel="multi", tp=2,
                                  **ENGINE_KW)

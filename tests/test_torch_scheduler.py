@@ -268,20 +268,21 @@ def test_health_keys_and_unported_options():
         "cancelled", "steps", "prefill_steps", "decode_steps", "admissions",
         "failures", "deadline_expiries", "cow_copies", "decode_block",
         "fused_blocks", "chained_blocks", "megakernel",
-        "megakernel_whole_step"}
+        "megakernel_whole_step", "sampled_requests", "sample_k",
+        "sample_fold"}
     _, tm = _pair()
     for kw, item in ((dict(speculate=4), "A5\\(d\\)"),
                      (dict(tenants={"a": {}}), "A5\\(e\\)"),
                      (dict(kv_tier="host"), "A7.4"),
                      (dict(adapters=True), "A7.2"),
-                     (dict(telemetry=True), "A7.3"),
-                     (dict(do_sample=True), "A5\\(c\\)")):
+                     (dict(telemetry=True), "A7.3")):
         with pytest.raises(NotImplementedError, match=item):
             tsched.ContinuousBatchingEngine(tm, device="cpu", **kw)
     with pytest.raises(ValueError, match="tp"):
         tsched.ContinuousBatchingEngine(tm, device="cpu", tp=2)
-    with pytest.raises(NotImplementedError, match="A5\\(c\\)"):
-        eng.add_request(np.arange(4), 2, sampling={"do_sample": True})
+    # sampling is ported (A5(c)): a spec dict is taken and counted
+    eng.add_request(np.arange(4), 2, sampling={"do_sample": True})
+    assert eng.health()["sampled_requests"] == 1
     with pytest.raises(NotImplementedError, match="A7.6"):
         eng.export_request(0)
 

@@ -236,6 +236,29 @@ def test_sampling_is_seeded_and_in_range():
     np.testing.assert_array_equal(a, eng.generate(ids, **kw))
 
 
+@pytest.mark.parametrize("device_loop", [False, True],
+                         ids=["host", "device_loop"])
+@pytest.mark.parametrize("kw", [
+    dict(temperature=0.8, top_k=20, top_p=0.9, seed=4),
+    dict(temperature=1.3, seed=(1 << 33) + 17),
+    dict(temperature=0.7, top_p=0.8, seed=-5)], ids=["k20p09", "big_seed",
+                                                      "neg_seed"])
+def test_sampled_ids_equal_jax(kw, device_loop):
+    """Exact ids: sampled generate() draws the reference's key chain
+    (key(seed), one split before every token) and its Gumbel bits, so the
+    ids equal the JAX engine's for the same seed, in the host loop and the
+    device loop; a seed above 2^32 keeps both words (JAX under x64)."""
+    from paddle_tpu.jax_compat import enable_x64
+    jeng, teng = _engines(None, 2)
+    ids = _prompts(seed=1)
+    with enable_x64(True):
+        ref = jeng.generate(ids, max_new_tokens=7, do_sample=True,
+                            device_loop=device_loop, **kw)
+    got = teng.generate(ids, max_new_tokens=7, do_sample=True,
+                        device_loop=device_loop, **kw)
+    np.testing.assert_array_equal(got, ref)
+
+
 def test_unported_options_raise():
     _, tm = _pair(None)
     with pytest.raises(ValueError, match="tp"):
