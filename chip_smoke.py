@@ -11,7 +11,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               beside the op chain's time on the same inputs; its top-K
               fold (head_k 8 and 128, R 4 and 8, bf16 and int8) against a
               stable top-K of the greedy launch's logits, a cross-block
-              tie, no logits buffer
+              tie, no logits buffer; the speculative verify entry of the
+              ragged kernel (tq 4) against sequential decode steps bit for
+              bit, and the megakernel's tq = 4 verify schedule (8 slots, a
+              mixed write mask, bf16 and int8) against its plain version,
+              the op chain's pools and 4 sequential tq = 1 launches (bit
+              for bit)
   4. path     LLaMA-7B (full width, all 32 layers, random weights from a
               seed) served through LLMEngine.generate(device_loop=True),
               bf16 and int8 weights, 12- and 300-token prompt batches;
@@ -29,10 +34,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               cb_sampled: the stream with greedy and sampled requests
               mixed ("multi" bf16 and int8 through the top-K fold, the op
               chain), each twice; proc: one request with a repetition
-              penalty and a JSON-schema grammar over synthetic tokens
+              penalty and a JSON-schema grammar over synthetic tokens;
+              cb_spec: the stream at speculate=4 ("multi" with the n-gram
+              and an oracle drafter, the op chain, and the sampled stream
+              in "multi"), ids held against the unspeculated runs, tokens
+              per verify pass, exact launch counts
   7. cb_parity  the CB engine on the card (bf16, K=8, kernels; op chain and
               "multi") against the CPU CB engine (f32, plain versions), 2
-              layers at 7B width; cb_sampled_parity: the sampled "multi"
+              layers at 7B width, and "multi" at speculate=4 (the CPU's
+              spec ids equal its own stream); cb_sampled_parity: the sampled "multi"
               stream (bf16 on the card) against the CPU's under the same
               margin rule
   8. train_path  SpmdTrainer.step through paddle_tpu_torch.train_llama at
@@ -71,6 +81,8 @@ REPLACES = {
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:430",
     "decode_megakernel": "paddle_tpu/ops/pallas/decode_megakernel.py:272",
     "decode_megakernel_topk": "paddle_tpu/ops/pallas/decode_megakernel.py:616",
+    "spec_verify_attention": "paddle_tpu/ops/pallas/paged_attention.py:354",
+    "decode_megakernel_verify": "paddle_tpu/ops/pallas/decode_megakernel.py:494",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
@@ -81,6 +93,8 @@ SOURCES = {
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "decode_megakernel": "paddle_tpu_torch/csrc/decode_megakernel.cu",
     "decode_megakernel_topk": "paddle_tpu_torch/csrc/decode_megakernel.cu",
+    "spec_verify_attention": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+    "decode_megakernel_verify": "paddle_tpu_torch/csrc/decode_megakernel.cu",
 }
 
 
@@ -887,6 +901,207 @@ def check_megakernel_topk(torch, dev, ptxas):
     return rows
 
 
+# ---------------------------------------------------------------- phase 3 (spec)
+SPEC_T = 4                        # the verify width of every speculative row
+SPEC_LENS = TOPK_LENS[8]          # 8 slots, two inactive (as the #7b row)
+SPEC_ACTIVE = TOPK_ACTIVE[8]
+SPEC_DLEN = [3, 2, 0, 3, 1, 3, 2, 3]   # real drafts per slot: gated rows
+#                                        j <= dlen, the others ungated
+
+
+def verify_identity(torch, dev):
+    """B5's verify entry (tq = 4, ctx = lens + 4, q_starts = lens) against
+    4 sequential B3 steps on the same pool, row j against the step at
+    lens + j: bf16 and f32, page 64 and 8, MHA and a GQA group of 4,
+    ragged lengths (one inactive slot, one of length 0)."""
+    from paddle_tpu_torch.ops.pallas.paged_attention import (
+        paged_attention, spec_verify_attention)
+    T, cases = SPEC_T, []
+    for dt in (torch.bfloat16, torch.float32):
+        for p in (64, 8):
+            for h, h_kv in ((32, 32), (32, 8)):
+                lens, active = [300, 257, 0, 290, 129], [1, 1, 1, 0, 1]
+                b, d, mp = len(lens), 128, -(-(max(lens) + T) // p)
+                g = torch.Generator(device=dev).manual_seed(6)
+                q = torch.randn((b, T, h, d), generator=g, device=dev).to(dt)
+                kp = torch.randn((b * mp, p, h_kv, d), generator=g, device=dev).to(dt)
+                vp = torch.randn((b * mp, p, h_kv, d), generator=g, device=dev).to(dt)
+                table = torch.randperm(b * mp, generator=g, device=dev)
+                table = table.reshape(b, mp).to(torch.int32)
+                ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+                ac = torch.tensor(active, dtype=torch.int32, device=dev)
+                ver = spec_verify_attention(q, kp, vp, table, ln, active=ac)
+                seq = torch.stack([paged_attention(q[:, j], kp, vp, table, ln + j + 1,
+                                                   active=ac) for j in range(T)], 1)
+                torch.cuda.synchronize()
+                cases.append(dict(dtype=str(dt), page=p, h=h, h_kv=h_kv,
+                                  max_abs_diff=max_err(ver, seq),
+                                  identical=bool(torch.equal(ver, seq))))
+    return cases
+
+
+def check_spec_verify(torch, dev):
+    """`spec_verify_attention` (B5 at tq = 4) at the serving path's shape:
+    8 slots at the #7b lengths (two inactive), 32 heads of d 128, page 64,
+    against its plain version; time, plain, library (SDPA masked, K/V
+    gathered first, as #4/#5) and bound. Gate: row j equal to sequential
+    B3 steps bit for bit (verify_identity)."""
+    from paddle_tpu_torch.ops.pallas.paged_attention import (
+        ragged_paged_attention_reference, spec_verify_attention)
+    T, b, h, h_kv, d, p, mp = SPEC_T, 8, 32, 32, 128, 64, 16
+    q, kp, vp, table = ragged_inputs(torch, dev, b, T, h, h_kv, d, p, mp, torch.bfloat16,
+                                     seed=7)
+    ln = torch.tensor(SPEC_LENS, dtype=torch.int32, device=dev)
+    act = torch.tensor(SPEC_ACTIVE, dtype=torch.int32, device=dev)
+    got = spec_verify_attention(q, kp, vp, table, ln, active=act)
+    ref = ragged_paged_attention_reference(q, kp, vp, table, ln + T, ln, active=act)
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    tol = 1e-2      # convex mixes of N(0,1) rows: bf16 rounds at ~4e-3
+    ident = verify_identity(torch, dev)
+    row = dict(case="main", b=b, tq=T, h=h, h_kv=h_kv, d=d, p=p, lens=SPEC_LENS,
+               active=SPEC_ACTIVE, max_abs_err=err, tol=tol, sequential=ident,
+               sequential_identical=all(c["identical"] for c in ident),
+               sequential_max_abs_diff=max(c["max_abs_diff"] for c in ident))
+    row["ok"] = err <= tol and row["sequential_identical"]
+    row["ms"] = time_ms(torch, lambda: spec_verify_attention(q, kp, vp, table, ln,
+                                                             active=act))
+    row["plain_ms"] = time_ms(torch, lambda: ragged_paged_attention_reference(
+        q, kp, vp, table, ln + T, ln, active=act), iters=5)
+    row["library_ms"] = sdpa_paged_ms(torch, q, kp, vp, table, ln, ln + T, act)
+    row["library_call"] = LIBRARY_CALL
+    live = sum(L + T for L, a in zip(SPEC_LENS, SPEC_ACTIVE) if a)
+    pairs = sum(L + j + 1 for L, a in zip(SPEC_LENS, SPEC_ACTIVE) if a for j in range(T))
+    n_bytes = 2 * b * T * h * d * 2 + live * h_kv * d * 2 * 2 + table.numel() * 4 + 3 * b * 4
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 4 * d * h * pairs)
+    return [row]
+
+
+def check_megakernel_verify(torch, dev, ptxas):
+    """B6 at tq = 4 (the speculative verify pass) at 7B width, 2 layers and
+    the head, w = 8 slots (SPEC_LENS, two inactive), a write mask of gated
+    and ungated rows (SPEC_DLEN), bf16 and int8: 4 launches of 2 slots.
+    Gates: h and the logits against the plain version within 2^-5 of their
+    largest entry (the #7 row's tolerance), tokens equal where decided;
+    the pools against the op chain's verify pass (`_spec_verify_math`,
+    written rows within the same tolerance, every other row bit for bit);
+    and row (s, j) of the pass equal bit for bit (h, token, logit row) to
+    slot s of the j-th of 4 sequential tq = 1 launches at lens + j with
+    the same write mask. Times: the pass, the 4 sequential launches, the
+    plain version, the op chain's pass; no library call computes it."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import (
+        decode_megakernel, decode_megakernel_reference, megakernel_weight_bytes)
+
+    cfg = LlamaConfig(hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=2, num_attention_heads=32)   # 7B width
+    model = LlamaForCausalLM(cfg, device=dev, seed=11)
+    T, w = SPEC_T, 8
+    R = w * T
+    rows = []
+    for wname, quant in (("bf16", None), ("int8", "int8")):
+        kw = dict(max_len=512, page_size=64, max_batch=w, quant=quant,
+                  weight_dtype="bfloat16", speculate=T, device=dev)
+        eng = ContinuousBatchingEngine(model, megakernel="multi", **kw)
+        oc = ContinuousBatchingEngine(model, megakernel=False, **kw)
+        _, table, lens, act = topk_inputs(torch, dev, eng, w, seed=12)
+        for a, b in zip(oc._k_flat + oc._v_flat, eng._k_flat + eng._v_flat):
+            a.copy_(b)
+        g = torch.Generator(device=dev).manual_seed(14)
+        feed = torch.randint(0, cfg.vocab_size, (w, T), generator=g, device=dev)
+        dlen = torch.tensor(SPEC_DLEN, device=dev)
+        rem = torch.full((w,), 64, device=dev)
+        j = torch.arange(T, device=dev)[None, :]
+        gate = (act.bool()[:, None] & (j <= dlen[:, None]))
+        wm = gate.reshape(R).to(torch.int32)
+        pack = eng._mk_pack
+        h0 = eng.weights["emb"][feed.reshape(-1)].to(pack.dtype)
+        p0 = clone_pack(pack)           # the pools before the pass
+        # 1. the pass against the plain version
+        ref = clone_pack(p0)
+        before = decode_megakernel.launches
+        hk, tk, _, lk = decode_megakernel(h0.clone(), pack, table, lens, act, head=True,
+                                          tq=T, wmask=wm)
+        launches = decode_megakernel.launches - before
+        hr, tr, _, lr = decode_megakernel_reference(h0.clone(), ref, table, lens, act,
+                                                    head=True, tq=T, wmask=wm)
+        torch.cuda.synchronize()
+        top2 = torch.topk(lr.float(), 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 0.1
+        tok_ok = bool((tk == tr)[decided].all())
+        tol = {n: 2 ** -5 * float(r.float().abs().max()) for n, r in (("h", hr),
+                                                                      ("logits", lr))}
+        # 2. the pools against the op chain's verify pass
+        with torch.no_grad():
+            oc._spec_verify_math(feed, table.long(), lens.long(), act.bool(), rem, dlen)
+        torch.cuda.synchronize()
+        pos = lens.long()[:, None] + j
+        wrows = [int(table[s, int(q) // 64]) * 64 + int(q) % 64
+                 for s in range(w) for t, q in enumerate(pos[s].tolist()) if gate[s, t]]
+        oc_pack = clone_pack(pack)
+        oc_pack.k_flat, oc_pack.v_flat = oc._k_flat, oc._v_flat
+        err_kv, untouched = pools_diff(pack, oc_pack, wrows + [pack.oob], layers=(0, 1))
+        # 3. row (s, j) against the j-th of T sequential tq = 1 launches
+        seq = clone_pack(p0)
+        same = True
+        for t in range(T):
+            hs, ts, _, ls = decode_megakernel(
+                eng.weights["emb"][feed[:, t]].to(pack.dtype), seq, table, lens + t, act,
+                head=True, wmask=wm.reshape(w, T)[:, t].contiguous())
+            rs = torch.arange(w, device=dev) * T + t
+            same &= (torch.equal(hs, hk[rs]) and torch.equal(ts, tk[rs])
+                     and torch.equal(ls, lk[rs]))
+        torch.cuda.synchronize()
+        row = dict(weights=wname, w=w, tq=T, R=R, lens=SPEC_LENS, active=SPEC_ACTIVE,
+                   dlen=SPEC_DLEN, layers=2, launches_per_pass=launches,
+                   grid=decode_megakernel.grid, max_abs_err=max(max_err(hk, hr),
+                                                                max_err(lk, lr)),
+                   h_err=max_err(hk, hr), logits_err=max_err(lk, lr), tol=tol,
+                   tok_decided=int(decided.sum()), tok_equal_where_decided=tok_ok,
+                   pool_kv_err_vs_op_chain=err_kv, untouched_rows_equal=untouched,
+                   sequential_identical=bool(same))
+        row["ok"] = (row["h_err"] <= tol["h"] and row["logits_err"] <= tol["logits"]
+                     and tok_ok and err_kv <= tol["h"] and untouched and same
+                     and launches == -(-w // (8 // T)))
+        h_t = h0.clone()
+
+        def run():
+            h_t.copy_(h0)
+            return decode_megakernel(h_t, pack, table, lens, act, head=True, tq=T, wmask=wm)
+
+        def sequential():
+            for t in range(T):
+                decode_megakernel(eng.weights["emb"][feed[:, t]].to(pack.dtype), seq,
+                                  table, lens + t, act, head=True)
+
+        row["ms"] = time_ms(torch, run)
+        row["sequential_ms"] = time_ms(torch, sequential)
+        row["plain_ms"] = time_ms(torch, lambda: decode_megakernel_reference(
+            h0.clone(), ref, table, lens, act, head=True, tq=T, wmask=wm), iters=3)
+        t64, l64, a_b = table.long(), lens.long(), act.bool()
+        with torch.no_grad():
+            row["opchain_ms"] = time_ms(torch, lambda: oc._spec_verify_math(
+                feed, t64, l64, a_b, rem, dlen))
+        row["library_ms"] = None     # no one PyTorch call computes a verify pass
+        live = sum(L + T for L, a in zip(SPEC_LENS, SPEC_ACTIVE) if a)
+        kv_bytes = 2 * live * pack.nh_kv * pack.hd * 2 * pack.n_layers
+        n_bytes = (megakernel_weight_bytes(pack) + kv_bytes + 2 * R * pack.H * 2
+                   + R * pack.V * 2)
+        params = sum(t.numel() for ws in pack.layers for k in
+                     ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+                     for t in [ws[k][0] if isinstance(ws[k], tuple) else ws[k]])
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 2 * R * (params
+                                                                    + pack.H * pack.V))
+        row["ptxas"] = [ln for ln in ptxas if "decode_megakernel" in ln]
+        rows.append(row)
+        del eng, oc, pack, ref, seq, p0, oc_pack
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------- phase 4
 def weight_bytes_per_step(torch, eng):
     """Bytes of every weight a decode step reads (the embedding excluded:
@@ -1145,7 +1360,7 @@ def serve_cb_7b(torch, dev):
                 prefix_cache=True, weight_dtype="bfloat16", device=dev)
     prompts, budgets = cb_stream(cfg)
     prompt_tokens = int(sum(p.size for p in prompts))
-    results, launches, base, busy = [], {}, {}, {}
+    results, launches, base, busy, streams = [], {}, {}, {}, {}
     for name, K, quant, mk in CB_RUNS:
         eng = ContinuousBatchingEngine(model, decode_block=K, quant=quant,
                                        megakernel=mk, **geom)
@@ -1193,6 +1408,7 @@ def serve_cb_7b(torch, dev):
         else:
             base[(K, quant)] = dict(decode_steps=dec, outs=outs,
                                     ragged=counts["ragged_paged_attention"])
+        streams[name] = outs
         repeat = all(np.array_equal(a, b) for a, b in zip(outs, outs2))
         in_vocab = all(bool(((o >= 0) & (o < V)).all()) for o in outs)
         budget_ok = all(o.size == p.size + n for o, p, n in zip(outs, prompts, budgets))
@@ -1220,8 +1436,10 @@ def serve_cb_7b(torch, dev):
             launches[kname] = launches.get(kname, 0) + c
         del eng
         torch.cuda.empty_cache()
-    sampled = sampled_cb_runs(torch, model, geom, prompts, budgets, results, launches)
+    sampled = sampled_cb_runs(torch, model, geom, prompts, budgets, results, launches,
+                              streams)
     proc = proc_run(torch, model, geom, launches)
+    spec = spec_cb_runs(torch, model, geom, prompts, budgets, streams, launches)
     # one request on a fresh op-chain engine: three prefill-only blocks (300
     # tokens in chunks of 128), then two decode blocks of 8, the second chained
     eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=False, **geom)
@@ -1242,7 +1460,7 @@ def serve_cb_7b(torch, dev):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del eng, model
     torch.cuda.empty_cache()
-    return dict(runs=results, single=single, sampled=sampled, proc=proc,
+    return dict(runs=results, single=single, sampled=sampled, proc=proc, spec=spec,
                 peak_gb=peak_gb, busy=busy), launches
 
 
@@ -1278,7 +1496,8 @@ def count_sampled_steps(eng):
     return counter
 
 
-def sampled_cb_runs(torch, model, geom, prompts, budgets, greedy_rows, launches):
+def sampled_cb_runs(torch, model, geom, prompts, budgets, greedy_rows, launches,
+                    streams):
     """The CB stream with a mix of greedy and sampled requests at full 7B
     width, K=8: "multi" bf16 and int8 (the top-K fold) and the op chain,
     each twice. Gates: every request finishes its budget, the second run
@@ -1315,7 +1534,7 @@ def sampled_cb_runs(torch, model, geom, prompts, budgets, greedy_rows, launches)
             launch_ok = (counts["decode_megakernel"] == 0
                          and counts["decode_megakernel_topk"] == 0
                          and counts["paged_attention"] == L * dec)
-        outs_by[name] = outs
+        outs_by[name] = streams[name] = outs
         g = greedy[gname]
         row = dict(run=name, decode_block=8, weights=quant or "bf16",
                    megakernel=h1["megakernel"], requests=len(prompts),
@@ -1350,6 +1569,164 @@ def sampled_cb_runs(torch, model, geom, prompts, budgets, greedy_rows, launches)
         same = sum(int((o[p.size:] == r[p.size:]).sum())
                    for o, r, p in zip(outs, ref, prompts))
         row["tokens_equal_to_op_chain"] = same / row["generated_tokens"]
+    return rows
+
+
+# cb_spec: the cb_stream requests at speculate=4, K=8 (name, megakernel,
+# drafter, sampled, the unspeculated stream of cb_path / cb_sampled it is
+# held against)
+SPEC_RUNS = (("spec multi K=8 bf16 ngram", "multi", "ngram", False, "multi K=8 bf16"),
+             ("spec multi K=8 bf16 oracle", "multi", "oracle", False, "multi K=8 bf16"),
+             ("spec K=8 bf16 ngram", False, "ngram", False, "K=8 bf16"),
+             ("spec sampled multi K=8 bf16 ngram", "multi", "ngram", True,
+              "sampled multi K=8 bf16"))
+
+
+def oracle_drafter(rows):
+    """A drafter that proposes the continuation of the row (an unspeculated
+    run's output) the context is a prefix of: every draft is the target's
+    own token, so every verify row must score like a sequential step for
+    the drafts to be accepted."""
+    import numpy as np
+    from paddle_tpu_torch.inference.speculative import Drafter
+
+    class Oracle(Drafter):
+        name = "oracle"
+
+        def propose(self, ctx, k):
+            ctx = np.asarray(ctx)
+            for row in rows:
+                if row.size > ctx.size and (row[:ctx.size] == ctx).all():
+                    return row[ctx.size:ctx.size + k]
+            return np.empty((0,), np.int64)
+
+    return Oracle()
+
+
+def count_verify_passes(eng):
+    """Wrap the engine's verify scan to count what a block dispatches:
+    passes, the megakernel launches they take in "multi" mode (ceil(w /
+    floor(8 / T)) per pass at slot width w) and those of sampled blocks
+    (the top-K fold). `del eng._spec_scan` before dropping the engine."""
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import MAX_ROWS
+    counter = dict(passes=0, mk=0, fold=0)
+    scan = eng._spec_scan
+
+    def counted(tables, tok, lens, act, rem, eos, drafts, dlen, mode="greedy", ex=None):
+        n = drafts.shape[0]
+        per = -(-tok.shape[0] // (MAX_ROWS // eng._spec))
+        counter["passes"] += n
+        counter["mk"] += n * per
+        counter["fold"] += n * per if mode == "sampled" else 0
+        return scan(tables, tok, lens, act, rem, eos, drafts, dlen, mode, ex)
+
+    eng._spec_scan = counted
+    return counter
+
+
+def first_divergence_margins(torch, model, geom, prompts, ref, outs, tol):
+    """The margin rule where two greedy streams part: for each request, the
+    first generated position where `outs` differs from `ref`, and the top-2
+    margin of the bf16 logits there (a static engine's prefill over the
+    shared prefix). Every earlier token is equal; the rule holds when each
+    first divergence sits on a margin <= tol."""
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    eng = LLMEngine(model, max_len=geom["max_len"], page_size=geom["page_size"],
+                    max_batch=1, weight_dtype="bfloat16", device=geom["device"])
+    parts = []
+    for p, r, o in zip(prompts, ref, outs):
+        diff = [t for t in range(p.size, min(r.size, o.size)) if r[t] != o[t]]
+        if diff:
+            t = diff[0]
+            top2 = torch.topk(eng.prefill_logits(r[None, :t])[0], 2).values
+            parts.append(dict(pos=t - p.size, margin=float(top2[0] - top2[1])))
+    del eng
+    torch.cuda.empty_cache()
+    return parts, all(d["margin"] <= tol for d in parts)
+
+
+def spec_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
+    """The cb_stream at speculate=4, K=8, 7B at full width and depth (the
+    slice's own path): greedy "multi" with the n-gram and the oracle
+    drafter, the greedy op chain with the n-gram drafter, and the sampled
+    stream of cb_sampled in "multi" with the n-gram drafter. Gates: "multi"
+    ids (greedy and sampled) equal the unspeculated run's exactly; the op
+    chain is held by the margin rule (tokens equal up to each request's
+    first divergence, which must sit on a top-2 margin <= 0.1); the oracle
+    accepts (nearly) every draft; exact launch counts (ceil(w / 2)
+    megakernel launches per pass in "multi", 32 spec_verify_attention
+    launches per pass on the op chain, no paged attention); every request
+    finishes its budget; no page leaks. Reports ms per verify pass,
+    generated tok/s, tokens per pass and the acceptance rate."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    import numpy as np
+
+    L, V = model.config.num_hidden_layers, model.config.vocab_size
+    T, tol = SPEC_T, 0.1
+    rows = []
+    for name, mk, dname, sampled, refname in SPEC_RUNS:
+        ref = streams[refname]
+        drafter = oracle_drafter(ref) if dname == "oracle" else dname
+        eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=mk, speculate=T,
+                                       drafter=drafter, sample_k=8, **geom)
+        count = count_verify_passes(eng)
+        specs = sampled_specs(len(prompts)) if sampled else None
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        outs, wall, pass_ms = drive_cb(torch, eng, prompts, budgets, specs)
+        counts = kernel_launches()
+        h = eng.health()
+        gen = int(sum(o.size - p.size for o, p in zip(outs, prompts)))
+        n = count["passes"]
+        if mk == "multi":
+            launch_ok = (counts["decode_megakernel"] == count["mk"]
+                         and counts["decode_megakernel_verify"] == count["mk"]
+                         and counts["decode_megakernel_topk"] == count["fold"]
+                         and counts["spec_verify_attention"] == 0)
+        else:
+            launch_ok = (counts["spec_verify_attention"] == L * n
+                         and counts["decode_megakernel"] == 0)
+        launch_ok = (launch_ok and n > 0 and counts["paged_attention"] == 0
+                     and counts["ragged_paged_attention"] % L == 0
+                     and (counts["decode_megakernel_topk"] > 0) == sampled)
+        same = sum(int((o[p.size:] == r[p.size:]).sum())
+                   for o, r, p in zip(outs, ref, prompts))
+        exact = all(np.array_equal(o, r) for o, r in zip(outs, ref))
+        row = dict(run=name, decode_block=8, speculate=T, drafter=h["drafter"],
+                   megakernel=h["megakernel"], requests=len(prompts),
+                   sampled_requests=h["sampled_requests"], generated_tokens=gen,
+                   wall_s=wall, generated_tokens_per_s=gen / wall,
+                   ms_per_verify_pass=pass_ms, verify_passes=n,
+                   spec_passes=h["spec_passes"],
+                   spec_tokens_per_pass=h["spec_tokens_per_pass"],
+                   spec_accept_rate=h["spec_accept_rate"],
+                   spec_sampled_accept_rate=h["spec_sampled_accept_rate"],
+                   draft_errors=h["draft_errors"], launches=counts,
+                   expected=dict(passes=n, megakernel=count["mk"], fold=count["fold"],
+                                 spec_verify_attention=L * n if not mk else 0),
+                   launches_ok=launch_ok, unspeculated_run=refname,
+                   tokens_equal_to_unspeculated=same / gen, ids_equal_unspeculated=exact,
+                   budgets_met=all(o.size == p.size + b for o, p, b in zip(outs, prompts,
+                                                                           budgets)),
+                   all_finished=h["done"] == len(prompts),
+                   no_leak=h["pages_free"] + h["prefix_pages"] == h["pages_total"],
+                   tail=outs[0][-4:].tolist())
+        del eng._spec_scan, eng
+        torch.cuda.empty_cache()
+        if mk == "multi":
+            held = exact
+        else:
+            row["divergences"], held = first_divergence_margins(
+                torch, model, geom, prompts, ref, outs, tol)
+            row["margin_tol"] = tol
+        row["held"] = held
+        row["ok"] = (held and launch_ok and row["budgets_met"] and row["all_finished"]
+                     and row["no_leak"] and row["draft_errors"] == 0
+                     and (dname != "oracle" or h["spec_accept_rate"] >= 0.99))
+        rows.append(row)
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
     return rows
 
 
@@ -1456,9 +1833,14 @@ def parity_cb_2layer(torch, dev):
                       .values.diff().neg()) for t in range(n_new)]
                for p, oc in zip(prompts, outs_cpu)]
     rows = []
-    for mk in (False, "multi"):
+    # the spec leg: the CPU spec engine's ids must equal the CPU stream's
+    cpu_spec = ContinuousBatchingEngine(model, device="cpu", speculate=SPEC_T, **kw)
+    spec_cpu_equal = all(np.array_equal(a, b) for a, b in zip(
+        cpu_spec.generate_many(prompts, max_new_tokens=n_new), outs_cpu))
+    del cpu_spec
+    for mk, spec in ((False, None), ("multi", None), ("multi", SPEC_T)):
         gpu = ContinuousBatchingEngine(model, device=dev, weight_dtype="bfloat16",
-                                       megakernel=mk, **kw)
+                                       megakernel=mk, speculate=spec, **kw)
         outs_gpu = gpu.generate_many(prompts, max_new_tokens=n_new)
         compared = equal = 0
         for p, oc, og, mg in zip(prompts, outs_cpu, outs_gpu, margins):
@@ -1470,10 +1852,15 @@ def parity_cb_2layer(torch, dev):
                     equal += int(same)
                 if not same:
                     break
-        rows.append(dict(megakernel=gpu.health()["megakernel"], requests=len(prompts),
-                         prompt_lens=[int(p.size) for p in prompts], tol=tol,
-                         greedy_compared=compared, greedy_equal=equal,
-                         ok=compared > 0 and equal == compared))
+        row = dict(megakernel=gpu.health()["megakernel"], speculate=spec or 0,
+                   requests=len(prompts), prompt_lens=[int(p.size) for p in prompts],
+                   tol=tol, greedy_compared=compared, greedy_equal=equal,
+                   ok=compared > 0 and equal == compared)
+        if spec:
+            row["cpu_spec_ids_equal_cpu"] = spec_cpu_equal
+            row["spec_tokens_per_pass"] = gpu.health()["spec_tokens_per_pass"]
+            row["ok"] = row["ok"] and spec_cpu_equal
+        rows.append(row)
         del gpu
         torch.cuda.empty_cache()
     return rows
@@ -1683,7 +2070,10 @@ def main():
               ("rms_norm", check_rms), ("flash_attention_bwd", check_flash_bwd),
               ("decode_megakernel", check_megakernel),
               ("decode_megakernel_topk",
-               lambda torch, dev: check_megakernel_topk(torch, dev, ptxas)))
+               lambda torch, dev: check_megakernel_topk(torch, dev, ptxas)),
+              ("spec_verify_attention", check_spec_verify),
+              ("decode_megakernel_verify",
+               lambda torch, dev: check_megakernel_verify(torch, dev, ptxas)))
     for name, check in checks:
         rows = check(torch, dev)
         for r in rows:
@@ -1731,6 +2121,9 @@ def main():
         ok &= r["ok"]
     emit(dict(phase="proc", **cb["proc"]))
     ok &= cb["proc"]["ok"]
+    for r in cb["spec"]:
+        emit(dict(phase="cb_spec", **r))
+        ok &= r["ok"]
     emit(dict(phase="cb_path", peak_gb=cb["peak_gb"], busy=cb["busy"],
               elapsed_s=time.perf_counter() - t_start))
 

@@ -62,6 +62,14 @@ __device__ __forceinline__ float warp_max(float v, int width = 32) {
 //      acc = fmaf(alpha, acc, sum).
 // Which thread owns an output does not change its arithmetic, so two
 // kernels that map rows to blocks differently still agree bit for bit.
+// Keys a row may not see change none of its bits: their logits are
+// kNegInf, so the page max keeps m, their weights are exact zeros, and a
+// zero term leaves the sums of steps 2 and 3 as they were (pool values are
+// finite). A page the row sees none of is then an exact no-op: m_new = m,
+// alpha = exp(0) = 1, l = fmaf(1, l, 0) and acc = fmaf(1, acc, 0). So a
+// row walked past its own horizon (the ragged kernel's verify rows, whose
+// tile walks to the last feed position) equals the decode step that stops
+// at it.
 // s_s: [n_rows][ss] scratch (ss >= valid); m_s, l_s, a_s: [n_rows].
 // d <= 256 (kMaxDLane lanes' worth) and n_rows * d <= kAcc * kThreads.
 // A positive kUnrollQK / kUnrollPV unrolls the token loop of step 1 / 3 by

@@ -3,8 +3,9 @@
 // in one persistent cooperative launch.
 //
 // Replaces: paddle_tpu/ops/pallas/decode_megakernel.py `_mk_kernel` (seg
-// "full", tq = 1, the greedy head and the head_k > 1 top-K fold of
-// decode_megakernel.py:616-656), called from `decode_megakernel`. On the TPU
+// "full", tq = 1 and the tq > 1 speculative verify of
+// decode_megakernel.py:494-530, the greedy head and the head_k > 1 top-K
+// fold of decode_megakernel.py:616-656), called from `decode_megakernel`. On the TPU
 // one core walks a static schedule of weight tiles in order and keeps the
 // activations in VMEM between tiles; here 132 SMs work at once, so the walk
 // becomes phases of independent work units separated by grid-wide barriers,
@@ -27,16 +28,25 @@
 //     int8 projection sums in that kernel's order; outputs go to a qkv
 //     scratch in the compute dtype (the op chain's rounding point);
 //  -- grid barrier --
-//  3. attention: units (slot, kv head). The unit ropes its q heads and its
-//     k row (torch's bf16 order: each product rounded, then the sum), writes
-//     the k and v rows into the layer's pool in place at the slot's flat
-//     row (an inactive slot writes the scratch row `oob`, as the engine's
-//     `_write_kv` does), then walks the slot's pages with
+//  3. attention (`attention_phase`, out of line so that its registers do
+//     not add to the other phases'): units (slot, kv head). A slot owns tq
+//     rows (tq > 1: the verify pass's feed rows, row t at position
+//     lens + t). The unit ropes each row's k row at its position (torch's
+//     bf16 order: each product rounded, then the sum) and writes the k and
+//     v rows into the layer's pool in place at their flat rows (a row
+//     outside `wmask`, or of an inactive slot, writes the scratch row
+//     `oob`, as the engine's `_write_kv` does), then, row by row, ropes the
+//     row's q heads and walks the slot's pages up to the row's own position
+//     (the ragged causal mask) with
 //     `ptt::online_softmax_page`, the paged-attention kernel's per-page step
 //     with its unroll arguments (2, 16): on the same q and pool the output
 //     equals that kernel's bit for bit (the routine's arithmetic does not
 //     depend on the block size). Inactive slots skip the page reads and
-//     emit zeros (l clamped to 1e-30);
+//     emit zeros (l clamped to 1e-30). Row t of a verify pass is thus the
+//     decode step at lens + t, page for page and bit for bit; looping the
+//     rows keeps the scratch at one row's rep heads (any GQA group the
+//     tq = 1 step takes) and the register sums at R <= 8 rows: the
+//     wrapper splits a pass into launches of floor(8 / tq) whole slots;
 //  -- grid barrier --
 //  4. O: 32-column slabs of wo, the residual added in the epilogue
 //     (h + o, each rounded to the compute dtype); a unit owns its columns;
@@ -93,9 +103,9 @@ struct PttMkArgs {
   void* qkv;              // [R, NQ + 2 NK] scratch
   void* attn;             // [R, NQ] scratch
   void* act;              // [R, F]  scratch
-  const int* table;       // [R, max_pages]
-  const int* lens;        // [R] tokens cached before this step
-  const int* active;      // [R]
+  const int* table;       // [R / tq, max_pages], per slot
+  const int* lens;        // [R / tq] tokens cached before this step
+  const int* active;      // [R / tq]
   const float* cos;       // [max_len, hd / 2]
   const float* sin;
   void* logits;           // [R, V] (head only)
@@ -107,10 +117,12 @@ struct PttMkArgs {
   int* topi;
   float* fold_v;          // [max_grid, R, head_k] per-block lists
   int* fold_i;
+  const int* wmask;       // [R] pool-write gate of each row, or null (all)
   int layer0, n_layers, head_row;  // head_row < 0: no head
   int R, H, nh, nh_kv, hd, F, V;
   int p, n_pages, max_pages, oob, max_len, max_grid;
   int head_k;             // 1: greedy argmax; 2..128: the top-K fold
+  int tq;                 // rows per slot: 1, or T of a verify pass
   float eps, scale;
 };
 
@@ -359,6 +371,96 @@ __device__ __noinline__ void head_fold(const PttMkArgs& a, const T* xs, const WT
     }
 }
 
+// Phase 3 of a layer (see the header): rope, the pool write and paged
+// attention per (slot, kv head); a slot owns tq consecutive rows (tq > 1:
+// the verify pass's feed rows). Out of line, so its registers do not add to
+// the layer phases' (inlined, it made the tq = 1 step slower: PERF.md).
+template <typename T>
+__device__ __noinline__ void attention_phase(const PttMkArgs& a, const long long* P, T* xs,
+                                             const T* qkv, T* attn) {
+  const int tid = threadIdx.x;
+  const int R = a.R, hd = a.hd;
+  const int NQ = a.nh * hd, NK = a.nh_kv * hd, QW = NQ + 2 * NK;
+  const int rep = a.nh / a.nh_kv, d2 = hd / 2;
+  float* q_s = reinterpret_cast<float*>(xs);  // [rep][hd], pre-scaled
+  float* s_s = q_s + rep * hd;                // [rep][p]
+  float* m_s = s_s + rep * a.p;
+  float* l_s = m_s + rep;
+  float* a_s = l_s + rep;
+  T* kpool = ptr<T*>(P, P_KP);
+  T* vpool = ptr<T*>(P, P_VP);
+  const size_t tok_stride = (size_t)NK;
+  const int tq = a.tq, n_slots = R / tq;
+  for (int u = blockIdx.x; u < n_slots * a.nh_kv; u += gridDim.x) {
+    const int s = u / a.nh_kv, g = u % a.nh_kv;
+    const bool live = a.active[s] != 0;
+    const int len = a.lens[s];
+    // rotate the two halves of a head at position pos: x1 c - x2 s |
+    // x2 c + x1 s, each product and each sum rounded to T (cos/sin
+    // cast to T first)
+    auto rope = [&](const T* x, int j, int pos) -> T {
+      const int jj = j < d2 ? j : j - d2;
+      const float c = to_f32(from_f32<T>(a.cos[(size_t)pos * d2 + jj]));
+      const float sn = to_f32(from_f32<T>(a.sin[(size_t)pos * d2 + jj]));
+      const float x1 = to_f32(ld_cg(x + jj)), x2 = to_f32(ld_cg(x + jj + d2));
+      return j < d2 ? from_f32<T>(__fsub_rn(mul_t<T>(x1, c), mul_t<T>(x2, sn)))
+                    : from_f32<T>(__fadd_rn(mul_t<T>(x2, c), mul_t<T>(x1, sn)));
+    };
+    // every row's k and v first, at its own position; a row outside
+    // the write mask (or of an inactive slot) writes the scratch row
+    for (int t = 0; t < tq; ++t) {
+      const int r = s * tq + t;
+      const int pos = min(max(len + t, 0), a.max_len - 1);
+      const bool wr = live && (a.wmask == nullptr || a.wmask[r] != 0);
+      const long long row =
+          wr ? (long long)a.table[(size_t)s * a.max_pages + pos / a.p] * a.p + pos % a.p
+             : (long long)a.oob;
+      const T* krow = qkv + (size_t)r * QW + NQ + (size_t)g * hd;
+      const T* vrow = krow + NK;
+      for (int j = tid; j < hd; j += kThreads) {
+        kpool[row * NK + (size_t)g * hd + j] = rope(krow, j, pos);
+        vpool[row * NK + (size_t)g * hd + j] = ld_cg(vrow + j);
+      }
+    }
+    __syncthreads();  // the new k/v rows, before any row attends
+    // then each row attends up to its own position (the ragged causal
+    // mask): the walk of a decode step at len + t, page for page
+    for (int t = 0; t < tq; ++t) {
+      const int r = s * tq + t;
+      const int pos = min(max(len + t, 0), a.max_len - 1);
+      const T* qrow = qkv + (size_t)r * QW + (size_t)g * rep * hd;
+      for (int e = tid; e < rep * hd; e += kThreads)
+        q_s[e] = to_f32(rope(qrow + (e / hd) * hd, e % hd, pos)) * a.scale;
+      for (int i = tid; i < rep; i += kThreads) {
+        m_s[i] = kNegInf;
+        l_s[i] = 0.f;
+      }
+      float acc[kAttnAcc];
+#pragma unroll
+      for (int i = 0; i < kAttnAcc; ++i) acc[i] = 0.f;
+      __syncthreads();  // q_s and the softmax state
+      const int L = live ? max(0, min(len + t + 1, a.max_pages * a.p)) : 0;
+      const int n_pg = (L + a.p - 1) / a.p;
+      for (int pi = 0; pi < n_pg; ++pi) {
+        const int page =
+            min(max(a.table[(size_t)s * a.max_pages + pi], 0), a.n_pages - 1);
+        const int valid = min(a.p, L - pi * a.p);
+        const size_t base = (size_t)page * a.p * tok_stride + (size_t)g * hd;
+        ptt::online_softmax_page<kThreads, kAttnAcc, 2, 16>(
+            q_s, rep, hd, kpool + base, vpool + base, tok_stride, valid,
+            [](int) { return 1 << 30; }, s_s, a.p, m_s, l_s, a_s, acc);
+      }
+      T* arow = attn + (size_t)r * NQ + (size_t)g * rep * hd;
+#pragma unroll
+      for (int i = 0; i < kAttnAcc; ++i) {
+        const int e = tid + i * kThreads;
+        if (e < rep * hd) arow[e] = from_f32<T>(acc[i] / fmaxf(l_s[e / hd], 1e-30f));
+      }
+      __syncthreads();  // the scratch is reused by the next row or unit
+    }
+  }
+}
+
 template <typename T, typename WT>
 __global__ void __launch_bounds__(kThreads) decode_megakernel_kernel(const PttMkArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -373,7 +475,6 @@ __global__ void __launch_bounds__(kThreads) decode_megakernel_kernel(const PttMk
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int R = a.R, H = a.H, hd = a.hd, F = a.F;
   const int NQ = a.nh * hd, NK = a.nh_kv * hd, QW = NQ + 2 * NK;
-  const int rep = a.nh / a.nh_kv, d2 = hd / 2;
   T* h = static_cast<T*>(a.h);
   T* qkv = static_cast<T*>(a.qkv);
   T* attn = static_cast<T*>(a.attn);
@@ -412,72 +513,7 @@ __global__ void __launch_bounds__(kThreads) decode_megakernel_kernel(const PttMk
     }
     grid.sync();
 
-    // 3. rope, the pool write and paged attention per (slot, kv head)
-    {
-      float* q_s = reinterpret_cast<float*>(xs);  // [rep][hd], pre-scaled
-      float* s_s = q_s + rep * hd;                 // [rep][p]
-      float* m_s = s_s + rep * a.p;
-      float* l_s = m_s + rep;
-      float* a_s = l_s + rep;
-      T* kpool = ptr<T*>(P, P_KP);
-      T* vpool = ptr<T*>(P, P_VP);
-      const size_t tok_stride = (size_t)NK;
-      for (int u = blockIdx.x; u < R * a.nh_kv; u += gridDim.x) {
-        const int s = u / a.nh_kv, g = u % a.nh_kv;
-        const bool live = a.active[s] != 0;
-        const int len = a.lens[s];
-        const int pos = min(max(len, 0), a.max_len - 1);
-        const float* cr = a.cos + (size_t)pos * d2;
-        const float* sr = a.sin + (size_t)pos * d2;
-        const T* qrow = qkv + (size_t)s * QW + (size_t)g * rep * hd;
-        const T* krow = qkv + (size_t)s * QW + NQ + (size_t)g * hd;
-        const T* vrow = krow + NK;
-        // rotate the two halves of a head: x1 c - x2 s | x2 c + x1 s, each
-        // product and each sum rounded to T (cos/sin cast to T first)
-        auto rope = [&](const T* x, int j) -> T {
-          const int jj = j < d2 ? j : j - d2;
-          const float c = to_f32(from_f32<T>(cr[jj])), sn = to_f32(from_f32<T>(sr[jj]));
-          const float x1 = to_f32(ld_cg(x + jj)), x2 = to_f32(ld_cg(x + jj + d2));
-          return j < d2 ? from_f32<T>(__fsub_rn(mul_t<T>(x1, c), mul_t<T>(x2, sn)))
-                        : from_f32<T>(__fadd_rn(mul_t<T>(x2, c), mul_t<T>(x1, sn)));
-        };
-        for (int e = tid; e < rep * hd; e += kThreads)
-          q_s[e] = to_f32(rope(qrow + (e / hd) * hd, e % hd)) * a.scale;
-        const long long row =
-            live ? (long long)a.table[(size_t)s * a.max_pages + pos / a.p] * a.p + pos % a.p
-                 : (long long)a.oob;
-        for (int j = tid; j < hd; j += kThreads) {
-          kpool[row * NK + (size_t)g * hd + j] = rope(krow, j);
-          vpool[row * NK + (size_t)g * hd + j] = ld_cg(vrow + j);
-        }
-        for (int r = tid; r < rep; r += kThreads) {
-          m_s[r] = kNegInf;
-          l_s[r] = 0.f;
-        }
-        float acc[kAttnAcc];
-#pragma unroll
-        for (int i = 0; i < kAttnAcc; ++i) acc[i] = 0.f;
-        __syncthreads();  // q_s, the softmax state and the new k/v rows
-        const int L = live ? max(0, min(len + 1, a.max_pages * a.p)) : 0;
-        const int n_pg = (L + a.p - 1) / a.p;
-        for (int pi = 0; pi < n_pg; ++pi) {
-          const int page =
-              min(max(a.table[(size_t)s * a.max_pages + pi], 0), a.n_pages - 1);
-          const int valid = min(a.p, L - pi * a.p);
-          const size_t base = (size_t)page * a.p * tok_stride + (size_t)g * hd;
-          ptt::online_softmax_page<kThreads, kAttnAcc, 2, 16>(
-              q_s, rep, hd, kpool + base, vpool + base, tok_stride, valid,
-              [](int) { return 1 << 30; }, s_s, a.p, m_s, l_s, a_s, acc);
-        }
-        T* arow = attn + (size_t)s * NQ + (size_t)g * rep * hd;
-#pragma unroll
-        for (int i = 0; i < kAttnAcc; ++i) {
-          const int e = tid + i * kThreads;
-          if (e < rep * hd) arow[e] = from_f32<T>(acc[i] / fmaxf(l_s[e / hd], 1e-30f));
-        }
-        __syncthreads();  // the scratch is reused by the next unit
-      }
-    }
+    attention_phase<T>(a, P, xs, qkv, attn);
     grid.sync();
 
     // 4. O, plus the residual
@@ -637,7 +673,7 @@ extern "C" int ptt_decode_megakernel(const PttMkArgs* args, int dtype, int wkind
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const PttMkArgs& a = *args;
-  if (a.R < 1 || a.R > kMaxRows || a.nh_kv <= 0 || a.nh % a.nh_kv != 0 || a.hd % 16 != 0 ||
+  if (a.R < 1 || a.R > kMaxRows || a.tq < 1 || a.R % a.tq != 0 || a.nh_kv <= 0 || a.nh % a.nh_kv != 0 || a.hd % 16 != 0 ||
       a.hd > 32 * ptt::kPageMaxDLane || (a.nh / a.nh_kv) * a.hd > kAttnAcc * kThreads ||
       a.p <= 0 || a.max_len <= 0 || a.n_layers < 0 || (a.head_row >= 0 && a.V <= 0) ||
       (a.head_row >= 0 && (a.head_k < 1 || a.head_k > 128 || a.head_k > a.V)) ||

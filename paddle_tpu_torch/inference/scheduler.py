@@ -36,6 +36,14 @@ Scheduling model (as in the reference):
     (penalties and grammar masks over materialized logits; penalty counts
     and the grammar state are advanced by the host at block boundaries).
     Stop sequences retire on the host.
+  - speculate=T: every decode micro-step of a block becomes a verify pass
+    over T feed tokens per slot (the pending token and up to T - 1 drafts a
+    host drafter proposed at the block boundary), scored in one multi-token
+    pass (`spec_verify_attention` on the op chain, the megakernel's tq > 1
+    schedule otherwise); the longest draft prefix the target agrees with,
+    plus the target's own next token, is accepted on the device. Greedy
+    and sampled streams equal the unspeculated ones token for token
+    (sample-and-match on the same position keys).
   - megakernel="layer" | "multi": each decode step runs its layers through
     `decode_megakernel`, one launch per layer ("layer", the final norm and
     the lm_head stay the op chain) or one launch per step ("multi", the
@@ -50,11 +58,12 @@ masked KV writes (`.at[slots].set(..., mode="drop")` with out-of-range
 slots); torch has no drop mode, so masked rows are redirected to one
 scratch row past the end of the pool, which no page table can name.
 
-Not ported yet (each raises, naming its ROADMAP item): speculation (also
-for sampled requests), tenants and preemption, KV tiering, adapters,
-telemetry, tensor parallelism, PTQ scales, the fleet prefix index, and KV
-and request export/import (with the sampling state they carry). The
-reference's fault points wait for the port of `failsafe.py`.
+Not ported yet (each raises, naming its ROADMAP item): tenants and
+preemption, KV tiering, adapters, telemetry, tensor parallelism, PTQ
+scales, the fleet prefix index, and KV and request export/import (with the
+sampling state they carry). The reference's fault points (the speculative
+`cb.draft` and `cb.verify` among them) wait for the port of `failsafe.py`
+(ROADMAP A7.0).
 """
 import collections
 import math
@@ -70,10 +79,12 @@ from ..ops.pallas.decode_megakernel import (MAX_ROWS, MegakernelPack,
                                             decode_megakernel,
                                             megakernel_supported)
 from ..ops.pallas.paged_attention import (expand_kv_heads, paged_attention,
-                                          ragged_paged_attention)
+                                          ragged_paged_attention,
+                                          spec_verify_attention)
 from .sampling import (GREEDY, NEG, SamplingParams, TokenMaskAutomaton,
                        apply_penalties, fold_keys, gumbel, select_from_topk,
                        stop_hit, top_k)
+from .speculative import resolve_drafter
 
 QUEUED, PREFILL, DECODE, DONE, FAILED, CANCELLED = \
     "queued", "prefill", "decode", "done", "failed", "cancelled"
@@ -149,10 +160,12 @@ class Request:
                  "state", "slot", "pages", "shared_idx", "cow_reserve",
                  "filled", "tok", "out", "result", "pages_shared",
                  "deadline", "ttl_steps", "born_step", "error", "sampling",
-                 "counts", "gstate")
+                 "counts", "gstate", "draft_k", "spec_drafted",
+                 "spec_accepted")
 
     def __init__(self, uid, ids, max_new_tokens, eos_token_id,
-                 deadline=None, ttl_steps=None, born_step=0, sampling=None):
+                 deadline=None, ttl_steps=None, born_step=0, sampling=None,
+                 draft_k=0):
         self.uid = uid
         self.ids = ids                  # np.int64 [t0]
         self.t0 = int(ids.size)
@@ -178,6 +191,9 @@ class Request:
         #                                 generated tokens (penalties)
         self.gstate = 0                 # grammar automaton state (host-
         #                                 authoritative)
+        self.draft_k = int(draft_k)     # drafts per verify pass (adaptive)
+        self.spec_drafted = 0           # drafts offered to verification
+        self.spec_accepted = 0          # drafts the target accepted
 
 
 class PrefixCache:
@@ -336,7 +352,7 @@ class _FusedBlock:
     __slots__ = ("w", "K", "pf_items", "dec_items", "tables", "eos_dev",
                  "first", "toks", "emitted", "tok_fin", "lens_fin",
                  "act_fin", "rem_fin", "has_prefill", "has_decode", "mode",
-                 "extras")
+                 "extras", "dlens")
 
     def __init__(self, w, K):
         self.w = w
@@ -353,6 +369,9 @@ class _FusedBlock:
         self.has_decode = False
         self.mode = "greedy"        # _block_mode of the participants
         self.extras = None          # device sampling inputs (_row_params)
+        self.dlens = None           # np [K, w] drafts offered per pass
+        #                             (speculative blocks; toks / emitted
+        #                             are then [K, w, T])
 
 
 def _not_ported(name, item):
@@ -393,6 +412,16 @@ class ContinuousBatchingEngine(LLMEngine):
         draws from (1..128, default 8); a request's top_k must be <= it.
       sample_fold: False selects sampled tokens from materialized logits
         even in "multi" mode (the same tokens; the fold is selection only).
+      speculate: T >= 2 turns on speculative decoding: each decode
+        micro-step is a verify pass over the pending token and up to T - 1
+        drafts (rejected drafts cost nothing: writes are gated and `lens`
+        does not advance over them). Runs through the fused path at every
+        decode_block. Greedy and sampled outputs equal the unspeculated
+        engine's. With the megakernel on CUDA, T <= MAX_ROWS.
+      drafter: "ngram" (default; prompt lookup), "prefix" (prefix-cache
+        chains), or a speculative.Drafter instance (e.g. ModelDrafter).
+      spec_adaptive: per-request draft length halves on a pass that
+        accepts nothing and doubles on a clean sweep, within [1, T - 1].
 
     Failure posture: a request that fails at a per-request boundary
     (admission, deadline, cancel) retires alone with a RequestFailure
@@ -404,20 +433,35 @@ class ContinuousBatchingEngine(LLMEngine):
     def __init__(self, model, max_len=1024, page_size=128, max_batch=8,
                  prefill_chunk=None, slot_buckets=None, prefix_cache=True,
                  queue_limit=None, default_deadline_ms=None,
-                 decode_block=1, ragged_kernel=None, do_sample=False,
-                 temperature=1.0, top_k=0, top_p=1.0, seed=0, sample_k=8,
-                 sample_fold=True, megakernel=None, speculate=None,
-                 tenants=None, kv_tier=None, oversubscribe=None,
-                 tier_idle_steps=None, telemetry=None, adapters=None, **kw):
-        if speculate not in (None, False, 0, 1):
-            raise _not_ported(f"speculate={speculate!r}",
-                              "A5(d), speculation")
+                 do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+                 seed=0, sample_k=8, sample_fold=True, decode_block=1,
+                 ragged_kernel=None, megakernel=None, speculate=None,
+                 drafter="ngram", spec_adaptive=True, tenants=None,
+                 kv_tier=None, tier_dir=None, tier_host_cap_mb=None,
+                 oversubscribe=None, tier_idle_steps=None, telemetry=None,
+                 adapters=None, **kw):
+        if speculate is True:
+            # int(True) == 1 would silently degenerate to plain decode
+            raise ValueError(
+                "speculate takes the verify width (an int >= 2: the pending "
+                "token + up to width-1 drafts per pass), not True")
+        self._spec = 0 if speculate in (None, False) else int(speculate)
+        if self._spec == 1:
+            self._spec = 0              # T = 1 degenerates to plain decode
+        if self._spec < 0:
+            raise ValueError(f"speculate must be >= 2, got {speculate}")
+        if self._spec > max_len:
+            raise ValueError(
+                f"speculate={self._spec} exceeds max_len={max_len}")
+        self.spec_adaptive = bool(spec_adaptive)
         if tenants:
             raise _not_ported("tenants (priority admission, preemption)",
                               "A5(e), tenants and preemption")
         if kv_tier is not None or oversubscribe or \
-                tier_idle_steps is not None:
-            raise _not_ported("KV tiering (kv_tier, oversubscribe, "
+                tier_idle_steps is not None or tier_dir is not None or \
+                tier_host_cap_mb is not None:
+            raise _not_ported("KV tiering (kv_tier, tier_dir, "
+                              "tier_host_cap_mb, oversubscribe, "
                               "tier_idle_steps)", "A7.4, tiering.py")
         if adapters not in (None, False):
             raise _not_ported("adapters", "A7.2, adapters.py")
@@ -461,6 +505,8 @@ class ContinuousBatchingEngine(LLMEngine):
         self._slot_buckets = tuple(sorted(
             {min(int(w), max_batch) for w in slot_buckets} | {max_batch}))
         self._prefix = PrefixCache(page_size) if prefix_cache else None
+        self._drafter = (resolve_drafter(drafter, self._prefix)
+                         if self._spec else None)
         self.queue_limit = (None if queue_limit is None
                             else int(queue_limit))
         self.default_deadline_ms = default_deadline_ms
@@ -490,6 +536,14 @@ class ContinuousBatchingEngine(LLMEngine):
         self.chained_blocks = 0         # blocks queued before the previous
         #                                 block's read-back
         self.sampled_requests = 0       # admitted with do_sample=True
+        self.spec_passes = 0            # verify passes that emitted
+        self.spec_emitted = 0           # decode tokens emitted by them
+        self.spec_drafted_total = 0     # drafts offered
+        self.spec_accepted_total = 0    # drafts accepted
+        self.draft_errors = 0           # drafter exceptions (degraded to
+        #                                 no drafts, never a failure)
+        self._spec_sampled_offered = 0  # the same two for sampled requests
+        self._spec_sampled_accepted = 0
         self._mk_pack = None
         self.megakernel = self._resolve_megakernel(megakernel)
         if self.megakernel:
@@ -497,8 +551,8 @@ class ContinuousBatchingEngine(LLMEngine):
 
     # -- public ------------------------------------------------------------
     def add_request(self, ids, max_new_tokens=32, eos_token_id=None,
-                    deadline_ms=None, ttl_steps=None, sampling=None,
-                    tenant=None, priority=None, adapter=None):
+                    deadline_ms=None, ttl_steps=None, tenant=None,
+                    priority=None, adapter=None, sampling=None):
         """Queue one prompt (1-D int sequence). Returns a request uid.
 
         deadline_ms: wall-clock budget from now; a request still
@@ -510,7 +564,11 @@ class ContinuousBatchingEngine(LLMEngine):
           (seed, position) key stream, repetition / presence / frequency
           penalties, stop sequences and a grammar (TokenMaskAutomaton).
           None takes the engine default (greedy unless the deprecated
-          engine-level do_sample was set).
+          engine-level do_sample was set). Penalties and grammars need the
+          materialized processor path and do not compose with speculate=
+          (a typed ValueError).
+        tenant / priority / adapter: not ported (each raises, naming its
+          ROADMAP item).
         Raises EngineBusyError (nothing enqueued) when the admission queue
         is at queue_limit."""
         if tenant is not None or priority is not None:
@@ -544,6 +602,12 @@ class ContinuousBatchingEngine(LLMEngine):
                 f"sample_k={self.sample_k}: the sampled path selects from "
                 "the top-sample_k candidate set (raise sample_k= at engine "
                 "build)")
+        if self._spec and sp.needs_processors:
+            raise ValueError(
+                "logit processors (penalties / grammar) do not compose with "
+                "speculate=: the verify pass scores positions whose "
+                "processor state depends on in-pass emissions; run this "
+                "request on a non-speculative engine")
         if sp.grammar is not None and \
                 sp.grammar.vocab != self.cfg.vocab_size:
             raise ValueError(
@@ -556,7 +620,8 @@ class ContinuousBatchingEngine(LLMEngine):
         r = Request(self._next_uid, ids, max_new_tokens, eos_token_id,
                     deadline=deadline,
                     ttl_steps=None if ttl_steps is None else int(ttl_steps),
-                    born_step=self.steps, sampling=sp)
+                    born_step=self.steps, sampling=sp,
+                    draft_k=max(1, self._spec - 1) if self._spec else 0)
         if sp.do_sample:
             self.sampled_requests += 1
         self._next_uid += 1
@@ -590,8 +655,10 @@ class ContinuousBatchingEngine(LLMEngine):
         have work, so long prompts don't stall live decodes).
 
         decode_block == K > 1: one block — a ragged prefill phase plus K
-        decode steps, read back once (see _fused_step)."""
-        if self.decode_block > 1:
+        decode steps, read back once (see _fused_step). speculate=T takes
+        the fused path at every decode_block (a block of K verify
+        passes)."""
+        if self.decode_block > 1 or self._spec:
             return self._fused_step()
         self._expire_deadlines()
         self._admit()
@@ -712,6 +779,21 @@ class ContinuousBatchingEngine(LLMEngine):
             "sampled_requests": self.sampled_requests,
             "sample_k": self.sample_k,
             "sample_fold": self.sample_fold,
+            "speculate": self._spec,
+            "drafter": (self._drafter.name if self._drafter is not None
+                        else None),
+            "spec_passes": self.spec_passes,
+            "spec_emitted": self.spec_emitted,
+            "spec_accept_rate": (
+                self.spec_accepted_total / self.spec_drafted_total
+                if self.spec_drafted_total else 0.0),
+            "spec_tokens_per_pass": (
+                self.spec_emitted / self.spec_passes
+                if self.spec_passes else 0.0),
+            "draft_errors": self.draft_errors,
+            "spec_sampled_accept_rate": (
+                self._spec_sampled_accepted / self._spec_sampled_offered
+                if self._spec_sampled_offered else 0.0),
         }
 
     def generate_many(self, prompts, max_new_tokens=32, eos_token_id=None):
@@ -1143,7 +1225,7 @@ class ContinuousBatchingEngine(LLMEngine):
         cfg = self.cfg
         ok = (megakernel_supported(self.nh, self.nh_kv, self.hd,
                                    cfg.hidden_size, cfg.intermediate_size)
-              and self.max_batch <= MAX_ROWS)
+              and self.max_batch <= MAX_ROWS and self._spec <= MAX_ROWS)
         if val is None:
             if self.device.type != "cuda" or not ok:
                 return False
@@ -1168,8 +1250,10 @@ class ContinuousBatchingEngine(LLMEngine):
                 f"megakernel={mode!r} forced on CUDA but the kernel does not "
                 f"take this geometry (nh={self.nh}, nh_kv={self.nh_kv}, "
                 f"hd={self.hd}, hidden={cfg.hidden_size}, "
-                f"ffn={cfg.intermediate_size}, max_batch={self.max_batch}); "
-                f"see megakernel_supported and MAX_ROWS={MAX_ROWS}")
+                f"ffn={cfg.intermediate_size}, max_batch={self.max_batch}, "
+                f"speculate={self._spec}); see megakernel_supported and "
+                f"MAX_ROWS={MAX_ROWS} (a verify pass of T rows per slot "
+                f"needs T <= MAX_ROWS)")
         return mode
 
     def _build_mk_pack(self):
@@ -1184,23 +1268,28 @@ class ContinuousBatchingEngine(LLMEngine):
             page_size=self.page_size, norm=W["norm"] if whole else None,
             head=W["head"] if whole else None)
 
-    def _mk_walk(self, h, tables, lens, act, topk=None):
-        """The layers of one decode step through the megakernel: one launch
-        ("multi", with the head) or one per layer ("layer"). Returns (h,
-        greedy token or None, logits or None), or with topk=K in "multi"
-        mode (h, topv, topi) from the kernel's top-K fold."""
+    def _mk_walk(self, h, tables, lens, act, topk=None, tq=1, wmask=None):
+        """The layers of one decode step (tq = T > 1: one verify pass of
+        T feed rows per slot, `wmask` gating their pool writes) through
+        the megakernel: one launch ("multi", with the head) or one per
+        layer ("layer"), each split into launches of whole slots at
+        tq > 1. Returns (h, greedy token or None, logits or None), or with
+        topk=K in "multi" mode (h, topv, topi) from the kernel's top-K
+        fold."""
         pack = self._mk_pack
+        kw = dict(tq=tq, wmask=wmask)
         if self.megakernel == "multi":
             if topk is not None and topk > 1:
                 return decode_megakernel(h, pack, tables, lens, act,
-                                         head=True, head_k=topk)
+                                         head=True, head_k=topk, **kw)
             h, tok, maxv, logits = decode_megakernel(h, pack, tables, lens,
-                                                     act, head=True)
+                                                     act, head=True, **kw)
             if topk is not None:       # the top 1: the greedy pair
                 return h, maxv[:, None], tok[:, None]
             return h, tok, logits
         for li in range(pack.n_layers):
-            h = decode_megakernel(h, pack, tables, lens, act, layer=li)
+            h = decode_megakernel(h, pack, tables, lens, act, layer=li,
+                                  **kw)
         return h, None, None
 
     def _decode_math_mk(self, tok, tables, lens, active, topk=None):
@@ -1220,6 +1309,146 @@ class ContinuousBatchingEngine(LLMEngine):
         if topk is not None:
             return self._topk(logits)
         return logits, logits.argmax(-1)
+
+    # -- speculative verify ----------------------------------------------
+    def _write_ok(self, T, active, rem, dlen):
+        """[w, T] gate of a verify pass's pool writes: feed position j
+        writes when its slot is active, j is inside the budget (j <
+        min(T, rem)) and j is the pending token or a real draft (j <=
+        dlen)."""
+        j = self._ar(T)[None, :]
+        cap = torch.clamp(rem, max=T)[:, None]
+        return active[:, None] & (j < cap) & (j <= dlen[:, None])
+
+    def _spec_verify_math(self, feed, tables, lens, active, rem, dlen,
+                          topk=None):
+        """One speculative verify pass at slot width w: slot b feeds T
+        tokens (feed [w, T]: its pending token and up to T - 1 drafts) at
+        positions lens[b] + [0, T), writes their KV gated by `_write_ok`
+        (other rows go to the scratch row; a rejected draft's row stays in
+        the pool, and `lens` never advances over it), and scores every
+        position through `spec_verify_attention` (row j causal up to
+        lens + j). Positions are clamped for the table and rope gathers.
+        Returns (logits [w, T, V], greedy tokens [w, T]); topk=K returns
+        (topv [w, T, K] f32, topi [w, T, K]) per feed position. With the
+        megakernel on, the pass runs its tq > 1 schedule
+        (_spec_verify_math_mk)."""
+        if self.megakernel:
+            return self._spec_verify_math_mk(feed, tables, lens, active, rem,
+                                             dlen, topk)
+        W = self.weights
+        p = self.page_size
+        T = feed.shape[1]
+        h = W["emb"][feed].to(self.kv_dtype)
+        pos = self._clamp_pos(lens[:, None] + self._ar(T)[None, :])
+        slots = tables.gather(1, pos // p) * p + pos % p
+        slots = torch.where(self._write_ok(T, active, rem, dlen), slots,
+                            self._oob).reshape(-1)
+        act = active.to(torch.int32)
+        for li, wset in enumerate(W["layers"]):
+            q, k, v = self._layer_qkv(W, wset, h, pos)
+            self._write_kv(li, slots, k, v)
+            attn = spec_verify_attention(q, self.k_pages[li],
+                                         self.v_pages[li], tables, lens,
+                                         active=act)
+            h = self._layer_tail(W, wset, h, attn)
+        logits = _mm(_rms(h, W["norm"], W["eps"]), W["head"])
+        if topk is not None:
+            return self._topk(logits)
+        return logits, logits.argmax(-1)
+
+    def _spec_verify_math_mk(self, feed, tables, lens, active, rem, dlen,
+                             topk=None):
+        """The verify pass on the megakernel's tq > 1 schedule: the feed
+        rows flatten slot-major into R = w * T kernel rows, `_write_ok`
+        rides in as the row mask, and the kernel writes the gated rows'
+        k/v in place before attending (the same pool bytes as the op
+        chain, rejected drafts' rows included). "multi" runs the final
+        norm, the lm_head and the greedy argmax (or the top-K fold) on
+        every row; "layer" leaves the head to the op chain."""
+        W = self.weights
+        w, T = feed.shape
+        i32 = torch.int32
+        h = W["emb"][feed.reshape(-1)].to(self.kv_dtype)
+        wm = self._write_ok(T, active, rem, dlen).reshape(-1).to(i32)
+        h, a, b = self._mk_walk(h, tables.to(i32), lens.to(i32),
+                                active.to(i32), topk=topk, tq=T, wmask=wm)
+        if a is not None and topk is not None:
+            return a.reshape(w, T, -1), b.reshape(w, T, -1)
+        if a is not None:
+            return b.reshape(w, T, -1), a.reshape(w, T).long()
+        logits = _mm(_rms(h[:, None], W["norm"], W["eps"]),
+                     W["head"])[:, 0].reshape(w, T, -1)
+        if topk is not None:
+            return self._topk(logits)
+        return logits, logits.argmax(-1)
+
+    def _spec_scan(self, tables, tok, lens, act, rem, eos, drafts, dlen,
+                   mode="greedy", ex=None):
+        """K verify passes (K = drafts.shape[0]) with every carry on the
+        device: pass s feeds [tok, drafts[s]], takes the target's token at
+        every feed position, and commits the longest draft prefix the
+        target agrees with plus the target's own next token. lens and rem
+        advance by the emitted count (capped by the budget, stopping at
+        the first EOS, inclusive); a slot retires on budget or EOS. dlen
+        [K, w] counts each pass's real drafts (padding is never offered).
+
+        Sampled verify is sample-and-match: the target's token at feed
+        position j is drawn with fold_keys(seed, lens + 1 + j), the key the
+        unspeculated stream uses at that position, and a draft is accepted
+        iff it equals it; so the stream equals the unspeculated one. The
+        keys and noise are drawn per pass (lens after a pass depends on
+        what was accepted). Returns (toks [K, w, T], emitted [K, w, T],
+        tok, lens, act, rem)."""
+        T = self._spec
+        w = tok.shape[0]
+        iT = self._ar(T)[None, :]
+        fold = mode == "sampled" and self.sample_fold
+        if mode != "greedy":
+            def bt(a):                 # [w] -> [w * T], slot-major
+                return a[:, None].expand(w, T).reshape(-1)
+        toks, emitted = [], []
+        for s in range(drafts.shape[0]):
+            d_s, n_s = drafts[s], dlen[s]
+            feed = torch.cat([tok[:, None], d_s], dim=1)
+            if mode == "greedy":
+                _, g = self._spec_verify_math(feed, tables, lens, act, rem,
+                                              n_s)
+            else:
+                if fold:
+                    topv, topi = self._spec_verify_math(
+                        feed, tables, lens, act, rem, n_s,
+                        topk=self.sample_k)
+                else:
+                    logits, _ = self._spec_verify_math(feed, tables, lens,
+                                                       act, rem, n_s)
+                    topv, topi = self._topk(logits)
+                keys = fold_keys(bt(ex["seeds"]),
+                                 (lens[:, None] + 1 + iT).reshape(-1))
+                g = select_from_topk(
+                    topv.reshape(w * T, -1), topi.reshape(w * T, -1).long(),
+                    keys, bt(ex["dos"]), bt(ex["temp"]), bt(ex["topk"]),
+                    bt(ex["topp"]), bt(ex["minp"])).reshape(w, T)
+            g = g.to(tok.dtype)
+            # accepted prefix: draft i equals the target's token at its
+            # position and every earlier draft was accepted
+            match = (d_s == g[:, :T - 1]) & (iT[:, :T - 1] < n_s[:, None])
+            n_acc = torch.cumprod(match.to(torch.int64), dim=1).sum(1)
+            n_emit = torch.minimum(n_acc + 1, torch.clamp(rem, max=T))
+            is_eos = g == eos[:, None]
+            eos_i = is_eos.to(torch.int64)
+            eos_before = torch.cumsum(eos_i, dim=1) - eos_i
+            emit = (iT < n_emit[:, None]) & (eos_before == 0) & act[:, None]
+            n_fin = emit.sum(1)
+            last = torch.clamp(n_fin - 1, min=0)
+            nxt = torch.where(act, g.gather(1, last[:, None])[:, 0], tok)
+            lens = torch.where(act, lens + n_fin, lens)
+            rem = torch.where(act, rem - n_fin, rem)
+            act = act & (rem > 0) & ~(emit & is_eos).any(1)
+            tok = nxt
+            toks.append(g)
+            emitted.append(emit)
+        return torch.stack(toks), torch.stack(emitted), tok, lens, act, rem
 
     def _prefill_phase(self, ids, tables, starts, ends, pf_act, dense=False):
         """Prefill: every active slot advances one chunk at its own offset
@@ -1459,11 +1688,45 @@ class ContinuousBatchingEngine(LLMEngine):
         act = np.zeros(w, bool)
         rem = np.zeros(w, np.int64)
         eos = np.full(w, -1, np.int64)
+        T = self._spec
+        if T:
+            # the host side of the draft / verify boundary: one proposal
+            # of K * (want + 1) tokens per request, sliced into per-pass
+            # drafts. A fully accepted pass emits want drafts and the
+            # target's bonus token, so consecutive passes stride want + 1
+            # through the continuation; a pass after a rejection mostly
+            # mismatches and degrades to one target token, never a wrong
+            # one. dlen counts each pass's real drafts.
+            drafts = np.zeros((K, w, T - 1), np.int64)
+            dlen = np.zeros((K, w), np.int64)
         for r in decodes:
+            if T:
+                # (the reference's fault points cb.draft and cb.verify sit
+                # here; they wait for failsafe.py, ROADMAP A7.0)
+                want = min(r.draft_k, T - 1)
+                cont = np.empty((0,), np.int64)
+                if want > 0:
+                    try:
+                        cont = np.asarray(self._drafter.timed_propose(
+                            np.concatenate([r.ids,
+                                            np.asarray(r.out, np.int64)]),
+                            K * (want + 1), sampling=r.sampling),
+                            np.int64).ravel()
+                    except Exception:
+                        # a broken drafter degrades this request's
+                        # speculation, never its correctness
+                        self.draft_errors += 1
+                        cont = np.empty((0,), np.int64)
+                stride = want + 1
+                for s in range(K):
+                    seg = cont[s * stride:s * stride + want]
+                    drafts[s, r.slot, :seg.size] = seg
+                    dlen[s, r.slot] = seg.size
             pos = int(self._lens_np[r.slot])
             # the block writes KV at positions [pos, pos + K) while the
-            # slot stays active: copy every shared page it can touch now
-            hi = min(pos + K, r.t0 + r.max_new_tokens - 1)
+            # slot stays active (K verify passes of up to T tokens each
+            # under speculation): copy every shared page it can touch now
+            hi = min(pos + (K * T if T else K), r.t0 + r.max_new_tokens - 1)
             self._make_writable(r, pos, max(hi, pos + 1))
             self._tok_np[r.slot] = r.tok
             act[r.slot] = True
@@ -1491,16 +1754,25 @@ class ContinuousBatchingEngine(LLMEngine):
                 blk.first = self._sample_rows(blk.extras, pf_end_dev,
                                               blk.mode, logits=logits)
         if blk.has_decode:
-            (blk.toks, blk.emitted, blk.tok_fin, blk.lens_fin, blk.act_fin,
-             blk.rem_fin) = self._decode_scan(
-                blk.tables, self._to_dev(self._tok_np[:w]),
-                self._to_dev(self._lens_np[:w]), self._to_dev(act),
-                self._to_dev(rem), blk.eos_dev, blk.mode, blk.extras)
+            carries = (blk.tables, self._to_dev(self._tok_np[:w]),
+                       self._to_dev(self._lens_np[:w]), self._to_dev(act),
+                       self._to_dev(rem), blk.eos_dev)
+            if T:
+                blk.dlens = dlen
+                (blk.toks, blk.emitted, blk.tok_fin, blk.lens_fin,
+                 blk.act_fin, blk.rem_fin) = self._spec_scan(
+                    *carries, self._to_dev(drafts), self._to_dev(dlen),
+                    blk.mode, blk.extras)
+            else:
+                (blk.toks, blk.emitted, blk.tok_fin, blk.lens_fin,
+                 blk.act_fin, blk.rem_fin) = self._decode_scan(
+                    *carries, blk.mode, blk.extras)
         self.dispatch_seconds += time.perf_counter() - t_dev
         self.fused_blocks += 1
         # steps advance by the block's device micro-steps, so TTLs stay
         # comparable with the per-step engine (expiry is checked only at
-        # block boundaries, rounded up)
+        # block boundaries, rounded up); a speculative block's micro-steps
+        # are verify passes: TTLs count passes, not tokens
         self.steps += len(prefills) + (K if blk.has_decode else 0)
         self.prefill_steps += len(prefills)
         self.decode_steps += K if blk.has_decode else 0
@@ -1513,6 +1785,10 @@ class ContinuousBatchingEngine(LLMEngine):
         at single block boundaries), no copy-on-write pending, and at
         least one request that outlives this block."""
         if blk.K <= 1 or not blk.has_decode or blk.has_prefill:
+            return False
+        if self._spec:
+            # the drafter runs on the host against the newest context; a
+            # chained block would verify stale drafts
             return False
         if self._queue or self._pending is not None:
             return False
@@ -1583,7 +1859,9 @@ class ContinuousBatchingEngine(LLMEngine):
                 self._lens_np[r.slot] = r.t0
                 r.state = DECODE
                 self._push_token(r, int(first[r.slot]))
-        if blk.has_decode:
+        if blk.has_decode and self._spec:
+            self._replay_spec(blk, toks, emitted)
+        elif blk.has_decode:
             for k in range(blk.K):
                 for r in blk.dec_items:
                     if r.state != DECODE or r.slot is None:
@@ -1593,6 +1871,50 @@ class ContinuousBatchingEngine(LLMEngine):
                         continue
                     self._lens_np[r.slot] += 1
                     self._push_token(r, int(toks[k, r.slot]))
+
+    def _replay_spec(self, blk, toks, emitted):
+        """A speculative block's tokens ([K, w, T] with their emitted
+        mask): each pass's emitted prefix goes through _push_token, and
+        its acceptance feeds the counters and the adaptive draft length
+        (halve on a pass that accepted nothing, double on a clean sweep,
+        within [1, T - 1])."""
+        T = self._spec
+        for s in range(toks.shape[0]):
+            for r in blk.dec_items:
+                if r.state != DECODE or r.slot is None:
+                    continue           # retired at an earlier pass, or
+                    #                    cancelled while in flight
+                em = emitted[s, r.slot]
+                n = int(em.sum())
+                if n == 0:
+                    continue
+                # drafts past the remaining budget can never be accepted:
+                # they are not charged as offered
+                offered = min(int(blk.dlens[s, r.slot]),
+                              max(r.max_new_tokens - len(r.out) - 1, 0))
+                accepted = min(max(0, n - 1), offered)
+                self.spec_passes += 1
+                self.spec_emitted += n
+                self.spec_drafted_total += offered
+                self.spec_accepted_total += accepted
+                r.spec_drafted += offered
+                r.spec_accepted += accepted
+                if r.sampling.do_sample:
+                    self._spec_sampled_offered += offered
+                    self._spec_sampled_accepted += accepted
+                if self.spec_adaptive and offered:
+                    if accepted >= offered and n > offered:
+                        r.draft_k = min(T - 1, max(1, r.draft_k * 2))
+                    elif accepted == 0:
+                        r.draft_k = max(1, r.draft_k // 2)
+                slot = r.slot
+                for i in range(T):
+                    if not em[i]:
+                        continue
+                    self._lens_np[slot] += 1
+                    self._push_token(r, int(toks[s, slot, i]))
+                    if r.state != DECODE:
+                        break          # EOS or budget inside the pass
 
     def _push_token(self, r, tok):
         tok = int(tok)

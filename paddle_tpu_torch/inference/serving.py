@@ -251,19 +251,26 @@ class LLMEngine:
     """
 
     def __init__(self, model, max_len=1024, page_size=128, max_batch=8,
-                 quant=None, batch_buckets=None, weight_dtype=None,
-                 flash_prefill_min=256, tp=1, quant_scales=None,
+                 quant=None, use_pallas=None, batch_buckets=None,
+                 weight_dtype=None, flash_prefill_min=256, tp=1,
+                 tp_mode="exact", tp_compress=None, quant_scales=None,
                  device=None):
         if not isinstance(model, LlamaForCausalLM):
             raise TypeError("LLMEngine serves the LLaMA family only")
         if quant not in (None, "int8"):
             raise ValueError(f"unsupported quant {quant!r}")
+        if use_pallas is not None:
+            raise ValueError(
+                f"use_pallas={use_pallas!r}: the port has no kernel switch "
+                "(a CUDA tensor launches the kernels, a CPU tensor runs the "
+                "plain versions); leave it None")
         if quant_scales is not None:
             raise ValueError("quant_scales (PTQ calibration) is not ported "
                              "yet; quant='int8' uses absmax scales")
-        if int(tp or 1) != 1:
-            raise ValueError(f"tp={tp}: tensor-parallel serving is not "
-                             "ported yet; only tp=1")
+        if int(tp or 1) != 1 or tp_mode != "exact" or tp_compress is not None:
+            raise ValueError(f"tp={tp}, tp_mode={tp_mode!r}, tp_compress="
+                             f"{tp_compress!r}: tensor-parallel serving is "
+                             "not ported yet (ROADMAP A7.10); only tp=1")
         if weight_dtype is not None:
             key = str(weight_dtype).replace("torch.", "")
             if key not in _WEIGHT_DTYPES:

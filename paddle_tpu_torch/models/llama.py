@@ -168,7 +168,7 @@ class LlamaAttention(nn.Module):
         k = apply_rotary(k, c, sn)
         k = expand_kv_heads(k, self.num_heads)
         v = expand_kv_heads(v, self.num_heads)
-        out = sdpa(q, k, v, True, 1.0 / math.sqrt(hd))
+        out = sdpa(q, k, v, causal=True, scale=1.0 / math.sqrt(hd))
         return self.o_proj(out.reshape(b, s, -1))
 
 

@@ -5,12 +5,18 @@ Every wrapper counts the launches of its CUDA kernel in a plain integer
 nowhere else: a CPU call (the plain version) does not count. A run shows
 that it went through the kernels by resetting the counts, running, and
 reading `kernel_launches()`. The decode megakernel's top-K fold (its
-`head_k > 1` branch) is also counted on its own, as
-"decode_megakernel_topk" (those launches are in "decode_megakernel" too).
+`head_k > 1` branch) and its speculative verify schedule (`tq > 1`) are
+also counted on their own, as "decode_megakernel_topk" and
+"decode_megakernel_verify" (those launches are in "decode_megakernel"
+too).
+The ragged kernel has two entries, each counted on its own:
+`ragged_paged_attention` (chunked prefill) and `spec_verify_attention`
+(the speculative verify pass).
 """
 from .pallas.decode_megakernel import decode_megakernel
 from .pallas.flash_attention import flash_attention_bwd, flash_attention_fwd
-from .pallas.paged_attention import paged_attention, ragged_paged_attention
+from .pallas.paged_attention import (paged_attention, ragged_paged_attention,
+                                     spec_verify_attention)
 from .pallas.quantized_matmul import quantized_matmul
 from .pallas.rms_norm import rms_norm_fwd
 
@@ -19,6 +25,7 @@ _WRAPPERS = {
     "paged_attention": paged_attention,
     "flash_attention_fwd": flash_attention_fwd,
     "ragged_paged_attention": ragged_paged_attention,
+    "spec_verify_attention": spec_verify_attention,
     "rms_norm": rms_norm_fwd,
     "flash_attention_bwd": flash_attention_bwd,
     "decode_megakernel": decode_megakernel,
@@ -29,6 +36,7 @@ def kernel_launches():
     """{kernel name: launches since the last reset}."""
     out = {name: fn.launches for name, fn in _WRAPPERS.items()}
     out["decode_megakernel_topk"] = decode_megakernel.fold_launches
+    out["decode_megakernel_verify"] = decode_megakernel.verify_launches
     return out
 
 
@@ -36,3 +44,4 @@ def reset_kernel_launches():
     for fn in _WRAPPERS.values():
         fn.launches = 0
     decode_megakernel.fold_launches = 0
+    decode_megakernel.verify_launches = 0

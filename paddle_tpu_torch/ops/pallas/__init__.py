@@ -13,7 +13,8 @@ from .flash_attention import FlashAttention
 from .rms_norm import rms_norm as rmsnorm  # noqa: F401  (the rms_norm slot)
 
 
-def sdpa(q, k, v, causal=True, scale=None):
+def sdpa(q, k, v, causal=False, scale=None):
     """Scaled dot-product attention on [b, s, h, d] (k/v at q's head
-    count): `FlashAttention`, forward and backward kernels on CUDA."""
+    count): `FlashAttention`, forward and backward kernels on CUDA.
+    Non-causal by default, as the reference's slot."""
     return FlashAttention.apply(q, k, v, causal, scale)

@@ -3,8 +3,8 @@ in whole-step mode, the final norm, the lm_head and the greedy argmax) in
 one kernel launch.
 
 Counterpart of `paddle_tpu/ops/pallas/decode_megakernel.py`. The Pallas TPU
-kernel `_mk_kernel` (seg "full", tq = 1, the greedy head and the top-K
-fold of `head_k > 1`) is replaced by
+kernel `_mk_kernel` (seg "full", tq = 1 and the tq > 1 speculative verify,
+the greedy head and the top-K fold of `head_k > 1`) is replaced by
 `csrc/decode_megakernel.cu`, a persistent cooperative CUDA kernel; the plain
 PyTorch version `decode_megakernel_reference` beside it serves CPU tensors
 and is the yardstick the kernel is held against on the card.
@@ -34,9 +34,22 @@ fold) it returns instead the top K of each row of those cast logits as
 to the smaller vocab id (`lax.top_k`'s order, bit for bit: selection only,
 no arithmetic), and no [R, V] logits buffer is allocated or written.
 
-Not ported yet (ROADMAP B6): the tq > 1 speculative-verify schedule (with
-speculation, A5(d)) and the tensor-parallel segments qkv / tail / down
-(with inference/tp.py, A7.10).
+The speculative verify pass (tq = T > 1): h holds R = b * T slot-major feed
+rows (slot s's pending token and its drafts at rows s * T + j), tables /
+lens / active stay per slot [b]. Row (s, j) sits at position lens[s] + j
+(clamped to max_len - 1 for the table and rope gathers), ropes at it, and
+writes its k/v row there when wmask[s * T + j] (and the slot) is set; an
+ungated row writes the scratch row, so later rows of its slot see the
+pool's stale bytes at that position, as in the reference. Attention for
+row (s, j) covers positions up to lens[s] + j (the ragged causal mask of
+`spec_verify_attention`); the head runs on every row. The kernel's
+register sums cover MAX_ROWS rows, so the wrapper runs a verify pass as
+launches of floor(MAX_ROWS / T) whole slots (a slot's rows never straddle
+two launches); every launch runs every layer (and the head) for its slots
+and reads the weights again.
+
+Not ported yet (ROADMAP B6): the tensor-parallel segments qkv / tail /
+down (with inference/tp.py, A7.10).
 """
 import ctypes
 import math
@@ -44,7 +57,8 @@ import math
 import torch
 
 from ... import _build
-from .paged_attention import MAX_D, MAX_REP_D, paged_attention_reference
+from .paged_attention import (MAX_D, MAX_REP_D, paged_attention_reference,
+                              spec_verify_attention)
 from .quantized_matmul import quantized_matmul_reference
 from .rms_norm import rms_rows
 
@@ -218,11 +232,11 @@ class _MkArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "ptrs", "h", "qkv", "attn", "act", "table", "lens", "active", "cos",
         "sin", "logits", "tok", "maxv", "part_v", "part_i", "topv", "topi",
-        "fold_v", "fold_i")] + \
+        "fold_v", "fold_i", "wmask")] + \
         [(n, ctypes.c_int) for n in (
             "layer0", "n_layers", "head_row", "R", "H", "nh", "nh_kv", "hd",
             "F", "V", "p", "n_pages", "max_pages", "oob", "max_len",
-            "max_grid", "head_k")] + \
+            "max_grid", "head_k", "tq")] + \
         [("eps", ctypes.c_float), ("scale", ctypes.c_float)]
 
 
@@ -249,24 +263,32 @@ def head_outputs(R, V, head_k, dtype, device):
 
 
 def decode_megakernel_reference(h, pack, tables, lens, active, layer=None,
-                                head=False, head_k=1):
+                                head=False, head_k=1, tq=1, wmask=None):
     """Plain version: the engine's op chain (inference/serving.py
-    `_layer_qkv` / `_layer_tail`, scheduler.py `_decode_math`) with the
-    same cast points: norms in serving order, projections emitted in h's
-    dtype, the half-split rope with each product rounded, the pool write,
-    `paged_attention_reference`, SiLU in f32 then cast, argmax over the
-    cast logits (head_k > 1: a stable top-K of them, then f32). Updates h
-    and the pools in place."""
+    `_layer_qkv` / `_layer_tail`, scheduler.py `_decode_math`, and at
+    tq > 1 `_spec_verify_math`) with the same cast points: norms in
+    serving order, projections emitted in h's dtype, the half-split rope
+    with each product rounded, the pool write, `paged_attention_reference`
+    (tq > 1: `spec_verify_attention`'s plain version), SiLU in f32 then
+    cast, argmax over the cast logits (head_k > 1: a stable top-K of them,
+    then f32). Updates h and the pools in place."""
     R = h.shape[0]
+    T = int(tq)
+    b = R // T
     p = pack.page_size
     nh, nh_kv, hd = pack.nh, pack.nh_kv, pack.hd
     live = active.bool()
-    pos = lens.long().clamp(0, pack.max_len - 1)
-    rows = torch.arange(R, device=h.device)
-    slots = tables.long()[rows, pos // p] * p + pos % p
-    slots = torch.where(live, slots, pack.oob)
+    pos = (lens.long()[:, None] + torch.arange(T, device=h.device)
+           ).clamp(0, pack.max_len - 1)
+    slots = tables.long()[torch.arange(b, device=h.device)[:, None],
+                          pos // p] * p + pos % p
+    ok = live[:, None]
+    if wmask is not None:
+        ok = ok & wmask.bool().reshape(b, T)
+    slots = torch.where(ok, slots, pack.oob).reshape(R)
     ctx = torch.where(live, lens.long() + 1, 0)
     act = active.to(torch.int32)
+    pos = pos.reshape(R)
     c = pack.cos[pos][:, None, :].to(h.dtype)
     s = pack.sin[pos][:, None, :].to(h.dtype)
     d2 = hd // 2
@@ -285,7 +307,12 @@ def decode_megakernel_reference(h, pack, tables, lens, active, layer=None,
         pack.k_flat[li].index_copy_(0, slots, k.to(pack.dtype))
         pack.v_flat[li].index_copy_(0, slots, v.to(pack.dtype))
         kp, vp = pack.pages(li)
-        attn = paged_attention_reference(q, kp, vp, tables, ctx, active=act)
+        if T == 1:
+            attn = paged_attention_reference(q, kp, vp, tables, ctx,
+                                             active=act)
+        else:
+            attn = spec_verify_attention(q.reshape(b, T, nh, hd), kp, vp,
+                                         tables, lens, active=act)
         x_h = x_h + _proj(attn.reshape(R, -1), ws["wo"])
         x = rms_rows(x_h, ws["ln2"], pack.eps)
         g = _proj(x, ws["wg"])
@@ -306,27 +333,35 @@ def decode_megakernel_reference(h, pack, tables, lens, active, layer=None,
 
 
 def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False,
-                      head_k=1):
+                      head_k=1, tq=1, wmask=None):
     """One decode step's layers through the megakernel. h [R, H] in the
-    pack's dtype (updated in place); tables [R, max_pages], lens [R]
-    (tokens cached before this step), active [R]. layer=None runs every
-    layer in one launch, layer=i only layer i. head=True (whole-step mode,
-    every layer) adds the final norm, the lm_head and the greedy argmax and
-    returns (h, tok [R] int32, maxv [R] f32, logits [R, V]); else h.
-    head_k = K in [2, min(128, V)] replaces the argmax by the running
-    top-K fold and returns (h, topv [R, K] f32, topi [R, K] int32).
+    pack's dtype (updated in place), R = b * tq; tables [b, max_pages],
+    lens [b] (tokens cached before this step), active [b]. layer=None runs
+    every layer in one launch, layer=i only layer i. head=True (whole-step
+    mode, every layer) adds the final norm, the lm_head and the greedy
+    argmax and returns (h, tok [R] int32, maxv [R] f32, logits [R, V]);
+    else h. head_k = K in [2, min(128, V)] replaces the argmax by the
+    running top-K fold and returns (h, topv [R, K] f32, topi [R, K]
+    int32). tq = T > 1 is the speculative verify pass over slot-major feed
+    rows, wmask [R] gating each row's pool write (None: every row of an
+    active slot writes).
 
     A CPU tensor takes the plain version. A CUDA tensor launches
     `csrc/decode_megakernel.cu` (cooperatively, one block per SM times the
-    occupancy) or raises; there is no fallback."""
+    occupancy) or raises; there is no fallback. At tq > 1 a call is
+    ceil(b / floor(MAX_ROWS / tq)) launches of whole slots."""
+    T = int(tq)
     R = h.shape[0] if h.dim() == 2 else -1
-    if h.dim() != 2 or h.shape[1] != pack.H or tuple(lens.shape) != (R,) \
-            or tuple(active.shape) != (R,) or tables.dim() != 2 \
-            or tables.shape[0] != R:
+    b = R // T if T >= 1 else -1
+    if h.dim() != 2 or h.shape[1] != pack.H or T < 1 or R % T \
+            or tuple(lens.shape) != (b,) or tuple(active.shape) != (b,) \
+            or tables.dim() != 2 or tables.shape[0] != b \
+            or (wmask is not None and tuple(wmask.shape) != (R,)):
         raise ValueError(
             f"decode_megakernel shapes: h {tuple(h.shape)} (hidden "
-            f"{pack.H}), tables {tuple(tables.shape)}, lens "
-            f"{tuple(lens.shape)}, active {tuple(active.shape)}")
+            f"{pack.H}, tq {tq}), tables {tuple(tables.shape)}, lens "
+            f"{tuple(lens.shape)}, active {tuple(active.shape)}, wmask "
+            f"{None if wmask is None else tuple(wmask.shape)}")
     if head and (pack.head is None or layer is not None):
         raise ValueError("decode_megakernel: head=True needs a pack built "
                          "with the lm_head, and every layer (layer=None)")
@@ -340,7 +375,7 @@ def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False,
             f"V={pack.V})] and needs head=True; got {head_k}")
     if h.device.type == "cpu":
         return decode_megakernel_reference(h, pack, tables, lens, active,
-                                           layer, head, head_k)
+                                           layer, head, head_k, T, wmask)
     if h.device.type != "cuda":
         raise ValueError(f"decode_megakernel: unsupported device {h.device}")
     if h.device != pack.device or h.dtype != pack.dtype \
@@ -349,9 +384,10 @@ def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False,
             f"decode_megakernel kernel takes a contiguous h of the pack's "
             f"dtype and device ({pack.dtype}, {pack.device}); got "
             f"{h.dtype}, {h.device}")
-    if not 1 <= R <= MAX_ROWS:
-        raise ValueError(f"decode_megakernel kernel takes 1 to {MAX_ROWS} "
-                         f"rows; got {R}")
+    if T > MAX_ROWS or (T == 1 and not 1 <= R <= MAX_ROWS) or b < 1:
+        raise ValueError(
+            f"decode_megakernel kernel takes 1 to {MAX_ROWS} rows per "
+            f"launch and tq <= {MAX_ROWS}; got {R} rows at tq {T}")
     if not megakernel_supported(pack.nh, pack.nh_kv, pack.hd, pack.H, pack.F):
         raise ValueError(
             f"decode_megakernel kernel does not take this geometry (nh "
@@ -362,33 +398,44 @@ def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False,
     table = tables.to(device=dev, dtype=i32).contiguous()
     lens_i = lens.to(device=dev, dtype=i32).contiguous()
     act_i = active.to(device=dev, dtype=i32).contiguous()
-    scr = dict(pack.scratch(R))
+    wm = None if wmask is None else \
+        wmask.to(device=dev, dtype=i32).contiguous()
     out = head_outputs(R, pack.V, head_k, h.dtype, dev) if head else {}
-    if head_k > 1:
-        scr.update(pack.fold_scratch(R, head_k))
-    args = _MkArgs(
-        ptrs=pack.ptrs.data_ptr(), h=h.data_ptr(), table=table.data_ptr(),
-        lens=lens_i.data_ptr(), active=act_i.data_ptr(),
-        cos=pack.cos.data_ptr(), sin=pack.sin.data_ptr(),
-        **{k: t.data_ptr() for k, t in scr.items()},
-        **{k: t.data_ptr() for k, t in out.items()},
-        layer0=0 if layer is None else int(layer),
-        n_layers=pack.n_layers if layer is None else 1,
-        head_row=pack.n_layers if head else -1, R=R, H=pack.H, nh=pack.nh,
-        nh_kv=pack.nh_kv, hd=pack.hd, F=pack.F, V=pack.V, p=pack.page_size,
-        n_pages=pack.n_pages, max_pages=table.shape[1], oob=pack.oob,
-        max_len=pack.max_len, max_grid=pack.max_grid, head_k=head_k,
-        eps=pack.eps, scale=1.0 / math.sqrt(pack.hd))
-    grid = ctypes.c_int(0)
+    per = MAX_ROWS // T                   # whole slots per launch
     lib = _build.library()
-    code = lib.ptt_decode_megakernel(
-        ctypes.byref(args), _DTYPE_CODE[h.dtype], int(pack.quant), dev.index,
-        _build.stream_ptr(dev), ctypes.byref(grid))
-    _build.check(code, "decode_megakernel")
-    decode_megakernel.launches += 1
-    if head_k > 1:
-        decode_megakernel.fold_launches += 1
-    decode_megakernel.grid = grid.value
+    for s0 in range(0, b, per):
+        s1 = min(b, s0 + per)
+        r0, r1 = s0 * T, s1 * T
+        scr = dict(pack.scratch(r1 - r0))
+        if head_k > 1:
+            scr.update(pack.fold_scratch(r1 - r0, head_k))
+        args = _MkArgs(
+            ptrs=pack.ptrs.data_ptr(), h=h[r0:r1].data_ptr(),
+            table=table[s0:s1].data_ptr(), lens=lens_i[s0:s1].data_ptr(),
+            active=act_i[s0:s1].data_ptr(), cos=pack.cos.data_ptr(),
+            sin=pack.sin.data_ptr(),
+            wmask=None if wm is None else wm[r0:r1].data_ptr(),
+            **{k: t.data_ptr() for k, t in scr.items()},
+            **{k: t[r0:r1].data_ptr() for k, t in out.items()},
+            layer0=0 if layer is None else int(layer),
+            n_layers=pack.n_layers if layer is None else 1,
+            head_row=pack.n_layers if head else -1, R=r1 - r0, H=pack.H,
+            nh=pack.nh, nh_kv=pack.nh_kv, hd=pack.hd, F=pack.F, V=pack.V,
+            p=pack.page_size, n_pages=pack.n_pages, max_pages=table.shape[1],
+            oob=pack.oob, max_len=pack.max_len, max_grid=pack.max_grid,
+            head_k=head_k, tq=T, eps=pack.eps,
+            scale=1.0 / math.sqrt(pack.hd))
+        grid = ctypes.c_int(0)
+        code = lib.ptt_decode_megakernel(
+            ctypes.byref(args), _DTYPE_CODE[h.dtype], int(pack.quant),
+            dev.index, _build.stream_ptr(dev), ctypes.byref(grid))
+        _build.check(code, "decode_megakernel")
+        decode_megakernel.launches += 1
+        if head_k > 1:
+            decode_megakernel.fold_launches += 1
+        if T > 1:
+            decode_megakernel.verify_launches += 1
+        decode_megakernel.grid = grid.value
     decode_megakernel.outputs = tuple(sorted(out))
     if not head:
         return h
@@ -399,5 +446,6 @@ def decode_megakernel(h, pack, tables, lens, active, layer=None, head=False,
 
 decode_megakernel.launches = 0
 decode_megakernel.fold_launches = 0   # launches with head_k > 1 (of .launches)
+decode_megakernel.verify_launches = 0  # launches with tq > 1 (of .launches)
 decode_megakernel.grid = None     # blocks of the last launch
 decode_megakernel.outputs = ()    # output buffers the last launch allocated

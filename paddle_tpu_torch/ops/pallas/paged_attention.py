@@ -1,6 +1,6 @@
 """Paged attention: one query token per slot over its KV pages (decode),
 and tq tokens per slot at ragged offsets (`ragged_paged_attention`,
-chunked prefill).
+chunked prefill; `spec_verify_attention`, its speculative-verify entry).
 
 Counterpart of `paddle_tpu/ops/pallas/paged_attention.py`. The Pallas
 TPU kernels `_decode_kernel` and `_ragged_kernel` are replaced by
@@ -130,9 +130,25 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None,
 paged_attention.launches = 0
 
 
+def ragged_causal_mask(shape, tq, q_start, page_start, ctx_len,
+                       device=None):
+    """The ragged multi-token-q causal mask over a [rows, keys] logits
+    block whose rows are (head, token)-flattened with the token minor (row
+    r is chunk offset r % tq): key column c (global position page_start +
+    c) is visible to row r iff it is at or before the row's own position
+    q_start + r % tq and inside the context (< ctx_len). q_start and
+    ctx_len may be tensors that broadcast against [rows, keys] (one per
+    slot: shape [b, 1, 1] gives a [b, rows, keys] mask). One definition
+    for the ragged kernel's plain version and the verify entry, as in the
+    reference (`paged_attention.py` `ragged_causal_mask`)."""
+    rows = torch.arange(shape[0], device=device)[:, None] % tq
+    kpos = torch.arange(shape[1], device=device)[None, :] + page_start
+    return (kpos <= q_start + rows) & (kpos < ctx_len)
+
+
 def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
-                                     ctx_lens, q_starts, scale=None,
-                                     active=None):
+                                     ctx_lens, q_starts, active=None,
+                                     scale=None):
     """Plain version: gather each slot's pages, mask key c for the row at
     chunk offset qi unless c <= q_starts[b] + qi and c < ctx_lens[b],
     softmax in f32. Rows with no visible key (inactive slots included)
@@ -146,10 +162,10 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     vs = expand_kv_heads(v_pages[table].reshape(b, max_pages * p, h_kv, d), h)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), ks.float()) * s
     dev = q.device
-    kpos = torch.arange(max_pages * p, device=dev)[None, None, None, :]
-    qpos = (q_starts.to(dev).long()[:, None]
-            + torch.arange(tq, device=dev)[None, :])[:, None, :, None]
-    ok = (kpos <= qpos) & (kpos < ctx_lens.to(dev).long()[:, None, None, None])
+    ok = ragged_causal_mask((h * tq, max_pages * p), tq,
+                            q_starts.to(dev).long()[:, None, None], 0,
+                            ctx_lens.to(dev).long()[:, None, None],
+                            device=dev).reshape(b, h, tq, max_pages * p)
     if active is not None:
         ok = ok & (active.to(dev) != 0)[:, None, None, None]
     logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
@@ -158,23 +174,11 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     return torch.einsum("bhqk,bkhd->bqhd", w, vs.float()).to(q.dtype)
 
 
-def ragged_paged_attention(q, k_pages, v_pages, page_table, ctx_lens,
-                           q_starts, active=None, scale=None):
-    """Ragged-chunk attention over a paged KV cache: slot b holds tq query
-    tokens at global positions q_starts[b] + [0, tq) and attends its own
-    pages causally, up to ctx_lens[b] (the tokens cached after this
-    chunk's write). Returns [b, tq, h, d] in q's dtype; rows past a slot's
-    real chunk end are garbage by contract, but finite.
-
-      q          : [b, tq, h, d]
-      k/v_pages  : [n_pages, p, h_kv, d]
-      page_table : [b, max_pages] int32 (ids clamped to [0, n_pages))
-      ctx_lens, q_starts : [b] int32
-      active     : optional [b] mask; inactive slots emit zeros
-
-    A CPU tensor takes the plain version. A CUDA tensor launches
-    `csrc/ragged_paged_attention.cu` (bf16 or f32, d a multiple of 16 up
-    to 256) or raises; there is no fallback."""
+def _ragged(q, k_pages, v_pages, page_table, ctx_lens, q_starts, active,
+            scale):
+    """The ragged kernel's dispatch, shared by its two entries (each counts
+    its own launches): the plain version for a CPU tensor, the kernel or a
+    raise for a CUDA one."""
     b, tq, h, d = q.shape
     n_pages, p, h_kv, dd = k_pages.shape
     if dd != d or h % h_kv or tuple(v_pages.shape) != tuple(k_pages.shape) \
@@ -189,7 +193,8 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, ctx_lens,
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
-            q, k_pages, v_pages, page_table, ctx_lens, q_starts, s, active)
+            q, k_pages, v_pages, page_table, ctx_lens, q_starts,
+            active=active, scale=s)
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_paged_attention: unsupported device {q.device}")
@@ -229,8 +234,61 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, ctx_lens,
         b, tq, h, h_kv, d, p, n_pages, table.shape[1], float(s),
         _DTYPE_CODE[q.dtype], dev.index, _build.stream_ptr(dev))
     _build.check(code, "ragged_paged_attention")
-    ragged_paged_attention.launches += 1
+    return out
+
+
+def ragged_paged_attention(q, k_pages, v_pages, page_table, ctx_lens,
+                           q_starts, active=None, scale=None):
+    """Ragged-chunk attention over a paged KV cache: slot b holds tq query
+    tokens at global positions q_starts[b] + [0, tq) and attends its own
+    pages causally, up to ctx_lens[b] (the tokens cached after this
+    chunk's write). Returns [b, tq, h, d] in q's dtype; rows past a slot's
+    real chunk end are garbage by contract, but finite.
+
+      q          : [b, tq, h, d]
+      k/v_pages  : [n_pages, p, h_kv, d]
+      page_table : [b, max_pages] int32 (ids clamped to [0, n_pages))
+      ctx_lens, q_starts : [b] int32
+      active     : optional [b] mask; inactive slots emit zeros
+
+    A CPU tensor takes the plain version. A CUDA tensor launches
+    `csrc/ragged_paged_attention.cu` (bf16 or f32, d a multiple of 16 up
+    to 256) or raises; there is no fallback."""
+    out = _ragged(q, k_pages, v_pages, page_table, ctx_lens, q_starts,
+                  active, scale)
+    if q.device.type == "cuda" and q.shape[0]:
+        ragged_paged_attention.launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+
+
+def spec_verify_attention(q, k_pages, v_pages, page_table, lens,
+                          active=None, scale=None):
+    """The speculative-decoding verify entry: slot b holds lens[b]
+    committed tokens, and its T feed tokens (the pending token and up to
+    T - 1 drafts, q [b, T, h, d]) sit at positions lens[b] + [0, T), their
+    k/v already written into the slot's pages (write-gated: a rejected
+    draft's row stays, and `lens` never advances over it). Row j attends
+    causally up to its own position lens[b] + j: the ragged kernel at
+    tq = T with ctx = lens + T and q_starts = lens. The mask is the one a
+    decode step applies to one token, and the ragged kernel walks the
+    decode kernel's per-page softmax step (a page whose keys a row may not
+    see leaves that row's softmax state as it was), so on the card row j
+    equals the j-th of T sequential `paged_attention` steps bit for bit.
+    Returns [b, T, h, d].
+
+    A CPU tensor takes the ragged kernel's plain version. A CUDA tensor
+    launches `csrc/ragged_paged_attention.cu` or raises; launches count as
+    `spec_verify_attention.launches` (not the ragged wrapper's)."""
+    T = q.shape[1]
+    lens = lens.to(torch.int32)
+    out = _ragged(q, k_pages, v_pages, page_table, lens + T, lens, active,
+                  scale)
+    if q.device.type == "cuda" and q.shape[0]:
+        spec_verify_attention.launches += 1
+    return out
+
+
+spec_verify_attention.launches = 0

@@ -6,7 +6,9 @@ ragged requests through `ContinuousBatchingEngine`, the second sharing the
 first's prompt prefix (prefix-cache hits). Greedy unless `--temperature` is
 given: then every request samples (request i with seed `--seed` + i, its
 own key stream), or every other one with `--sample-rotate` (a mixed
-greedy / sampled batch). Weights are random, drawn from a seed.
+greedy / sampled batch). `--speculate T` verifies up to T - 1 drafts per
+pass (`--drafter ngram|prefix`); the outputs stay those of unspeculated
+serving. Weights are random, drawn from a seed.
 
     python -m paddle_tpu_torch.serve_llama --model 7b --quant int8
     python -m paddle_tpu_torch.serve_llama --scheduler --decode-block 8
@@ -15,6 +17,8 @@ greedy / sampled batch). Weights are random, drawn from a seed.
     python -m paddle_tpu_torch.serve_llama --model tiny --device cpu
     python -m paddle_tpu_torch.serve_llama --scheduler --megakernel multi \
         --decode-block 4 --temperature 0.8 --top-k 6 --top-p 0.95 --seed 42
+    python -m paddle_tpu_torch.serve_llama --model 7b --scheduler \
+        --decode-block 8 --megakernel multi --speculate 4 --drafter ngram
 """
 import argparse
 import warnings
@@ -62,6 +66,18 @@ def main(argv=None):
                     help="--scheduler: decode through the megakernel, one "
                          "launch per layer or per step (auto: per layer on "
                          "CUDA where the kernel takes the model)")
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="--scheduler: T >= 2 turns on speculative "
+                         "decoding: a drafter proposes up to T-1 tokens "
+                         "per verify pass, the target scores them in one "
+                         "multi-token pass and accepts the agreeing "
+                         "prefix on the device; outputs stay those of "
+                         "unspeculated serving")
+    ap.add_argument("--drafter", choices=["ngram", "prefix"],
+                    default="ngram",
+                    help="--speculate: 'ngram' = prompt lookup over the "
+                         "request's own context; 'prefix' = continuations "
+                         "walked from the prefix cache")
     ap.add_argument("--temperature", type=float, default=None,
                     help="sampled decoding: softmax temperature (unset = "
                          "greedy). With --scheduler --megakernel multi the "
@@ -132,7 +148,9 @@ def serve_scheduler(args, g, model, quant, weight_dtype, device):
         max_batch=max(2, g["bs"]), quant=quant, weight_dtype=weight_dtype,
         queue_limit=args.queue_limit, default_deadline_ms=args.deadline_ms,
         decode_block=args.decode_block,
-        megakernel=MEGAKERNEL[args.megakernel], device=device)
+        megakernel=MEGAKERNEL[args.megakernel],
+        speculate=args.speculate or None, drafter=args.drafter,
+        device=device)
     del model
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -157,6 +175,11 @@ def serve_scheduler(args, g, model, quant, weight_dtype, device):
     h = engine.health()
     fused = (f"{h['fused_blocks']} fused blocks ({h['chained_blocks']} "
              f"chained), " if args.decode_block > 1 else "")
+    if h["speculate"]:
+        fused += (f"speculate={h['speculate']}/{h['drafter']}: "
+                  f"{h['spec_emitted']} tokens in {h['spec_passes']} verify "
+                  f"passes ({h['spec_tokens_per_pass']:.2f}/pass, accept "
+                  f"{h['spec_accept_rate']:.2f}), ")
     print(f"model={args.model} quant={args.quant} scheduler "
           f"(megakernel {h['megakernel']}): "
           f"{len(submitted)} ragged requests in {h['steps']} steps "

@@ -90,7 +90,8 @@ def test_kernel_wrappers_count_only_kernel_launches():
     """CPU tensors take the plain versions, which launch nothing; a
     training step (every norm, attention forward and backward) and
     megakernel decode steps on the CPU, greedy and sampled through the
-    top-K fold, launch nothing either."""
+    top-K fold, and speculative verify passes (the op chain's verify
+    entry and the megakernel's tq > 1 schedule) launch nothing either."""
     from paddle_tpu_torch.inference.sampling import SamplingParams
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     from paddle_tpu_torch.models import SpmdTrainer
@@ -112,12 +113,21 @@ def test_kernel_wrappers_count_only_kernel_launches():
     eng.add_request(np.arange(4), 3,
                     sampling=SamplingParams(do_sample=True, seed=1))
     eng.drain()
+    for mk in (False, "multi"):
+        spec = ContinuousBatchingEngine(tr.model, max_len=32, page_size=8,
+                                        max_batch=2, megakernel=mk,
+                                        speculate=3, device="cpu")
+        spec.generate_many([np.arange(5) % 2, np.arange(3)],
+                           max_new_tokens=4)
+        assert spec.health()["spec_passes"] > 0
     assert kernel_launches() == {"quantized_matmul": 0, "paged_attention": 0,
                                  "flash_attention_fwd": 0,
-                                 "ragged_paged_attention": 0, "rms_norm": 0,
+                                 "ragged_paged_attention": 0,
+                                 "spec_verify_attention": 0, "rms_norm": 0,
                                  "flash_attention_bwd": 0,
                                  "decode_megakernel": 0,
-                                 "decode_megakernel_topk": 0}
+                                 "decode_megakernel_topk": 0,
+                                 "decode_megakernel_verify": 0}
 
 
 def test_training_entry_points_refuse_cpu_without_being_asked():

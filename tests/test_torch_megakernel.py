@@ -394,13 +394,15 @@ def test_knob_resolution_health_and_refusals():
     with pytest.raises(ValueError, match="megakernel must be"):
         ContinuousBatchingEngine(tm, device="cpu", megakernel="whole",
                                  **ENGINE_KW)
-    # the features a forced megakernel would compose with: sampling is
-    # ported (the engine-level knob is deprecated), the others are not
-    for kw, item in ((dict(speculate=4), "A5\\(d\\)"),
-                     (dict(adapters=True), "A7.2")):
-        with pytest.raises(NotImplementedError, match=item):
-            ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
-                                     **kw, **ENGINE_KW)
+    # the features a forced megakernel would compose with: sampling and
+    # speculation are ported (the engine-level sampling knob is
+    # deprecated), adapters are not
+    eng = ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
+                                   speculate=4, **ENGINE_KW)
+    assert eng.megakernel == "multi" and eng.health()["speculate"] == 4
+    with pytest.raises(NotImplementedError, match="A7.2"):
+        ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
+                                 adapters=True, **ENGINE_KW)
     with pytest.warns(DeprecationWarning):
         eng = ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
                                        do_sample=True, **ENGINE_KW)

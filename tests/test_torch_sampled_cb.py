@@ -244,8 +244,9 @@ def test_default_sampling_folds_uid_and_deprecates():
 
 
 def test_rejections():
-    """Exact (no numerics): the typed refusals of the reference, and
-    speculation still unported for sampled requests."""
+    """Exact (no numerics): the typed refusals of the reference; an
+    engine at speculate=4 takes sampled requests (speculation is
+    ported)."""
     _, tm = _pair()
     eng = tsched.ContinuousBatchingEngine(tm, device="cpu", **GEOM)
     p = _prompts()[0]
@@ -263,9 +264,11 @@ def test_rejections():
                                             **GEOM)
     with pytest.raises(ValueError, match="sample_k"):
         tsched.ContinuousBatchingEngine(tm, device="cpu", top_k=9, **GEOM)
-    with pytest.raises(NotImplementedError, match="A5\\(d\\)"):
-        tsched.ContinuousBatchingEngine(tm, device="cpu", speculate=4,
-                                        **GEOM)
+    spec = tsched.ContinuousBatchingEngine(tm, device="cpu", speculate=4,
+                                           **GEOM)
+    assert spec.health()["speculate"] == 4
+    spec.add_request(p, 3, sampling=SamplingParams(**_kw(0)))
+    assert spec.health()["sampled_requests"] == 1
     with pytest.raises(NotImplementedError, match="A7.6"):
         eng.export_request(0)
     # a to_spec() dict is accepted in place of SamplingParams

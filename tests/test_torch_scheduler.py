@@ -269,11 +269,18 @@ def test_health_keys_and_unported_options():
         "failures", "deadline_expiries", "cow_copies", "decode_block",
         "fused_blocks", "chained_blocks", "megakernel",
         "megakernel_whole_step", "sampled_requests", "sample_k",
-        "sample_fold"}
+        "sample_fold", "speculate", "drafter", "spec_passes", "spec_emitted",
+        "spec_accept_rate", "spec_tokens_per_pass", "draft_errors",
+        "spec_sampled_accept_rate"}
     _, tm = _pair()
-    for kw, item in ((dict(speculate=4), "A5\\(d\\)"),
-                     (dict(tenants={"a": {}}), "A5\\(e\\)"),
+    # speculation is ported (A5(d)); tiering's directory knobs are taken
+    # and refused with the other tiering knobs
+    assert tsched.ContinuousBatchingEngine(
+        tm, device="cpu", speculate=4).health()["speculate"] == 4
+    for kw, item in ((dict(tenants={"a": {}}), "A5\\(e\\)"),
                      (dict(kv_tier="host"), "A7.4"),
+                     (dict(tier_dir="kv_tier"), "A7.4"),
+                     (dict(tier_host_cap_mb=64), "A7.4"),
                      (dict(adapters=True), "A7.2"),
                      (dict(telemetry=True), "A7.3")):
         with pytest.raises(NotImplementedError, match=item):

@@ -1,0 +1,112 @@
+"""Public signatures of paddle_tpu_torch against the JAX package's.
+
+Exact (no numerics): for each ported callable, the reference's parameters
+come first in the port, in the reference's order, with the same kinds and
+defaults, so a positional call binds the same arguments in both packages.
+The port may add parameters after them (its "port-only tail", e.g.
+`device`); a parameter that exists only for JAX (`interpret`, the Pallas
+interpreter switch) is left out of the comparison. The `sdpa` slot keeps
+the reference's non-causal default.
+"""
+import inspect
+
+import pytest
+
+import paddle_tpu.inference.scheduler as jsched
+import paddle_tpu.inference.serving as jserving
+import paddle_tpu.inference.speculative as jspec
+import paddle_tpu.ops.pallas as jpallas
+import paddle_tpu.ops.pallas.paged_attention as jpa
+import paddle_tpu_torch.inference.scheduler as tsched
+import paddle_tpu_torch.inference.serving as tserving
+import paddle_tpu_torch.inference.speculative as tspec
+import paddle_tpu_torch.ops.pallas as tpallas
+import paddle_tpu_torch.ops.pallas.paged_attention as tpa
+
+JAX_ONLY = {"interpret"}
+
+PAIRS = {
+    "LLMEngine.__init__": (jserving.LLMEngine.__init__,
+                           tserving.LLMEngine.__init__),
+    "ContinuousBatchingEngine.__init__": (
+        jsched.ContinuousBatchingEngine.__init__,
+        tsched.ContinuousBatchingEngine.__init__),
+    "ContinuousBatchingEngine.add_request": (
+        jsched.ContinuousBatchingEngine.add_request,
+        tsched.ContinuousBatchingEngine.add_request),
+    "ContinuousBatchingEngine.generate_many": (
+        jsched.ContinuousBatchingEngine.generate_many,
+        tsched.ContinuousBatchingEngine.generate_many),
+    "ragged_paged_attention_reference": (
+        jpa.ragged_paged_attention_reference,
+        tpa.ragged_paged_attention_reference),
+    "ragged_paged_attention": (jpa.ragged_paged_attention,
+                               tpa.ragged_paged_attention),
+    "spec_verify_attention": (jpa.spec_verify_attention,
+                              tpa.spec_verify_attention),
+    "paged_attention": (jpa.paged_attention, tpa.paged_attention),
+    "ragged_causal_mask": (jpa.ragged_causal_mask, tpa.ragged_causal_mask),
+    "rejection_sample": (jspec.rejection_sample, tspec.rejection_sample),
+    "Drafter.timed_propose": (jspec.Drafter.timed_propose,
+                              tspec.Drafter.timed_propose),
+    "NGramDrafter.__init__": (jspec.NGramDrafter.__init__,
+                              tspec.NGramDrafter.__init__),
+    "PrefixCacheDrafter.__init__": (jspec.PrefixCacheDrafter.__init__,
+                                    tspec.PrefixCacheDrafter.__init__),
+    "ModelDrafter.__init__": (jspec.ModelDrafter.__init__,
+                              tspec.ModelDrafter.__init__),
+    "resolve_drafter": (jspec.resolve_drafter, tspec.resolve_drafter),
+}
+
+
+def _params(fn):
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()
+            if p.name not in JAX_ONLY]
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_reference_parameters_lead_in_order(name):
+    ref, port = (_params(f) for f in PAIRS[name])
+    assert port[:len(ref)] == ref, (
+        f"{name}: the port's leading parameters {port[:len(ref)]} differ "
+        f"from the reference's {ref}")
+    # the tail holds only keyword-usable port-only parameters
+    for pname, kind, _ in port[len(ref):]:
+        assert kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                        inspect.Parameter.KEYWORD_ONLY), (name, pname)
+
+
+def test_unported_reference_parameters_are_taken():
+    """The reference's parameters the port refuses (use_pallas, tp_mode,
+    tp_compress, tier_dir, tier_host_cap_mb) are in its signatures, so a
+    reference call gets a typed refusal, never a TypeError."""
+    llm = inspect.signature(tserving.LLMEngine.__init__).parameters
+    cb = inspect.signature(tsched.ContinuousBatchingEngine.__init__).parameters
+    for p in ("use_pallas", "tp_mode", "tp_compress"):
+        assert p in llm
+    for p in ("drafter", "spec_adaptive", "tier_dir", "tier_host_cap_mb"):
+        assert p in cb
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cpu")
+    kw = dict(max_len=32, page_size=8, max_batch=1, device="cpu")
+    for bad in (True, False):
+        with pytest.raises(ValueError, match="use_pallas"):
+            tserving.LLMEngine(model, use_pallas=bad, **kw)
+    for tkw in (dict(tp_mode="psum"), dict(tp_compress="int8")):
+        with pytest.raises(ValueError, match="A7.10"):
+            tserving.LLMEngine(model, **tkw, **kw)
+    for tkw in (dict(tier_dir="kv_tier"), dict(tier_host_cap_mb=8)):
+        with pytest.raises(NotImplementedError, match="A7.4"):
+            tsched.ContinuousBatchingEngine(model, **tkw, **kw)
+    # a positional call in the reference's order binds the same way
+    eng = tserving.LLMEngine(model, 32, 8, 1, None, None, None, "float32",
+                             16, device="cpu")
+    assert eng.flash_prefill_min == 16
+
+
+def test_sdpa_slot_default_is_non_causal():
+    ref = inspect.signature(jpallas._sdpa_pallas).parameters["causal"]
+    port = inspect.signature(tpallas.sdpa).parameters["causal"]
+    assert port.default is ref.default is False

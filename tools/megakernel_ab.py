@@ -6,8 +6,9 @@ example a parent commit unpacked with `git archive <commit> | tar -x -C
 <dir>` into a git-ignored directory) runs in its own process, which builds
 its kernels and prints one JSON line: the build's ptxas registers and
 spills of the megakernel, `chip_smoke.check_megakernel`'s greedy rows
-(bf16 and int8, ms and one "layer" launch's ms) and, where the tree has it,
-`check_megakernel_topk`'s fold rows. The trees run in the order given, then
+(bf16 and int8, ms and one "layer" launch's ms) and, where the tree has
+them, `check_megakernel_topk`'s fold rows and `check_megakernel_verify`'s
+speculative verify rows (tq = 4). The trees run in the order given, then
 again in reverse, so drift on the card shows as a difference between a
 tree's two rows.
 
@@ -27,7 +28,7 @@ t = time.perf_counter()
 _build.library()
 ptx = [l for l in cs.ptxas_summary(_build.build_log() or "") if "megakernel" in l]
 dev = torch.device("cuda", 0)
-out = dict(build_s=time.perf_counter() - t, ptxas=ptx, greedy=[], fold=[])
+out = dict(build_s=time.perf_counter() - t, ptxas=ptx, greedy=[], fold=[], verify=[])
 for r in cs.check_megakernel(torch, dev):
     if "ms" in r:
         out["greedy"].append(dict(weights=r["weights"], ms=r["ms"],
@@ -38,6 +39,10 @@ if hasattr(cs, "check_megakernel_topk"):
             out["fold"].append(dict(weights=r["weights"], R=r["R"], K=r["head_k"],
                                     ms=r["ms"], greedy_ms=r["greedy_ms"],
                                     library_ms=r["library_ms"], ok=r["ok"]))
+if hasattr(cs, "check_megakernel_verify"):
+    for r in cs.check_megakernel_verify(torch, dev, ptx):
+        out["verify"].append(dict(weights=r["weights"], ms=r["ms"],
+                                  sequential_ms=r["sequential_ms"], ok=r["ok"]))
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
