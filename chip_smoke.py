@@ -16,7 +16,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               bit, and the megakernel's tq = 4 verify schedule (8 slots, a
               mixed write mask, bf16 and int8) against its plain version,
               the op chain's pools and 4 sequential tq = 1 launches (bit
-              for bit)
+              for bit); the flash kernels' dropout branch (p 0.1, forward
+              and backward, gpt3_1p3b's shape in bf16, f32 rows) against
+              the plain versions with the same seed, two launches with one
+              seed bit-identical, dropout_p = 0 bit-equal to the causal
+              launch
   4. path     LLaMA-7B (full width, all 32 layers, random weights from a
               seed) served through LLMEngine.generate(device_loop=True),
               bf16 and int8 weights, 12- and 300-token prompt batches;
@@ -55,6 +59,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               (f32), one carried-over state, 2 layers at the 350m width and
               vocab, bs 4, seq 256, 3 steps: card f32 (TF32 off) and card
               bf16
+ 10. gpt_train_path  train_llama.run_config("gpt3_1p3b"): full width and
+              depth, dropout 0.1, 2 warmup + 5 timed steps and one
+              profiled step; exact launches per step of both flash
+              kernels and of their dropout branch; one keep-mask draw
+ 11. gpt_train_parity  train_parity on GPT: 2 layers at the gpt3_1p3b
+              width and vocab, dropout on, each step keyed alike on both
+              sides (the masks are the same bits)
 
 Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
 bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row.
@@ -71,6 +82,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+CORE_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 
 REPLACES = {
     "quantized_matmul": "paddle_tpu/ops/pallas/quantized_matmul.py:53",
@@ -83,6 +95,8 @@ REPLACES = {
     "decode_megakernel_topk": "paddle_tpu/ops/pallas/decode_megakernel.py:616",
     "spec_verify_attention": "paddle_tpu/ops/pallas/paged_attention.py:354",
     "decode_megakernel_verify": "paddle_tpu/ops/pallas/decode_megakernel.py:494",
+    "flash_attention_fwd_dropout": "paddle_tpu/ops/pallas/flash_attention.py:160",
+    "flash_attention_bwd_dropout": "paddle_tpu/ops/pallas/flash_attention.py:469",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
@@ -95,6 +109,8 @@ SOURCES = {
     "decode_megakernel_topk": "paddle_tpu_torch/csrc/decode_megakernel.cu",
     "spec_verify_attention": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
     "decode_megakernel_verify": "paddle_tpu_torch/csrc/decode_megakernel.cu",
+    "flash_attention_fwd_dropout": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dropout": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 
 
@@ -103,9 +119,12 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes, flops):
+def bound_ms(n_bytes, flops, core_ops=0):
+    """The least time for the work: bytes over the memory rate, or
+    tensor-core flops over the bf16 peak plus operations that run outside
+    the tensor cores (the dropout hash) over the CUDA cores' rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS_PER_S
+    t_ops = flops / BF16_FLOPS_PER_S + core_ops / CORE_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -515,6 +534,146 @@ def check_flash_bwd(torch, dev):
             pairs = b * h * s * (s + 1) // 2
             n_bytes = 8 * b * s * h * d * q.element_size() + b * h * s * 4
             row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 10 * d * pairs)
+        rows.append(row)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the gpt3_1p3b training shape (b8 s1024 h16 d128) in bf16, then f32 at a
+# smaller b (d 128, and d 64 with s not a multiple of 64)
+DROPOUT_P, DROPOUT_SEED = 0.1, 1234567
+FLASH_DROPOUT_CASES = ((8, 1024, 16, 128, "bfloat16"), (2, 1024, 16, 128, "float32"),
+                       (2, 200, 3, 64, "float32"))
+HASH_OPS = 16     # integer operations of one keep bit (`ptt::dropout_keep`)
+
+
+def _same(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_flash_dropout(torch, dev):
+    """The forward's dropout branch against its plain version with the
+    same seed; two launches with one seed bit-identical; lse bit-equal to
+    the launch without dropout (lse is the logsumexp before dropout); a
+    launch with dropout_p = 0 bit-equal to the causal launch."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas.flash_attention import (
+        flash_attention_fwd, flash_attention_reference)
+    p, seed = DROPOUT_P, DROPOUT_SEED
+    rows = []
+    for b, s, h, d, dt in FLASH_DROPOUT_CASES:
+        dt = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(8)
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        scale = 1.0 / math.sqrt(d)
+        got = flash_attention_fwd(q, k, v, True, scale, None, p, seed)
+        again = flash_attention_fwd(q, k, v, True, scale, None, p, seed)
+        p0 = flash_attention_fwd(q, k, v, True, scale, None, 0.0)
+        causal = flash_attention_fwd(q, k, v, True, scale)
+        ref = flash_attention_reference(q, k, v, True, scale, None, p, seed)
+        torch.cuda.synchronize()
+        err, lse_err = max_err(got[0], ref[0]), max_err(got[1], ref[1])
+        # o: one bf16 rounding of nearly equal f32 sums (2^-7 of the
+        # largest output), in f32 the order of the sums; lse is f32
+        tol = (2 ** -7 if dt == torch.bfloat16 else 1e-5) * float(ref[0].float().abs().max())
+        lse_tol = 1e-3
+        row = dict(b=b, s=s, h=h, d=d, dtype=str(dt), dropout_p=p, seed=seed,
+                   max_abs_err=err, tol=tol, lse_max_abs_err=lse_err, lse_tol=lse_tol,
+                   repeat_identical=_same(torch, got, again),
+                   p0_equals_causal=_same(torch, p0, causal),
+                   lse_equals_no_dropout=torch.equal(got[1], causal[1]),
+                   dropped=not torch.equal(got[0], causal[0]))
+        row["ok"] = (err <= tol and lse_err <= lse_tol and row["repeat_identical"]
+                     and row["p0_equals_causal"] and row["lse_equals_no_dropout"]
+                     and row["dropped"])
+        del again, p0, causal, ref
+        if dt == torch.bfloat16:
+            row["ms"] = time_ms(torch, lambda: flash_attention_fwd(q, k, v, True, scale,
+                                                                   None, p, seed))
+            row["no_dropout_ms"] = time_ms(torch, lambda: flash_attention_fwd(
+                q, k, v, True, scale))
+            row["plain_ms"] = time_ms(torch, lambda: flash_attention_reference(
+                q, k, v, True, scale, None, p, seed), iters=3, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, dropout_p=p, is_causal=True, scale=scale))
+            row["library_call"] = ("torch.nn.functional.scaled_dot_product_attention("
+                                   "dropout_p=0.1, is_causal=True); its RNG differs")
+            del qt, kt, vt
+            # q, k, v read and o written once, lse written; 4 d flops and
+            # one keep bit per visible (query, key) pair
+            pairs = b * h * s * (s + 1) // 2
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                4 * b * s * h * d * q.element_size() + b * h * s * 4, 4 * d * pairs,
+                HASH_OPS * pairs)
+        rows.append(row)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_flash_bwd_dropout(torch, dev):
+    """The backward's dropout branch against its plain version with the
+    same seed, from the kernel forward's o and lse; two launches with one
+    seed bit-identical; dropout_p = 0 bit-equal to the causal launch."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd)
+    p, seed = DROPOUT_P, DROPOUT_SEED
+    bf16 = torch.bfloat16
+    rows = []
+    for b, s, h, d, dt in FLASH_DROPOUT_CASES:
+        dt = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(9)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = flash_attention_fwd(q, k, v, True, scale, None, p, seed)
+        got = flash_attention_bwd(q, k, v, o, lse, do, True, scale, None, None, p, seed)
+        again = flash_attention_bwd(q, k, v, o, lse, do, True, scale, None, None, p, seed)
+        p0 = flash_attention_bwd(q, k, v, o, lse, do, True, scale, None, None, 0.0)
+        causal = flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+        ref = flash_attention_bwd_reference(q, k, v, o, lse, do, True, scale, None, p, seed)
+        torch.cuda.synchronize()
+        errs = {n: max_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
+        # per gradient, relative to its largest entry: bf16 rounds the
+        # output once (2^-8) after f32 sums; f32 differs in sum order only
+        rel = 1e-2 if dt == bf16 else 1e-4
+        tols = {n: rel * float(r.float().abs().max()) for n, r in zip(("dq", "dk", "dv"), ref)}
+        row = dict(b=b, s=s, h=h, d=d, dtype=str(dt), dropout_p=p, seed=seed,
+                   max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                   tol_by_grad=tols, repeat_identical=_same(torch, got, again),
+                   p0_equals_causal=_same(torch, p0, causal))
+        row["ok"] = (all(errs[n] <= tols[n] for n in errs) and row["repeat_identical"]
+                     and row["p0_equals_causal"])
+        del got, again, p0, causal, ref
+        torch.cuda.empty_cache()
+        if dt == bf16:
+            row["ms"] = time_ms(torch, lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, True, scale, None, None, p, seed), iters=5)
+            row["no_dropout_ms"] = time_ms(torch, lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, True, scale), iters=5)
+            row["plain_ms"] = time_ms(torch, lambda: flash_attention_bwd_reference(
+                q, k, v, o, lse, do, True, scale, None, p, seed), iters=2, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, dropout_p=p, is_causal=True,
+                                                 scale=scale)
+            dot = do.transpose(1, 2).contiguous()
+            row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), iters=5)
+            row["library_call"] = ("the backward alone of torch.nn.functional."
+                                   "scaled_dot_product_attention(dropout_p=0.1, "
+                                   "is_causal=True); its RNG differs")
+            del qt, kt, vt, out, dot
+            # q, k, v, o, dO read and dQ, dK, dV written once, lse read;
+            # 10 d flops and one keep bit per visible (query, key) pair
+            pairs = b * h * s * (s + 1) // 2
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                8 * b * s * h * d * q.element_size() + b * h * s * 4, 10 * d * pairs,
+                HASH_OPS * pairs)
         rows.append(row)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
@@ -1955,11 +2114,29 @@ TRAIN_RUNS = (
 )
 
 
-def train_path(torch, dev):
+# gpt3_1p3b, full recompute, dropout 0.1: every attention forward (24,
+# then 24 again in the recompute) and backward (24) has dropout
+GPT_TRAIN_RUNS = (
+    ("gpt3_1p3b", 2, 5, {"flash_attention_fwd": 48, "flash_attention_bwd": 24,
+                         "flash_attention_fwd_dropout": 48,
+                         "flash_attention_bwd_dropout": 24}),
+)
+
+
+def mask_draw_ms(torch, dev, shape=(8, 1024, 2048)):
+    """Device time of one hidden-dropout keep mask of gpt3_1p3b's
+    activations, drawn afresh (float64 uniforms from threefry in eager
+    int64 ops; the trainer draws each distinct mask once per step)."""
+    from paddle_tpu_torch.framework import random as frnd
+    key = frnd.key(1)
+    return time_ms(torch, lambda: frnd.bernoulli(key, 0.9, shape, dev), iters=3, warmup=1)
+
+
+def train_path(torch, dev, runs=TRAIN_RUNS):
     from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from paddle_tpu_torch.train_llama import run_config
     results, launches = [], {}
-    for name, warmup, steps, per_step in TRAIN_RUNS:
+    for name, warmup, steps, per_step in runs:
         torch.cuda.empty_cache()
         reset_kernel_launches()
         r = run_config(name, steps=steps, warmup=warmup, device=dev, profile=True)
@@ -1980,34 +2157,40 @@ def train_path(torch, dev):
 
 
 # ---------------------------------------------------------------- phase 9
-def train_parity(torch, dev):
+def train_parity(torch, dev, make_model=None, keys=(None, None, None)):
     """The trainer on the card against the trainer on the CPU (f32, plain
-    versions) from one state: 2 layers at the 350m width and vocab, bs 4,
-    seq 256, 3 steps, recompute save_attn, lr 1e-4."""
+    versions) from one state: 2 layers at the 350m width and vocab (or
+    `make_model(device)`'s), bs 4, seq 256, 3 steps, recompute save_attn,
+    lr 1e-4, step i keyed by keys[i]."""
     import numpy as np
     from paddle_tpu_torch.models import SpmdTrainer
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
-    cfg = LlamaConfig(vocab_size=32000, hidden_size=1024, intermediate_size=2816,
-                      num_hidden_layers=2, num_attention_heads=16,
-                      max_position_embeddings=1024)
+    if make_model is None:
+        cfg = LlamaConfig(vocab_size=32000, hidden_size=1024, intermediate_size=2816,
+                          num_hidden_layers=2, num_attention_heads=16,
+                          max_position_embeddings=1024)
+
+        def make_model(device):
+            return LlamaForCausalLM(cfg, device=device, seed=5)
+
+    cpu_model = make_model("cpu")
     rng = np.random.RandomState(1)
-    ids = rng.randint(0, cfg.vocab_size, (4, 256)).astype(np.int64)
+    ids = rng.randint(0, cpu_model.config.vocab_size, (4, 256)).astype(np.int64)
     labels = np.roll(ids, -1, axis=1)
     kw = dict(lr=1e-4, recompute=True, recompute_policy="save_attn")
 
     def run(device, **extra):
-        model = LlamaForCausalLM(cfg, device=device, seed=5)
+        model = make_model(device)
         model.load_state_dict(cpu_model.state_dict())
         tr = SpmdTrainer(model, **kw, **extra)
         st = tr.init_state()
         losses = []
-        for _ in range(3):
-            st, loss = tr.step(st, ids, labels)
+        for key in keys:
+            st, loss = tr.step(st, ids, labels, key=key)
             losses.append(float(loss))
         return losses, {n: t.float().cpu() for n, t in st["params"].items()}
 
-    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=5)
     ref_losses, ref_params = run("cpu")
     rows = []
     # f32 on the card, TF32 off: the same math in another summation order;
@@ -2017,11 +2200,24 @@ def train_parity(torch, dev):
         losses, params = run(dev, **extra)
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
         pdiff = max(float((params[n] - ref_params[n]).abs().max()) for n in ref_params)
-        rows.append(dict(card=name, cpu="f32", losses=losses, cpu_losses=ref_losses,
+        rows.append(dict(card=name, cpu="f32", model=type(cpu_model).__name__,
+                         losses=losses, cpu_losses=ref_losses,
                          loss_max_rel_diff=rel, tol=tol, param_max_abs_diff=pdiff,
                          ok=rel <= tol and all(math.isfinite(x) for x in losses)))
         torch.cuda.empty_cache()
     return rows
+
+
+def gpt_train_parity(torch, dev):
+    """train_parity on GPT: 2 layers at the gpt3_1p3b width and vocab,
+    dropout 0.1 (hidden and attention) on both sides, step i keyed by
+    key(100 + i): the card's masks are the CPU's bits (the flash kernels'
+    hash and the plain `dropout_keep`, one threefry stream)."""
+    from paddle_tpu_torch.framework import random as frnd
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(hidden_size=2048, num_hidden_layers=2, num_attention_heads=16)
+    return train_parity(torch, dev, lambda device: GPTForCausalLM(cfg, device=device, seed=5),
+                        keys=[frnd.key(100 + i) for i in range(3)])
 
 
 def main():
@@ -2073,7 +2269,9 @@ def main():
                lambda torch, dev: check_megakernel_topk(torch, dev, ptxas)),
               ("spec_verify_attention", check_spec_verify),
               ("decode_megakernel_verify",
-               lambda torch, dev: check_megakernel_verify(torch, dev, ptxas)))
+               lambda torch, dev: check_megakernel_verify(torch, dev, ptxas)),
+              ("flash_attention_fwd_dropout", check_flash_dropout),
+              ("flash_attention_bwd_dropout", check_flash_bwd_dropout))
     for name, check in checks:
         rows = check(torch, dev)
         for r in rows:
@@ -2149,7 +2347,23 @@ def main():
     for r in train_parity(torch, dev):
         emit(dict(phase="train_parity", **r))
         ok &= r["ok"]
-    emit(dict(phase="train_parity", launches=launches,
+    emit(dict(phase="train_parity", elapsed_s=time.perf_counter() - t_start))
+
+    # 10. the GPT training path (dropout on); counts are zeroed just
+    # before the run inside train_path and read just after it
+    runs, counts = train_path(torch, dev, GPT_TRAIN_RUNS)
+    add(counts)
+    for r in runs:
+        emit(dict(phase="gpt_train_path", **r))
+        ok &= r["ok"]
+    emit(dict(phase="gpt_train_path", mask_draw_ms=mask_draw_ms(torch, dev),
+              elapsed_s=time.perf_counter() - t_start))
+
+    # 11. GPT training parity on the card, dropout on
+    for r in gpt_train_parity(torch, dev):
+        emit(dict(phase="gpt_train_parity", **r))
+        ok &= r["ok"]
+    emit(dict(phase="gpt_train_parity", launches=launches,
               elapsed_s=time.perf_counter() - t_start))
     # every kernel was launched on the main paths
     ok &= all(launches.get(k, 0) > 0 for k in SOURCES)

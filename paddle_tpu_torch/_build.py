@@ -30,20 +30,24 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 
 # argtypes of every kernel entry point; each returns cudaGetLastError()
 SIGNATURES = {
     "ptt_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # (..., dtype, dropout, seed, thresh, inv_keep, device, stream)
     "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F,
+                                _I, _P],
     "ptt_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                    _I, _P],
     "ptt_rms_norm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "ptt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F,
+                                _I, _P],
     # (args struct, dtype, weight kind, device, stream, grid out)
     "ptt_decode_megakernel": [_P, _I, _I, _I, _P, _P],
 }

@@ -1,5 +1,5 @@
 """Move a `paddle_tpu` model's parameters, or a `paddle_tpu` trainer's
-state, into their `paddle_tpu_torch` counterparts.
+state, into their `paddle_tpu_torch` counterparts (LLaMA and GPT).
 
 Both packages keep Paddle's [in, out] weight layout and the same parameter
 names, so the copy is by name with no transposes. The caller hands over
@@ -37,9 +37,10 @@ def trainer_state_from_numpy(trainer, params, opt=None, step=0):
     reference trainer's, as numpy:
 
     - params: `trainer.gather_params(state)` of the reference —
-      {"outer": [embed, final norm, lm_head], "stacked": [[L, ...] per
-      decoder parameter name]} — the stacks in the trainer's
-      `phys_order`;
+      {"outer": [the embedding's, final norm's and lm_head's parameters,
+      in `trainer.outer_names` order (GPT: word then position table,
+      ln_f weight and bias, lm_head)], "stacked": [[L, ...] per decoder
+      parameter name]} — the stacks in the trainer's `phys_order`;
     - opt: the reference's `state["opt"]` of one rank, {"outer": [{"m",
       "v"}], "stacked": [{"m", "v"}]}, each moment flat (a stacked one
       over the whole [L, ...] block; padding past the parameter's size is

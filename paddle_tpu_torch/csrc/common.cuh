@@ -39,6 +39,33 @@ __device__ __forceinline__ float warp_max(float v, int width = 32) {
   return v;
 }
 
+// The attention-dropout keep bit of the reference's flash kernels
+// (paddle_tpu/ops/pallas/flash_attention.py `_dropout_keep`): an
+// xxhash-style avalanche of (seed, slice = batch * heads + head, global
+// query row, global key column) in uint32 arithmetic, kept where the hash
+// is at or above thresh = min(int(p * 2^32), 2^32 - 1). The forward and
+// the backward kernels call it on the same tuple, so the mask is never
+// stored, and it is the reference's mask bit for bit.
+__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t slice, uint32_t row,
+                                             uint32_t col, uint32_t thresh) {
+  uint32_t h = seed * 2654435761u + slice * 0x9E3779B9u;
+  h = h ^ (row * 0x85EBCA6Bu) ^ (col * 0xC2B2AE35u);
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  h *= 0x297A2D39u;
+  h ^= h >> 15;
+  return h >= thresh;
+}
+
+// Dropout of one launch: on, the seed, the threshold and 1 / (1 - p)
+// rounded to f32 (the reference's `jnp.float32(1.0 / (1.0 - p))`).
+struct Dropout {
+  int on;
+  uint32_t seed, thresh;
+  float inv_keep;
+};
+
 // One page of the paged-attention online softmax, shared by the decode
 // kernel (paged_attention.cu) and the ragged kernel
 // (ragged_paged_attention.cu) so that a ragged slot with one query token

@@ -2,19 +2,28 @@
 // masked causally and past s_true) v, plus lse = logsumexp of each row.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (called
-// from `_flash_fwd` / `make_flash_attention`), for the causal case without
-// additive mask or dropout. On the TPU the k-block axis is the innermost,
-// sequential grid dimension and (m, l, acc) persist in VMEM scratch across
-// it; here it is a loop inside one block.
+// from `_flash_fwd` / `make_flash_attention`), for the causal case, with
+// or without attention dropout, without an additive mask. On the TPU the
+// k-block axis is the innermost, sequential grid dimension and (m, l, acc)
+// persist in VMEM scratch across it; here it is a loop inside one block.
+//
+// Dropout (the `kDrop` instantiations; `.dropout` entry of
+// `make_flash_attention`): after a tile's running max, l and alpha update,
+// each weight p is kept as p / (1 - p_drop) (times the f32 reciprocal, as
+// the reference) or zeroed, by `ptt::dropout_keep` on its global (row,
+// column) and slice = batch * heads + head, before the P V product; l, and
+// so lse, stays the sum of the weights before dropout. With kDrop false
+// the kernel is the one without dropout, instruction for instruction.
 //
 // What bounds it on the H100: causal attention does about 4 * d * s^2 / 2
 // flops per (batch, head) and moves 4 * s * d * 2 bytes (bf16 q, k, v, o),
 // so about s / 4 flops per byte against the card's ~295 (989 TFLOP/s bf16
 // over 3.35 TB/s). At the serving path's prefill shape (s = 320) that is
 // ~80 flops/byte: the function is bound by memory, and becomes bound by the
-// tensor cores only from s of about 1200 up. This first kernel computes on
-// the CUDA cores in f32 and is far from both bounds; wgmma/TMA tiles are
-// later work.
+// tensor cores only from s of about 1200 up. Dropout adds the hash, ~16
+// integer operations per visible (query, key) pair on the CUDA cores. This
+// first kernel computes on the CUDA cores in f32 and is far from both
+// bounds; wgmma/TMA tiles are later work.
 //
 // Design: one block of 128 threads per (batch x head, 64-row query tile).
 // The block stages the query tile (pre-scaled, f32) in shared memory, then
@@ -44,11 +53,11 @@ constexpr size_t smem_floats() {
          (size_t)kBQ * (kBK + 1);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int S, int H, int s_true, float scale) {
+                 int S, int H, int s_true, float scale, ptt::Dropout drop) {
   constexpr int kOut = D / 8;  // output features per thread: cg + 8 * jd
   extern __shared__ float smem[];
   float* Qs = smem;                       // [kBQ][D + 1]
@@ -129,8 +138,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) {
         const float pj = expf(sc[i][j] - m_new);
-        Ps[(rg + 16 * i) * (kBK + 1) + cg + 8 * j] = pj;
-        sum += pj;
+        float w = pj;
+        if constexpr (kDrop) {
+          const bool keep = ptt::dropout_keep(drop.seed, bh, row, k_start + cg + 8 * j,
+                                              drop.thresh);
+          w = keep ? pj * drop.inv_keep : 0.f;
+        }
+        Ps[(rg + 16 * i) * (kBK + 1) + cg + 8 * j] = w;
+        sum += pj;  // l sums the weights before dropout
       }
       sum = ptt::warp_sum(sum, 8);
       const float alpha = expf(m[i] - m_new);
@@ -167,39 +182,52 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int b, int s, int h, int s_true, float scale, cudaStream_t st) {
+template <typename T, int D, bool kDrop>
+cudaError_t launch_as(const void* q, const void* k, const void* v, void* o, float* lse,
+                      int b, int s, int h, int s_true, float scale, ptt::Dropout drop,
+                      cudaStream_t st) {
   const size_t smem = sizeof(float) * smem_floats<D>();
-  cudaError_t err = ptt::allow_smem(flash_fwd_kernel<T, D>, smem);
+  cudaError_t err = ptt::allow_smem(flash_fwd_kernel<T, D, kDrop>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((s + kBQ - 1) / kBQ, b * h);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<T, D, kDrop><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, s, h, s_true, scale);
+      static_cast<T*>(o), lse, s, h, s_true, scale, drop);
   return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int b, int s, int h, int s_true, float scale, ptt::Dropout drop,
+                   cudaStream_t st) {
+  return drop.on ? launch_as<T, D, true>(q, k, v, o, lse, b, s, h, s_true, scale, drop, st)
+                 : launch_as<T, D, false>(q, k, v, o, lse, b, s, h, s_true, scale, drop, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); lse is f32
-// [b, h, s]. d must be 64 or 128.
+// [b, h, s]. d must be 64 or 128. dropout != 0 drops attention weights
+// with the reference's hash of seed, kept where it is >= thresh, scaled by
+// inv_keep.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        void* o, void* lse, int b, int s, int h, int d,
-                                       int s_true, float scale, int dtype, int device,
-                                       void* stream) {
+                                       int s_true, float scale, int dtype, int dropout,
+                                       unsigned seed, unsigned thresh, float inv_keep,
+                                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const ptt::Dropout drop{dropout, seed, thresh, inv_keep};
   if (dtype == 1 && d == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, o, l, b, s, h, s_true, scale, st);
+    err = launch<__nv_bfloat16, 128>(q, k, v, o, l, b, s, h, s_true, scale, drop, st);
   else if (dtype == 1 && d == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, o, l, b, s, h, s_true, scale, st);
+    err = launch<__nv_bfloat16, 64>(q, k, v, o, l, b, s, h, s_true, scale, drop, st);
   else if (dtype == 0 && d == 128)
-    err = launch<float, 128>(q, k, v, o, l, b, s, h, s_true, scale, st);
+    err = launch<float, 128>(q, k, v, o, l, b, s, h, s_true, scale, drop, st);
   else if (dtype == 0 && d == 64)
-    err = launch<float, 64>(q, k, v, o, l, b, s, h, s_true, scale, st);
+    err = launch<float, 64>(q, k, v, o, l, b, s, h, s_true, scale, drop, st);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -5,7 +5,8 @@
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fused_bwd_kernel`
 // (called from `_flash_bwd` / `make_flash_attention`'s custom VJP), for the
-// causal case without additive mask or dropout. The reference's grid walks
+// causal case, with or without attention dropout, without an additive
+// mask. The reference's grid walks
 // K/V blocks outside and Q blocks inside: dK and dV accumulate in VMEM over
 // the inner Q axis, and every (K block, Q block) visit writes its dQ
 // partial, which XLA sums afterwards. Nothing is added to dQ by two
@@ -23,8 +24,9 @@
 // (batch, head) when causal, against 16 s d bytes of bf16 q, k, v, o, dO and
 // the three gradients: ~s / 3 flops per byte, ~330 at the training shapes'
 // s = 1024, just above the card's ~295, so the tensor cores' peak (989
-// TFLOP/s bf16) bounds it. This first kernel computes on the CUDA cores in
-// f32, far from that bound; wgmma tiles are later work.
+// TFLOP/s bf16) bounds it; dropout adds ~16 integer operations per visible
+// pair (the hash) on the CUDA cores. This first kernel computes on the CUDA
+// cores in f32, far from that bound; wgmma tiles are later work.
 //
 // Per query tile: stage Q and dO (f32, rows padded to d + 1 floats against
 // bank conflicts) beside the block's K and V; each of 256 threads owns a
@@ -34,6 +36,15 @@
 // through one shared tile for the three products that read them by column.
 // Each thread owns 4 key rows x d/16 features of dK and dV and 4 query rows
 // x d/16 features of the dQ partial. d 64 or 128; bf16 or f32 in and out.
+//
+// Dropout (the `kDrop` instantiations): each thread hashes its 16 (query,
+// key) pairs with `ptt::dropout_keep` on their global positions, as the
+// forward did, and keeps the bits in a register mask. dV reads the dropped
+// weights p_v = keep ? p / (1 - p_drop) : 0; dP is dropped the same way;
+// dS = P (dP - delta) * scale takes the undropped P; delta = rowsum(dO o)
+// over the dropped forward's o, as without dropout (the reference's
+// `_fused_bwd_kernel`). With kDrop false the kernel is the one without
+// dropout, instruction for instruction.
 #include "common.cuh"
 
 namespace {
@@ -49,13 +60,13 @@ constexpr size_t smem_floats() {
   return 4 * (size_t)kBK * (D + 1) + (size_t)kBQ * (kBK + 1) + 2 * (size_t)kBQ;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq_part,
                  T* __restrict__ dk, T* __restrict__ dv, int B, int S, int H, int s_true,
-                 float scale) {
+                 float scale, ptt::Dropout drop) {
   constexpr int kF = D / 16;  // features per thread: tx + 16 * j
   constexpr int DP = D + 1;   // padded row stride
   extern __shared__ float smem[];
@@ -134,6 +145,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
         for (int j = 0; j < 4; ++j) p[i][j] = fmaf(qv[i], kv[j], p[i][j]);
     }
+    uint32_t keep = 0;  // bit 4 i + j: pair (i, j) kept (kDrop only)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q_start + ty + 16 * i;
@@ -142,7 +154,13 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const int col = k_start + tx + 16 * j;
         const bool ok = row < S && col < s_true && col <= row;
         p[i][j] = ok ? expf(p[i][j] * scale - lse_s[ty + 16 * i]) : 0.f;
-        Ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = p[i][j];
+        float pv = p[i][j];
+        if constexpr (kDrop) {
+          const bool kp = ptt::dropout_keep(drop.seed, bh, row, col, drop.thresh);
+          keep |= (uint32_t)kp << (4 * i + j);
+          pv = kp ? pv * drop.inv_keep : 0.f;
+        }
+        Ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = pv;
       }
     }
     __syncthreads();
@@ -183,9 +201,12 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j) {
+        float dpv = dp[i][j];
+        if constexpr (kDrop) dpv = ((keep >> (4 * i + j)) & 1u) ? dpv * drop.inv_keep : 0.f;
         Ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] =
-            p[i][j] * (dp[i][j] - del_s[ty + 16 * i]) * scale;
+            p[i][j] * (dpv - del_s[ty + 16 * i]) * scale;
+      }
     __syncthreads();
 
     // dK[key, f] += sum_q dS[q, key] Q[q, f]   (keys ty + 16 i)
@@ -243,33 +264,48 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+template <typename T, int D, bool kDrop>
+cudaError_t launch_as(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, float* dq_part, void* dk,
+                      void* dv, int b, int s, int h, int s_true, float scale,
+                      ptt::Dropout drop, cudaStream_t st) {
+  const size_t smem = sizeof(float) * smem_floats<D>();
+  cudaError_t err = ptt::allow_smem(flash_bwd_kernel<T, D, kDrop>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((s + kBK - 1) / kBK, b * h);
+  flash_bwd_kernel<T, D, kDrop><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, dq_part, static_cast<T*>(dk),
+      static_cast<T*>(dv), b, s, h, s_true, scale, drop);
+  return cudaSuccess;
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, float* dq_part, void* dk, void* dv,
-                   int b, int s, int h, int s_true, float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  cudaError_t err = ptt::allow_smem(flash_bwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((s + kBK - 1) / kBK, b * h);
-  flash_bwd_kernel<T, D><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, dq_part, static_cast<T*>(dk),
-      static_cast<T*>(dv), b, s, h, s_true, scale);
-  return cudaSuccess;
+                   int b, int s, int h, int s_true, float scale, ptt::Dropout drop,
+                   cudaStream_t st) {
+  return drop.on ? launch_as<T, D, true>(q, k, v, dout, lse, delta, dq_part, dk, dv, b, s,
+                                         h, s_true, scale, drop, st)
+                 : launch_as<T, D, false>(q, k, v, dout, lse, delta, dq_part, dk, dv, b, s,
+                                          h, s_true, scale, drop, st);
 }
 
 }  // namespace
 
 // q, k, v, dout, dk, dv: [b, s, h, d] of one dtype (0 = float32,
 // 1 = bfloat16); lse and delta: [b, h, s] f32; dq_part: [ceil(s / 64), b, s,
-// h, d] f32, every element written. d must be 64 or 128.
+// h, d] f32, every element written. d must be 64 or 128. dropout != 0:
+// the forward's dropout (seed, thresh, inv_keep as there).
 extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dq_part, void* dk, void* dv, int b, int s, int h,
-                                       int d, int s_true, float scale, int dtype, int device,
-                                       void* stream) {
+                                       int d, int s_true, float scale, int dtype, int dropout,
+                                       unsigned seed, unsigned thresh, float inv_keep,
+                                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const ptt::Dropout drop{dropout, seed, thresh, inv_keep};
   if (b * h > 65535) return (int)cudaErrorInvalidValue;  // grid.y
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -277,14 +313,14 @@ extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void*
   float* dqp = static_cast<float*>(dq_part);
   if (dtype == 1 && d == 128)
     err = launch<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true,
-                                     scale, st);
+                                     scale, drop, st);
   else if (dtype == 1 && d == 64)
     err = launch<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true,
-                                    scale, st);
+                                    scale, drop, st);
   else if (dtype == 0 && d == 128)
-    err = launch<float, 128>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true, scale, st);
+    err = launch<float, 128>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true, scale, drop, st);
   else if (dtype == 0 && d == 64)
-    err = launch<float, 64>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true, scale, st);
+    err = launch<float, 64>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true, scale, drop, st);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

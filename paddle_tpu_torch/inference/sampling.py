@@ -7,7 +7,8 @@ Counterpart of `paddle_tpu/inference/sampling.py`. The host-only parts
 chain) are the reference's, copied. The device math is written in torch
 and reproduces JAX's random bits exactly:
 
-  - the key stream is threefry2x32 with JAX's partitionable counter layout
+  - the key stream (`framework/random.py`) is threefry2x32 with JAX's
+    partitionable counter layout
     (`jax_threefry_partitionable=True`, the default): `key(seed)` splits a
     64-bit seed into its high and low 32-bit words, `fold_in(key, n)` hashes
     the counter pair (0, n), `split(key, n)` the pairs (0, i), and
@@ -46,11 +47,10 @@ sequences are matched on the host.
 import numpy as np
 import torch
 
-NEG = -1e30      # the engine's masked-logit value
+from ..framework.random import (  # noqa: F401  (the key stream, re-exported)
+    _M32, fold_in, key, random_bits, split, threefry2x32, uniform)
 
-_M32 = 0xFFFFFFFF
-_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
-_PARITY = 0x1BD11BDA
+NEG = -1e30      # the engine's masked-logit value
 
 
 # ---------------------------------------------------------------------------
@@ -156,54 +156,8 @@ GREEDY = SamplingParams()
 
 
 # ---------------------------------------------------------------------------
-# threefry2x32 and JAX's key operations, on int64 tensors holding uint32
-# words. A key is a [..., 2] tensor (the high word, then the low word).
-
-
-def _rotl(x, r):
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def threefry2x32(k1, k2, x1, x2):
-    """The Threefry-2x32 hash (20 rounds) of the counter pairs (x1, x2)
-    under the key words (k1, k2); all int64 tensors of 32-bit values,
-    broadcast together. Returns the two output words."""
-    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
-    x1 = (x1 + ks[0]) & _M32
-    x2 = (x2 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x1 = (x1 + x2) & _M32
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & _M32
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x1, x2
-
-
-def key(seed, device=None):
-    """`jax.random.key(seed)` as a [2] int64 tensor: a 64-bit seed splits
-    into its high and low words (a 32-bit seed pads the high word with
-    0); negative seeds wrap as two's complement."""
-    s = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return torch.tensor([s >> 32, s & _M32], dtype=torch.int64,
-                        device=device)
-
-
-def fold_in(keys, data):
-    """`jax.random.fold_in` over a batch: keys [..., 2], data [...] (or an
-    int) -> [..., 2]. The counter pair is (0, data)."""
-    data = torch.as_tensor(data, device=keys.device).to(torch.int64) & _M32
-    b1, b2 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data),
-                          data)
-    return torch.stack([b1, b2], dim=-1)
-
-
-def split(k, num=2):
-    """`jax.random.split(k, num)`: [2] -> [num, 2], the counter pairs
-    (0, i)."""
-    i = torch.arange(num, dtype=torch.int64, device=k.device)
-    b1, b2 = threefry2x32(k[0], k[1], torch.zeros_like(i), i)
-    return torch.stack([b1, b2], dim=-1)
+# threefry2x32 and JAX's key operations live in `framework/random.py`; a key
+# is a [2] tensor (the high word, then the low word).
 
 
 def fold_keys(seeds, positions):
@@ -214,47 +168,6 @@ def fold_keys(seeds, positions):
     positions = torch.as_tensor(positions, device=seeds.device)
     base = torch.stack([torch.zeros_like(seeds), seeds], dim=-1)
     return fold_in(base, positions)
-
-
-def random_bits(keys, shape, bit_width=32):
-    """`jax.random.bits` of `shape` under each key of keys [..., 2]:
-    [..., *shape] int64 words of `bit_width` (8, 16 or 32) bits. Element
-    i (row-major within `shape`) hashes the counter pair (i >> 32,
-    i & 0xFFFFFFFF); the result keeps bits1 ^ bits2, truncated to the
-    width."""
-    shape = tuple(int(d) for d in shape)
-    n = int(np.prod(shape, dtype=np.int64))
-    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
-    lead = keys.shape[:-1]
-    k1 = keys[..., 0].reshape(*lead, *([1] * len(shape)))
-    k2 = keys[..., 1].reshape(*lead, *([1] * len(shape)))
-    b1, b2 = threefry2x32(k1, k2, (idx >> 32).reshape(shape),
-                          (idx & _M32).reshape(shape))
-    bits = b1 ^ b2
-    if bit_width < 32:
-        bits = bits & ((1 << bit_width) - 1)
-    return bits
-
-
-# bits, mantissa bits, the integer type of the same width, the bits of 1.0
-_FLOAT_BITS = {torch.float32: (32, 23, torch.int32, 0x3F800000),
-               torch.bfloat16: (16, 7, torch.int16, 0x3F80)}
-
-
-def uniform(keys, shape, dtype=torch.float32, minval=0.0):
-    """`jax.random.uniform(key, shape, dtype, minval, 1.0)` per key: random
-    mantissa bits under the exponent of 1.0, minus 1, scaled to
-    [minval, 1) in `dtype`. bf16 (fewer than 8 mantissa bits) draws 8-bit
-    randoms, as JAX does."""
-    nbits, nmant, itype, one = _FLOAT_BITS[dtype]
-    rng_bits = 8 if nmant < 8 else nbits
-    bits = random_bits(keys, shape, rng_bits)
-    fbits = (bits >> (rng_bits - nmant)) | one
-    floats = fbits.to(itype).view(dtype) - torch.ones((), dtype=dtype,
-                                                      device=bits.device)
-    lo = torch.full((), minval, dtype=dtype, device=bits.device)
-    hi = torch.ones((), dtype=dtype, device=bits.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
 def gumbel(keys, shape, dtype=torch.float32):

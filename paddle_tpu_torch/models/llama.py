@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..nn import Embedding, Linear
 from ..ops.fused_ce import vocab_parallel_ce_rows
 from ..ops.pallas import rmsnorm, sdpa
 from ..ops.pallas.paged_attention import expand_kv_heads
@@ -90,41 +91,6 @@ def apply_rotary(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def _xavier_uniform(shape, gen, device):
-    fan_in, fan_out = shape
-    limit = math.sqrt(6.0 / (fan_in + fan_out))
-    return torch.empty(shape, device=device).uniform_(-limit, limit,
-                                                      generator=gen)
-
-
-def _xavier_normal(shape, gen, device):
-    fan_in, fan_out = shape
-    std = math.sqrt(2.0 / (fan_in + fan_out))
-    return torch.empty(shape, device=device).normal_(0.0, std, generator=gen)
-
-
-class Linear(nn.Module):
-    """Bias-free projection with Paddle's [in, out] weight: y = x @ W."""
-
-    def __init__(self, in_features, out_features, gen, device):
-        super().__init__()
-        self.weight = nn.Parameter(
-            _xavier_uniform((in_features, out_features), gen, device))
-
-    def forward(self, x):
-        return x @ self.weight
-
-
-class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, gen, device):
-        super().__init__()
-        self.weight = nn.Parameter(
-            _xavier_normal((num_embeddings, embedding_dim), gen, device))
-
-    def forward(self, ids):
-        return self.weight[ids]
-
-
 class RMSNorm(nn.Module):
     """Training cast order: the weight multiplies in f32 before the cast
     back (the serving engine's `_rms` casts first)."""
@@ -147,10 +113,10 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = config.num_key_value_heads
         kv_out = self.num_kv_heads * self.head_dim
         H = self.hidden_size
-        self.q_proj = Linear(H, H, gen, device)
-        self.k_proj = Linear(H, kv_out, gen, device)
-        self.v_proj = Linear(H, kv_out, gen, device)
-        self.o_proj = Linear(H, H, gen, device)
+        self.q_proj = Linear(H, H, gen, device, bias=False)
+        self.k_proj = Linear(H, kv_out, gen, device, bias=False)
+        self.v_proj = Linear(H, kv_out, gen, device, bias=False)
+        self.o_proj = Linear(H, H, gen, device, bias=False)
         cos, sin = _rope_cache(config.max_position_embeddings, self.head_dim,
                                config.rope_theta, device=device)
         self.register_buffer("_cos", cos, persistent=False)
@@ -176,9 +142,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, config, gen, device):
         super().__init__()
         H, I = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(H, I, gen, device)
-        self.up_proj = Linear(H, I, gen, device)
-        self.down_proj = Linear(I, H, gen, device)
+        self.gate_proj = Linear(H, I, gen, device, bias=False)
+        self.up_proj = Linear(H, I, gen, device, bias=False)
+        self.down_proj = Linear(I, H, gen, device, bias=False)
 
     def forward(self, x):
         g = self.gate_proj(x)
@@ -231,7 +197,7 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.llama = LlamaModel(config, gen, device)
         self.lm_head = Linear(config.hidden_size, config.vocab_size, gen,
-                              device)
+                              device, bias=False)
         self.criterion = LlamaPretrainingCriterion(config)
 
     def forward(self, input_ids, labels=None):

@@ -1,4 +1,4 @@
-"""Single-device training step for LLaMA: the port of `SpmdTrainer`.
+"""Single-device training step for LLaMA and GPT: the port of `SpmdTrainer`.
 
 Counterpart of `paddle_tpu/models/train_step.py` on a mesh whose every
 axis has size 1 (the configuration `bench.py` `_measure` trains): embed,
@@ -7,6 +7,18 @@ then the lm_head and CE fused chunk by chunk (`ops/fused_ce.py`), one
 backward, and the reference's AdamW (`_adamw_core`). PyTorch runs eagerly,
 so there is no compiled program: `step` runs the model's own modules with
 the state's tensors bound to its parameters.
+
+Keys (GPT's dropout): `step(key=)` binds the key with
+`framework.random.key_scope` for the step (`key=None` draws one from the
+global generator; `grad_accum=K` binds `split(key, K)[i]` for micro-batch
+i), as the reference's step does. The reference runs the decoder layers
+as one `lax.scan` body traced once, so every layer draws the same
+counters (GPT: embedding 1, the attention seed 2, hidden dropout 3, for
+every layer). The port rewinds the scope's counter to its value after the
+embedding before each layer and before each layer's recompute, and runs
+the step under `framework.random.cached_draws()`, so a draw repeated by a
+later layer or a recompute reuses the first one's mask instead of hashing
+again.
 
 State: {"params": {name: tensor}, "opt": {name: {"m", "v"}}, "step": int},
 keyed by the model's parameter names. Parameters live in `param_dtype`
@@ -18,9 +30,9 @@ and returns the same dict. `gather_params` gives the reference's layout
 
 Not ported here (ROADMAP A8): any mesh axis above 1, the pipeline
 schedules, `grad_compress`, `plan=` and sequence parallelism; each raises
-NotImplementedError. `sharding_stage` only changes the layout of the
+NotImplementedError, and so does a `sep` axis, whose GPT position offset
+is not ported (A8.6). `sharding_stage` only changes the layout of the
 state across ranks, so on one device the three stages are the same step.
-LLaMA has no dropout, so `key` is accepted and unused.
 """
 import contextlib
 
@@ -28,6 +40,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..framework import random as frnd
 from ..ops.fused_ce import fused_linear_ce
 from ..ops.pallas.flash_attention import AttnResidualStash
 
@@ -47,12 +60,22 @@ def _mesh_shape(mesh):
 
 
 def _model_parts(model):
-    from .llama import LlamaForCausalLM
-    if not isinstance(model, LlamaForCausalLM):
-        raise TypeError(f"unsupported model {type(model).__name__}: the port "
-                        f"trains LlamaForCausalLM")
-    return (model.llama.embed_tokens, list(model.llama.layers),
-            [model.llama.norm, model.lm_head], model.criterion)
+    """(embed, decoder layers, [final norm, lm_head], token-mean criterion,
+    the layers' parameter-name prefix), as the reference's adapters."""
+    from .gpt import GPTForCausalLM
+    from .llama import LlamaForCausalLM, LlamaPretrainingCriterion
+    if isinstance(model, LlamaForCausalLM):
+        return (model.llama.embed_tokens, list(model.llama.layers),
+                [model.llama.norm, model.lm_head], model.criterion,
+                "llama.layers")
+    if isinstance(model, GPTForCausalLM):
+        return (model.gpt.embeddings, list(model.gpt.h),
+                [model.gpt.ln_f, model.lm_head],
+                # the token mean of GPT's per-token `ce`
+                LlamaPretrainingCriterion(ignore_index=model.ce.ignore_index),
+                "gpt.h")
+    raise TypeError(f"unsupported model {type(model).__name__}: the port "
+                    f"trains LlamaForCausalLM and GPTForCausalLM")
 
 
 class SpmdTrainer:
@@ -98,6 +121,11 @@ class SpmdTrainer:
             raise ValueError(f"recompute_policy must be full/save_attn, got "
                              f"{recompute_policy}")
         for axis, n in _mesh_shape(mesh).items():
+            if axis == "sep" and n > 1:
+                raise NotImplementedError(
+                    f"mesh axis 'sep' of size {n}: context parallelism and "
+                    f"GPT's sep position offset are not ported yet "
+                    f"(ROADMAP A8.6)")
             if n > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis!r} of size {n}: multi-device training "
@@ -127,7 +155,8 @@ class SpmdTrainer:
                              f"{matmul_precision!r}")
         self.matmul_precision = matmul_precision
 
-        embed, decoders, tail, self.criterion = _model_parts(model)
+        embed, decoders, tail, self.criterion, self._layer_prefix = \
+            _model_parts(model)
         self.embed, self.decoders, self.tail = embed, decoders, tail
         self.n_layers = len(decoders)
         self.phys_order = list(range(self.n_layers))   # one pipeline stage
@@ -156,7 +185,7 @@ class SpmdTrainer:
         return {"params": params, "opt": opt, "step": 0}
 
     def layer_name(self, layer, name):
-        return f"llama.layers.{layer}.{name}"
+        return f"{self._layer_prefix}.{layer}.{name}"
 
     def gather_params(self, state):
         """The reference's logical layout: {"outer": [embed, final norm,
@@ -203,27 +232,39 @@ class SpmdTrainer:
         finally:
             torch.backends.cuda.matmul.allow_tf32 = prev
 
-    def _layer(self, layer, h):
+    def _layer(self, layer, h, box, count):
+        """Run one decoder layer (checkpointed under recompute). Each run,
+        the recompute included, starts from the scope counter `count`:
+        the draws of the reference's one-trace layer body."""
+        def rewound(x):
+            if box is not None:
+                box[1] = count
+            return layer(x)
+
         if not self.recompute:
-            return layer(h)
+            return rewound(h)
         if self.recompute_policy == "full":
-            return checkpoint(layer, h, use_reentrant=False,
+            return checkpoint(rewound, h, use_reentrant=False,
                               preserve_rng_state=False)
         stash = AttnResidualStash()
 
         def run(x):
             with stash.region():
-                return layer(x)
+                return rewound(x)
 
         return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
 
     def loss(self, ids, labels):
         """The step's loss on the bound params: token mean over all rows
-        (ignored rows add 0), fused head+CE or the model's criterion."""
+        (ignored rows add 0), fused head+CE or the model's criterion.
+        Inside a `key_scope` every layer draws the counters that follow
+        the embedding's (see the module docstring)."""
         embed, (norm, lm_head) = self.embed, self.tail
         h = embed(ids)
+        box = frnd.current_scope()
+        count = box[1] if box is not None else None
         for layer in self.decoders:
-            h = self._layer(layer, h)
+            h = self._layer(layer, h, box, count)
         h = norm(h)
         if not self.fuse_head_ce:
             return self.criterion(lm_head(h), labels)
@@ -239,7 +280,10 @@ class SpmdTrainer:
 
     def step(self, state, ids, labels, key=None, lr=None):
         """One AdamW step on a batch; returns (state, loss), the loss a
-        0-dim f32 tensor on the device (no host read)."""
+        0-dim f32 tensor on the device (no host read). `key`: the step's
+        key (a [2] tensor or array of uint32 words, as
+        `framework.random.key` or JAX's `key_data` give), or None for the
+        global generator's next."""
         ids, labels = self._as_ids(ids), self._as_ids(labels)
         lr = self.lr if lr is None else float(lr)
         params = state["params"]
@@ -247,19 +291,23 @@ class SpmdTrainer:
         if ids.shape[0] % K:
             raise ValueError(f"grad_accum={K} must divide the batch "
                              f"{ids.shape[0]}")
-        with self._bound(params), self._precision():
+        key = frnd.next_key() if key is None else frnd.as_key(key)
+        with self._bound(params), self._precision(), frnd.cached_draws():
             if K == 1:
-                loss = self.loss(ids, labels)
-                loss.backward()
+                with frnd.key_scope(key):
+                    loss = self.loss(ids, labels)
+                    loss.backward()
                 grads = {n: p.grad for n, p in self._params.items()}
             else:
                 # each micro-batch's loss and grads are slice means;
                 # averaging the K slices (grads summed in f32) gives the
                 # full-batch mean, as the reference's scan does
                 grads, loss = {}, 0.0
-                for ids_k, lab_k in zip(ids.chunk(K), labels.chunk(K)):
-                    lk = self.loss(ids_k, lab_k)
-                    lk.backward()
+                for ids_k, lab_k, key_k in zip(ids.chunk(K), labels.chunk(K),
+                                               frnd.split(key, K)):
+                    with frnd.key_scope(key_k):
+                        lk = self.loss(ids_k, lab_k)
+                        lk.backward()
                     loss = loss + lk.detach()
                     for n, p in self._params.items():
                         g = p.grad.float()

@@ -8,7 +8,9 @@ reading `kernel_launches()`. The decode megakernel's top-K fold (its
 `head_k > 1` branch) and its speculative verify schedule (`tq > 1`) are
 also counted on their own, as "decode_megakernel_topk" and
 "decode_megakernel_verify" (those launches are in "decode_megakernel"
-too).
+too), and so are the flash kernels' launches with attention dropout, as
+"flash_attention_fwd_dropout" and "flash_attention_bwd_dropout" (also in
+"flash_attention_fwd" and "flash_attention_bwd").
 The ragged kernel has two entries, each counted on its own:
 `ragged_paged_attention` (chunked prefill) and `spec_verify_attention`
 (the speculative verify pass).
@@ -37,6 +39,8 @@ def kernel_launches():
     out = {name: fn.launches for name, fn in _WRAPPERS.items()}
     out["decode_megakernel_topk"] = decode_megakernel.fold_launches
     out["decode_megakernel_verify"] = decode_megakernel.verify_launches
+    out["flash_attention_fwd_dropout"] = flash_attention_fwd.dropout_launches
+    out["flash_attention_bwd_dropout"] = flash_attention_bwd.dropout_launches
     return out
 
 
@@ -45,3 +49,5 @@ def reset_kernel_launches():
         fn.launches = 0
     decode_megakernel.fold_launches = 0
     decode_megakernel.verify_launches = 0
+    flash_attention_fwd.dropout_launches = 0
+    flash_attention_bwd.dropout_launches = 0

@@ -14,7 +14,15 @@ VJP.
 Keys at positions >= s_true are masked (padding inside a padded prompt).
 The forward returns o in the input dtype and lse = logsumexp of each query
 row's scaled logits, [b, h, s] f32, the residual the backward reads.
-Additive masks and dropout are not ported yet (ROADMAP B2).
+
+Attention dropout (`dropout_p > 0` with an int32 `seed`) is the
+reference's `.dropout` entry: the weights after the softmax denominator
+are kept as p / (1 - dropout_p) or zeroed by the integer hash
+`_dropout_keep` of (seed, batch * heads + head, global query row, global
+key column), computed again in the backward instead of stored. lse stays
+the logsumexp before dropout. `dropout_keep` is the plain version of the
+hash (the kernels hash in `csrc/common.cuh`). Additive masks and the
+non-causal kernels are not ported yet (ROADMAP A2b).
 """
 import contextlib
 import contextvars
@@ -24,10 +32,56 @@ import math
 import torch
 
 from ... import _build
+from ...framework.random import _M32, mul32
 
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dropout_threshold(dropout_p):
+    """The keep threshold, as the reference computes it in Python:
+    min(int(p * 2^32), 2^32 - 1)."""
+    return min(int(float(dropout_p) * 4294967296.0), 4294967295)
+
+
+def dropout_inv_keep(dropout_p):
+    """1 / (1 - p) rounded to f32, the reference's
+    `jnp.float32(1.0 / (1.0 - dropout_p))`."""
+    return float(torch.tensor(1.0 / (1.0 - float(dropout_p)),
+                              dtype=torch.float32))
+
+
+def dropout_keep(seed, b, h, sq, sk, dropout_p, device=None):
+    """Plain version of the kernels' keep mask: bool [b, h, sq, sk], True
+    where the reference's `_dropout_keep` keeps the weight of (batch bi,
+    head hh, query row, key column): the hash of (seed, bi * h + hh, row,
+    column) in uint32 arithmetic, >= `dropout_threshold(dropout_p)`. The
+    words are int64 tensors masked to 32 bits; the int32 seed is taken as
+    its uint32 bits."""
+    u = int(seed) & _M32
+    sl = (torch.arange(b, dtype=torch.int64, device=device)[:, None] * h
+          + torch.arange(h, dtype=torch.int64, device=device)[None, :])
+    rows = torch.arange(sq, dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(sk, dtype=torch.int64, device=device)[None, :]
+    hv = (((u * 2654435761) & _M32) + mul32(sl, 0x9E3779B9)) & _M32
+    x = mul32(rows, 0x85EBCA6B) ^ mul32(cols, 0xC2B2AE35)   # [sq, sk]
+    hv = hv[:, :, None, None] ^ x[None, None]
+    hv = hv ^ (hv >> 15)
+    hv = mul32(hv, 0x2C1B3C6D)
+    hv = hv ^ (hv >> 12)
+    hv = mul32(hv, 0x297A2D39)
+    hv = hv ^ (hv >> 15)
+    return hv >= dropout_threshold(dropout_p)
+
+
+def _check_dropout(name, dropout_p, seed):
+    p = float(dropout_p)
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"{name}: dropout_p must be in [0, 1); got {p}")
+    if p > 0.0 and seed is None:
+        raise ValueError(f"{name}: dropout_p > 0 needs an int32 seed")
+    return p
 
 
 def _check_qkv(name, q, k, v):
@@ -38,9 +92,13 @@ def _check_qkv(name, q, k, v):
             f"{tuple(k.shape)}, {tuple(v.shape)}")
 
 
-def flash_attention_reference(q, k, v, causal=True, scale=None, s_true=None):
+def flash_attention_reference(q, k, v, causal=True, scale=None, s_true=None,
+                              dropout_p=0.0, seed=None):
     """Plain version: dense scores in f32, masked by s_true and (when
-    causal) by position, softmax, then P @ V. Returns (o, lse)."""
+    causal) by position, softmax (with dropout: each weight kept as
+    p / (1 - dropout_p) or zeroed by `dropout_keep`), then P @ V.
+    Returns (o, lse), lse before dropout."""
+    dropout_p = _check_dropout("flash_attention_reference", dropout_p, seed)
     b, s, h, d = q.shape
     sk = k.shape[1]
     s_true = sk if s_true is None else int(s_true)
@@ -55,30 +113,39 @@ def flash_attention_reference(q, k, v, causal=True, scale=None, s_true=None):
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    if dropout_p > 0.0:
+        keep = dropout_keep(seed, b, h, s, sk, dropout_p, q.device)
+        p = torch.where(keep, p * dropout_inv_keep(dropout_p),
+                        torch.zeros((), device=q.device))
+        del keep
     o = torch.einsum("bhqk,bkhd->bqhd", p / l, v.float()).to(q.dtype)
     lse = (m + torch.log(l))[..., 0]
     return o, lse
 
 
-def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None):
+def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None,
+                        dropout_p=0.0, seed=None):
     """Causal flash-attention forward. q, k, v: [b, s, h, d] with k/v
     already at q's head count. Returns (o [b, s, h, d], lse [b, h, s]).
+    `dropout_p > 0` drops attention weights by the hash of int32 `seed`.
 
     A CPU tensor takes the plain version. A CUDA tensor launches
     `csrc/flash_attention.cu` (causal only, d 64 or 128, bf16 or f32) or
-    raises; there is no fallback."""
+    raises; there is no fallback. A launch with dropout also counts in
+    `flash_attention_fwd.dropout_launches`."""
     _check_qkv("flash_attention_fwd", q, k, v)
+    dropout_p = _check_dropout("flash_attention_fwd", dropout_p, seed)
     b, s, h, d = q.shape
     s_true = s if s_true is None else int(s_true)
     if not 0 <= s_true <= s:
         raise ValueError(f"s_true={s_true} outside [0, {s}]")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale, s_true)
+        return flash_attention_reference(q, k, v, causal, scale, s_true,
+                                         dropout_p, seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
-    if not causal:
-        raise ValueError("flash_attention_fwd kernel is causal only")
+    _refuse_unported("flash_attention_fwd", causal)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"flash_attention_fwd kernel takes bf16/f32 q/k/v of one dtype; "
@@ -100,20 +167,46 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None):
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(o.data_ptr()),
         ctypes.c_void_p(lse.data_ptr()),
         b, s, h, d, s_true, float(scale), _DTYPE_CODE[q.dtype],
-        dev.index, _build.stream_ptr(dev))
+        *_dropout_args(dropout_p, seed), dev.index, _build.stream_ptr(dev))
     _build.check(code, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.dropout_launches += dropout_p > 0.0
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.dropout_launches = 0
+
+
+def _refuse_unported(name, causal, mask=None):
+    """The CUDA kernels' unported branches (ROADMAP A2b): additive masks
+    and non-causal attention raise."""
+    if mask is not None:
+        raise NotImplementedError(
+            f"{name}: additive masks are not ported yet (ROADMAP A2b)")
+    if not causal:
+        raise ValueError(f"{name} kernel is causal only; the non-causal "
+                         f"kernel is not ported yet (ROADMAP A2b)")
+
+
+def _dropout_args(dropout_p, seed):
+    """(on, seed as uint32, threshold, 1 / (1 - p) in f32) of a launch."""
+    if dropout_p <= 0.0:
+        return 0, 0, 0, 1.0
+    return (1, int(seed) & _M32, dropout_threshold(dropout_p),
+            dropout_inv_keep(dropout_p))
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
-                                  scale=None, s_true=None):
+                                  scale=None, s_true=None, dropout_p=0.0,
+                                  seed=None):
     """Plain version of the backward: dense f32 P from the forward's lse,
     then dV = P^T dO, dS = P (dO V^T - rowsum(dO o)) * scale, dQ = dS K,
-    dK = dS^T Q. Returns (dq, dk, dv) in the inputs' dtypes."""
+    dK = dS^T Q. With dropout, dV reads the dropped weights and dO V^T is
+    dropped the same way (`dropout_keep`); dS takes the undropped P.
+    Returns (dq, dk, dv) in the inputs' dtypes."""
+    dropout_p = _check_dropout("flash_attention_bwd_reference", dropout_p,
+                               seed)
     b, s, h, d = q.shape
     s_true = s if s_true is None else int(s_true)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -126,11 +219,20 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
     p = torch.where(valid, torch.exp(logits - lse[..., None]),
                     torch.zeros((), device=q.device))
     del logits
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
     delta = (do32 * o.float()).sum(-1).transpose(1, 2)            # [b, h, s]
-    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do32, v32) - delta[..., None]) \
-        * scale
-    del p
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    if dropout_p > 0.0:
+        keep = dropout_keep(seed, b, h, s, s, dropout_p, q.device)
+        inv = dropout_inv_keep(dropout_p)
+        zero = torch.zeros((), device=q.device)
+        dv = torch.einsum("bhqk,bqhd->bkhd", torch.where(keep, p * inv, zero),
+                          do32)
+        dp = torch.where(keep, dp * inv, zero)
+        del keep
+    else:
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    ds = p * (dp - delta[..., None]) * scale
+    del p, dp
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -140,22 +242,22 @@ BWD_TILE = 64   # key tile of csrc/flash_attention_bwd.cu: one dQ partial each
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
-                        s_true=None, mask=None, dropout_p=0.0):
+                        s_true=None, mask=None, dropout_p=0.0, seed=None):
     """Gradients (dq, dk, dv) of the causal flash attention, from the
     forward's o and lse and the output cotangent do; all [b, s, h, d]
-    except lse [b, h, s] f32.
+    except lse [b, h, s] f32. `dropout_p` and `seed` are the forward's.
 
     A CPU tensor takes the plain version. A CUDA tensor launches
     `csrc/flash_attention_bwd.cu` (causal only, d 64 or 128, bf16 or f32)
     or raises; there is no fallback. delta = rowsum(dO * o) and the sum of
     the kernel's per-key-tile dQ partials are torch ops around the launch,
     as they are jnp around the `pallas_call` in the reference's
-    `_flash_bwd`. Additive masks and dropout raise (ROADMAP B2)."""
-    if mask is not None or dropout_p:
-        raise NotImplementedError(
-            "flash_attention_bwd: additive masks and dropout are not ported "
-            "yet (ROADMAP B2)")
+    `_flash_bwd`. Additive masks raise (ROADMAP A2b). A launch with
+    dropout also counts in `flash_attention_bwd.dropout_launches`."""
+    if mask is not None:
+        _refuse_unported("flash_attention_bwd", causal, mask)
     _check_qkv("flash_attention_bwd", q, k, v)
+    dropout_p = _check_dropout("flash_attention_bwd", dropout_p, seed)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
                          f"{tuple(do.shape)} must match q {tuple(q.shape)}")
@@ -169,11 +271,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
-                                             scale, s_true)
+                                             scale, s_true, dropout_p, seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    if not causal:
-        raise ValueError("flash_attention_bwd kernel is causal only")
+    _refuse_unported("flash_attention_bwd", causal)
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
                                          for t in (k, v, o, do)):
         raise ValueError(
@@ -197,15 +298,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
     code = _build.library().ptt_flash_attention_bwd(
         *(ctypes.c_void_p(t.data_ptr())
           for t in (q, k, v, do, lse, delta, dq_part, dk, dv)),
-        b, s, h, d, s_true, float(scale), _DTYPE_CODE[q.dtype], dev.index,
-        _build.stream_ptr(dev))
+        b, s, h, d, s_true, float(scale), _DTYPE_CODE[q.dtype],
+        *_dropout_args(dropout_p, seed), dev.index, _build.stream_ptr(dev))
     _build.check(code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.dropout_launches += dropout_p > 0.0
     dq = (dq_part[0] if nk == 1 else dq_part.sum(0)).to(q.dtype)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.dropout_launches = 0
 
 
 class AttnResidualStash:
@@ -253,29 +356,36 @@ _STASH = contextvars.ContextVar("paddle_tpu_torch_attn_stash", default=None)
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable causal flash attention (the counterpart of
-    `make_flash_attention`'s custom VJP): forward `flash_attention_fwd`,
-    backward `flash_attention_bwd`, saving q, k, v, o and lse. Inside an
-    `AttnResidualStash.region()` the forward's (o, lse) go through the
-    stash, so a recompute does not launch the forward kernel again.
+    `make_flash_attention`'s custom VJP, and of its `.dropout` entry when
+    `dropout_p > 0`): forward `flash_attention_fwd`, backward
+    `flash_attention_bwd` with the same dropout seed, saving q, k, v, o and
+    lse. Inside an `AttnResidualStash.region()` the forward's (o, lse) go
+    through the stash, so a recompute does not launch the forward kernel
+    again.
 
-    `FlashAttention.apply(q, k, v, causal, scale, s_true)`; returns o."""
+    `FlashAttention.apply(q, k, v, causal, scale, s_true, dropout_p,
+    seed)`; returns o."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True, scale=None, s_true=None):
+    def forward(ctx, q, k, v, causal=True, scale=None, s_true=None,
+                dropout_p=0.0, seed=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
 
         def compute():
-            return flash_attention_fwd(q, k, v, causal, scale, s_true)
+            return flash_attention_fwd(q, k, v, causal, scale, s_true,
+                                       dropout_p, seed)
 
         stash = _STASH.get()
         o, lse = stash.residuals(compute) if stash is not None else compute()
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale, ctx.s_true = causal, scale, s_true
+        ctx.dropout_p, ctx.seed = dropout_p, seed
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
-                                         ctx.scale, ctx.s_true)
-        return dq, dk, dv, None, None, None
+                                         ctx.scale, ctx.s_true, None,
+                                         ctx.dropout_p, ctx.seed)
+        return dq, dk, dv, None, None, None, None, None

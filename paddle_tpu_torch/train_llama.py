@@ -1,8 +1,8 @@
-"""Train LLaMA for a few steps through paddle_tpu_torch's `SpmdTrainer`.
+"""Train LLaMA or GPT for a few steps through paddle_tpu_torch's `SpmdTrainer`.
 
 The port of `bench.py`'s `_measure` / `_run_config`, with the same two
-configurations (random weights from a seed, one repeated batch from
-`numpy.random.RandomState(0)`, labels the ids shifted by one):
+LLaMA configurations (random weights from a seed, one repeated batch from
+`numpy.random.RandomState(0)`, labels the ids shifted by one), and GPT:
 
 - llama350m: vocab 32000, hidden 1024, ffn 2816, 16 layers, 16 heads
   (d 64), batch 32 x 1024 tokens, bf16 params, f32 moments, recompute
@@ -11,7 +11,13 @@ configurations (random weights from a seed, one repeated batch from
   8 x 1024, bf16 params and moments, recompute with policy full,
   ce_chunk 2048, lr 1e-4;
 - tiny: `LlamaConfig.tiny()`, batch 4 x 64, f32, no recompute (bench.py's
-  smoke mode).
+  smoke mode);
+- gpt3_1p3b: `GPTConfig.gpt3_1p3b()` (vocab 50304, hidden 2048, 24
+  layers, 16 heads, d 128, 1024 positions, hidden and attention dropout
+  0.1) with llama1p3b's trainer settings: batch 8 x 1024, bf16 params and
+  moments, recompute full, ce_chunk 2048, lr 1e-4; each step draws its
+  dropout key from the global generator, seeded by `seed`;
+- gpt_tiny: `GPTConfig.tiny()`, batch 4 x 64, f32, no recompute.
 
 It prints one JSON line: ms per step, tokens/s, peak device memory and
 MFU = tokens/s x (6 N + 12 L H s / 2) / 989e12 (bench.py's accounting over
@@ -33,6 +39,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .framework import random as frnd
+from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .models.train_step import SpmdTrainer
 
@@ -56,7 +64,27 @@ CONFIGS = {
                      recompute=True, recompute_policy="full", ce_chunk=2048)),
     "tiny": dict(model={}, bs=4, seq=64, steps=5, warmup=2,
                  trainer=dict(param_dtype="float32", recompute=False)),
+    "gpt3_1p3b": dict(
+        family="gpt", model=dict(hidden_size=2048, num_hidden_layers=24,
+                                 num_attention_heads=16),
+        bs=8, seq=1024, steps=10, warmup=2,
+        trainer=dict(param_dtype="bfloat16", moment_dtype="bfloat16",
+                     recompute=True, recompute_policy="full", ce_chunk=2048)),
+    "gpt_tiny": dict(family="gpt", model={}, bs=4, seq=64, steps=5, warmup=2,
+                     trainer=dict(param_dtype="float32", recompute=False)),
 }
+
+
+def build_model(name, device, seed=0):
+    """The configuration's model (random weights from `seed`)."""
+    spec = CONFIGS[name]
+    if spec.get("family") == "gpt":
+        cfg = GPTConfig.tiny(**spec["model"]) if name == "gpt_tiny" \
+            else GPTConfig(**spec["model"])
+        return GPTForCausalLM(cfg, device=device, seed=seed)
+    cfg = LlamaConfig.tiny(**spec["model"]) if name == "tiny" \
+        else LlamaConfig(**spec["model"])
+    return LlamaForCausalLM(cfg, device=device, seed=seed)
 
 
 def model_flops_per_token(cfg, n_params, seq):
@@ -117,12 +145,12 @@ def run_config(name, steps=None, warmup=None, device=None, seed=0,
     on_card = dev.type == "cuda"
     steps = spec["steps"] if steps is None else steps
     warmup = spec["warmup"] if warmup is None else warmup
-    mkw = spec["model"]
-    cfg = LlamaConfig.tiny(**mkw) if name == "tiny" else LlamaConfig(**mkw)
     bs, seq = spec["bs"], spec["seq"]
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    frnd.seed(seed)
+    model = build_model(name, dev, seed)
+    cfg = model.config
     n_params = sum(p.numel() for p in model.parameters())
     trainer = SpmdTrainer(model, lr=1e-4, **spec["trainer"])
     state = trainer.init_state()

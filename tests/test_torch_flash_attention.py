@@ -136,12 +136,17 @@ def test_backward_masks_keys_past_s_true():
 
 
 def test_backward_refuses_masks_and_dropout():
+    """Additive masks are not ported (ROADMAP A2b); dropout is, and needs
+    the forward's seed: without one it is refused."""
     q = torch.zeros(1, 8, 1, 16)
     lse = torch.zeros(1, 1, 8)
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(NotImplementedError, match="A2b"):
         tf.flash_attention_bwd(q, q, q, q, lse, q, mask=torch.zeros(8, 8))
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(ValueError, match="seed"):
         tf.flash_attention_bwd(q, q, q, q, lse, q, dropout_p=0.1)
+    dq, dk, dv = tf.flash_attention_bwd(q, q, q, q, lse, q, dropout_p=0.1,
+                                        seed=3)
+    assert dq.shape == dk.shape == dv.shape == q.shape
 
 
 def test_stash_replays_residuals_without_a_second_forward(monkeypatch):

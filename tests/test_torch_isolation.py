@@ -25,6 +25,8 @@ for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
 importlib.import_module("paddle_tpu_torch.serve_llama")
 importlib.import_module("paddle_tpu_torch.train_llama")
 assert "paddle_tpu_torch.inference.sampling" in sys.modules
+assert "paddle_tpu_torch.framework.random" in sys.modules
+assert "paddle_tpu_torch.models.gpt" in sys.modules
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))
@@ -88,7 +90,8 @@ def test_cb_engine_refuses_cpu_without_being_asked():
 
 def test_kernel_wrappers_count_only_kernel_launches():
     """CPU tensors take the plain versions, which launch nothing; a
-    training step (every norm, attention forward and backward) and
+    training step (every norm, attention forward and backward), a GPT
+    training step with attention dropout, and
     megakernel decode steps on the CPU, greedy and sampled through the
     top-K fold, and speculative verify passes (the op chain's verify
     entry and the megakernel's tq > 1 schedule) launch nothing either."""
@@ -120,6 +123,10 @@ def test_kernel_wrappers_count_only_kernel_launches():
         spec.generate_many([np.arange(5) % 2, np.arange(3)],
                            max_new_tokens=4)
         assert spec.health()["spec_passes"] > 0
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    gpt = SpmdTrainer(GPTForCausalLM(GPTConfig.tiny(num_hidden_layers=1),
+                                     device="cpu"), recompute=True)
+    gpt.step(gpt.init_state(), ids, ids)
     assert kernel_launches() == {"quantized_matmul": 0, "paged_attention": 0,
                                  "flash_attention_fwd": 0,
                                  "ragged_paged_attention": 0,
@@ -127,7 +134,9 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                  "flash_attention_bwd": 0,
                                  "decode_megakernel": 0,
                                  "decode_megakernel_topk": 0,
-                                 "decode_megakernel_verify": 0}
+                                 "decode_megakernel_verify": 0,
+                                 "flash_attention_fwd_dropout": 0,
+                                 "flash_attention_bwd_dropout": 0}
 
 
 def test_training_entry_points_refuse_cpu_without_being_asked():
@@ -138,6 +147,23 @@ def test_training_entry_points_refuse_cpu_without_being_asked():
         run_config("tiny", steps=1, warmup=0)
     r = run_config("tiny", steps=1, warmup=1, device="cpu")
     assert r["device"] == "cpu" and r["mfu"] is None and r["peak_gb"] is None
+    assert len(r["losses"]) == 2 and all(map(math.isfinite, r["losses"]))
+
+
+def test_gpt_entry_points_refuse_cpu_without_being_asked():
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.train_llama import run_config
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForCausalLM(GPTConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_config("gpt_tiny", steps=1, warmup=0)
+    r = run_config("gpt_tiny", steps=1, warmup=1, device="cpu")
+    assert r["device"] == "cpu" and r["mfu"] is None and r["peak_gb"] is None
+    assert r["n_params"] == sum(
+        p.numel() for p in GPTForCausalLM(GPTConfig.tiny(),
+                                          device="cpu").parameters())
     assert len(r["losses"]) == 2 and all(map(math.isfinite, r["losses"]))
 
 

@@ -22,6 +22,14 @@ import paddle_tpu_torch.inference.serving as tserving
 import paddle_tpu_torch.inference.speculative as tspec
 import paddle_tpu_torch.ops.pallas as tpallas
 import paddle_tpu_torch.ops.pallas.paged_attention as tpa
+import paddle_tpu.framework.random as jrnd
+import paddle_tpu.models.gpt as jgpt
+import paddle_tpu.models.train_step as jtrain
+import paddle_tpu.nn.functional as jF
+import paddle_tpu_torch.framework.random as trnd
+import paddle_tpu_torch.models.gpt as tgpt
+import paddle_tpu_torch.models.train_step as ttrain
+import paddle_tpu_torch.nn.functional as tF
 
 JAX_ONLY = {"interpret"}
 
@@ -56,6 +64,22 @@ PAIRS = {
     "ModelDrafter.__init__": (jspec.ModelDrafter.__init__,
                               tspec.ModelDrafter.__init__),
     "resolve_drafter": (jspec.resolve_drafter, tspec.resolve_drafter),
+    "GPTConfig.__init__": (jgpt.GPTConfig.__init__, tgpt.GPTConfig.__init__),
+    "GPTConfig.tiny": (jgpt.GPTConfig.tiny, tgpt.GPTConfig.tiny),
+    "GPTConfig.gpt3_1p3b": (jgpt.GPTConfig.gpt3_1p3b,
+                            tgpt.GPTConfig.gpt3_1p3b),
+    "GPTForCausalLM.__init__": (jgpt.GPTForCausalLM.__init__,
+                                tgpt.GPTForCausalLM.__init__),
+    "GPTForCausalLM.forward": (jgpt.GPTForCausalLM.forward,
+                               tgpt.GPTForCausalLM.forward),
+    "SpmdTrainer.step": (jtrain.SpmdTrainer.step, ttrain.SpmdTrainer.step),
+    "F.dropout": (jF.dropout, tF.dropout),
+    "F.layer_norm": (jF.layer_norm, tF.layer_norm),
+    "F.gelu": (jF.gelu, tF.gelu),
+    "random.key_scope": (jrnd.key_scope, trnd.key_scope),
+    "random.seed": (jrnd.seed, trnd.seed),
+    "random.Generator.__init__": (jrnd.Generator.__init__,
+                                  trnd.Generator.__init__),
 }
 
 
