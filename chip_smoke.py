@@ -20,7 +20,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               and backward, gpt3_1p3b's shape in bf16, f32 rows) against
               the plain versions with the same seed, two launches with one
               seed bit-identical, dropout_p = 0 bit-equal to the causal
-              launch
+              launch; their mask and non-causal branches (BERT-base's
+              shape with its [b, 1, 1, s] padding mask in bf16 and f32,
+              no mask, [1, h, s, s] and [b, h, s, s] masks, a bool mask
+              hiding a row, causal plus a mask, a mask with dropout, d 128)
+              against the plain versions; a causal launch with a zero
+              mask bit-equal to the causal launch, forward and backward
   4. path     LLaMA-7B (full width, all 32 layers, random weights from a
               seed) served through LLMEngine.generate(device_loop=True),
               bf16 and int8 weights, 12- and 300-token prompt batches;
@@ -66,6 +71,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
  11. gpt_train_parity  train_parity on GPT: 2 layers at the gpt3_1p3b
               width and vocab, dropout on, each step keyed alike on both
               sides (the masks are the same bits)
+ 12. bert_train_path  paddle_tpu_torch.train_bert.run_bert("base"):
+              BertForMaskedLM(BertConfig.base()) at full width and depth,
+              batch 32 x 512 with a padding mask, dropout 0.1, AdamW; f32,
+              then bf16 with multi_precision; 2 warmup + 5 timed steps and
+              one profiled step each; exact launches per step (both flash
+              kernels 12, every launch masked, non-causal, with dropout);
+              losses falling
+ 13. bert_train_parity  2 layers at the base width, batch 4 x 128 with
+              padding, 3 AdamW steps, dropout on: the card (f32, bf16)
+              against the CPU (f32), the global generator seeded alike
 
 Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
 bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row.
@@ -97,6 +112,8 @@ REPLACES = {
     "decode_megakernel_verify": "paddle_tpu/ops/pallas/decode_megakernel.py:494",
     "flash_attention_fwd_dropout": "paddle_tpu/ops/pallas/flash_attention.py:160",
     "flash_attention_bwd_dropout": "paddle_tpu/ops/pallas/flash_attention.py:469",
+    "flash_attention_fwd_masked": "paddle_tpu/ops/pallas/flash_attention.py:149",
+    "flash_attention_bwd_masked": "paddle_tpu/ops/pallas/flash_attention.py:461",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
@@ -111,6 +128,8 @@ SOURCES = {
     "decode_megakernel_verify": "paddle_tpu_torch/csrc/decode_megakernel.cu",
     "flash_attention_fwd_dropout": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dropout": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_fwd_masked": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_masked": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 
 
@@ -676,6 +695,224 @@ def check_flash_bwd_dropout(torch, dev):
                 HASH_OPS * pairs)
         rows.append(row)
         del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- phase 3 (masks)
+# BertConfig.base()'s attention (b 32, s 512, h 12, d 64) with its [b, 1, 1,
+# s] key-padding mask (true lengths from RandomState(0) in [128, 512], -1e9
+# past them, in the activations' dtype), bf16 and f32; then the other mask
+# layouts, a bool mask hiding one row entirely (s 200: a ragged last tile),
+# causal plus a mask, the mask with dropout 0.1, and d 128
+MASK_CASES = (
+    # name, b, s, h, d, dtype, mask kind, causal, dropout_p
+    ("bert_base", 32, 512, 12, 64, "bfloat16", "key_padding", False, 0.0),
+    ("bert_base_f32", 32, 512, 12, 64, "float32", "key_padding", False, 0.0),
+    ("bert_base_dropout", 32, 512, 12, 64, "bfloat16", "key_padding", False, 0.1),
+    ("noncausal_no_mask", 32, 512, 12, 64, "bfloat16", None, False, 0.0),
+    ("head_mask_1hss", 4, 512, 12, 64, "bfloat16", "head", False, 0.0),
+    ("full_mask_bhss", 4, 512, 12, 64, "bfloat16", "full", False, 0.0),
+    ("bool_hidden_row", 2, 200, 3, 64, "float32", "bool_hidden_row", False, 0.0),
+    ("causal_mask", 4, 512, 12, 64, "bfloat16", "key_padding", True, 0.0),
+    ("d128_mask_dropout", 2, 300, 4, 128, "float32", "key_padding", False, 0.1),
+)
+MASK_SEED = 2468
+
+
+def make_mask(torch, dev, kind, b, s, h, dtype, g):
+    """The case's mask: additive in `dtype`, or bool for the hidden row."""
+    import numpy as np
+    if kind is None:
+        return None
+    if kind == "key_padding":
+        lens = np.random.RandomState(0).randint(min(128, s), s + 1, size=b)
+        real = torch.arange(s, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
+        return torch.where(real, 0.0, -1e9).to(dtype)[:, None, None, :]
+    if kind in ("head", "full"):
+        return torch.randn((1 if kind == "head" else b, h, s, s), generator=g,
+                           device=dev).to(dtype)
+    m = torch.rand((b, 1, s, s), generator=g, device=dev) > 0.3
+    m[..., 0] = True
+    m[0, 0, 5, :] = False          # batch 0, row 5: every key hidden
+    return m
+
+
+def library_mask(torch, mask, causal, dtype):
+    """The same mask as SDPA takes it ([b|1, h|1, s, s] broadcastable, in
+    q's dtype), the causal triangle folded in."""
+    if mask is None:
+        return None
+    m = torch.where(mask, 0.0, -1e30).to(dtype) if mask.dtype == torch.bool else mask
+    if causal:
+        s = m.shape[-1]
+        tri = torch.ones((s, s), dtype=torch.bool, device=m.device).tril()
+        m = m + torch.where(tri, 0.0, -1e30).to(dtype)
+    return m
+
+
+def _visible_pairs(b, h, s, causal):
+    return b * h * (s * (s + 1) // 2 if causal else s * s)
+
+
+def check_flash_masked(torch, dev):
+    """The forward's mask and non-causal branches against the plain
+    version on the same inputs and mask; mask with dropout: two launches
+    with one seed bit-identical."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas.flash_attention import (
+        flash_attention_fwd, flash_attention_reference)
+    rows = []
+    for name, b, s, h, d, dt, kind, causal, p in MASK_CASES:
+        dt = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(11)
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        mask = make_mask(torch, dev, kind, b, s, h, dt, g)
+        scale = 1.0 / math.sqrt(d)
+        seed = MASK_SEED if p > 0 else None
+        args = (q, k, v, causal, scale, None, p, seed, mask)
+        got = flash_attention_fwd(*args)
+        ref = flash_attention_reference(*args)
+        torch.cuda.synchronize()
+        err, lse_err = max_err(got[0], ref[0]), max_err(got[1], ref[1])
+        # o: one bf16 rounding of nearly equal f32 sums (2^-7 of the
+        # largest output), in f32 the order of the sums; lse is f32
+        tol = (2 ** -7 if dt == torch.bfloat16 else 1e-5) * float(ref[0].float().abs().max())
+        lse_tol = 1e-3
+        row = dict(case=name, b=b, s=s, h=h, d=d, dtype=str(dt), mask=kind,
+                   mask_shape=None if mask is None else list(mask.shape), causal=causal,
+                   dropout_p=p, max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
+                   lse_tol=lse_tol, finite=bool(torch.isfinite(got[0]).all()))
+        row["ok"] = err <= tol and lse_err <= lse_tol and row["finite"]
+        if p > 0:
+            again = flash_attention_fwd(*args)
+            row["repeat_identical"] = _same(torch, got, again)
+            row["ok"] &= row["repeat_identical"]
+            del again
+        del got, ref
+        row["ms"] = time_ms(torch, lambda: flash_attention_fwd(*args), iters=10)
+        row["plain_ms"] = time_ms(torch, lambda: flash_attention_reference(*args),
+                                  iters=2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lm = library_mask(torch, mask, causal, dt)
+        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=lm, dropout_p=p, scale=scale), iters=10)
+        row["library_call"] = ("torch.nn.functional.scaled_dot_product_attention with the "
+                               "same mask (causal folded into it)"
+                               + ("; its RNG differs" if p > 0 else ""))
+        del qt, kt, vt, lm
+        # q, k, v and the mask read and o written once, lse written; 4 d
+        # flops (and with dropout one keep bit) per visible pair
+        pairs = _visible_pairs(b, h, s, causal)
+        mbytes = 0 if mask is None else mask.numel() * mask.element_size()
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            4 * b * s * h * d * q.element_size() + b * h * s * 4 + mbytes, 4 * d * pairs,
+            HASH_OPS * pairs if p > 0 else 0)
+        rows.append(row)
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_flash_bwd_masked(torch, dev):
+    """The backward's mask and non-causal branches against the plain
+    version, from the kernel forward's o and lse; mask with dropout: two
+    launches with one seed bit-identical."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd)
+    bf16 = torch.bfloat16
+    rows = []
+    for name, b, s, h, d, dt, kind, causal, p in MASK_CASES:
+        dt = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(12)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+                       for _ in range(4))
+        mask = make_mask(torch, dev, kind, b, s, h, dt, g)
+        scale = 1.0 / math.sqrt(d)
+        seed = MASK_SEED if p > 0 else None
+        o, lse = flash_attention_fwd(q, k, v, causal, scale, None, p, seed, mask)
+        kargs = (q, k, v, o, lse, do, causal, scale, None, mask, p, seed)
+        got = flash_attention_bwd(*kargs)
+        ref = flash_attention_bwd_reference(q, k, v, o, lse, do, causal, scale, None, p,
+                                            seed, mask)
+        torch.cuda.synchronize()
+        errs = {n: max_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
+        # per gradient, relative to its largest entry: bf16 rounds the
+        # output once (2^-8) after f32 sums; f32 differs in sum order only
+        rel = 1e-2 if dt == bf16 else 1e-4
+        tols = {n: rel * float(r.float().abs().max()) for n, r in zip(("dq", "dk", "dv"), ref)}
+        row = dict(case=name, b=b, s=s, h=h, d=d, dtype=str(dt), mask=kind,
+                   mask_shape=None if mask is None else list(mask.shape), causal=causal,
+                   dropout_p=p, max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                   tol_by_grad=tols, finite=all(bool(torch.isfinite(x).all()) for x in got))
+        row["ok"] = all(errs[n] <= tols[n] for n in errs) and row["finite"]
+        if p > 0:
+            again = flash_attention_bwd(*kargs)
+            row["repeat_identical"] = _same(torch, got, again)
+            row["ok"] &= row["repeat_identical"]
+            del again
+        del got, ref
+        torch.cuda.empty_cache()
+        row["ms"] = time_ms(torch, lambda: flash_attention_bwd(*kargs), iters=5)
+        row["plain_ms"] = time_ms(torch, lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal, scale, None, p, seed, mask), iters=2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+        lm = library_mask(torch, mask, causal, dt)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lm, dropout_p=p,
+                                             scale=scale)
+        dot = do.transpose(1, 2).contiguous()
+        row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), iters=5)
+        row["library_call"] = ("the backward alone of torch.nn.functional."
+                               "scaled_dot_product_attention with the same mask"
+                               + ("; its RNG differs" if p > 0 else ""))
+        del qt, kt, vt, out, dot, lm
+        # q, k, v, o, dO and the mask read, dQ, dK, dV written once, lse
+        # read; 2.5 x the forward's flops (10 d per visible pair)
+        pairs = _visible_pairs(b, h, s, causal)
+        mbytes = 0 if mask is None else mask.numel() * mask.element_size()
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            8 * b * s * h * d * q.element_size() + b * h * s * 4 + mbytes, 10 * d * pairs,
+            HASH_OPS * pairs if p > 0 else 0)
+        rows.append(row)
+        del q, k, v, do, o, lse, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flash_mask_gates(torch, dev):
+    """Bit gates of the mask branch: a causal launch with an all-zero
+    additive mask equals the causal launch without one (x + 0.0 is exact;
+    the mask launch's extra tiles add exact zeros), forward and backward;
+    with dropout_p = 0 the masked-dropout call equals the masked launch."""
+    from paddle_tpu_torch.ops.pallas.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    rows = []
+    for b, s, h, d, dt in ((4, 512, 12, 64, torch.bfloat16), (2, 300, 4, 128, torch.float32)):
+        g = torch.Generator(device=dev).manual_seed(13)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+                       for _ in range(4))
+        zero = torch.zeros((b, 1, 1, s), dtype=dt, device=dev)
+        pad = make_mask(torch, dev, "key_padding", b, s, h, dt, g)
+        base = flash_attention_fwd(q, k, v, True)
+        zfwd = flash_attention_fwd(q, k, v, True, mask=zero)
+        gb = flash_attention_bwd(q, k, v, *base, do, True)
+        gz = flash_attention_bwd(q, k, v, *base, do, True, mask=zero)
+        masked = flash_attention_fwd(q, k, v, False, mask=pad)
+        p0 = flash_attention_fwd(q, k, v, False, None, None, 0.0, MASK_SEED, pad)
+        mb = flash_attention_bwd(q, k, v, *masked, do, False, mask=pad)
+        mb0 = flash_attention_bwd(q, k, v, *masked, do, False, None, None, pad, 0.0, MASK_SEED)
+        torch.cuda.synchronize()
+        row = dict(b=b, s=s, h=h, d=d, dtype=str(dt),
+                   causal_zero_mask_equals_causal_fwd=_same(torch, zfwd, base),
+                   causal_zero_mask_equals_causal_bwd=_same(torch, gz, gb),
+                   p0_equals_masked_fwd=_same(torch, p0, masked),
+                   p0_equals_masked_bwd=_same(torch, mb0, mb))
+        row["ok"] = all(v for k_, v in row.items() if k_.endswith(("_fwd", "_bwd")))
+        rows.append(row)
+        del q, k, v, do, base, zfwd, gb, gz, masked, p0, mb, mb0
         torch.cuda.empty_cache()
     return rows
 
@@ -2157,6 +2394,32 @@ def train_path(torch, dev, runs=TRAIN_RUNS):
 
 
 # ---------------------------------------------------------------- phase 9
+def param_gate(params, ref_params, bf16, lr, steps):
+    """The parameters after `steps` optimizer steps on the card against
+    the CPU's, element by element: |p - ref| <= limit. In f32 the limit is
+    1e-4 (the card's sums in another order; one step of lr 1e-4 moves a
+    parameter by up to 1e-4, so a skipped or wrong update shows); in bf16
+    it is 2^-7 |ref| (two roundings to bf16, at load and after the last
+    step, each within half an ulp, 2^-8 of the value) plus 3 x steps x lr
+    (Adam's step is about lr whatever the gradient, so bf16 gradients may
+    move a parameter up to 2 lr a step away). The attention key biases get
+    3 x steps x lr in f32 too: their gradient is zero in exact arithmetic
+    (softmax is shift invariant), so Adam moves them by noise. Returns the
+    worst |p - ref| / limit (<= 1 passes) and the parameter's name."""
+    worst, at = 0.0, None
+    drift = 3 * steps * lr
+    for n, ref in ref_params.items():
+        d = (params[n] - ref).abs()
+        if bf16:
+            limit = ref.abs() * 2.0 ** -7 + drift
+        else:
+            limit = drift if n.endswith("k_proj.bias") else 1e-4
+        r = float((d / limit).max())
+        if not r <= worst:
+            worst, at = r, n
+    return worst, at
+
+
 def train_parity(torch, dev, make_model=None, keys=(None, None, None)):
     """The trainer on the card against the trainer on the CPU (f32, plain
     versions) from one state: 2 layers at the 350m width and vocab (or
@@ -2178,7 +2441,8 @@ def train_parity(torch, dev, make_model=None, keys=(None, None, None)):
     rng = np.random.RandomState(1)
     ids = rng.randint(0, cpu_model.config.vocab_size, (4, 256)).astype(np.int64)
     labels = np.roll(ids, -1, axis=1)
-    kw = dict(lr=1e-4, recompute=True, recompute_policy="save_attn")
+    lr = 1e-4
+    kw = dict(lr=lr, recompute=True, recompute_policy="save_attn")
 
     def run(device, **extra):
         model = make_model(device)
@@ -2200,10 +2464,13 @@ def train_parity(torch, dev, make_model=None, keys=(None, None, None)):
         losses, params = run(dev, **extra)
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
         pdiff = max(float((params[n] - ref_params[n]).abs().max()) for n in ref_params)
+        pratio, pname = param_gate(params, ref_params, name == "bf16", lr, len(keys))
         rows.append(dict(card=name, cpu="f32", model=type(cpu_model).__name__,
                          losses=losses, cpu_losses=ref_losses,
                          loss_max_rel_diff=rel, tol=tol, param_max_abs_diff=pdiff,
-                         ok=rel <= tol and all(math.isfinite(x) for x in losses)))
+                         param_worst_over_limit=pratio, param_worst=pname,
+                         ok=rel <= tol and pratio <= 1
+                         and all(math.isfinite(x) for x in losses)))
         torch.cuda.empty_cache()
     return rows
 
@@ -2218,6 +2485,89 @@ def gpt_train_parity(torch, dev):
     cfg = GPTConfig(hidden_size=2048, num_hidden_layers=2, num_attention_heads=16)
     return train_parity(torch, dev, lambda device: GPTForCausalLM(cfg, device=device, seed=5),
                         keys=[frnd.key(100 + i) for i in range(3)])
+
+
+# ---------------------------------------------------------------- phase 12
+# BertForMaskedLM(BertConfig.base()) through paddle_tpu_torch.train_bert:
+# f32 (the reference's default dtype), then bf16 parameters under
+# AdamW(multi_precision=True); every step launches each flash kernel once
+# per layer (12), every launch with the padding mask, non-causal and with
+# attention dropout
+BERT_TRAIN_RUNS = (("float32", 2, 5), ("bfloat16", 2, 5))
+BERT_PER_STEP = {f"flash_attention_{kind}{branch}": 12 for kind in ("fwd", "bwd")
+                 for branch in ("", "_dropout", "_masked", "_noncausal")}
+
+
+def bert_train_path(torch, dev):
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.train_bert import run_bert
+    results, launches = [], {}
+    for dtype, warmup, steps in BERT_TRAIN_RUNS:
+        torch.cuda.empty_cache()
+        reset_kernel_launches()
+        r = run_bert("base", dtype, steps, warmup, dev, profile=True)
+        counts = kernel_launches()
+        n = warmup + steps + (r["profile"] is not None)   # the profiled step
+        expect = {k: BERT_PER_STEP.get(k, 0) * n for k in counts}
+        losses = r["losses"]
+        finite = all(math.isfinite(x) for x in losses)
+        ok = finite and losses[-1] < losses[0] and counts == expect
+        results.append(dict(r, launches=counts, expected_launches=expect,
+                            launches_per_step={k: c / n for k, c in counts.items()},
+                            losses_finite=finite, loss_fell=losses[-1] < losses[0],
+                            ok=ok))
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+        torch.cuda.empty_cache()
+    return results, launches
+
+
+# ---------------------------------------------------------------- phase 13
+def bert_train_parity(torch, dev):
+    """BertForMaskedLM at the base width, 2 layers, batch 4 x 128 with
+    padding (`train_bert.mlm_batch`), 3 AdamW(1e-4) steps, dropout 0.1: the
+    card (f32 with TF32 off; bf16 parameters with multi_precision) against
+    the CPU (f32, plain versions) from the same weights, the global
+    generator seeded alike on both sides, so every dropout mask and flash
+    seed is the same bits."""
+    from paddle_tpu_torch.framework import random as frnd
+    from paddle_tpu_torch.train_bert import build, mlm_batch
+    cpu_model, _ = build("base", "float32", "cpu", seed=5, num_hidden_layers=2)
+    batch = mlm_batch(cpu_model.config, 4, 128, seed=1)
+    weights = cpu_model.state_dict()
+
+    def run(device, dtype):
+        model, opt = build("base", dtype, device, seed=5, num_hidden_layers=2)
+        model.load_state_dict(weights)
+        ids, tt, am, labels = (torch.from_numpy(a).to(device) for a in batch)
+        frnd.seed(7)
+        losses = []
+        for _ in range(3):
+            loss = model(ids, tt, am, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+        return losses, {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+
+    ref_losses, ref_params = run(torch.device("cpu"), "float32")
+    rows = []
+    # f32 on the card, TF32 off: the same math in another summation order;
+    # bf16 on the card: bf16 weights and activations against f32
+    for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+        losses, params = run(dev, dtype)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        pdiff = max(float((params[n] - ref_params[n]).abs().max()) for n in ref_params)
+        pratio, pname = param_gate(params, ref_params, dtype == "bfloat16", 1e-4,
+                                   len(losses))
+        rows.append(dict(card=dtype, cpu="float32", model="BertForMaskedLM",
+                         layers=2, losses=losses, cpu_losses=ref_losses,
+                         loss_max_rel_diff=rel, tol=tol, param_max_abs_diff=pdiff,
+                         param_worst_over_limit=pratio, param_worst=pname,
+                         ok=rel <= tol and pratio <= 1
+                         and all(math.isfinite(x) for x in losses)))
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -2271,7 +2621,9 @@ def main():
               ("decode_megakernel_verify",
                lambda torch, dev: check_megakernel_verify(torch, dev, ptxas)),
               ("flash_attention_fwd_dropout", check_flash_dropout),
-              ("flash_attention_bwd_dropout", check_flash_bwd_dropout))
+              ("flash_attention_bwd_dropout", check_flash_bwd_dropout),
+              ("flash_attention_fwd_masked", check_flash_masked),
+              ("flash_attention_bwd_masked", check_flash_bwd_masked))
     for name, check in checks:
         rows = check(torch, dev)
         for r in rows:
@@ -2283,6 +2635,9 @@ def main():
         main_rows[name] = next(r for r in rows if "ms" in r and (
             name != "quantized_matmul" or (r["m"] == 4 and r["n"] == 11008)) and (
             name != "decode_megakernel_topk" or (r["R"] == 8 and r["head_k"] == 8)))
+    for r in flash_mask_gates(torch, dev):
+        emit(dict(phase="kernels", kernel="flash_attention_mask_gates", **r))
+        ok &= r["ok"]
     emit(dict(phase="kernels", elapsed_s=time.perf_counter() - t_start))
 
     # 4. the serving path; counts are zeroed just before each generate
@@ -2363,7 +2718,23 @@ def main():
     for r in gpt_train_parity(torch, dev):
         emit(dict(phase="gpt_train_parity", **r))
         ok &= r["ok"]
-    emit(dict(phase="gpt_train_parity", launches=launches,
+    emit(dict(phase="gpt_train_parity", elapsed_s=time.perf_counter() - t_start))
+
+    # 12. the BERT MLM training path (masked, non-causal attention with
+    # dropout); counts are zeroed just before each run inside
+    # bert_train_path and read just after it
+    runs, counts = bert_train_path(torch, dev)
+    add(counts)
+    for r in runs:
+        emit(dict(phase="bert_train_path", **r))
+        ok &= r["ok"]
+    emit(dict(phase="bert_train_path", elapsed_s=time.perf_counter() - t_start))
+
+    # 13. BERT training parity on the card, dropout on
+    for r in bert_train_parity(torch, dev):
+        emit(dict(phase="bert_train_parity", **r))
+        ok &= r["ok"]
+    emit(dict(phase="bert_train_parity", launches=launches,
               elapsed_s=time.perf_counter() - t_start))
     # every kernel was launched on the main paths
     ok &= all(launches.get(k, 0) > 0 for k in SOURCES)

@@ -31,23 +31,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
+_L = ctypes.c_int64
 
 # argtypes of every kernel entry point; each returns cudaGetLastError()
 SIGNATURES = {
     "ptt_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # (..., dtype, dropout, seed, thresh, inv_keep, device, stream)
-    "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F,
-                                _I, _P],
+    # (q, k, v, o, lse, mask and its four strides, b, s, h, d, s_true,
+    # causal, scale, dtype, dropout, seed, thresh, inv_keep, device, stream)
+    "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
+                                _I, _I, _I, _I, _I, _I, _F, _I, _I, _U, _U,
+                                _F, _I, _P],
     "ptt_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                    _I, _P],
     "ptt_rms_norm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "ptt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F,
-                                _I, _P],
+                                _P, _L, _L, _L, _L,
+                                _I, _I, _I, _I, _I, _I, _F, _I, _I, _U, _U,
+                                _F, _I, _P],
     # (args struct, dtype, weight kind, device, stream, grid out)
     "ptt_decode_megakernel": [_P, _I, _I, _I, _P, _P],
 }

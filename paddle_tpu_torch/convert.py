@@ -1,5 +1,6 @@
-"""Move a `paddle_tpu` model's parameters, or a `paddle_tpu` trainer's
-state, into their `paddle_tpu_torch` counterparts (LLaMA and GPT).
+"""Move a `paddle_tpu` model's parameters, a `paddle_tpu` trainer's state,
+or an eager `paddle_tpu` optimizer's state into their `paddle_tpu_torch`
+counterparts (LLaMA, GPT, BERT; Adam and AdamW).
 
 Both packages keep Paddle's [in, out] weight layout and the same parameter
 names, so the copy is by name with no transposes. The caller hands over
@@ -91,3 +92,45 @@ def trainer_state_from_numpy(trainer, params, opt=None, step=0):
                         put(state["opt"][name][k], mom[k][phys], name)
     state["step"] = int(step)
     return state
+
+
+def optimizer_state_from_numpy(optimizer, accumulators, step_count=0,
+                               master_weights=None):
+    """Carry an eager reference optimizer's state, as numpy, into the
+    port's `Adam` / `AdamW` `optimizer`, so both sides go on from one
+    mid-training state:
+
+    - accumulators: the reference's `_accumulators["__state__"]`, {name:
+      {"moment1", "moment2"}}, keyed by the port optimizer's parameter
+      names (the reference keys by `Parameter.name`; the caller maps
+      those to the port's names);
+    - step_count: the reference's `_step_count` (the next step is
+      step_count + 1 in the bias corrections);
+    - master_weights: the reference's `_master_weights` ({name: f32
+      array}, `multi_precision`), or None.
+
+    Arrays are copied bit for bit as f32 tensors on each parameter's
+    device. A name the optimizer does not hold, or a shape that differs,
+    raises ValueError."""
+    params = dict(optimizer._params)
+
+    def put(name, a):
+        if name not in params:
+            raise ValueError(f"{name!r}: no such parameter in the optimizer")
+        a = np.asarray(a)
+        if a.dtype.kind == "V":     # bfloat16 as numpy holds it: exact in f32
+            a = a.astype(np.float32)
+        p = params[name]
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(a.shape)} does not match "
+                             f"the parameter's {tuple(p.shape)}")
+        return torch.tensor(a, dtype=torch.float32, device=p.device)
+
+    states = {name: {k: put(name, a) for k, a in st.items()}
+              for name, st in accumulators.items()}
+    masters = {name: put(name, a)
+               for name, a in (master_weights or {}).items()}
+    optimizer._accumulators["__state__"] = states
+    optimizer._master_weights = masters
+    optimizer._step_count = int(step_count)
+    return optimizer

@@ -66,6 +66,18 @@ struct Dropout {
   float inv_keep;
 };
 
+// An additive attention mask as the flash kernels read it: f32 element
+// (batch, head, query row, key column) at p[b * sb + h * sh + row * sq +
+// col * sk]. The strides are in elements; a broadcast dim has stride 0, so
+// a [b, 1, 1, s] key-padding mask is read in place for every head and row.
+struct AddMask {
+  const float* p;
+  long long sb, sh, sq, sk;
+  __device__ __forceinline__ float at(int b, int h, int row, int col) const {
+    return p[b * sb + h * sh + row * sq + col * sk];
+  }
+};
+
 // One page of the paged-attention online softmax, shared by the decode
 // kernel (paged_attention.cu) and the ragged kernel
 // (ragged_paged_attention.cu) so that a ragged slot with one query token

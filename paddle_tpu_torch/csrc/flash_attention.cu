@@ -1,11 +1,25 @@
-// Causal flash-attention forward on [b, s, h, d]: o = softmax(q k^T * scale
-// masked causally and past s_true) v, plus lse = logsumexp of each row.
+// Flash-attention forward on [b, s, h, d]: o = softmax(q k^T * scale + mask,
+// masked past s_true and, when causal, above the diagonal) v, plus lse =
+// logsumexp of each row.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (called
-// from `_flash_fwd` / `make_flash_attention`), for the causal case, with
-// or without attention dropout, without an additive mask. On the TPU the
-// k-block axis is the innermost, sequential grid dimension and (m, l, acc)
-// persist in VMEM scratch across it; here it is a loop inside one block.
+// from `_flash_fwd` / `make_flash_attention`), causal or not, with or
+// without an additive mask, with or without attention dropout. On the TPU
+// the k-block axis is the innermost, sequential grid dimension and (m, l,
+// acc) persist in VMEM scratch across it; here it is a loop inside one
+// block.
+//
+// Mask (the `kMask` instantiations; the `.masked` entries): the f32
+// element mask[b, h, row, col], read through four element strides
+// (`ptt::AddMask`; a broadcast dim has stride 0), is added to the scaled
+// logit before the s_true and causal tests, as the reference adds it
+// before its `where`. A launch with a mask walks every key tile (no causal
+// or s_true skip): in f32, -1e30 + logit is -1e30, so a row the mask hides
+// entirely weighs every key of the sequence alike, as in the plain version
+// and the reference, and keys past the tensor's end weigh nothing. With
+// kMask false nothing of the mask is compiled in; `causal` is a runtime
+// argument (the non-causal launch drops the diagonal bound and the
+// `col <= row` test).
 //
 // Dropout (the `kDrop` instantiations; `.dropout` entry of
 // `make_flash_attention`): after a tile's running max, l and alpha update,
@@ -27,7 +41,8 @@
 //
 // Design: one block of 128 threads per (batch x head, 64-row query tile).
 // The block stages the query tile (pre-scaled, f32) in shared memory, then
-// loops over 64-key tiles from 0 up to the diagonal and below s_true,
+// loops over 64-key tiles from 0 below s_true (and, when causal, up to
+// the diagonal),
 // staging k and v in shared memory. Each thread owns 4 query rows x 8 key
 // columns of the score tile and 4 rows x d/8 features of the output, rows
 // and columns interleaved so that shared-memory reads spread over banks.
@@ -53,11 +68,12 @@ constexpr size_t smem_floats() {
          (size_t)kBQ * (kBK + 1);
 }
 
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int S, int H, int s_true, float scale, ptt::Dropout drop) {
+                 int S, int H, int s_true, int causal, float scale, ptt::Dropout drop,
+                 ptt::AddMask mask) {
   constexpr int kOut = D / 8;  // output features per thread: cg + 8 * jd
   extern __shared__ float smem[];
   float* Qs = smem;                       // [kBQ][D + 1]
@@ -87,10 +103,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jd = 0; jd < kOut; ++jd) acc[i][jd] = 0.f;
   }
 
-  // causal: key tiles up to the one holding the tile's last row; and none
-  // that starts at or past s_true
+  // key tiles below s_true, and when causal only up to the one holding
+  // the tile's last row; with a mask every key tile
   const int last_row = min(q_start + kBQ - 1, S - 1);
-  const int n_kt = min(last_row / kBK + 1, (s_true + kBK - 1) / kBK);
+  const int n_valid = (s_true + kBK - 1) / kBK;
+  const int n_kt = kMask ? (S + kBK - 1) / kBK
+                         : (causal ? min(last_row / kBK + 1, n_valid) : n_valid);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k_start = kt * kBK;
@@ -129,7 +147,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) {
         const int col = k_start + cg + 8 * j;
-        if (!(col < s_true && col <= row)) sc[i][j] = kNegInf;
+        const bool valid = col < s_true && (!causal || col <= row);
+        if constexpr (kMask) {
+          // the logit is scaled (q was); add the mask, then the tests; a
+          // key past the tensor's end weighs nothing even in a hidden row
+          if (row < S && col < S) sc[i][j] += mask.at(bi, hh, row, col);
+          if (!valid) sc[i][j] = col < S ? kNegInf : -INFINITY;
+        } else {
+          if (!valid) sc[i][j] = kNegInf;
+        }
         mx = fmaxf(mx, sc[i][j]);
       }
       mx = ptt::warp_max(mx, 8);  // the 8 lanes of this row group
@@ -182,52 +208,62 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kMask>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* o, float* lse,
-                      int b, int s, int h, int s_true, float scale, ptt::Dropout drop,
-                      cudaStream_t st) {
+                      int b, int s, int h, int s_true, int causal, float scale,
+                      ptt::Dropout drop, ptt::AddMask mask, cudaStream_t st) {
   const size_t smem = sizeof(float) * smem_floats<D>();
-  cudaError_t err = ptt::allow_smem(flash_fwd_kernel<T, D, kDrop>, smem);
+  cudaError_t err = ptt::allow_smem(flash_fwd_kernel<T, D, kDrop, kMask>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((s + kBQ - 1) / kBQ, b * h);
-  flash_fwd_kernel<T, D, kDrop><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<T, D, kDrop, kMask><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, s, h, s_true, scale, drop);
+      static_cast<T*>(o), lse, s, h, s_true, causal, scale, drop, mask);
   return cudaSuccess;
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int b, int s, int h, int s_true, float scale, ptt::Dropout drop,
-                   cudaStream_t st) {
-  return drop.on ? launch_as<T, D, true>(q, k, v, o, lse, b, s, h, s_true, scale, drop, st)
-                 : launch_as<T, D, false>(q, k, v, o, lse, b, s, h, s_true, scale, drop, st);
+                   int b, int s, int h, int s_true, int causal, float scale,
+                   ptt::Dropout drop, ptt::AddMask mask, cudaStream_t st) {
+#define PTT_FWD(DROP, MASK)                                                          \
+  launch_as<T, D, DROP, MASK>(q, k, v, o, lse, b, s, h, s_true, causal, scale, drop, \
+                              mask, st)
+  if (mask.p != nullptr) return drop.on ? PTT_FWD(true, true) : PTT_FWD(false, true);
+  return drop.on ? PTT_FWD(true, false) : PTT_FWD(false, false);
+#undef PTT_FWD
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); lse is f32
-// [b, h, s]. d must be 64 or 128. dropout != 0 drops attention weights
+// [b, h, s]. d must be 64 or 128. mask: null, or the f32 additive mask
+// read at mask[bi * msb + hh * msh + row * msq + col * msk]. causal != 0
+// masks keys above the diagonal. dropout != 0 drops attention weights
 // with the reference's hash of seed, kept where it is >= thresh, scaled by
 // inv_keep.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                       void* o, void* lse, int b, int s, int h, int d,
-                                       int s_true, float scale, int dtype, int dropout,
-                                       unsigned seed, unsigned thresh, float inv_keep,
-                                       int device, void* stream) {
+                                       void* o, void* lse, const void* mask, long long msb,
+                                       long long msh, long long msq, long long msk, int b,
+                                       int s, int h, int d, int s_true, int causal,
+                                       float scale, int dtype, int dropout, unsigned seed,
+                                       unsigned thresh, float inv_keep, int device,
+                                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (b * h > 65535) return (int)cudaErrorInvalidValue;  // grid.y
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const ptt::Dropout drop{dropout, seed, thresh, inv_keep};
+  const ptt::AddMask m{static_cast<const float*>(mask), msb, msh, msq, msk};
   if (dtype == 1 && d == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, o, l, b, s, h, s_true, scale, drop, st);
+    err = launch<__nv_bfloat16, 128>(q, k, v, o, l, b, s, h, s_true, causal, scale, drop, m, st);
   else if (dtype == 1 && d == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, o, l, b, s, h, s_true, scale, drop, st);
+    err = launch<__nv_bfloat16, 64>(q, k, v, o, l, b, s, h, s_true, causal, scale, drop, m, st);
   else if (dtype == 0 && d == 128)
-    err = launch<float, 128>(q, k, v, o, l, b, s, h, s_true, scale, drop, st);
+    err = launch<float, 128>(q, k, v, o, l, b, s, h, s_true, causal, scale, drop, m, st);
   else if (dtype == 0 && d == 64)
-    err = launch<float, 64>(q, k, v, o, l, b, s, h, s_true, scale, drop, st);
+    err = launch<float, 64>(q, k, v, o, l, b, s, h, s_true, causal, scale, drop, m, st);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -1,23 +1,42 @@
-// Causal flash-attention backward on [b, s, h, d]: dQ, dK and dV of
-// o = softmax(q k^T * scale, masked causally and at keys >= s_true) v, from
-// q, k, v, dO, the forward's lse ([b, h, s] f32) and delta = rowsum(dO * o)
-// ([b, h, s] f32, computed by the wrapper).
+// Flash-attention backward on [b, s, h, d]: dQ, dK and dV of
+// o = softmax(q k^T * scale + mask, masked at keys >= s_true and, when
+// causal, above the diagonal) v, from q, k, v, dO, the forward's lse
+// ([b, h, s] f32) and delta = rowsum(dO * o) ([b, h, s] f32, computed by
+// the wrapper). The mask gets no gradient (the reference's is zero).
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fused_bwd_kernel`
-// (called from `_flash_bwd` / `make_flash_attention`'s custom VJP), for the
-// causal case, with or without attention dropout, without an additive
-// mask. The reference's grid walks
+// (called from `_flash_bwd` / `make_flash_attention`'s custom VJP), causal
+// or not, with or without an additive mask, with or without attention
+// dropout. The reference's grid walks
 // K/V blocks outside and Q blocks inside: dK and dV accumulate in VMEM over
 // the inner Q axis, and every (K block, Q block) visit writes its dQ
 // partial, which XLA sums afterwards. Nothing is added to dQ by two
 // writers, so dQ is deterministic. This kernel keeps that design: one block
 // per (batch x head, 64-key tile) loops over the 64-row query tiles the key
-// tile meets (from the diagonal on), keeps dK and dV in f32 registers, and
-// writes its f32 dQ partial to its own slice of a [nk, b, s, h, d] buffer;
-// the wrapper sums the nk slices. Partials of query tiles the key tile does
-// not meet (before the diagonal, or every tile when the key tile starts at
-// or past s_true) are written as exact zeros, as the reference flushes its
-// skipped cells. No atomics anywhere.
+// tile meets (all of them, or from the diagonal on when causal), keeps dK
+// and dV in f32 registers, and writes its f32 dQ partial to its own slice
+// of a [nk, b, s, h, d] buffer; the wrapper sums the nk slices. Partials of
+// query tiles the key tile does not meet (before the diagonal, or every
+// tile when the key tile starts at or past s_true) are written as exact
+// zeros, as the reference flushes its skipped cells; a non-causal key tile
+// below s_true meets every query tile and flushes nothing. No atomics
+// anywhere.
+//
+// Mask (the `kMask` instantiations): P is rebuilt as exp(S * scale - lse +
+// mask[b, h, row, col]) (the f32 mask read through `ptt::AddMask`'s four
+// strides), and a masked-out pair inside the tensor as exp(NEG_INF - lse),
+// the reference's `_block_p` (0 unless the row is hidden entirely, where
+// lse is itself about NEG_INF). A launch with a mask meets every (key tile,
+// query tile) cell, as the forward walks every key tile, so the gradients
+// of a hidden row are the plain version's too. `S * scale - lse` is one
+// explicit fused multiply-add with or without a mask (nvcc contracted the
+// maskless expression to it before), so a zero mask gives the maskless
+// bits; the reference adds the mask before subtracting lse, which moves
+// only the last bits of P. With kMask false nothing of the mask is
+// compiled in, and causality is the `kCausal` flag, so the causal launch
+// without a mask runs the instructions it ran before masks were ported (a
+// runtime `causal` there cost it 2%); a launch with a mask reads `causal`
+// at run time, to keep the instantiations at 24 a file.
 //
 // What bounds it on the H100: per visible (query, key) pair it does five
 // d-long products (S again, dV, dP, dK, dQ: 10 d flops), about 5 d s^2 per
@@ -50,6 +69,7 @@
 namespace {
 
 using ptt::from_f32;
+using ptt::kNegInf;
 using ptt::to_f32;
 
 constexpr int kThreads = 256;
@@ -60,13 +80,13 @@ constexpr size_t smem_floats() {
   return 4 * (size_t)kBK * (D + 1) + (size_t)kBQ * (kBK + 1) + 2 * (size_t)kBQ;
 }
 
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kMask, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq_part,
                  T* __restrict__ dk, T* __restrict__ dv, int B, int S, int H, int s_true,
-                 float scale, ptt::Dropout drop) {
+                 int causal, float scale, ptt::Dropout drop, ptt::AddMask mask) {
   constexpr int kF = D / 16;  // features per thread: tx + 16 * j
   constexpr int DP = D + 1;   // padded row stride
   extern __shared__ float smem[];
@@ -94,11 +114,14 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     Vs[r * DP + j] = in ? to_f32(v[off]) : 0.f;
   }
 
-  // causal: query tiles from the one holding row k_start; none when every
-  // key of the tile is at or past s_true
-  const int qt0 = k_start / kBQ;
-  const int qt_end = k_start < s_true ? nq : qt0;
-  const int zero_rows = k_start < s_true ? qt0 * kBQ : S;
+  // causality: the kCausal flag without a mask, `causal` with one. Causal:
+  // query tiles from the one holding row k_start; none when every key of
+  // the tile is at or past s_true; with a mask every query tile
+  const bool is_causal = kMask ? causal != 0 : kCausal;
+  const int qt0 = kCausal && !kMask ? k_start / kBQ : 0;
+  const bool meets = kMask || k_start < s_true;
+  const int qt_end = meets ? nq : qt0;
+  const int zero_rows = meets ? qt0 * kBQ : S;
   for (size_t e = tid; e < (size_t)zero_rows * D; e += kThreads) {
     const size_t r = e / D, j = e % D;
     dqp[head_off + r * row_stride + j] = 0.f;
@@ -152,8 +175,15 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k_start + tx + 16 * j;
-        const bool ok = row < S && col < s_true && col <= row;
-        p[i][j] = ok ? expf(p[i][j] * scale - lse_s[ty + 16 * i]) : 0.f;
+        const bool ok = row < S && col < s_true && (!is_causal || col <= row);
+        if constexpr (kMask) {
+          const bool in = row < S && col < S;
+          const float l = lse_s[ty + 16 * i];
+          p[i][j] = ok ? expf(fmaf(p[i][j], scale, -l) + mask.at(bi, hh, row, col))
+                       : (in ? expf(kNegInf - l) : 0.f);
+        } else {
+          p[i][j] = ok ? expf(fmaf(p[i][j], scale, -lse_s[ty + 16 * i])) : 0.f;
+        }
         float pv = p[i][j];
         if constexpr (kDrop) {
           const bool kp = ptt::dropout_keep(drop.seed, bh, row, col, drop.thresh);
@@ -264,48 +294,55 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kMask, bool kCausal>
 cudaError_t launch_as(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, float* dq_part, void* dk,
-                      void* dv, int b, int s, int h, int s_true, float scale,
-                      ptt::Dropout drop, cudaStream_t st) {
+                      void* dv, int b, int s, int h, int s_true, int causal, float scale,
+                      ptt::Dropout drop, ptt::AddMask mask, cudaStream_t st) {
   const size_t smem = sizeof(float) * smem_floats<D>();
-  cudaError_t err = ptt::allow_smem(flash_bwd_kernel<T, D, kDrop>, smem);
+  cudaError_t err = ptt::allow_smem(flash_bwd_kernel<T, D, kDrop, kMask, kCausal>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((s + kBK - 1) / kBK, b * h);
-  flash_bwd_kernel<T, D, kDrop><<<grid, kThreads, smem, st>>>(
+  flash_bwd_kernel<T, D, kDrop, kMask, kCausal><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, dq_part, static_cast<T*>(dk),
-      static_cast<T*>(dv), b, s, h, s_true, scale, drop);
+      static_cast<T*>(dv), b, s, h, s_true, causal, scale, drop, mask);
   return cudaSuccess;
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, float* dq_part, void* dk, void* dv,
-                   int b, int s, int h, int s_true, float scale, ptt::Dropout drop,
-                   cudaStream_t st) {
-  return drop.on ? launch_as<T, D, true>(q, k, v, dout, lse, delta, dq_part, dk, dv, b, s,
-                                         h, s_true, scale, drop, st)
-                 : launch_as<T, D, false>(q, k, v, dout, lse, delta, dq_part, dk, dv, b, s,
-                                          h, s_true, scale, drop, st);
+                   int b, int s, int h, int s_true, int causal, float scale,
+                   ptt::Dropout drop, ptt::AddMask mask, cudaStream_t st) {
+#define PTT_BWD(DROP, MASK, CAUSAL)                                                     \
+  launch_as<T, D, DROP, MASK, CAUSAL>(q, k, v, dout, lse, delta, dq_part, dk, dv, b, s, h, \
+                                      s_true, causal, scale, drop, mask, st)
+  if (mask.p != nullptr)
+    return drop.on ? PTT_BWD(true, true, false) : PTT_BWD(false, true, false);
+  if (causal) return drop.on ? PTT_BWD(true, false, true) : PTT_BWD(false, false, true);
+  return drop.on ? PTT_BWD(true, false, false) : PTT_BWD(false, false, false);
+#undef PTT_BWD
 }
 
 }  // namespace
 
 // q, k, v, dout, dk, dv: [b, s, h, d] of one dtype (0 = float32,
 // 1 = bfloat16); lse and delta: [b, h, s] f32; dq_part: [ceil(s / 64), b, s,
-// h, d] f32, every element written. d must be 64 or 128. dropout != 0:
-// the forward's dropout (seed, thresh, inv_keep as there).
+// h, d] f32, every element written. d must be 64 or 128. mask, causal and
+// dropout (seed, thresh, inv_keep) as the forward's.
 extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
-                                       void* dq_part, void* dk, void* dv, int b, int s, int h,
-                                       int d, int s_true, float scale, int dtype, int dropout,
+                                       void* dq_part, void* dk, void* dv, const void* mask,
+                                       long long msb, long long msh, long long msq,
+                                       long long msk, int b, int s, int h, int d, int s_true,
+                                       int causal, float scale, int dtype, int dropout,
                                        unsigned seed, unsigned thresh, float inv_keep,
                                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const ptt::Dropout drop{dropout, seed, thresh, inv_keep};
+  const ptt::AddMask m{static_cast<const float*>(mask), msb, msh, msq, msk};
   if (b * h > 65535) return (int)cudaErrorInvalidValue;  // grid.y
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -313,14 +350,16 @@ extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void*
   float* dqp = static_cast<float*>(dq_part);
   if (dtype == 1 && d == 128)
     err = launch<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true,
-                                     scale, drop, st);
+                                     causal, scale, drop, m, st);
   else if (dtype == 1 && d == 64)
     err = launch<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true,
-                                    scale, drop, st);
+                                    causal, scale, drop, m, st);
   else if (dtype == 0 && d == 128)
-    err = launch<float, 128>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true, scale, drop, st);
+    err = launch<float, 128>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true, causal, scale,
+                             drop, m, st);
   else if (dtype == 0 && d == 64)
-    err = launch<float, 64>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true, scale, drop, st);
+    err = launch<float, 64>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true, causal, scale,
+                            drop, m, st);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

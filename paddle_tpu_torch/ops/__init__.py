@@ -9,7 +9,9 @@ reading `kernel_launches()`. The decode megakernel's top-K fold (its
 also counted on their own, as "decode_megakernel_topk" and
 "decode_megakernel_verify" (those launches are in "decode_megakernel"
 too), and so are the flash kernels' launches with attention dropout, as
-"flash_attention_fwd_dropout" and "flash_attention_bwd_dropout" (also in
+"flash_attention_fwd_dropout" and "flash_attention_bwd_dropout", with an
+additive mask, as "flash_attention_{fwd,bwd}_masked", and without the causal
+skip, as "flash_attention_{fwd,bwd}_noncausal" (all of them also in
 "flash_attention_fwd" and "flash_attention_bwd").
 The ragged kernel has two entries, each counted on its own:
 `ragged_paged_attention` (chunked prefill) and `spec_verify_attention`
@@ -39,8 +41,10 @@ def kernel_launches():
     out = {name: fn.launches for name, fn in _WRAPPERS.items()}
     out["decode_megakernel_topk"] = decode_megakernel.fold_launches
     out["decode_megakernel_verify"] = decode_megakernel.verify_launches
-    out["flash_attention_fwd_dropout"] = flash_attention_fwd.dropout_launches
-    out["flash_attention_bwd_dropout"] = flash_attention_bwd.dropout_launches
+    for fn in (flash_attention_fwd, flash_attention_bwd):
+        out[fn.__name__ + "_dropout"] = fn.dropout_launches
+        out[fn.__name__ + "_masked"] = fn.mask_launches
+        out[fn.__name__ + "_noncausal"] = fn.noncausal_launches
     return out
 
 
@@ -49,5 +53,5 @@ def reset_kernel_launches():
         fn.launches = 0
     decode_megakernel.fold_launches = 0
     decode_megakernel.verify_launches = 0
-    flash_attention_fwd.dropout_launches = 0
-    flash_attention_bwd.dropout_launches = 0
+    for fn in (flash_attention_fwd, flash_attention_bwd):
+        fn.dropout_launches = fn.mask_launches = fn.noncausal_launches = 0

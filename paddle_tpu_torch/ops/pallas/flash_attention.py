@@ -1,4 +1,4 @@
-"""Flash attention (causal) on [b, s, h, d]: forward, backward, and the
+"""Flash attention on [b, s, h, d]: forward, backward, and the
 differentiable `FlashAttention` built from them.
 
 Counterpart of `paddle_tpu/ops/pallas/flash_attention.py`. Its two Pallas
@@ -9,11 +9,24 @@ The plain PyTorch versions beside them (`flash_attention_reference`, the
 counterpart of `_xla_ref`, and `flash_attention_bwd_reference`) serve CPU
 tensors and are the yardsticks the kernels are held against on the card.
 `FlashAttention` is the counterpart of `make_flash_attention`'s custom
-VJP.
+VJP (its plain, `.masked`, `.dropout` and `.masked_dropout` entries).
 
-Keys at positions >= s_true are masked (padding inside a padded prompt).
-The forward returns o in the input dtype and lse = logsumexp of each query
-row's scaled logits, [b, h, s] f32, the residual the backward reads.
+Causal or not (`causal`). Keys at positions >= s_true are masked (padding
+inside a padded prompt). The forward returns o in the input dtype and
+lse = logsumexp of each query row's scaled logits, [b, h, s] f32, the
+residual the backward reads.
+
+An additive `mask` (the reference's `.masked` entries) broadcasts to
+[b, h, s, s]: each of its four dims is 1 or full, after `norm_mask` (a
+bool mask becomes 0 / NEG_INF, and the rank is padded to 4). It is added
+in f32 to the scaled logits before the s_true and causal tests, in the
+reference's order: `logits * scale`, `+ mask`, `where(valid, ., NEG_INF)`.
+A [b, 1, 1, s] key-padding mask applies to every query row (the reference
+broadcasts the query and key axes first). No gradient flows to the mask
+(the reference's cotangent is zero). In f32, -1e30 + logit is -1e30, so
+a row a bool mask hides entirely is uniform over all s keys, with lse
+about -1e30, in the plain versions and the kernels alike, and in the
+reference wherever it pads nothing (its padding keys weigh in too).
 
 Attention dropout (`dropout_p > 0` with an int32 `seed`) is the
 reference's `.dropout` entry: the weights after the softmax denominator
@@ -21,8 +34,7 @@ are kept as p / (1 - dropout_p) or zeroed by the integer hash
 `_dropout_keep` of (seed, batch * heads + head, global query row, global
 key column), computed again in the backward instead of stored. lse stays
 the logsumexp before dropout. `dropout_keep` is the plain version of the
-hash (the kernels hash in `csrc/common.cuh`). Additive masks and the
-non-causal kernels are not ported yet (ROADMAP A2b).
+hash (the kernels hash in `csrc/common.cuh`). A mask and dropout combine.
 """
 import contextlib
 import contextvars
@@ -92,18 +104,51 @@ def _check_qkv(name, q, k, v):
             f"{tuple(k.shape)}, {tuple(v.shape)}")
 
 
+def norm_mask(m):
+    """The reference's `_norm_mask`: a bool mask becomes additive f32, 0
+    where True and NEG_INF where False; leading dims pad the rank to 4."""
+    if m.dtype == torch.bool:
+        m = torch.where(m, torch.zeros((), dtype=torch.float32, device=m.device),
+                        torch.full((), NEG_INF, dtype=torch.float32,
+                                   device=m.device))
+    while m.dim() < 4:
+        m = m[None]
+    return m
+
+
+def _check_mask(name, mask, b, h, s):
+    """`norm_mask(mask)`, checked to broadcast to [b, h, s, s]: every dim
+    1 or full (the reference's `_prep` broadcasts the query and key axes,
+    then the batch and head axes)."""
+    if mask is None:
+        return None
+    if mask.dim() > 4:
+        raise ValueError(f"{name}: mask of rank {mask.dim()}; at most 4")
+    m = norm_mask(mask)
+    if not m.is_floating_point():
+        raise ValueError(f"{name}: mask must be bool or floating; got "
+                         f"{m.dtype}")
+    if any(n not in (1, full) for n, full in zip(m.shape, (b, h, s, s))):
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} does not "
+                         f"broadcast to [b, h, s, s] = {(b, h, s, s)}")
+    return m
+
+
 def flash_attention_reference(q, k, v, causal=True, scale=None, s_true=None,
-                              dropout_p=0.0, seed=None):
-    """Plain version: dense scores in f32, masked by s_true and (when
-    causal) by position, softmax (with dropout: each weight kept as
-    p / (1 - dropout_p) or zeroed by `dropout_keep`), then P @ V.
-    Returns (o, lse), lse before dropout."""
+                              dropout_p=0.0, seed=None, mask=None):
+    """Plain version: dense scores in f32, scaled, plus the additive mask,
+    masked by s_true and (when causal) by position, softmax (with
+    dropout: each weight kept as p / (1 - dropout_p) or zeroed by
+    `dropout_keep`), then P @ V. Returns (o, lse), lse before dropout."""
     dropout_p = _check_dropout("flash_attention_reference", dropout_p, seed)
     b, s, h, d = q.shape
     sk = k.shape[1]
     s_true = sk if s_true is None else int(s_true)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    mask = _check_mask("flash_attention_reference", mask, b, h, s)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = logits + mask.float()
     cols = torch.arange(sk, device=q.device)[None, :]
     valid = cols < s_true
     if causal:
@@ -123,16 +168,42 @@ def flash_attention_reference(q, k, v, causal=True, scale=None, s_true=None,
     return o, lse
 
 
+def _check_kernel_inputs(name, q, k, v, d, others=()):
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for t in (k, v) + tuple(others)):
+        raise ValueError(
+            f"{name} kernel takes bf16/f32 operands of one dtype; got "
+            f"{[str(t.dtype) for t in (q, k, v) + tuple(others)]}")
+    if d not in (64, 128):
+        raise ValueError(f"{name} kernel takes d 64 or 128; got {d}")
+
+
+def _mask_args(mask, b, h, s, dev):
+    """(pointer, four element strides) of the f32 mask as the kernels read
+    it, `mask.float().expand(b, h, s, s)` (a broadcast dim has stride 0,
+    so a [b, 1, 1, s] mask is never built at [b, h, s, s]), and the f32
+    tensor itself, which the caller keeps alive over the launch."""
+    if mask is None:
+        return (ctypes.c_void_p(0), 0, 0, 0, 0), None
+    if mask.device != dev:
+        raise ValueError("flash attention: mask on another device than q")
+    m = mask.float().expand(b, h, s, s)
+    return (ctypes.c_void_p(m.data_ptr()), *m.stride()), m
+
+
 def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None,
-                        dropout_p=0.0, seed=None):
-    """Causal flash-attention forward. q, k, v: [b, s, h, d] with k/v
-    already at q's head count. Returns (o [b, s, h, d], lse [b, h, s]).
-    `dropout_p > 0` drops attention weights by the hash of int32 `seed`.
+                        dropout_p=0.0, seed=None, mask=None):
+    """Flash-attention forward. q, k, v: [b, s, h, d] with k/v already at
+    q's head count. Returns (o [b, s, h, d], lse [b, h, s]).
+    `dropout_p > 0` drops attention weights by the hash of int32 `seed`;
+    `mask` is additive (or bool), broadcast to [b, h, s, s].
 
     A CPU tensor takes the plain version. A CUDA tensor launches
-    `csrc/flash_attention.cu` (causal only, d 64 or 128, bf16 or f32) or
-    raises; there is no fallback. A launch with dropout also counts in
-    `flash_attention_fwd.dropout_launches`."""
+    `csrc/flash_attention.cu` (causal or not, with or without a mask, d 64
+    or 128, bf16 or f32) or raises; there is no fallback. A launch also
+    counts in `flash_attention_fwd.dropout_launches` with dropout, in
+    `.mask_launches` with a mask and in `.noncausal_launches` when not
+    causal."""
     _check_qkv("flash_attention_fwd", q, k, v)
     dropout_p = _check_dropout("flash_attention_fwd", dropout_p, seed)
     b, s, h, d = q.shape
@@ -140,19 +211,13 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None,
     if not 0 <= s_true <= s:
         raise ValueError(f"s_true={s_true} outside [0, {s}]")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    mask = _check_mask("flash_attention_fwd", mask, b, h, s)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale, s_true,
-                                         dropout_p, seed)
+                                         dropout_p, seed, mask)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
-    _refuse_unported("flash_attention_fwd", causal)
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(
-            f"flash_attention_fwd kernel takes bf16/f32 q/k/v of one dtype; "
-            f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention_fwd kernel takes d 64 or 128; "
-                         f"got {d}")
+    _check_kernel_inputs("flash_attention_fwd", q, k, v, d)
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention_fwd: operands on different devices")
@@ -161,32 +226,33 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     if b * h * s == 0:
         return o, lse
+    margs, _keep = _mask_args(mask, b, h, s, dev)
     lib = _build.library()
     code = lib.ptt_flash_attention_fwd(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(o.data_ptr()),
-        ctypes.c_void_p(lse.data_ptr()),
-        b, s, h, d, s_true, float(scale), _DTYPE_CODE[q.dtype],
-        *_dropout_args(dropout_p, seed), dev.index, _build.stream_ptr(dev))
+        ctypes.c_void_p(lse.data_ptr()), *margs,
+        b, s, h, d, s_true, int(bool(causal)), float(scale),
+        _DTYPE_CODE[q.dtype], *_dropout_args(dropout_p, seed), dev.index,
+        _build.stream_ptr(dev))
     _build.check(code, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.dropout_launches += dropout_p > 0.0
+    _count(flash_attention_fwd, causal, mask, dropout_p)
     return o, lse
 
 
-flash_attention_fwd.launches = 0
-flash_attention_fwd.dropout_launches = 0
+def _count(fn, causal, mask, dropout_p):
+    fn.launches += 1
+    fn.dropout_launches += dropout_p > 0.0
+    fn.mask_launches += mask is not None
+    fn.noncausal_launches += not causal
 
 
-def _refuse_unported(name, causal, mask=None):
-    """The CUDA kernels' unported branches (ROADMAP A2b): additive masks
-    and non-causal attention raise."""
-    if mask is not None:
-        raise NotImplementedError(
-            f"{name}: additive masks are not ported yet (ROADMAP A2b)")
-    if not causal:
-        raise ValueError(f"{name} kernel is causal only; the non-causal "
-                         f"kernel is not ported yet (ROADMAP A2b)")
+def _reset(fn):
+    fn.launches = fn.dropout_launches = 0
+    fn.mask_launches = fn.noncausal_launches = 0
+
+
+_reset(flash_attention_fwd)
 
 
 def _dropout_args(dropout_p, seed):
@@ -199,25 +265,31 @@ def _dropout_args(dropout_p, seed):
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
                                   scale=None, s_true=None, dropout_p=0.0,
-                                  seed=None):
-    """Plain version of the backward: dense f32 P from the forward's lse,
-    then dV = P^T dO, dS = P (dO V^T - rowsum(dO o)) * scale, dQ = dS K,
-    dK = dS^T Q. With dropout, dV reads the dropped weights and dO V^T is
-    dropped the same way (`dropout_keep`); dS takes the undropped P.
-    Returns (dq, dk, dv) in the inputs' dtypes."""
+                                  seed=None, mask=None):
+    """Plain version of the backward: dense f32 P = exp(logits - lse),
+    the logits scaled, plus the mask, and NEG_INF where masked (the
+    reference's `_block_p`), then dV = P^T dO, dS = P (dO V^T -
+    rowsum(dO o)) * scale, dQ = dS K, dK = dS^T Q. With dropout, dV reads
+    the dropped weights and dO V^T is dropped the same way
+    (`dropout_keep`); dS takes the undropped P. Returns (dq, dk, dv) in
+    the inputs' dtypes; the mask gets no gradient."""
     dropout_p = _check_dropout("flash_attention_bwd_reference", dropout_p,
                                seed)
     b, s, h, d = q.shape
     s_true = s if s_true is None else int(s_true)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    mask = _check_mask("flash_attention_bwd_reference", mask, b, h, s)
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     logits = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    if mask is not None:
+        logits = logits + mask.float()
     cols = torch.arange(s, device=q.device)[None, :]
     valid = cols < s_true
     if causal:
         valid = valid & (torch.arange(s, device=q.device)[:, None] >= cols)
-    p = torch.where(valid, torch.exp(logits - lse[..., None]),
-                    torch.zeros((), device=q.device))
+    p = torch.exp(torch.where(valid, logits,
+                              torch.full((), NEG_INF, device=q.device))
+                  - lse[..., None])
     del logits
     delta = (do32 * o.float()).sum(-1).transpose(1, 2)            # [b, h, s]
     dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
@@ -243,19 +315,19 @@ BWD_TILE = 64   # key tile of csrc/flash_attention_bwd.cu: one dQ partial each
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
                         s_true=None, mask=None, dropout_p=0.0, seed=None):
-    """Gradients (dq, dk, dv) of the causal flash attention, from the
-    forward's o and lse and the output cotangent do; all [b, s, h, d]
-    except lse [b, h, s] f32. `dropout_p` and `seed` are the forward's.
+    """Gradients (dq, dk, dv) of the flash attention, from the forward's o
+    and lse and the output cotangent do; all [b, s, h, d] except lse
+    [b, h, s] f32. `causal`, `mask`, `dropout_p` and `seed` are the
+    forward's; the mask gets no gradient.
 
     A CPU tensor takes the plain version. A CUDA tensor launches
-    `csrc/flash_attention_bwd.cu` (causal only, d 64 or 128, bf16 or f32)
-    or raises; there is no fallback. delta = rowsum(dO * o) and the sum of
-    the kernel's per-key-tile dQ partials are torch ops around the launch,
-    as they are jnp around the `pallas_call` in the reference's
-    `_flash_bwd`. Additive masks raise (ROADMAP A2b). A launch with
-    dropout also counts in `flash_attention_bwd.dropout_launches`."""
-    if mask is not None:
-        _refuse_unported("flash_attention_bwd", causal, mask)
+    `csrc/flash_attention_bwd.cu` (causal or not, with or without a mask,
+    d 64 or 128, bf16 or f32) or raises; there is no fallback. delta =
+    rowsum(dO * o) and the sum of the kernel's per-key-tile dQ partials
+    are torch ops around the launch, as they are jnp around the
+    `pallas_call` in the reference's `_flash_bwd`. A launch counts in
+    `.dropout_launches`, `.mask_launches` and `.noncausal_launches` as the
+    forward's does."""
     _check_qkv("flash_attention_bwd", q, k, v)
     dropout_p = _check_dropout("flash_attention_bwd", dropout_p, seed)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
@@ -269,20 +341,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
     if not 0 <= s_true <= s:
         raise ValueError(f"s_true={s_true} outside [0, {s}]")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    mask = _check_mask("flash_attention_bwd", mask, b, h, s)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
-                                             scale, s_true, dropout_p, seed)
+                                             scale, s_true, dropout_p, seed,
+                                             mask)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    _refuse_unported("flash_attention_bwd", causal)
-    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
-                                         for t in (k, v, o, do)):
-        raise ValueError(
-            f"flash_attention_bwd kernel takes bf16/f32 q/k/v/o/do of one "
-            f"dtype; got {[str(t.dtype) for t in (q, k, v, o, do)]}")
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention_bwd kernel takes d 64 or 128; "
-                         f"got {d}")
+    _check_kernel_inputs("flash_attention_bwd", q, k, v, d, (o, do))
     dev = q.device
     if any(t.device != dev for t in (k, v, o, lse, do)):
         raise ValueError("flash_attention_bwd: operands on different devices")
@@ -295,20 +361,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
     dv = torch.empty_like(v)
     if b * h * s == 0:
         return torch.zeros_like(q), dk, dv
+    margs, _keep = _mask_args(mask, b, h, s, dev)
     code = _build.library().ptt_flash_attention_bwd(
         *(ctypes.c_void_p(t.data_ptr())
-          for t in (q, k, v, do, lse, delta, dq_part, dk, dv)),
-        b, s, h, d, s_true, float(scale), _DTYPE_CODE[q.dtype],
-        *_dropout_args(dropout_p, seed), dev.index, _build.stream_ptr(dev))
+          for t in (q, k, v, do, lse, delta, dq_part, dk, dv)), *margs,
+        b, s, h, d, s_true, int(bool(causal)), float(scale),
+        _DTYPE_CODE[q.dtype], *_dropout_args(dropout_p, seed), dev.index,
+        _build.stream_ptr(dev))
     _build.check(code, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.dropout_launches += dropout_p > 0.0
+    _count(flash_attention_bwd, causal, mask, dropout_p)
     dq = (dq_part[0] if nk == 1 else dq_part.sum(0)).to(q.dtype)
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
-flash_attention_bwd.dropout_launches = 0
+_reset(flash_attention_bwd)
 
 
 class AttnResidualStash:
@@ -355,37 +421,40 @@ _STASH = contextvars.ContextVar("paddle_tpu_torch_attn_stash", default=None)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable causal flash attention (the counterpart of
-    `make_flash_attention`'s custom VJP, and of its `.dropout` entry when
-    `dropout_p > 0`): forward `flash_attention_fwd`, backward
-    `flash_attention_bwd` with the same dropout seed, saving q, k, v, o and
-    lse. Inside an `AttnResidualStash.region()` the forward's (o, lse) go
-    through the stash, so a recompute does not launch the forward kernel
-    again.
+    """Differentiable flash attention (the counterpart of
+    `make_flash_attention`'s custom VJP: its plain entry, `.masked` with a
+    mask, `.dropout` when `dropout_p > 0`, `.masked_dropout` with both):
+    forward `flash_attention_fwd`, backward `flash_attention_bwd` with the
+    same mask and dropout seed, saving q, k, v, o and lse. The mask gets
+    no gradient. Inside an `AttnResidualStash.region()` the forward's
+    (o, lse) go through the stash, so a recompute does not launch the
+    forward kernel again.
 
     `FlashAttention.apply(q, k, v, causal, scale, s_true, dropout_p,
-    seed)`; returns o."""
+    seed, mask)`; returns o."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, scale=None, s_true=None,
-                dropout_p=0.0, seed=None):
+                dropout_p=0.0, seed=None, mask=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+        if mask is not None:
+            mask = mask.detach()
 
         def compute():
             return flash_attention_fwd(q, k, v, causal, scale, s_true,
-                                       dropout_p, seed)
+                                       dropout_p, seed, mask)
 
         stash = _STASH.get()
         o, lse = stash.residuals(compute) if stash is not None else compute()
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale, ctx.s_true = causal, scale, s_true
-        ctx.dropout_p, ctx.seed = dropout_p, seed
+        ctx.dropout_p, ctx.seed, ctx.mask = dropout_p, seed, mask
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
-                                         ctx.scale, ctx.s_true, None,
+                                         ctx.scale, ctx.s_true, ctx.mask,
                                          ctx.dropout_p, ctx.seed)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None

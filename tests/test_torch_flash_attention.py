@@ -1,4 +1,5 @@
-"""Causal flash attention: paddle_tpu_torch against the JAX reference.
+"""Flash attention: paddle_tpu_torch against the JAX reference (masks in
+tests/test_torch_flash_mask.py).
 
 The plain forward (o and lse) is held to the Pallas `_fwd_kernel` in
 interpret mode and to `_xla_ref`, on the same seeded numpy inputs, in f32
@@ -136,16 +137,28 @@ def test_backward_masks_keys_past_s_true():
 
 
 def test_backward_refuses_masks_and_dropout():
-    """Additive masks are not ported (ROADMAP A2b); dropout is, and needs
-    the forward's seed: without one it is refused."""
-    q = torch.zeros(1, 8, 1, 16)
-    lse = torch.zeros(1, 1, 8)
-    with pytest.raises(NotImplementedError, match="A2b"):
-        tf.flash_attention_bwd(q, q, q, q, lse, q, mask=torch.zeros(8, 8))
-    with pytest.raises(ValueError, match="seed"):
-        tf.flash_attention_bwd(q, q, q, q, lse, q, dropout_p=0.1)
-    dq, dk, dv = tf.flash_attention_bwd(q, q, q, q, lse, q, dropout_p=0.1,
-                                        seed=3)
+    """The backward takes the forward's additive mask and applies it (a
+    key the mask hides gets no dK or dV, and the gradients differ from the
+    unmasked ones); dropout needs the forward's seed: without one it is
+    refused, with a mask too."""
+    rs = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rs.standard_normal((1, 8, 1, 16)).astype(
+        np.float32)) for _ in range(4))
+    mask = torch.zeros(8, 8)
+    mask[:, 6:] = tf.NEG_INF
+    o, lse = tf.flash_attention_fwd(q, k, v, False, mask=mask)
+    dq, dk, dv = tf.flash_attention_bwd(q, k, v, o, lse, do, False,
+                                        mask=mask)
+    assert not dk[:, 6:].any() and not dv[:, 6:].any()
+    assert dv[:, :6].abs().min() > 0
+    o0, lse0 = tf.flash_attention_fwd(q, k, v, False)
+    dq0, _, _ = tf.flash_attention_bwd(q, k, v, o0, lse0, do, False)
+    assert not torch.allclose(dq, dq0)
+    for m in (None, mask):
+        with pytest.raises(ValueError, match="seed"):
+            tf.flash_attention_bwd(q, q, q, q, lse, q, mask=m, dropout_p=0.1)
+    dq, dk, dv = tf.flash_attention_bwd(q, q, q, q, lse, q, mask=mask,
+                                        dropout_p=0.1, seed=3)
     assert dq.shape == dk.shape == dv.shape == q.shape
 
 

@@ -17,9 +17,9 @@ What each test pins:
     compute; the `sdpa` slot draws its seed as the reference's
     `flash_attention_pallas` does (`randint(next_key(), ...)`) and, in one
     key scope, matches that entry within the tolerance above;
-  - refusals: masks raise NotImplementedError, and the CUDA kernels'
-    unported non-causal branch raises (both name ROADMAP A2b); a dropout
-    without a seed, or p outside [0, 1), raises.
+  - masks and non-causal attention combine with dropout (the old
+    refusals are gone); a dropout without a seed, or p outside [0, 1),
+    raises.
 """
 import math
 
@@ -164,16 +164,21 @@ def test_sdpa_draws_the_reference_seed_and_matches_it():
 
 
 def test_refusals():
+    """Masks and non-causal attention are taken (the `_refuse_unported`
+    gate is gone): with dropout they compute what the plain version
+    computes with the same seed. A dropout without a seed, or p outside
+    [0, 1), raises."""
     q, k, v, do = _qkv(b=1, s=8)
-    o, lse = T.flash_attention_fwd(q, k, v, True)
-    with pytest.raises(NotImplementedError, match="A2b"):
-        T.flash_attention_bwd(q, k, v, o, lse, do, True,
-                              mask=torch.zeros(1, 1, 8, 8))
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
-        with pytest.raises(ValueError, match="A2b"):
-            T._refuse_unported(name, causal=False)
-        with pytest.raises(NotImplementedError, match="A2b"):
-            T._refuse_unported(name, causal=True, mask=torch.zeros(1))
+    assert not hasattr(T, "_refuse_unported")
+    mask = torch.zeros(1, 1, 8, 8)
+    mask[..., 5:] = -1e9
+    o, lse = T.flash_attention_fwd(q, k, v, False, None, None, 0.1, 3, mask)
+    want = T.flash_attention_reference(q, k, v, False, None, None, 0.1, 3,
+                                       mask)
+    assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+    dq, dk, dv = T.flash_attention_bwd(q, k, v, o, lse, do, False, None,
+                                       None, mask, 0.1, 3)
+    assert not dk[:, 5:].any() and not dv[:, 5:].any()
     with pytest.raises(ValueError, match="seed"):
         T.flash_attention_fwd(q, k, v, True, None, None, 0.1)
     with pytest.raises(ValueError, match="dropout_p"):

@@ -27,6 +27,9 @@ importlib.import_module("paddle_tpu_torch.train_llama")
 assert "paddle_tpu_torch.inference.sampling" in sys.modules
 assert "paddle_tpu_torch.framework.random" in sys.modules
 assert "paddle_tpu_torch.models.gpt" in sys.modules
+assert "paddle_tpu_torch.models.bert" in sys.modules
+assert "paddle_tpu_torch.nn.transformer" in sys.modules
+assert "paddle_tpu_torch.optimizer.optimizers" in sys.modules
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))
@@ -91,7 +94,8 @@ def test_cb_engine_refuses_cpu_without_being_asked():
 def test_kernel_wrappers_count_only_kernel_launches():
     """CPU tensors take the plain versions, which launch nothing; a
     training step (every norm, attention forward and backward), a GPT
-    training step with attention dropout, and
+    training step with attention dropout, a BERT MLM step (masked,
+    non-causal attention with dropout, AdamW), and
     megakernel decode steps on the CPU, greedy and sampled through the
     top-K fold, and speculative verify passes (the op chain's verify
     entry and the megakernel's tq > 1 schedule) launch nothing either."""
@@ -127,6 +131,15 @@ def test_kernel_wrappers_count_only_kernel_launches():
     gpt = SpmdTrainer(GPTForCausalLM(GPTConfig.tiny(num_hidden_layers=1),
                                      device="cpu"), recompute=True)
     gpt.step(gpt.init_state(), ids, ids)
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+    bert = BertForMaskedLM(BertConfig.tiny(num_hidden_layers=1),
+                           device="cpu")
+    opt = AdamW(1e-3, parameters=bert.parameters())
+    am = torch.ones(2, 8, dtype=torch.int64)
+    am[1, 5:] = 0
+    bert(ids, attention_mask=am, labels=ids).backward()
+    opt.step()
     assert kernel_launches() == {"quantized_matmul": 0, "paged_attention": 0,
                                  "flash_attention_fwd": 0,
                                  "ragged_paged_attention": 0,
@@ -136,7 +149,11 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                  "decode_megakernel_topk": 0,
                                  "decode_megakernel_verify": 0,
                                  "flash_attention_fwd_dropout": 0,
-                                 "flash_attention_bwd_dropout": 0}
+                                 "flash_attention_bwd_dropout": 0,
+                                 "flash_attention_fwd_masked": 0,
+                                 "flash_attention_bwd_masked": 0,
+                                 "flash_attention_fwd_noncausal": 0,
+                                 "flash_attention_bwd_noncausal": 0}
 
 
 def test_training_entry_points_refuse_cpu_without_being_asked():
@@ -165,6 +182,34 @@ def test_gpt_entry_points_refuse_cpu_without_being_asked():
         p.numel() for p in GPTForCausalLM(GPTConfig.tiny(),
                                           device="cpu").parameters())
     assert len(r["losses"]) == 2 and all(map(math.isfinite, r["losses"]))
+
+
+def test_bert_entry_points_refuse_cpu_without_being_asked():
+    """The BERT models and the encoder layers run on CUDA by default and
+    refuse the CPU unless asked; AdamW keeps its state on its parameters'
+    device (it picks none), so over a CPU model it steps on the CPU."""
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForMaskedLM,
+                                              BertForSequenceClassification)
+    from paddle_tpu_torch.nn.transformer import (MultiHeadAttention,
+                                                 TransformerEncoderLayer)
+    from paddle_tpu_torch.optimizer import AdamW
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = BertConfig.tiny(num_hidden_layers=1)
+    for make in (lambda: BertForMaskedLM(cfg),
+                 lambda: BertForSequenceClassification(cfg),
+                 lambda: MultiHeadAttention(16, 2),
+                 lambda: TransformerEncoderLayer(16, 2, 32)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    model = BertForMaskedLM(cfg, device="cpu")
+    opt = AdamW(1e-3, parameters=model.parameters())
+    ids = torch.randint(0, cfg.vocab_size, (2, 8))
+    model(ids, labels=ids).backward()
+    opt.step()
+    state = opt._accumulators["__state__"]
+    assert state and all(t.device.type == "cpu" for st in state.values()
+                         for t in st.values())
 
 
 def test_unsupported_device_raises():

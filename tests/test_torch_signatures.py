@@ -30,6 +30,12 @@ import paddle_tpu_torch.framework.random as trnd
 import paddle_tpu_torch.models.gpt as tgpt
 import paddle_tpu_torch.models.train_step as ttrain
 import paddle_tpu_torch.nn.functional as tF
+import paddle_tpu.models.bert as jbert
+import paddle_tpu.nn.layer.transformer as jtr
+import paddle_tpu.optimizer as jopt
+import paddle_tpu_torch.models.bert as tbert
+import paddle_tpu_torch.nn.transformer as ttr
+import paddle_tpu_torch.optimizer as topt
 
 JAX_ONLY = {"interpret"}
 
@@ -80,6 +86,57 @@ PAIRS = {
     "random.seed": (jrnd.seed, trnd.seed),
     "random.Generator.__init__": (jrnd.Generator.__init__,
                                   trnd.Generator.__init__),
+    "sdpa": (jpallas._sdpa_pallas, tpallas.sdpa),
+    "F.tanh": (jF.tanh, tF.tanh),
+    "F.relu": (jF.relu, tF.relu),
+    "F.cross_entropy": (jF.cross_entropy, tF.cross_entropy),
+    "F.scaled_dot_product_attention": (jF.scaled_dot_product_attention,
+                                       tF.scaled_dot_product_attention),
+    "MultiHeadAttention.__init__": (jtr.MultiHeadAttention.__init__,
+                                    ttr.MultiHeadAttention.__init__),
+    "MultiHeadAttention.forward": (jtr.MultiHeadAttention.forward,
+                                   ttr.MultiHeadAttention.forward),
+    "MultiHeadAttention.gen_cache": (jtr.MultiHeadAttention.gen_cache,
+                                     ttr.MultiHeadAttention.gen_cache),
+    "TransformerEncoderLayer.__init__": (
+        jtr.TransformerEncoderLayer.__init__,
+        ttr.TransformerEncoderLayer.__init__),
+    "TransformerEncoderLayer.forward": (jtr.TransformerEncoderLayer.forward,
+                                        ttr.TransformerEncoderLayer.forward),
+    "TransformerEncoder.__init__": (jtr.TransformerEncoder.__init__,
+                                    ttr.TransformerEncoder.__init__),
+    "TransformerEncoder.forward": (jtr.TransformerEncoder.forward,
+                                   ttr.TransformerEncoder.forward),
+    "BertConfig.__init__": (jbert.BertConfig.__init__,
+                            tbert.BertConfig.__init__),
+    "BertConfig.base": (jbert.BertConfig.base, tbert.BertConfig.base),
+    "BertConfig.tiny": (jbert.BertConfig.tiny, tbert.BertConfig.tiny),
+    "BertEmbeddings.forward": (jbert.BertEmbeddings.forward,
+                               tbert.BertEmbeddings.forward),
+    "BertModel.__init__": (jbert.BertModel.__init__,
+                           tbert.BertModel.__init__),
+    "BertModel.forward": (jbert.BertModel.forward, tbert.BertModel.forward),
+    "BertForMaskedLM.__init__": (jbert.BertForMaskedLM.__init__,
+                                 tbert.BertForMaskedLM.__init__),
+    "BertForMaskedLM.forward": (jbert.BertForMaskedLM.forward,
+                                tbert.BertForMaskedLM.forward),
+    "BertForSequenceClassification.__init__": (
+        jbert.BertForSequenceClassification.__init__,
+        tbert.BertForSequenceClassification.__init__),
+    "BertForSequenceClassification.forward": (
+        jbert.BertForSequenceClassification.forward,
+        tbert.BertForSequenceClassification.forward),
+    "Optimizer.__init__": (jopt.Optimizer.__init__, topt.Optimizer.__init__),
+    "Optimizer.step": (jopt.Optimizer.step, topt.Optimizer.step),
+    "Optimizer.clear_grad": (jopt.Optimizer.clear_grad,
+                             topt.Optimizer.clear_grad),
+    "Optimizer.set_lr": (jopt.Optimizer.set_lr, topt.Optimizer.set_lr),
+    "Optimizer.minimize": (jopt.Optimizer.minimize,
+                           topt.Optimizer.minimize),
+    "L2Decay.__init__": (jopt.L2Decay.__init__, topt.L2Decay.__init__),
+    "L1Decay.__init__": (jopt.L1Decay.__init__, topt.L1Decay.__init__),
+    "Adam.__init__": (jopt.Adam.__init__, topt.Adam.__init__),
+    "AdamW.__init__": (jopt.AdamW.__init__, topt.AdamW.__init__),
 }
 
 

@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""A short card check of chosen `chip_smoke.py` phases.
+
+Builds the kernels, prints the card's name and power limit and the flash
+kernels' ptxas lines, then runs the phases named on the command line, in
+the order given. One JSON line per row; the last line says whether every
+gate held. It is the quick first call after a change to a flash kernel or
+to a training path; `chip_smoke.py` is the whole check. Phases:
+
+- `flash`: the flash rows without a mask (the causal forward, the backward
+  at the llama1p3b / gpt3_1p3b shape and the small f32 rows, both dropout
+  branches);
+- `mask`: the mask and non-causal rows and the mask bit gates;
+- `gpt`: `train_llama.run_config("gpt3_1p3b")` for 1 warmup + 3 timed
+  steps plus one profiled step with exact launch counts, then the GPT
+  card-against-CPU parity phase;
+- `bert`: `train_bert.run_bert("base")` in f32 and bf16 for 1 warmup + 2
+  timed steps plus one profiled step with exact launch counts, then the
+  BERT card-against-CPU parity phase.
+
+    python3 tools/card_check.py flash mask bert   # from the repository root; needs one CUDA card
+"""
+import json
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, ".")
+
+import torch  # noqa: E402
+
+import chip_smoke as C  # noqa: E402
+from paddle_tpu_torch import _build  # noqa: E402
+
+
+def flash(dev):
+    C.FLASH_BWD_CASES = C.FLASH_BWD_CASES[1:]
+    for name, fn in (("flash_attention_fwd", C.check_flash),
+                     ("flash_attention_bwd", C.check_flash_bwd),
+                     ("fwd_dropout", C.check_flash_dropout),
+                     ("bwd_dropout", C.check_flash_bwd_dropout)):
+        for r in fn(torch, dev):
+            yield dict(kernel=name, **r)
+
+
+def mask(dev):
+    for name, fn in (("fwd_masked", C.check_flash_masked),
+                     ("bwd_masked", C.check_flash_bwd_masked),
+                     ("mask_gates", C.flash_mask_gates)):
+        for r in fn(torch, dev):
+            yield dict(kernel=name, **r)
+
+
+def gpt(dev):
+    yield from C.train_path(torch, dev, (("gpt3_1p3b", 1, 3, C.GPT_TRAIN_RUNS[0][3]),))[0]
+    yield from C.gpt_train_parity(torch, dev)
+
+
+def bert(dev):
+    C.BERT_TRAIN_RUNS = tuple((dt, 1, 2) for dt, _, _ in C.BERT_TRAIN_RUNS)
+    yield from C.bert_train_path(torch, dev)[0]
+    yield from C.bert_train_parity(torch, dev)
+
+
+PHASES = dict(flash=flash, mask=mask, gpt=gpt, bert=bert)
+
+
+def main(names):
+    if not names or any(n not in PHASES for n in names):
+        print(__doc__, file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    _build.library()
+    print(json.dumps(dict(build_s=time.perf_counter() - t0)))
+    print("\n".join(l for l in C.ptxas_summary(_build.build_log() or "")
+                    if "flash" in l))
+    ok = True
+    for n in names:
+        for r in PHASES[n](dev):
+            print(json.dumps(r), flush=True)
+            ok &= r["ok"]
+    print(json.dumps(dict(elapsed_s=time.perf_counter() - t0, ok=ok)))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Time one probe of several source trees on one card, in turns.
+
+Each tree (a directory holding `chip_smoke.py` and `paddle_tpu_torch/`, for
+example a parent commit unpacked with `git archive <commit> | tar -x -C
+<dir>` into a git-ignored directory) runs the probe in its own process,
+which builds its kernels and prints one JSON line. The trees run in the
+order given, then again in reverse, so drift on the card shows as a
+difference between a tree's two rows. Probes:
+
+- `megakernel`: the build's ptxas registers and spills of the decode
+  megakernel, `chip_smoke.check_megakernel`'s greedy rows (bf16 and int8,
+  ms and one "layer" launch's ms) and, where the tree has them,
+  `check_megakernel_topk`'s fold rows and `check_megakernel_verify`'s
+  speculative verify rows (tq = 4).
+- `flash`: the flash kernels' launches without a mask: the causal forward
+  and backward, with and without dropout, on seeded inputs at the training
+  and serving shapes of `chip_smoke.py`'s rows; each row's ms (CUDA
+  events) and a digest of its outputs' bytes, so equal digests across
+  trees mean bit-equal outputs.
+
+    python3 tools/tree_ab.py flash chipwork/parent .     # needs one CUDA card
+"""
+import json
+import subprocess
+import sys
+
+MEGAKERNEL = r'''
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch import _build
+t = time.perf_counter()
+_build.library()
+ptx = [l for l in cs.ptxas_summary(_build.build_log() or "") if "megakernel" in l]
+dev = torch.device("cuda", 0)
+out = dict(build_s=time.perf_counter() - t, ptxas=ptx, greedy=[], fold=[], verify=[])
+for r in cs.check_megakernel(torch, dev):
+    if "ms" in r:
+        out["greedy"].append(dict(weights=r["weights"], ms=r["ms"],
+                                  layer_ms=r["layer_ms"], ok=r["ok"]))
+if hasattr(cs, "check_megakernel_topk"):
+    for r in cs.check_megakernel_topk(torch, dev, ptx):
+        if "ms" in r:
+            out["fold"].append(dict(weights=r["weights"], R=r["R"], K=r["head_k"],
+                                    ms=r["ms"], greedy_ms=r["greedy_ms"],
+                                    library_ms=r["library_ms"], ok=r["ok"]))
+if hasattr(cs, "check_megakernel_verify"):
+    for r in cs.check_megakernel_verify(torch, dev, ptx):
+        out["verify"].append(dict(weights=r["weights"], ms=r["ms"],
+                                  sequential_ms=r["sequential_ms"], ok=r["ok"]))
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+FLASH = r'''
+import hashlib, json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch import _build
+from paddle_tpu_torch.ops.pallas.flash_attention import (flash_attention_bwd,
+                                                         flash_attention_fwd)
+t = time.perf_counter()
+_build.library()
+ptx = [l for l in cs.ptxas_summary(_build.build_log() or "") if "flash" in l]
+dev = torch.device("cuda", 0)
+out = dict(build_s=time.perf_counter() - t, ptxas=ptx, rows=[])
+
+
+def ms(fn, iters):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def digest(ts):
+    h = hashlib.sha256()
+    for x in ts:
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# (kind, b, s, h, d, s_true, dropout_p): chip_smoke's causal forward row
+# (serving prefill), the backward at llama350m's and llama1p3b's shapes,
+# and the dropout rows at gpt3_1p3b's
+for kind, b, s, h, d, s_true, p in (("fwd", 4, 320, 32, 128, 300, 0.0),
+                                   ("bwd", 32, 1024, 16, 64, None, 0.0),
+                                   ("bwd", 8, 1024, 16, 128, None, 0.0),
+                                   ("fwd", 8, 1024, 16, 128, None, 0.1),
+                                   ("bwd", 8, 1024, 16, 128, None, 0.1)):
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    seed = 1234567 if p > 0 else None
+    scale = d ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, True, scale, s_true, p, seed)
+    if kind == "fwd":
+        fn = lambda: flash_attention_fwd(q, k, v, True, scale, s_true, p, seed)
+        res, iters = (o, lse), 20
+    else:
+        fn = lambda: flash_attention_bwd(q, k, v, o, lse, do, True, scale, s_true, None, p, seed)
+        res, iters = fn(), 5
+    torch.cuda.synchronize()
+    out["rows"].append(dict(kind=kind, b=b, s=s, h=h, d=d, dropout_p=p, ms=ms(fn, iters),
+                            digest=digest(res)))
+    del q, k, v, do, o, lse, res
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH)
+
+
+def main(argv):
+    if len(argv) < 2 or argv[0] not in PROBES:
+        print(__doc__, file=sys.stderr)
+        return 2
+    probe, trees = PROBES[argv[0]], argv[1:]
+    ok = True
+    for tree in list(trees) + list(reversed(trees)):
+        p = subprocess.run([sys.executable, "-c", probe], cwd=tree,
+                           capture_output=True, text=True)
+        line = next((ln for ln in p.stdout.splitlines()
+                     if ln.startswith("RESULT ")), None)
+        r = json.loads(line[7:]) if line else dict(error=p.stderr[-2000:])
+        ok &= line is not None
+        print(json.dumps(dict(tree=tree, **r)), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
