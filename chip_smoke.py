@@ -25,7 +25,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               no mask, [1, h, s, s] and [b, h, s, s] masks, a bool mask
               hiding a row, causal plus a mask, a mask with dropout, d 128)
               against the plain versions; a causal launch with a zero
-              mask bit-equal to the causal launch, forward and backward
+              mask bit-equal to the causal launch, forward and backward;
+              the megakernel's tensor-parallel segments (qkv / tail /
+              down, tp 2 and 4 shards on the card, R 8 and 4, bf16 and
+              int8, the greedy head, the top-8 fold, a tq = 4 verify
+              pass) against their plain versions, and assembled bit for
+              bit against the tp = 1 seg "full" launch
   4. path     LLaMA-7B (full width, all 32 layers, random weights from a
               seed) served through LLMEngine.generate(device_loop=True),
               bf16 and int8 weights, 12- and 300-token prompt batches;
@@ -47,11 +52,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
               cb_spec: the stream at speculate=4 ("multi" with the n-gram
               and an oracle drafter, the op chain, and the sampled stream
               in "multi"), ids held against the unspeculated runs, tokens
-              per verify pass, exact launch counts
+              per verify pass, exact launch counts;
+              tp_path: the stream through ContinuousBatchingEngine(tp=2)
+              with both shards on the card ("multi" bf16 and int8, "layer"
+              bf16, the op chain bf16 and int8, the sampled stream on
+              "multi", the psum modes) held against the tp = 1 runs, exact
+              launch counts, and LLMEngine(tp=2).generate(device_loop=True)
   7. cb_parity  the CB engine on the card (bf16, K=8, kernels; op chain and
               "multi") against the CPU CB engine (f32, plain versions), 2
-              layers at 7B width, and "multi" at speculate=4 (the CPU's
-              spec ids equal its own stream); cb_sampled_parity: the sampled "multi"
+              layers at 7B width, "multi" at speculate=4 (the CPU's
+              spec ids equal its own stream) and "multi" at tp=2; cb_sampled_parity: the sampled "multi"
               stream (bf16 on the card) against the CPU's under the same
               margin rule
   8. train_path  SpmdTrainer.step through paddle_tpu_torch.train_llama at
@@ -114,6 +124,7 @@ REPLACES = {
     "flash_attention_bwd_dropout": "paddle_tpu/ops/pallas/flash_attention.py:469",
     "flash_attention_fwd_masked": "paddle_tpu/ops/pallas/flash_attention.py:149",
     "flash_attention_bwd_masked": "paddle_tpu/ops/pallas/flash_attention.py:461",
+    "decode_megakernel_tp": "paddle_tpu/ops/pallas/decode_megakernel.py:312",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
@@ -130,6 +141,7 @@ SOURCES = {
     "flash_attention_bwd_dropout": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_fwd_masked": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_masked": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "decode_megakernel_tp": "paddle_tpu_torch/csrc/decode_megakernel_tp.cu",
 }
 
 
@@ -1498,6 +1510,255 @@ def check_megakernel_verify(torch, dev, ptxas):
     return rows
 
 
+# ---------------------------------------------------------------- phase 3 (tp)
+TP_DEGREES = (2, 4)
+
+
+def shard_pools(one, eng):
+    """Each shard's pools set to its kv-head slice of the tp = 1 engine's."""
+    nkl = eng.nh_kv_l
+    for s in range(eng.tp):
+        for src, dst in ((one._k_flat, eng._kf[s]), (one._v_flat, eng._vf[s])):
+            for a, b in zip(src, dst):
+                b.copy_(a[:, s * nkl:(s + 1) * nkl])
+
+
+def tp_walk(torch, hs, packs, table, lens, act, head_k=0, tq=1, wmask=None,
+            check=None):
+    """One decode step through the tensor-parallel segments, as the engine's
+    `_mk_walk_tp` runs it: per layer every shard's qkv launch, the head
+    gather, every shard's tail, the column gather, every shard's down; the
+    head (head_k >= 1) rides the last layer's down launches. hs are updated
+    in place. With `check` (a dict), each launch is also run through the
+    plain version on copies of its inputs, and per segment the worst error
+    against it and the largest plain value are kept. Returns the last down
+    launches' outputs, one per shard."""
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import (
+        decode_megakernel, decode_megakernel_reference)
+
+    def launch(s, **kw):
+        ref = out_r = None
+        if check is not None:
+            ref = clone_pack(packs[s])
+            out_r = decode_megakernel_reference(hs[s].clone(), ref, **kw)
+        out = decode_megakernel(hs[s], packs[s], **kw)
+        if check is not None:
+            seg = kw["seg"]
+            pairs = {"qkv": [(out, out_r)], "tail": list(zip(out, out_r))}.get(seg)
+            if pairs is None:               # down: h, and the head's logits
+                pairs = ([(out, out_r)] if not kw.get("head") else
+                         [(out[0], out_r[0])] + ([(out[3], out_r[3])]
+                                                 if kw.get("head_k", 1) == 1 else []))
+            if seg == "qkv":       # the pools but their scratch row, which
+                li = kw["layer"]   # several masked rows write in a race
+                pairs += [(packs[s].k_flat[li][:-1], ref.k_flat[li][:-1]),
+                          (packs[s].v_flat[li][:-1], ref.v_flat[li][:-1])]
+            e, m = check.get(seg, (0.0, 0.0))
+            for a, b in pairs:
+                e = max(e, max_err(a, b))
+                m = max(m, float(b.float().abs().max()))
+            check[seg] = (e, m)
+        return out
+
+    L, tp = packs[0].n_layers, len(packs)
+    outs = None
+    for li in range(L):
+        attn = torch.cat([launch(s, tables=table, lens=lens, active=act, layer=li,
+                                 seg="qkv", tq=tq, wmask=wmask) for s in range(tp)], -1)
+        acts = torch.cat([launch(s, layer=li, seg="tail", attn_in=attn, tq=tq)[1]
+                          for s in range(tp)], -1)
+        head = li == L - 1 and head_k >= 1
+        outs = [launch(s, layer=li, seg="down", act_in=acts, tq=tq, head=head,
+                       head_k=head_k if head else 1) for s in range(tp)]
+    return outs
+
+
+def check_megakernel_tp(torch, dev, ptxas):
+    """#7's tensor-parallel segments (qkv / tail / down) at 7B width, 2
+    layers and the head, tp 2 and 4 shards on one card, R = 8 and 4 slots
+    (TOPK_LENS, inactive slots among them), bf16 and int8. Each segment
+    launch against its plain version on the same inputs, within 2^-5 of
+    the plain output's largest entry (the #7 row's tolerance). Bit gates
+    against the tp = 1 seg "full" launch from the same pools: the shards'
+    h after the step, every shard's pools against its head slice of the
+    full launch's, the combined greedy token and the gathered logits; the
+    combined top-8 of the shards' folds against the full fold; at R = 8
+    also a tq = 4 verify pass (8 slots x 4 rows, the SPEC_DLEN write
+    mask). Times: one layer through the segments of every shard (both
+    gathers included) beside the tp = 1 layer launch, each segment's sum
+    over the shards, the plain version's layer. The bound is one layer's
+    weights read once (the tp = 1 layer's), its live KV rows and its rows
+    of h, over the memory rate: the replicated wo / wd each shard reads
+    again are the segments' cost, not the work's."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.tp import TPContext
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import (
+        decode_megakernel, megakernel_weight_bytes)
+
+    cfg = LlamaConfig(hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=2, num_attention_heads=32)   # 7B width
+    model = LlamaForCausalLM(cfg, device=dev, seed=11)
+    regs = [ln for ln in ptxas if "decode_megakernel" in ln]
+    rows = []
+    for wname, quant in (("bf16", None), ("int8", "int8")):
+        kw = dict(megakernel="multi", max_len=512, page_size=64, max_batch=8,
+                  quant=quant, weight_dtype="bfloat16")
+        one = ContinuousBatchingEngine(model, device=dev, **kw)
+        for tp in TP_DEGREES:
+            eng = ContinuousBatchingEngine(model, tp=tp, device=[dev] * tp, **kw)
+            tpc = TPContext(tp, devices=[dev] * tp)
+            v_l = cfg.vocab_size // tp
+            for R in (8, 4):
+                tok, table, lens, act = topk_inputs(torch, dev, one, R, seed=12)
+                shard_pools(one, eng)
+                emb = one.weights["emb"]
+                h0 = emb[tok].to(torch.bfloat16)
+                # the tp = 1 whole step, and the shards' from the same pools
+                p1 = clone_pack(one._mk_pack)
+                hf, tokf, _, logf = decode_megakernel(h0.clone(), p1, table, lens, act,
+                                                      head=True)
+                packs = [clone_pack(pk) for pk in eng._mk_packs]
+                hs = [h0.clone() for _ in range(tp)]
+                check = {}
+                outs = tp_walk(torch, hs, packs, table, lens, act, head_k=1, check=check)
+                tok_c = tpc.argmax_of_local_max([o[2] for o in outs],
+                                                [o[1] for o in outs], v_l)
+                log_c = torch.cat([o[3] for o in outs], -1)
+                nkl = eng.nh_kv_l
+                # every pool row but the scratch row (masked rows race there)
+                pools_same = all(
+                    torch.equal(getattr(pk, f)[li][:-1],
+                                getattr(p1, f)[li][:-1, s * nkl:(s + 1) * nkl])
+                    for s, pk in enumerate(packs) for f in ("k_flat", "v_flat")
+                    for li in range(2))
+                greedy_same = (all(torch.equal(h, hf) for h in hs) and pools_same
+                               and torch.equal(tok_c, tokf.long())
+                               and torch.equal(log_c, logf))
+                # the top-8 fold, from the same pools again
+                _, tvf, tif = decode_megakernel(h0.clone(), clone_pack(one._mk_pack),
+                                                table, lens, act, head=True, head_k=8)
+                folds = tp_walk(torch, [h0.clone() for _ in range(tp)],
+                                [clone_pack(pk) for pk in eng._mk_packs], table, lens,
+                                act, head_k=8)
+                tv, ti = tpc.topk_of_local_topk([f[1] for f in folds],
+                                                [f[2] for f in folds], v_l, 8)
+                fold_same = torch.equal(tv, tvf) and torch.equal(ti, tif.long())
+                torch.cuda.synchronize()
+                tol = {seg: 2 ** -5 * m for seg, (_, m) in check.items()}
+                errs = {seg: e for seg, (e, _) in check.items()}
+                row = dict(weights=wname, tp=tp, R=R, lens=TOPK_LENS[R],
+                           active=TOPK_ACTIVE[R], layers=2, case="greedy + fold",
+                           devices=[str(dev)] * tp, launches_per_layer=3 * tp,
+                           grid=decode_megakernel.grid, max_abs_err=max(errs.values()),
+                           seg_errs=errs, tol=tol, full_identical=greedy_same,
+                           pools_identical=pools_same, fold_identical=fold_same)
+                row["ok"] = (all(errs[k] <= tol[k] for k in errs) and greedy_same
+                             and fold_same)
+                if R == 8:
+                    row.update(verify_tp(torch, dev, one, eng, tpc, v_l))
+                    row["ok"] = (row["ok"] and row["verify_identical"]
+                                 and row["verify_launches_ok"])
+                # times: one layer (every shard's three segments and both
+                # gathers; h restored before each) beside the tp = 1 layer
+                hs_t = [h0.clone() for _ in range(tp)]
+                pk_t = eng._mk_packs
+
+                def layer_tp(seg_only=None, plain=False):
+                    from paddle_tpu_torch.ops.pallas.decode_megakernel import \
+                        decode_megakernel_reference as ref_fn
+                    fn = ref_fn if plain else decode_megakernel
+                    for h in hs_t:
+                        h.copy_(h0)
+                    at = torch.cat([fn(hs_t[s], pk_t[s], table, lens, act, layer=0,
+                                       seg="qkv") for s in range(tp)], -1) \
+                        if seg_only in (None, "qkv") else at_in
+                    ac = torch.cat([fn(hs_t[s], pk_t[s], layer=0, seg="tail",
+                                       attn_in=at)[1] for s in range(tp)], -1) \
+                        if seg_only in (None, "tail") else ac_in
+                    if seg_only in (None, "down"):
+                        for s in range(tp):
+                            fn(hs_t[s], pk_t[s], layer=0, seg="down", act_in=ac)
+
+                at_in = torch.zeros((R, cfg.hidden_size), dtype=torch.bfloat16,
+                                    device=dev)
+                ac_in = torch.zeros((R, cfg.intermediate_size), dtype=torch.bfloat16,
+                                    device=dev)
+                h_1 = h0.clone()
+
+                def layer_one():
+                    h_1.copy_(h0)
+                    decode_megakernel(h_1, one._mk_pack, table, lens, act, layer=0)
+
+                row["ms"] = time_ms(torch, layer_tp)
+                row["seg_ms"] = {seg: time_ms(torch, lambda: layer_tp(seg))
+                                 for seg in ("qkv", "tail", "down")}
+                row["tp1_layer_ms"] = time_ms(torch, layer_one)
+                row["plain_ms"] = time_ms(torch, lambda: layer_tp(plain=True), iters=3)
+                row["library_ms"] = None   # none; the tp = 1 launch stands in
+                pack = one._mk_pack
+                one_layer = [dict(ws) for ws in pack.layers[:1]]
+                w_bytes = sum(t.numel() * t.element_size() for ws in one_layer
+                              for k in ("ln1", "ln2", "wq", "wk", "wv", "wo", "wg",
+                                        "wu", "wd")
+                              for t in (ws[k] if isinstance(ws[k], tuple) else (ws[k],)))
+                live = sum(L + 1 for L, a in zip(TOPK_LENS[R], TOPK_ACTIVE[R]) if a)
+                kv_bytes = 2 * live * pack.nh_kv * pack.hd * 2
+                params = sum((ws[k][0] if isinstance(ws[k], tuple) else ws[k]).numel()
+                             for ws in one_layer
+                             for k in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"))
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    w_bytes + kv_bytes + 2 * R * pack.H * 2, 2 * R * params)
+                row["ptxas"] = regs
+                rows.append(row)
+                del packs, hs, p1
+            del eng
+            torch.cuda.empty_cache()
+        del one
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def verify_tp(torch, dev, one, eng, tpc, v_l):
+    """The tq = 4 verify pass through the segments (8 slots x 4 rows, the
+    SPEC_DLEN write mask, 4 launches of 2 slots per segment and shard)
+    against the tp = 1 seg "full" pass from the same pools: h, the pools,
+    the combined tokens and the gathered logits bit for bit."""
+    from paddle_tpu_torch.ops.pallas.decode_megakernel import decode_megakernel
+    T, w = SPEC_T, 8
+    _, table, lens, act = topk_inputs(torch, dev, one, w, seed=13)
+    shard_pools(one, eng)
+    g = torch.Generator(device=dev).manual_seed(14)
+    feed = torch.randint(0, one.cfg.vocab_size, (w, T), generator=g, device=dev)
+    j = torch.arange(T, device=dev)[None, :]
+    dlen = torch.tensor(SPEC_DLEN, device=dev)
+    wm = (act.bool()[:, None] & (j <= dlen[:, None])).reshape(w * T).to(torch.int32)
+    h0 = one.weights["emb"][feed.reshape(-1)].to(torch.bfloat16)
+    p1 = clone_pack(one._mk_pack)
+    hf, tokf, _, logf = decode_megakernel(h0.clone(), p1, table, lens, act, head=True,
+                                          tq=T, wmask=wm)
+    packs = [clone_pack(pk) for pk in eng._mk_packs]
+    hs = [h0.clone() for _ in packs]
+    before = decode_megakernel.seg_launches
+    outs = tp_walk(torch, hs, packs, table, lens, act, head_k=1, tq=T, wmask=wm)
+    n_launch = decode_megakernel.seg_launches - before
+    tok = tpc.argmax_of_local_max([o[2] for o in outs], [o[1] for o in outs], v_l)
+    nkl = eng.nh_kv_l
+    same = (all(torch.equal(h, hf) for h in hs)
+            and torch.equal(tok, tokf.long())
+            and torch.equal(torch.cat([o[3] for o in outs], -1), logf)
+            and all(torch.equal(getattr(pk, f)[li][:-1],
+                                getattr(p1, f)[li][:-1, s * nkl:(s + 1) * nkl])
+                    for s, pk in enumerate(packs) for f in ("k_flat", "v_flat")
+                    for li in range(2)))
+    torch.cuda.synchronize()
+    return dict(verify_tq=T, verify_rows=w * T, verify_seg_launches=n_launch,
+                verify_identical=bool(same),
+                verify_launches_ok=n_launch == 3 * 2 * len(packs) * (w // (8 // T)))
+
+
 # ---------------------------------------------------------------- phase 4
 def weight_bytes_per_step(torch, eng):
     """Bytes of every weight a decode step reads (the embedding excluded:
@@ -1854,10 +2115,13 @@ def serve_cb_7b(torch, dev):
     for kname, c in counts.items():
         launches[kname] = launches.get(kname, 0) + c
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del eng, model
+    del eng
+    torch.cuda.empty_cache()
+    tp = tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches)
+    del model
     torch.cuda.empty_cache()
     return dict(runs=results, single=single, sampled=sampled, proc=proc, spec=spec,
-                peak_gb=peak_gb, busy=busy), launches
+                tp=tp, peak_gb=peak_gb, busy=busy), launches
 
 
 # the sampled stream: the cb_stream prompts and budgets; every third request
@@ -2126,6 +2390,148 @@ def spec_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
     return rows
 
 
+# tp_path: the cb_stream on ContinuousBatchingEngine(tp=2) with both shards
+# on one card, K=8 (name, quant, megakernel, sampled, tp_mode, tp_compress,
+# the tp = 1 stream of cb_path / cb_sampled it is held against, and the rule:
+# "exact" ids, the first-divergence "margin" rule, or only the "share" of
+# equal ids for the psum modes, whose sums associate differently)
+TP = 2
+TP_RUNS = (
+    ("tp2 multi K=8 bf16", None, "multi", False, "exact", None, "multi K=8 bf16", "exact"),
+    ("tp2 multi K=8 int8", "int8", "multi", False, "exact", None, "multi K=8 int8",
+     "exact"),
+    ("tp2 layer K=8 bf16", None, "layer", False, "exact", None, "layer K=8 bf16", "exact"),
+    ("tp2 K=8 int8", "int8", False, False, "exact", None, "K=8 int8", "exact"),
+    ("tp2 K=8 bf16", None, False, False, "exact", None, "K=8 bf16", "margin"),
+    ("tp2 sampled multi K=8 bf16", None, "multi", True, "exact", None,
+     "sampled multi K=8 bf16", "exact"),
+    ("tp2 psum K=8 bf16", None, False, False, "psum", None, "K=8 bf16", "share"),
+    ("tp2 psum int8-wire K=8 bf16", None, False, False, "psum", "int8", "K=8 bf16",
+     "share"))
+
+
+def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
+    """The cb_stream through ContinuousBatchingEngine(tp=2, device=[card,
+    card]) at 7B full width and depth, K=8, cb_path's settings (TP_RUNS),
+    then LLMEngine(tp=2).generate(device_loop=True) on 4 x 12 prompts.
+    Gates: ids against the tp = 1 run of the same mode (TP_RUNS' rule: the
+    megakernel modes and the int8 op chain exactly; the bf16 op chain, whose
+    cuBLAS products run on sliced widths, by the first-divergence margin
+    rule at 0.1; psum only reported); exact launch counts (the megakernel:
+    3 L tp segment launches per decode micro-step, the fold tp per sampled
+    micro-step; the op chain: paged attention L tp per micro-step, ragged
+    L tp per prefill block, int8 matmuls (7 L + 1) tp per prefill block and
+    decode micro-step); budgets met, no page leaked. Times are tp shards run
+    one after another on one card."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    import numpy as np
+
+    L, V = model.config.num_hidden_layers, model.config.vocab_size
+    dev = geom["device"]
+    tgeom = dict(geom, device=[dev] * TP)
+    specs = sampled_specs(len(prompts))
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rows = []
+    for name, quant, mk, sampled, mode, comp, refname, rule in TP_RUNS:
+        eng = ContinuousBatchingEngine(model, decode_block=8, quant=quant, megakernel=mk,
+                                       tp=TP, tp_mode=mode, tp_compress=comp,
+                                       sample_k=8, **tgeom)
+        steps = count_sampled_steps(eng)
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        outs, wall, dec_ms = drive_cb(torch, eng, prompts, budgets,
+                                      specs if sampled else None)
+        counts = kernel_launches()
+        h = eng.health()
+        dec = h["decode_steps"]
+        n_pf = counts["ragged_paged_attention"] // (L * TP)
+        gen = int(sum(o.size - p.size for o, p in zip(outs, prompts)))
+        expect = dict(decode_megakernel=3 * L * TP * dec if mk else 0,
+                      decode_megakernel_tp=3 * L * TP * dec if mk else 0,
+                      decode_megakernel_topk=TP * steps["sampled"] if mk else 0,
+                      paged_attention=0 if mk else L * TP * dec,
+                      quantized_matmul=(7 * L + 1) * TP * (n_pf + (0 if mk else dec))
+                      if quant else 0)
+        launch_ok = (all(counts[k] == v for k, v in expect.items())
+                     and dec > 0 and n_pf > 0
+                     and counts["ragged_paged_attention"] == L * TP * n_pf
+                     and (steps["sampled"] > 0) == sampled)
+        ref = streams[refname]
+        same = sum(int((o[p.size:] == r[p.size:]).sum())
+                   for o, r, p in zip(outs, ref, prompts))
+        exact = all(np.array_equal(o, r) for o, r in zip(outs, ref))
+        row = dict(run=name, tp=TP, devices=[str(dev)] * TP, tp_mode=h["tp_mode"],
+                   tp_compress=h["tp_compress"], decode_block=8, weights=quant or "bf16",
+                   megakernel=h["megakernel"], requests=len(prompts),
+                   sampled_requests=h["sampled_requests"], generated_tokens=gen,
+                   wall_s=wall, generated_tokens_per_s=gen / wall,
+                   ms_per_decode_microstep=dec_ms, decode_steps=dec, prefill_blocks=n_pf,
+                   launches=counts, expected=expect, launches_ok=launch_ok,
+                   tp1_run=refname, tokens_equal_to_tp1=same / gen, ids_equal_tp1=exact,
+                   rule=rule,
+                   budgets_met=all(o.size == p.size + b
+                                   for o, p, b in zip(outs, prompts, budgets)),
+                   all_finished=h["done"] == len(prompts),
+                   ids_in_vocab=all(bool(((o >= 0) & (o < V)).all()) for o in outs),
+                   no_leak=h["pages_free"] + h["prefix_pages"] == h["pages_total"],
+                   tail=outs[0][-4:].tolist())
+        del eng._decode_scan, eng
+        torch.cuda.empty_cache()
+        if rule == "exact":
+            held = exact
+        elif rule == "margin":
+            row["divergences"], held = first_divergence_margins(
+                torch, model, geom, prompts, ref, outs, 0.1)
+            row["margin_tol"] = 0.1
+        else:
+            held = True               # reported, not gated: psum is close only
+        row["held"] = held
+        row["ok"] = (held and launch_ok and row["budgets_met"] and row["all_finished"]
+                     and row["ids_in_vocab"] and row["no_leak"])
+        rows.append(row)
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+    # the static engine: one batch of 4 x 12 prompts, device loop, bf16
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, V, (4, 12)).astype(np.int64)
+    n_new = 16
+    kw = dict(max_len=512, page_size=64, max_batch=4, weight_dtype="bfloat16")
+    one = LLMEngine(model, device=dev, **kw).generate(ids, max_new_tokens=n_new,
+                                                      device_loop=True)
+    eng = LLMEngine(model, tp=TP, device=[dev] * TP, **kw)
+    eng.generate(ids, max_new_tokens=n_new, device_loop=True)   # warm-up
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    t = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=n_new, device_loop=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernel_launches()
+    n_loop = min(-(-(n_new - 1) // 32) * 32, eng.max_len - ids.shape[1] - 1)
+    del eng
+    torch.cuda.empty_cache()
+    divs, held = first_divergence_margins(torch, model, geom, list(ids), list(one),
+                                          list(out), 0.1)
+    row = dict(run="tp2 static generate device_loop 4x12 bf16", tp=TP,
+               new_tokens=n_new, wall_s=wall, ms_per_step=1e3 * wall / (1 + n_loop),
+               generated_tokens_per_s=4 * n_new / wall, launches=counts,
+               expected_paged_attention=L * TP * n_loop,
+               launches_ok=(counts["paged_attention"] == L * TP * n_loop
+                            and counts["flash_attention_fwd"] == 0
+                            and counts["decode_megakernel"] == 0),
+               tokens_equal_to_tp1=float((out[:, 12:] == one[:, 12:]).mean()),
+               divergences=divs, margin_tol=0.1, held=held, tail=out[0, -4:].tolist())
+    row["ok"] = row["launches_ok"] and held and out.shape == (4, 12 + n_new)
+    rows.append(row)
+    for kname, c in counts.items():
+        launches[kname] = launches.get(kname, 0) + c
+    return dict(runs=rows, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                seconds=time.perf_counter() - t_phase)
+
+
 def proc_vocab(V):
     """Synthetic token strings for the grammar run: digits, brackets, a
     comma and a minus at ids 100-113, a few multi-character tokens, and
@@ -2234,9 +2640,11 @@ def parity_cb_2layer(torch, dev):
     spec_cpu_equal = all(np.array_equal(a, b) for a, b in zip(
         cpu_spec.generate_many(prompts, max_new_tokens=n_new), outs_cpu))
     del cpu_spec
-    for mk, spec in ((False, None), ("multi", None), ("multi", SPEC_T)):
-        gpu = ContinuousBatchingEngine(model, device=dev, weight_dtype="bfloat16",
-                                       megakernel=mk, speculate=spec, **kw)
+    for mk, spec, tp in ((False, None, 1), ("multi", None, 1), ("multi", SPEC_T, 1),
+                         ("multi", None, 2)):
+        gpu = ContinuousBatchingEngine(model, device=dev if tp == 1 else [dev] * tp,
+                                       weight_dtype="bfloat16", megakernel=mk,
+                                       speculate=spec, tp=tp, **kw)
         outs_gpu = gpu.generate_many(prompts, max_new_tokens=n_new)
         compared = equal = 0
         for p, oc, og, mg in zip(prompts, outs_cpu, outs_gpu, margins):
@@ -2248,7 +2656,7 @@ def parity_cb_2layer(torch, dev):
                     equal += int(same)
                 if not same:
                     break
-        row = dict(megakernel=gpu.health()["megakernel"], speculate=spec or 0,
+        row = dict(megakernel=gpu.health()["megakernel"], speculate=spec or 0, tp=tp,
                    requests=len(prompts), prompt_lens=[int(p.size) for p in prompts],
                    tol=tol, greedy_compared=compared, greedy_equal=equal,
                    ok=compared > 0 and equal == compared)
@@ -2620,6 +3028,8 @@ def main():
               ("spec_verify_attention", check_spec_verify),
               ("decode_megakernel_verify",
                lambda torch, dev: check_megakernel_verify(torch, dev, ptxas)),
+              ("decode_megakernel_tp",
+               lambda torch, dev: check_megakernel_tp(torch, dev, ptxas)),
               ("flash_attention_fwd_dropout", check_flash_dropout),
               ("flash_attention_bwd_dropout", check_flash_bwd_dropout),
               ("flash_attention_fwd_masked", check_flash_masked),
@@ -2634,7 +3044,9 @@ def main():
         # at sample_k 8 in bf16, the cb_sampled stream's)
         main_rows[name] = next(r for r in rows if "ms" in r and (
             name != "quantized_matmul" or (r["m"] == 4 and r["n"] == 11008)) and (
-            name != "decode_megakernel_topk" or (r["R"] == 8 and r["head_k"] == 8)))
+            name != "decode_megakernel_topk" or (r["R"] == 8 and r["head_k"] == 8)) and (
+            name != "decode_megakernel_tp" or (r["tp"] == 2 and r["R"] == 8
+                                               and r["weights"] == "bf16")))
     for r in flash_mask_gates(torch, dev):
         emit(dict(phase="kernels", kernel="flash_attention_mask_gates", **r))
         ok &= r["ok"]
@@ -2677,6 +3089,11 @@ def main():
     for r in cb["spec"]:
         emit(dict(phase="cb_spec", **r))
         ok &= r["ok"]
+    for r in cb["tp"]["runs"]:
+        emit(dict(phase="tp_path", **r))
+        ok &= r["ok"]
+    emit(dict(phase="tp_path", peak_gb=cb["tp"]["peak_gb"], seconds=cb["tp"]["seconds"],
+              label="tp shards run one after another on one card"))
     emit(dict(phase="cb_path", peak_gb=cb["peak_gb"], busy=cb["busy"],
               elapsed_s=time.perf_counter() - t_start))
 

@@ -53,6 +53,8 @@ SIGNATURES = {
                                 _F, _I, _P],
     # (args struct, dtype, weight kind, device, stream, grid out)
     "ptt_decode_megakernel": [_P, _I, _I, _I, _P, _P],
+    # (args struct, segment, weight kind, device, stream, grid out)
+    "ptt_decode_megakernel_seg": [_P, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

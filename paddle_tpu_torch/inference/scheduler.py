@@ -50,6 +50,12 @@ Scheduling model (as in the reference):
     final norm, the lm_head and the greedy argmax inside). The kernel reads
     the engine's own weights and pools through a pointer table
     (`MegakernelPack`), rebuilt whenever the pools are.
+  - tp > 1 (inference/tp.py, exact or psum mode): the pools, the prefix
+    cache's page copies and every step run per shard on its local heads;
+    page tables, lens and the allocator stay replicated host state. With
+    the megakernel (exact mode only) each layer is three segment launches
+    per shard (qkv, tail, down) with the head gather and the column gather
+    between them, the head riding the last layer's down launch in "multi".
 
 Where the reference compiles a program per shape and donates the KV pools
 to it, this port runs the same math eagerly and updates the pools in place
@@ -59,8 +65,7 @@ slots); torch has no drop mode, so masked rows are redirected to one
 scratch row past the end of the pool, which no page table can name.
 
 Not ported yet (each raises, naming its ROADMAP item): tenants and
-preemption, KV tiering, adapters, telemetry, tensor parallelism, PTQ
-scales, the fleet prefix index, and KV and request export/import (with the
+preemption, KV tiering, adapters, telemetry, PTQ scales, the fleet prefix index, and KV and request export/import (with the
 sampling state they carry). The reference's fault points (the speculative
 `cb.draft` and `cb.verify` among them) wait for the port of `failsafe.py`
 (ROADMAP A7.0).
@@ -775,6 +780,9 @@ class ContinuousBatchingEngine(LLMEngine):
             "fused_blocks": self.fused_blocks,
             "chained_blocks": self.chained_blocks,
             "megakernel": self.megakernel or "off",
+            "tp": self.tp,
+            "tp_mode": self.tp_mode,
+            "tp_compress": self.tp_compress,
             "megakernel_whole_step": self.megakernel == "multi",
             "sampled_requests": self.sampled_requests,
             "sample_k": self.sample_k,
@@ -953,28 +961,31 @@ class ContinuousBatchingEngine(LLMEngine):
             prefix.clear()                   # the allocator is reset below
         L = self.cfg.num_hidden_layers
         rows = self.n_pages * self.page_size
-        shape = (rows + 1, self.nh_kv, self.hd)
-        self._k_flat = [torch.zeros(shape, dtype=self.kv_dtype,
-                                    device=self.device) for _ in range(L)]
-        self._v_flat = [torch.zeros(shape, dtype=self.kv_dtype,
-                                    device=self.device) for _ in range(L)]
-        pool = (self.n_pages, self.page_size, self.nh_kv, self.hd)
-        self.k_pages = [f[:rows].view(pool) for f in self._k_flat]
-        self.v_pages = [f[:rows].view(pool) for f in self._v_flat]
+        shape = (rows + 1, self.nh_kv_l, self.hd)
+        pool = (self.n_pages, self.page_size, self.nh_kv_l, self.hd)
+        # per shard, per layer (the shard's local kv heads); the unsuffixed
+        # names are shard 0's
+        self._kf, self._vf = ([[torch.zeros(shape, dtype=self.kv_dtype,
+                                            device=d) for _ in range(L)]
+                               for d in self.devices] for _ in range(2))
+        self._kp = [[f[:rows].view(pool) for f in fl] for fl in self._kf]
+        self._vp = [[f[:rows].view(pool) for f in fl] for fl in self._vf]
+        self._k_flat, self._v_flat = self._kf[0], self._vf[0]
+        self.k_pages, self.v_pages = self._kp[0], self._vp[0]
         self._oob = rows                 # the scratch row's flat index
         self.allocator = PageAllocator(self.n_pages)
         if getattr(self, "_mk_pack", None) is not None:
             self._build_mk_pack()        # its table held the old pools
 
-    def _write_kv(self, li, slots, k, v):
-        """Write k/v rows into layer li's pool at flat slot ids; rows the
-        reference drops carry slot id self._oob and land on the scratch
-        row (in place of `mode="drop"`)."""
-        shape = (-1, self.nh_kv, self.hd)
-        self._k_flat[li].index_copy_(0, slots,
-                                     k.reshape(shape).to(self.kv_dtype))
-        self._v_flat[li].index_copy_(0, slots,
-                                     v.reshape(shape).to(self.kv_dtype))
+    def _write_kv(self, s, li, slots, k, v):
+        """Write k/v rows into shard s's layer-li pool at flat slot ids;
+        rows the reference drops carry slot id self._oob and land on the
+        scratch row (in place of `mode="drop"`)."""
+        shape = (-1, self.nh_kv_l, self.hd)
+        self._kf[s][li].index_copy_(0, slots,
+                                    k.reshape(shape).to(self.kv_dtype))
+        self._vf[s][li].index_copy_(0, slots,
+                                    v.reshape(shape).to(self.kv_dtype))
 
     def _ar(self, n):
         t = self._arange.get(n)
@@ -987,14 +998,16 @@ class ContinuousBatchingEngine(LLMEngine):
     def _cow(self, r, idx):
         """First divergent write into a shared page: copy its KV (every
         layer) into the request's reserved page and swap the table entry;
-        the shared original stays read-only for its other holders."""
+        the shared original stays read-only for its other holders. Every
+        shard copies its own slice of the page."""
         old = int(self._tables_np[r.slot, idx])
         new = r.cow_reserve
         assert new is not None, "copy-on-write without a reserved page"
         r.cow_reserve = None
-        for kp, vp in zip(self.k_pages, self.v_pages):
-            kp[new].copy_(kp[old])
-            vp[new].copy_(vp[old])
+        for kps, vps in zip(self._kp, self._vp):
+            for kp, vp in zip(kps, vps):
+                kp[new].copy_(kp[old])
+                vp[new].copy_(vp[old])
         self._tables_np[r.slot, idx] = new
         r.pages[idx] = new
         r.shared_idx.discard(idx)
@@ -1163,22 +1176,32 @@ class ContinuousBatchingEngine(LLMEngine):
         rows write nothing and are never read."""
         return pos.clamp(0, self.max_len - 1)
 
-    def _gathered_attention(self, q, li, tables, pos):
+    def _gathered_attention(self, q, s, li, tables, pos):
         """Dense attention of q [w, t, h, d] at positions pos [w, t] over
-        each slot's whole gathered context [mp * p] with causal masking:
-        the reference's dense form of chunk prefill."""
+        each slot's whole gathered context [mp * p] in shard s's layer-li
+        pools with causal masking: the reference's dense form of chunk
+        prefill."""
         w, mp, p = tables.shape[0], self.max_pages_per_seq, self.page_size
-        ck = self.k_pages[li][tables].reshape(w, mp * p, self.nh_kv, self.hd)
-        cv = self.v_pages[li][tables].reshape(w, mp * p, self.nh_kv, self.hd)
-        ck = expand_kv_heads(ck, self.nh)
-        cv = expand_kv_heads(cv, self.nh)
+        ck = self._kp[s][li][tables].reshape(w, mp * p, self.nh_kv_l,
+                                             self.hd)
+        cv = self._vp[s][li][tables].reshape(w, mp * p, self.nh_kv_l,
+                                             self.hd)
+        ck = expand_kv_heads(ck, self.nh_l)
+        cv = expand_kv_heads(cv, self.nh_l)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, ck) / math.sqrt(self.hd)
-        kpos = self._ar(mp * p)[None, None, None, :]
+        kpos = self._ar(mp * p)[None, None, None, :].to(q.device)
         qpos = pos[:, None, :, None]
         logits = torch.where(kpos <= qpos, logits,
                              torch.full_like(logits, -1e30))
         wts = torch.softmax(logits.float(), dim=-1).to(q.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", wts, cv)
+
+    def _select_head(self, locs, topk):
+        """(logits, greedy token), or with topk=K the top-K (values, ids),
+        from the shards' local head outputs."""
+        if topk is not None:
+            return self._tp_topk(locs, topk)
+        return self._gather_logits(locs), self._tp_greedy_token(locs)
 
     def _decode_math(self, tok, tables, lens, active, topk=None):
         """One decode step at slot width w = tok.shape[0]: tok [w] is the
@@ -1188,46 +1211,55 @@ class ContinuousBatchingEngine(LLMEngine):
         "multi" mode the kernel's own. topk=K (the sampling fold) returns
         instead (topv [w, K] f32, topi [w, K]) in lax.top_k's order: in
         "multi" mode from the kernel's in-kernel fold (no logits), else
-        the top K of the materialized logits (the same bits)."""
+        the top K of the materialized logits (the same bits). Under tp
+        every shard runs its share of each layer (`_layer_tail` gathers or
+        reduces between them)."""
         if self.megakernel:
             return self._decode_math_mk(tok, tables, lens, active, topk)
-        W = self.weights
         p = self.page_size
         w = tok.shape[0]
-        h = W["emb"][tok[:, None]].to(self.kv_dtype)
+        hs = self._embed(tok[:, None])
         pos = self._clamp_pos(lens)
         slots = tables[self._ar(w), pos // p] * p + pos % p
         slots = torch.where(active, slots, self._oob)
         ctx = torch.where(active, lens + 1, 0)
         act = active.to(torch.int32)
-        for li, wset in enumerate(W["layers"]):
-            q, k, v = self._layer_qkv(W, wset, h, pos[:, None])
-            self._write_kv(li, slots, k[:, 0], v[:, 0])
-            attn = paged_attention(q[:, 0], self.k_pages[li],
-                                   self.v_pages[li], tables, ctx,
-                                   active=act)
-            h = self._layer_tail(W, wset, h, attn[:, None])
-        h = _rms(h, W["norm"], W["eps"])
-        logits = _mm(h, W["head"])[:, 0]
-        if topk is not None:
-            return self._topk(logits)
-        return logits, logits.argmax(-1)
+        pos, slots, tables, ctx, act = (self._rep(x) for x in (
+            pos, slots, tables, ctx, act))
+        for li in range(self.cfg.num_hidden_layers):
+            attns = []
+            for s, W in enumerate(self._W):
+                q, k, v = self._layer_qkv(W, W["layers"][li], hs[s],
+                                          pos[s][:, None])
+                self._write_kv(s, li, slots[s], k[:, 0], v[:, 0])
+                attns.append(paged_attention(
+                    q[:, 0], self._kp[s][li], self._vp[s][li], tables[s],
+                    ctx[s], active=act[s])[:, None])
+            hs = self._layer_tail(li, hs, attns)
+        return self._select_head([x[:, 0] for x in self._head_logits(hs)],
+                                 topk)
 
     # -- megakernel ----------------------------------------------------------
     def _resolve_megakernel(self, val):
         """megakernel= knob -> False / "layer" / "multi". Auto (None) turns
         the per-layer kernel on only on CUDA, where the kernel takes the
-        geometry (megakernel_supported, at most MAX_ROWS slots) and the
-        weights (norms and dense weights in the compute dtype); the CPU
-        keeps the op chain, as the reference does in interpret mode. A
-        forced mode on CUDA with a geometry the kernel does not take
-        raises here, with the reason."""
+        geometry (megakernel_supported on a shard's local dims, at most
+        MAX_ROWS slots) and the weights (norms and dense weights in the
+        compute dtype), and under tp only in exact mode with an ffn tp
+        divides; the CPU keeps the op chain, as the reference does in
+        interpret mode. A forced mode with tp_mode="psum" or an ffn tp
+        does not divide raises, and so does a forced mode on CUDA with a
+        geometry the kernel does not take, with the reason."""
         cfg = self.cfg
-        ok = (megakernel_supported(self.nh, self.nh_kv, self.hd,
-                                   cfg.hidden_size, cfg.intermediate_size)
+        ffn = cfg.intermediate_size
+        ffn_l = ffn // self.tp if ffn % self.tp == 0 else ffn
+        ok = (megakernel_supported(self.nh_l, self.nh_kv_l, self.hd,
+                                   cfg.hidden_size, ffn_l, self.tp)
               and self.max_batch <= MAX_ROWS and self._spec <= MAX_ROWS)
+        tp_ok = self.tp == 1 or (self.tp_mode == "exact"
+                                 and ffn % self.tp == 0)
         if val is None:
-            if self.device.type != "cuda" or not ok:
+            if self.device.type != "cuda" or not ok or not tp_ok:
                 return False
             W = self.weights
             dense = [W["norm"]] + [w for ws in W["layers"]
@@ -1245,70 +1277,126 @@ class ContinuousBatchingEngine(LLMEngine):
             raise ValueError(
                 f"megakernel must be None, False, True, 'layer' or 'multi', "
                 f"got {val!r}")
+        if self.tp > 1 and self.tp_mode != "exact":
+            raise ValueError(
+                "megakernel with tp > 1 requires tp_mode='exact': the psum "
+                "tail's row-parallel reduce has no place between the "
+                "kernel's segments (the exact mode's gathers run between "
+                "the segment launches)")
+        if ffn % self.tp:
+            raise ValueError(
+                f"megakernel with tp={self.tp} needs the ffn dim ({ffn}) "
+                "divisible by tp (the gate / up columns split per shard)")
         if self.device.type == "cuda" and not ok:
             raise ValueError(
                 f"megakernel={mode!r} forced on CUDA but the kernel does not "
                 f"take this geometry (nh={self.nh}, nh_kv={self.nh_kv}, "
                 f"hd={self.hd}, hidden={cfg.hidden_size}, "
-                f"ffn={cfg.intermediate_size}, max_batch={self.max_batch}, "
-                f"speculate={self._spec}); see megakernel_supported and "
-                f"MAX_ROWS={MAX_ROWS} (a verify pass of T rows per slot "
-                f"needs T <= MAX_ROWS)")
+                f"ffn={cfg.intermediate_size}, tp={self.tp}, max_batch="
+                f"{self.max_batch}, speculate={self._spec}); see "
+                f"megakernel_supported and MAX_ROWS={MAX_ROWS} (a verify "
+                f"pass of T rows per slot needs T <= MAX_ROWS)")
         return mode
 
     def _build_mk_pack(self):
-        """The pointer table over this engine's weights and pools (built at
-        construction and again by every _reset_kv). "multi" also points at
-        the final norm and the lm_head."""
-        W = self.weights
-        whole = self.megakernel == "multi"
-        self._mk_pack = MegakernelPack(
-            W["layers"], self._k_flat, self._v_flat, W["cos"], W["sin"],
-            nh=self.nh, nh_kv=self.nh_kv, hd=self.hd, eps=W["eps"],
-            page_size=self.page_size, norm=W["norm"] if whole else None,
-            head=W["head"] if whole else None)
+        """The pointer tables over this engine's weights and pools, one per
+        shard (built at construction and again by every _reset_kv).
+        "multi" also points at the final norm and the lm_head (under tp:
+        the shard's vocab slice, when tp divides the vocab; else the head
+        stays the op chain). `_mk_pack` is shard 0's."""
+        self._mk_head = self.megakernel == "multi" and (
+            self.tp == 1 or self._vocab_sharded())
+        self._mk_packs = [MegakernelPack(
+            W["layers"], kf, vf, W["cos"], W["sin"], nh=self.nh_l,
+            nh_kv=self.nh_kv_l, hd=self.hd, eps=W["eps"],
+            page_size=self.page_size,
+            norm=W["norm"] if self._mk_head else None,
+            head=W["head"] if self._mk_head else None)
+            for W, kf, vf in zip(self._W, self._kf, self._vf)]
+        self._mk_pack = self._mk_packs[0]
 
-    def _mk_walk(self, h, tables, lens, act, topk=None, tq=1, wmask=None):
+    def _mk_walk(self, hs, tables, lens, act, topk=None, tq=1, wmask=None):
         """The layers of one decode step (tq = T > 1: one verify pass of
         T feed rows per slot, `wmask` gating their pool writes) through
         the megakernel: one launch ("multi", with the head) or one per
         layer ("layer"), each split into launches of whole slots at
-        tq > 1. Returns (h, greedy token or None, logits or None), or with
-        topk=K in "multi" mode (h, topv, topi) from the kernel's top-K
-        fold."""
+        tq > 1. hs: the shards' rows. Returns (hs, greedy token or None,
+        logits or None), or with topk=K in "multi" mode (hs, topv, topi)
+        from the kernel's top-K fold. Under tp: `_mk_walk_tp`."""
+        if self.tp > 1:
+            return self._mk_walk_tp(hs, tables, lens, act, topk, tq, wmask)
         pack = self._mk_pack
+        h = hs[0]
         kw = dict(tq=tq, wmask=wmask)
         if self.megakernel == "multi":
             if topk is not None and topk > 1:
-                return decode_megakernel(h, pack, tables, lens, act,
-                                         head=True, head_k=topk, **kw)
+                _, topv, topi = decode_megakernel(h, pack, tables, lens, act,
+                                                  head=True, head_k=topk, **kw)
+                return [h], topv, topi
             h, tok, maxv, logits = decode_megakernel(h, pack, tables, lens,
                                                      act, head=True, **kw)
             if topk is not None:       # the top 1: the greedy pair
-                return h, maxv[:, None], tok[:, None]
-            return h, tok, logits
+                return [h], maxv[:, None], tok[:, None]
+            return [h], tok, logits
         for li in range(pack.n_layers):
             h = decode_megakernel(h, pack, tables, lens, act, layer=li,
                                   **kw)
-        return h, None, None
+        return [h], None, None
+
+    def _mk_walk_tp(self, hs, tables, lens, act, topk, tq, wmask):
+        """_mk_walk at tp > 1 (the reference's scheduler.py:2240-2295): per
+        layer, every shard's qkv segment, the head gather, every shard's
+        tail segment, the column gather, every shard's down segment; the
+        head rides the last layer's down launches in "multi" (vocab-
+        parallel), and the shards' local (max, argmax) pairs or top-K lists
+        are combined gather-free."""
+        tpc, packs = self._tpc, self._mk_packs
+        tables, lens, act = (tpc.replicate(x) for x in (tables, lens, act))
+        wms = [None] * self.tp if wmask is None else tpc.replicate(wmask)
+        L = packs[0].n_layers
+        fold = topk is not None and topk > 1
+        outs = None
+        for li in range(L):
+            attn = tpc.gather_cols([decode_megakernel(
+                h, pk, t, ln, a, layer=li, seg="qkv", tq=tq, wmask=wm)
+                for h, pk, t, ln, a, wm in zip(hs, packs, tables, lens, act,
+                                               wms)])
+            acts = tpc.gather_cols([decode_megakernel(
+                h, pk, layer=li, seg="tail", attn_in=at, tq=tq)[1]
+                for h, pk, at in zip(hs, packs, attn)])
+            head = li == L - 1 and self._mk_head
+            outs = [decode_megakernel(
+                h, pk, layer=li, seg="down", act_in=ac, tq=tq, head=head,
+                head_k=topk if head and fold else 1)
+                for h, pk, ac in zip(hs, packs, acts)]
+        if not self._mk_head:
+            return hs, None, None
+        v_l = packs[0].V
+        if fold:
+            topv, topi = tpc.topk_of_local_topk(
+                [o[1] for o in outs], [o[2] for o in outs], v_l, topk)
+            return hs, topv, topi
+        tok = tpc.argmax_of_local_max([o[2] for o in outs],
+                                      [o[1] for o in outs], v_l)
+        if topk is not None:           # the top 1: the greedy pair
+            maxv = torch.stack([o[2].to(tok.device) for o in outs]).amax(0)
+            return hs, maxv[:, None], tok[:, None]
+        return hs, tok, tpc.gather_cols([o[3] for o in outs])[0]
 
     def _decode_math_mk(self, tok, tables, lens, active, topk=None):
         """_decode_math through the megakernel: the same math and the same
         pool writes. In "layer" mode the final norm and the lm_head stay
         the op chain, as in the reference."""
-        W = self.weights
-        h = W["emb"][tok].to(self.kv_dtype)
         i32 = torch.int32
-        h, a, b = self._mk_walk(h, tables.to(i32), lens.to(i32),
-                                active.to(i32), topk=topk)
+        hs, a, b = self._mk_walk(self._embed(tok), tables.to(i32),
+                                 lens.to(i32), active.to(i32), topk=topk)
         if a is not None and topk is not None:
             return a, b                 # the kernel's (topv, topi)
         if a is not None:
             return b, a                 # (logits, the kernel's token)
-        logits = _mm(_rms(h[:, None], W["norm"], W["eps"]), W["head"])[:, 0]
-        if topk is not None:
-            return self._topk(logits)
-        return logits, logits.argmax(-1)
+        return self._select_head(
+            [x[:, 0] for x in self._head_logits([h[:, None] for h in hs])],
+            topk)
 
     # -- speculative verify ----------------------------------------------
     def _write_ok(self, T, active, rem, dlen):
@@ -1336,26 +1424,26 @@ class ContinuousBatchingEngine(LLMEngine):
         if self.megakernel:
             return self._spec_verify_math_mk(feed, tables, lens, active, rem,
                                              dlen, topk)
-        W = self.weights
         p = self.page_size
         T = feed.shape[1]
-        h = W["emb"][feed].to(self.kv_dtype)
+        hs = self._embed(feed)
         pos = self._clamp_pos(lens[:, None] + self._ar(T)[None, :])
         slots = tables.gather(1, pos // p) * p + pos % p
         slots = torch.where(self._write_ok(T, active, rem, dlen), slots,
                             self._oob).reshape(-1)
         act = active.to(torch.int32)
-        for li, wset in enumerate(W["layers"]):
-            q, k, v = self._layer_qkv(W, wset, h, pos)
-            self._write_kv(li, slots, k, v)
-            attn = spec_verify_attention(q, self.k_pages[li],
-                                         self.v_pages[li], tables, lens,
-                                         active=act)
-            h = self._layer_tail(W, wset, h, attn)
-        logits = _mm(_rms(h, W["norm"], W["eps"]), W["head"])
-        if topk is not None:
-            return self._topk(logits)
-        return logits, logits.argmax(-1)
+        pos, slots, tables, lens, act = (self._rep(x) for x in (
+            pos, slots, tables, lens, act))
+        for li in range(self.cfg.num_hidden_layers):
+            attns = []
+            for s, W in enumerate(self._W):
+                q, k, v = self._layer_qkv(W, W["layers"][li], hs[s], pos[s])
+                self._write_kv(s, li, slots[s], k, v)
+                attns.append(spec_verify_attention(
+                    q, self._kp[s][li], self._vp[s][li], tables[s], lens[s],
+                    active=act[s]))
+            hs = self._layer_tail(li, hs, attns)
+        return self._select_head(self._head_logits(hs), topk)
 
     def _spec_verify_math_mk(self, feed, tables, lens, active, rem, dlen,
                              topk=None):
@@ -1366,22 +1454,19 @@ class ContinuousBatchingEngine(LLMEngine):
         chain, rejected drafts' rows included). "multi" runs the final
         norm, the lm_head and the greedy argmax (or the top-K fold) on
         every row; "layer" leaves the head to the op chain."""
-        W = self.weights
         w, T = feed.shape
         i32 = torch.int32
-        h = W["emb"][feed.reshape(-1)].to(self.kv_dtype)
         wm = self._write_ok(T, active, rem, dlen).reshape(-1).to(i32)
-        h, a, b = self._mk_walk(h, tables.to(i32), lens.to(i32),
-                                active.to(i32), topk=topk, tq=T, wmask=wm)
+        hs, a, b = self._mk_walk(self._embed(feed.reshape(-1)),
+                                 tables.to(i32), lens.to(i32),
+                                 active.to(i32), topk=topk, tq=T, wmask=wm)
         if a is not None and topk is not None:
             return a.reshape(w, T, -1), b.reshape(w, T, -1)
         if a is not None:
             return b.reshape(w, T, -1), a.reshape(w, T).long()
-        logits = _mm(_rms(h[:, None], W["norm"], W["eps"]),
-                     W["head"])[:, 0].reshape(w, T, -1)
-        if topk is not None:
-            return self._topk(logits)
-        return logits, logits.argmax(-1)
+        return self._select_head(
+            [x[:, 0].reshape(w, T, -1)
+             for x in self._head_logits([h[:, None] for h in hs])], topk)
 
     def _spec_scan(self, tables, tok, lens, act, rem, eos, drafts, dlen,
                    mode="greedy", ex=None):
@@ -1458,10 +1543,9 @@ class ContinuousBatchingEngine(LLMEngine):
         path runs it at width 1 with dense=True (the reference's chunk
         prefill); a fused block attends through the ragged kernel unless
         ragged_kernel (or the CPU default) picks the dense form."""
-        W = self.weights
         p = self.page_size
         w, chunk = ids.shape
-        h = W["emb"][ids].to(self.kv_dtype)
+        hs = self._embed(ids)
         pos = starts[:, None] + self._ar(chunk)[None, :]
         pos_c = self._clamp_pos(pos)
         ctx = torch.minimum(starts + chunk, ends)
@@ -1471,20 +1555,28 @@ class ContinuousBatchingEngine(LLMEngine):
         use_kernel = not dense and (self.ragged_kernel is True or (
             self.ragged_kernel is None and self.device.type == "cuda"))
         act = pf_act.to(torch.int32)
-        for li, wset in enumerate(W["layers"]):
-            q, k, v = self._layer_qkv(W, wset, h, pos_c)
-            self._write_kv(li, slots, k, v)
-            if use_kernel:
-                attn = ragged_paged_attention(
-                    q, self.k_pages[li], self.v_pages[li], tables, ctx,
-                    starts, active=act)
-            else:
-                attn = self._gathered_attention(q, li, tables, pos)
-            h = self._layer_tail(W, wset, h, attn)
         last = (ends - 1 - starts).clamp(0, chunk - 1)
-        h_last = h.gather(1, last[:, None, None].expand(-1, 1, h.shape[-1]))
-        h_last = _rms(h_last, W["norm"], W["eps"])
-        return _mm(h_last, W["head"])[:, 0]
+        pos, pos_c, slots, tables, ctx, starts, act, last = (
+            self._rep(x) for x in (pos, pos_c, slots, tables, ctx, starts,
+                                   act, last))
+        for li in range(self.cfg.num_hidden_layers):
+            attns = []
+            for s, W in enumerate(self._W):
+                q, k, v = self._layer_qkv(W, W["layers"][li], hs[s],
+                                          pos_c[s])
+                self._write_kv(s, li, slots[s], k, v)
+                if use_kernel:
+                    attns.append(ragged_paged_attention(
+                        q, self._kp[s][li], self._vp[s][li], tables[s],
+                        ctx[s], starts[s], active=act[s]))
+                else:
+                    attns.append(self._gathered_attention(q, s, li,
+                                                          tables[s], pos[s]))
+            hs = self._layer_tail(li, hs, attns)
+        h_last = [h.gather(1, x[:, None, None].expand(-1, 1, h.shape[-1]))
+                  for h, x in zip(hs, last)]
+        return self._gather_logits(
+            [x[:, 0] for x in self._head_logits(h_last)])
 
     def _decode_scan(self, tables, tok, lens, act, rem, eos, mode="greedy",
                      ex=None):

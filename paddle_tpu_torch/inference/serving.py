@@ -14,6 +14,12 @@ Counterpart of `paddle_tpu/inference/serving.py` (the static engine):
 
 Kernels run for CUDA tensors; with device="cpu" the same code runs the
 plain PyTorch versions (the tests hold that path against the JAX engine).
+
+tp > 1 (inference/tp.py) splits the engine into shards over a list of
+devices: every step runs per shard on the shard's local heads, pools and
+column slices, with the reference's collectives between the shards. The
+math is written over the list of shards; tp = 1 is one shard and no
+collective, the same operations in the same order as before.
 """
 import collections
 import math
@@ -24,6 +30,7 @@ import torch
 
 from .. import resolve_device
 from . import sampling
+from .tp import TPContext
 from ..models.generation import _sample
 from ..models.llama import LlamaForCausalLM, _rope_cache
 from ..ops.pallas.flash_attention import flash_attention_fwd
@@ -267,10 +274,6 @@ class LLMEngine:
         if quant_scales is not None:
             raise ValueError("quant_scales (PTQ calibration) is not ported "
                              "yet; quant='int8' uses absmax scales")
-        if int(tp or 1) != 1 or tp_mode != "exact" or tp_compress is not None:
-            raise ValueError(f"tp={tp}, tp_mode={tp_mode!r}, tp_compress="
-                             f"{tp_compress!r}: tensor-parallel serving is "
-                             "not ported yet (ROADMAP A7.10); only tp=1")
         if weight_dtype is not None:
             key = str(weight_dtype).replace("torch.", "")
             if key not in _WEIGHT_DTYPES:
@@ -278,7 +281,6 @@ class LLMEngine:
                     f"unsupported weight_dtype {weight_dtype!r}; expected "
                     f"bfloat16/float16/float32")
             weight_dtype = _WEIGHT_DTYPES[key]
-        self.device = resolve_device(device)
         cfg = model.config
         self.cfg = cfg
         self.page_size = page_size
@@ -293,6 +295,33 @@ class LLMEngine:
             raise ValueError(
                 f"num_attention_heads ({self.nh}) must be a multiple of "
                 f"num_key_value_heads ({self.nh_kv})")
+        # tensor parallelism: tp > 1 splits heads, pools and the column-
+        # parallel weights over a list of devices (inference/tp.py); the
+        # math below runs per shard on the LOCAL head counts (nh_l, nh_kv_l,
+        # the global ones at tp = 1)
+        self.tp = int(tp or 1)
+        if self.tp > 1:
+            if self.nh % self.tp or self.nh_kv % self.tp:
+                raise ValueError(
+                    f"tp={self.tp} must divide both num_attention_heads "
+                    f"({self.nh}) and num_key_value_heads ({self.nh_kv}) "
+                    "— heads shard evenly, GQA groups never split")
+            self._tpc = TPContext(self.tp, tp_mode, tp_compress,
+                                  _shard_devices(device, self.tp))
+            self.devices = self._tpc.devices
+        else:
+            self._tpc = None
+            if isinstance(device, (list, tuple)):
+                if len(device) != 1:
+                    raise ValueError(
+                        f"{len(device)} devices given for tp=1; pass one")
+                device = device[0]
+            self.devices = [resolve_device(device)]
+        self.device = self.devices[0]
+        self.tp_mode = tp_mode if self.tp > 1 else None
+        self.tp_compress = tp_compress if self.tp > 1 else None
+        self.nh_l = self.nh // self.tp
+        self.nh_kv_l = self.nh_kv // self.tp
         # padded prompts at/above this length prefill through the flash
         # kernel instead of dense scores (see _attn_prefill)
         self.flash_prefill_min = int(flash_prefill_min)
@@ -300,18 +329,92 @@ class LLMEngine:
         # read-backs (host time included: a dispatch-side number, not
         # device busyness); the continuous-batching engine accrues it
         self.dispatch_seconds = 0.0
-        self.weights = _snapshot_llama(model, quant, weight_dtype,
-                                       self.device)
+        weights = _snapshot_llama(model, quant, weight_dtype, self.device)
+        weights["cos"], weights["sin"] = _rope_cache(
+            max_len, self.hd, cfg.rope_theta, device=self.device)
+        # one weight dict per shard; `weights` is shard 0's (at tp = 1 the
+        # whole snapshot)
+        self._W = ([weights] if self._tpc is None
+                   else self._tpc.split_weights(weights))
+        self.weights = self._W[0]
         self.kv_dtype = (torch.bfloat16 if self.device.type == "cuda"
                          else torch.float32)
         self._reset_kv()
         self._batch_buckets = (tuple(sorted(set(
             min(int(x), max_batch) for x in batch_buckets)))
             if batch_buckets is not None else None)
-        cos, sin = _rope_cache(max_len, self.hd, cfg.rope_theta,
-                               device=self.device)
-        self.weights["cos"] = cos
-        self.weights["sin"] = sin
+
+    # -- tensor parallelism (inference/tp.py) ---------------------------------
+    def _rep(self, x):
+        """x on every shard's device (a step's replicated inputs)."""
+        return [x] if self._tpc is None else self._tpc.replicate(x)
+
+    def _embed(self, ids):
+        """Each shard's embedding rows of ids (the embedding is
+        replicated), in the KV dtype."""
+        return [W["emb"][i].to(self.kv_dtype)
+                for W, i in zip(self._W, self._rep(ids))]
+
+    def _tp_gather_heads(self, xs):
+        """exact mode: every shard's full heads before o_proj (identity at
+        tp = 1 and in psum mode, where wo is row-split instead)."""
+        if self._tpc is None or self._tpc.mode != "exact":
+            return xs
+        return self._tpc.gather_heads(xs)
+
+    def _tp_gather_cols(self, xs):
+        """exact mode: every shard's full MLP activation row before
+        down_proj (identity at tp = 1 and in psum mode)."""
+        if self._tpc is None or self._tpc.mode != "exact":
+            return xs
+        return self._tpc.gather_cols(xs)
+
+    def _tp_reduce(self, xs):
+        """psum mode: the sum closing a row-parallel pair (identity at
+        tp = 1 and in exact mode)."""
+        if self._tpc is None or self._tpc.mode != "psum":
+            return xs
+        return self._tpc.reduce(xs)
+
+    def _vocab_sharded(self):
+        return self._tpc is not None and self._tpc.head_sharded
+
+    def _gather_logits(self, locs):
+        """The full-vocab logits from the shards' head outputs, on the
+        engine's device: the gathered vocab-parallel slices, else shard 0's
+        (a replicated head; at tp = 1 the one shard's)."""
+        if self._vocab_sharded():
+            return self._tpc.gather_cols(locs)[0]
+        return locs[0]
+
+    def _tp_greedy_token(self, locs):
+        """Greedy next token from the shards' (possibly vocab-local)
+        logits: the argmax at tp = 1 or with a replicated head, else the
+        argmax-of-local-max combine (equal to the argmax of the gathered
+        logits)."""
+        if not self._vocab_sharded():
+            return locs[0].argmax(-1)
+        return self._tpc.argmax_of_local_max(
+            [x.max(-1).values for x in locs], [x.argmax(-1) for x in locs],
+            locs[0].shape[-1])
+
+    def _tp_topk(self, locs, k):
+        """Top-k (f32 values, ids) of the shards' (possibly vocab-local)
+        logits in lax.top_k's order: each shard's top-k, combined by
+        topk_of_local_topk under the vocab-parallel head (equal to the
+        top-k of the gathered logits)."""
+        pairs = [sampling.top_k(x, k) for x in locs]
+        if not self._vocab_sharded():
+            return pairs[0][0].float(), pairs[0][1]
+        return self._tpc.topk_of_local_topk(
+            [v.float() for v, _ in pairs], [i for _, i in pairs],
+            locs[0].shape[-1], k)
+
+    def _head_logits(self, hs):
+        """Each shard's final norm and lm_head of its rows hs [b, t, H]:
+        the local logits [b, t, V_l]."""
+        return [_mm(_rms(h, W["norm"], W["eps"]), W["head"])
+                for h, W in zip(hs, self._W)]
 
     # -- math ---------------------------------------------------------------
     def _attn_dense(self, q, k, v):
@@ -361,24 +464,38 @@ class LLMEngine:
 
         return rope(q), rope(k), v
 
-    def _layer_tail(self, W, wset, h, attn_out):
-        b, t = attn_out.shape[:2]
-        h = h + _mm(attn_out.reshape(b, t, -1), wset["wo"])
-        x = _rms(h, wset["ln2"], W["eps"])
-        g = _mm(x, wset["wg"])
-        u = _mm(x, wset["wu"])
-        act = torch.nn.functional.silu(g.float()).to(g.dtype) * u
-        return h + _mm(act, wset["wd"])
+    def _layer_tail(self, li, hs, attns):
+        """Layer li's tail on every shard: O (exact: on the gathered heads
+        against the replicated wo; psum: the local rows, reduced), the
+        residual, norm2, the local gate / up columns with SwiGLU, then down
+        (exact: on the gathered activation row; psum: reduced). hs and
+        attns [b, t, nh_l, hd] are per shard; returns the shards' h."""
+        b, t = attns[0].shape[:2]
+        attns = self._tp_gather_heads(attns)
+        os_ = self._tp_reduce([_mm(a.reshape(b, t, -1), W["layers"][li]["wo"])
+                               for a, W in zip(attns, self._W)])
+        hs = [h + o for h, o in zip(hs, os_)]
+        acts = []
+        for h, W in zip(hs, self._W):
+            wset = W["layers"][li]
+            x = _rms(h, wset["ln2"], W["eps"])
+            g = _mm(x, wset["wg"])
+            u = _mm(x, wset["wu"])
+            acts.append(torch.nn.functional.silu(g.float()).to(g.dtype) * u)
+        acts = self._tp_gather_cols(acts)
+        ds = self._tp_reduce([_mm(a, W["layers"][li]["wd"])
+                              for a, W in zip(acts, self._W)])
+        return [h + d for h, d in zip(hs, ds)]
 
-    def _scatter_kv(self, li, slots, k, v):
-        """Write k/v rows [n, h_kv, d] into layer li's pools at flat slot
-        ids [n]. The pools are updated in place (index_copy_), where the
-        reference donates its buffers to the compiled step and gets new
-        ones back."""
-        shape = (-1, self.nh_kv, self.hd)
-        self.k_pages[li].view(shape).index_copy_(
+    def _scatter_kv(self, s, li, slots, k, v):
+        """Write k/v rows [n, h_kv_l, d] into shard s's layer-li pools at
+        flat slot ids [n]. The pools are updated in place (index_copy_),
+        where the reference donates its buffers to the compiled step and
+        gets new ones back."""
+        shape = (-1, self.nh_kv_l, self.hd)
+        self._kp[s][li].view(shape).index_copy_(
             0, slots, k.reshape(shape).to(self.kv_dtype))
-        self.v_pages[li].view(shape).index_copy_(
+        self._vp[s][li].view(shape).index_copy_(
             0, slots, v.reshape(shape).to(self.kv_dtype))
 
     def _prefill(self, ids, tables, t0):
@@ -387,40 +504,47 @@ class LLMEngine:
         position t0 - 1, [b, V]. Padded positions write KV past t0 into
         the sequence's own pages: decode masks by length and overwrites
         each slot before it is read."""
-        W = self.weights
         b, t_pad = ids.shape
         p = self.page_size
-        h = W["emb"][ids].to(self.kv_dtype)
+        hs = self._embed(ids)
         pos = torch.arange(t_pad, device=self.device)
-        pos_ids = pos[None, :].expand(b, t_pad)
-        slots = (tables[:, pos // p] * p + pos % p).reshape(-1)
-        for li, wset in enumerate(W["layers"]):
-            q, k, v = self._layer_qkv(W, wset, h, pos_ids)
-            attn = self._attn_prefill(q, k, v, t_pad, t0)
-            h = self._layer_tail(W, wset, h, attn)
-            self._scatter_kv(li, slots, k, v)
-        h_last = _rms(h[:, t0 - 1:t0], W["norm"], W["eps"])
-        return _mm(h_last, W["head"])[:, 0]
+        pos_ids = self._rep(pos[None, :].expand(b, t_pad))
+        slots = self._rep((tables[:, pos // p] * p + pos % p).reshape(-1))
+        for li in range(self.cfg.num_hidden_layers):
+            attns, kvs = [], []
+            for s, W in enumerate(self._W):
+                q, k, v = self._layer_qkv(W, W["layers"][li], hs[s],
+                                          pos_ids[s])
+                attns.append(self._attn_prefill(q, k, v, t_pad, t0))
+                kvs.append((k, v))
+            hs = self._layer_tail(li, hs, attns)
+            for s, (k, v) in enumerate(kvs):
+                self._scatter_kv(s, li, slots[s], k, v)
+        locs = self._head_logits([h[:, t0 - 1:t0] for h in hs])
+        return self._gather_logits([x[:, 0] for x in locs])
 
     def _step(self, tok, tables, lens):
         """One decode step for every slot: tok [b] (the token at position
         lens[b]), lens [b] tokens already cached. Returns logits [b, V]."""
-        W = self.weights
         p = self.page_size
         b = tok.shape[0]
-        h = W["emb"][tok[:, None]].to(self.kv_dtype)
-        pos_ids = lens[:, None]
-        slots = tables[torch.arange(b, device=self.device), lens // p] * p \
-            + lens % p
-        lens_after = (lens + 1).to(torch.int32)
-        for li, wset in enumerate(W["layers"]):
-            q, k, v = self._layer_qkv(W, wset, h, pos_ids)
-            self._scatter_kv(li, slots, k[:, 0], v[:, 0])
-            attn = paged_attention(q[:, 0], self.k_pages[li],
-                                   self.v_pages[li], tables, lens_after)
-            h = self._layer_tail(W, wset, h, attn[:, None])
-        h = _rms(h, W["norm"], W["eps"])
-        return _mm(h, W["head"])[:, 0]
+        hs = self._embed(tok[:, None])
+        pos_ids = self._rep(lens[:, None])
+        slots = self._rep(tables[torch.arange(b, device=self.device),
+                                 lens // p] * p + lens % p)
+        lens_after = self._rep((lens + 1).to(torch.int32))
+        tables_r = self._rep(tables)
+        for li in range(self.cfg.num_hidden_layers):
+            attns = []
+            for s, W in enumerate(self._W):
+                q, k, v = self._layer_qkv(W, W["layers"][li], hs[s],
+                                          pos_ids[s])
+                self._scatter_kv(s, li, slots[s], k[:, 0], v[:, 0])
+                attns.append(paged_attention(
+                    q[:, 0], self._kp[s][li], self._vp[s][li], tables_r[s],
+                    lens_after[s])[:, None])
+            hs = self._layer_tail(li, hs, attns)
+        return self._gather_logits([x[:, 0] for x in self._head_logits(hs)])
 
     @staticmethod
     def _finish_eos(full, t0, eos_token_id):
@@ -443,14 +567,16 @@ class LLMEngine:
         return full[:, :t0 + max(keep)]
 
     def _reset_kv(self):
-        """Fresh zeroed pools and allocator: a failed call may have left
-        half-written pages, and every in-flight sequence's cache is gone."""
+        """Fresh zeroed pools (per shard, over its local kv heads) and
+        allocator: a failed call may have left half-written pages, and
+        every in-flight sequence's cache is gone. `k_pages` / `v_pages` are
+        shard 0's per-layer pools."""
         L = self.cfg.num_hidden_layers
-        shape = (self.n_pages, self.page_size, self.nh_kv, self.hd)
-        self.k_pages = [torch.zeros(shape, dtype=self.kv_dtype,
-                                    device=self.device) for _ in range(L)]
-        self.v_pages = [torch.zeros(shape, dtype=self.kv_dtype,
-                                    device=self.device) for _ in range(L)]
+        shape = (self.n_pages, self.page_size, self.nh_kv_l, self.hd)
+        self._kp, self._vp = ([[torch.zeros(shape, dtype=self.kv_dtype,
+                                            device=d) for _ in range(L)]
+                               for d in self.devices] for _ in range(2))
+        self.k_pages, self.v_pages = self._kp[0], self._vp[0]
         self.allocator = PageAllocator(self.n_pages)
 
     # -- page claims ----------------------------------------------------------
@@ -610,6 +736,20 @@ class LLMEngine:
                 self._reset_kv()
         full = np.concatenate([ids] + out, axis=1)[:b_real]
         return self._finish_eos(full, t0, eos_token_id)
+
+
+def _shard_devices(device, tp):
+    """The engine's `device=` at tp > 1 as TPContext's devices: a list is
+    taken as it is, None takes one CUDA card per shard, and the CPU runs
+    every shard; a single CUDA device is refused (it would be one card per
+    engine, not per shard: pass it tp times)."""
+    if device is None or isinstance(device, (list, tuple)):
+        return device
+    if torch.device(device).type == "cpu":
+        return [device] * tp
+    raise ValueError(
+        f"tp={tp} takes one device per shard: device=[{str(device)!r}] * "
+        f"{tp} runs every shard on that card")
 
 
 def _as_numpy(input_ids):

@@ -7,8 +7,9 @@ that it went through the kernels by resetting the counts, running, and
 reading `kernel_launches()`. The decode megakernel's top-K fold (its
 `head_k > 1` branch) and its speculative verify schedule (`tq > 1`) are
 also counted on their own, as "decode_megakernel_topk" and
-"decode_megakernel_verify" (those launches are in "decode_megakernel"
-too), and so are the flash kernels' launches with attention dropout, as
+"decode_megakernel_verify", and so are its tensor-parallel segment
+launches, as "decode_megakernel_tp" (all of those launches are in
+"decode_megakernel" too), and so are the flash kernels' launches with attention dropout, as
 "flash_attention_fwd_dropout" and "flash_attention_bwd_dropout", with an
 additive mask, as "flash_attention_{fwd,bwd}_masked", and without the causal
 skip, as "flash_attention_{fwd,bwd}_noncausal" (all of them also in
@@ -41,6 +42,7 @@ def kernel_launches():
     out = {name: fn.launches for name, fn in _WRAPPERS.items()}
     out["decode_megakernel_topk"] = decode_megakernel.fold_launches
     out["decode_megakernel_verify"] = decode_megakernel.verify_launches
+    out["decode_megakernel_tp"] = decode_megakernel.seg_launches
     for fn in (flash_attention_fwd, flash_attention_bwd):
         out[fn.__name__ + "_dropout"] = fn.dropout_launches
         out[fn.__name__ + "_masked"] = fn.mask_launches
@@ -53,5 +55,6 @@ def reset_kernel_launches():
         fn.launches = 0
     decode_megakernel.fold_launches = 0
     decode_megakernel.verify_launches = 0
+    decode_megakernel.seg_launches = 0
     for fn in (flash_attention_fwd, flash_attention_bwd):
         fn.dropout_launches = fn.mask_launches = fn.noncausal_launches = 0

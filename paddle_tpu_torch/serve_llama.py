@@ -8,7 +8,10 @@ given: then every request samples (request i with seed `--seed` + i, its
 own key stream), or every other one with `--sample-rotate` (a mixed
 greedy / sampled batch). `--speculate T` verifies up to T - 1 drafts per
 pass (`--drafter ngram|prefix`); the outputs stay those of unspeculated
-serving. Weights are random, drawn from a seed.
+serving. `--tp N` shards one engine over N devices (`--device` takes a
+comma-separated list, one per shard; the same card may repeat), exact by
+default, or `--tp-mode psum` with `--tp-compress int8`. Weights are random,
+drawn from a seed.
 
     python -m paddle_tpu_torch.serve_llama --model 7b --quant int8
     python -m paddle_tpu_torch.serve_llama --scheduler --decode-block 8
@@ -19,6 +22,9 @@ serving. Weights are random, drawn from a seed.
         --decode-block 4 --temperature 0.8 --top-k 6 --top-p 0.95 --seed 42
     python -m paddle_tpu_torch.serve_llama --model 7b --scheduler \
         --decode-block 8 --megakernel multi --speculate 4 --drafter ngram
+    python -m paddle_tpu_torch.serve_llama --model 7b --tp 2 \
+        --device cuda:0,cuda:0 --scheduler --decode-block 8 --megakernel multi
+    python -m paddle_tpu_torch.serve_llama --tp 2 --device cpu --scheduler
 """
 import argparse
 import warnings
@@ -51,7 +57,22 @@ def main(argv=None):
     ap.add_argument("--max_new_tokens", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--device", default=None,
-                    help="cuda (the default) or cpu")
+                    help="cuda (the default) or cpu; with --tp N > 1 a "
+                         "comma-separated list of N devices, one per shard "
+                         "(cuda:0,cuda:0 runs both shards on one card), or "
+                         "cpu for every shard")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="N > 1: tensor-parallel serving, one engine split "
+                         "over N devices (heads and KV pools over heads, "
+                         "column/row-parallel projections); greedy outputs "
+                         "those of tp=1 in the default exact mode")
+    ap.add_argument("--tp-mode", choices=["exact", "psum"], default="exact",
+                    help="the tp tail: 'exact' gathers before a replicated "
+                         "o/down projection; 'psum' sums row-parallel "
+                         "partial products (close to tp=1, not equal)")
+    ap.add_argument("--tp-compress", choices=["none", "int8"],
+                    default="none",
+                    help="int8-quantize the psum-mode reduce")
     ap.add_argument("--scheduler", action="store_true",
                     help="serve ragged requests through the "
                          "continuous-batching engine")
@@ -104,7 +125,19 @@ def main(argv=None):
             "sample", DeprecationWarning, stacklevel=1)
 
     g = GEOMETRIES[args.model]
-    device = resolve_device(args.device)
+    shard_devs = args.device.split(",") if args.device else None
+    device = resolve_device(shard_devs[0] if shard_devs else None)
+    # what the engines take: one device at tp = 1, else one per shard (a
+    # single cpu covers every shard; None takes one CUDA card each)
+    if shard_devs and len(shard_devs) > 1:
+        args.engine_device = shard_devs
+    elif args.tp == 1:
+        args.engine_device = device
+    else:
+        args.engine_device = shard_devs[0] if shard_devs else None
+    args.tp_kw = dict(tp=args.tp, tp_mode=args.tp_mode,
+                      tp_compress=None if args.tp_compress == "none"
+                      else args.tp_compress)
     # 7b: weights serve in bf16, as the reference's checkpoint-scale mode
     weight_dtype = "bfloat16" if args.model == "7b" else None
     model = LlamaForCausalLM(g["cfg"], device=device, seed=0)
@@ -113,7 +146,8 @@ def main(argv=None):
         return serve_scheduler(args, g, model, quant, weight_dtype, device)
     engine = LLMEngine(model, max_len=g["max_len"], page_size=g["page"],
                        max_batch=g["bs"], quant=quant,
-                       weight_dtype=weight_dtype, device=device)
+                       weight_dtype=weight_dtype, device=args.engine_device,
+                       **args.tp_kw)
     del model     # the engine holds its own snapshot
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -127,7 +161,7 @@ def main(argv=None):
                          top_k=args.top_k, top_p=args.top_p, seed=args.seed)
     out = engine.generate(prompts, max_new_tokens=args.max_new_tokens,
                           device_loop=True, **sample_kw)
-    print(f"model={args.model} quant={args.quant} "
+    print(f"model={args.model} quant={args.quant} tp={args.tp} "
           f"prompt={prompts.shape} -> generated={out.shape}")
     print("first sequence tail:", out[0, -args.max_new_tokens:].tolist())
 
@@ -150,7 +184,7 @@ def serve_scheduler(args, g, model, quant, weight_dtype, device):
         decode_block=args.decode_block,
         megakernel=MEGAKERNEL[args.megakernel],
         speculate=args.speculate or None, drafter=args.drafter,
-        device=device)
+        device=args.engine_device, **args.tp_kw)
     del model
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -180,8 +214,11 @@ def serve_scheduler(args, g, model, quant, weight_dtype, device):
                   f"{h['spec_emitted']} tokens in {h['spec_passes']} verify "
                   f"passes ({h['spec_tokens_per_pass']:.2f}/pass, accept "
                   f"{h['spec_accept_rate']:.2f}), ")
+    tp = (f", tp={h['tp']} {h['tp_mode']}"
+          + (f" {h['tp_compress']}" if h["tp_compress"] else "")
+          if h["tp"] > 1 else "")
     print(f"model={args.model} quant={args.quant} scheduler "
-          f"(megakernel {h['megakernel']}): "
+          f"(megakernel {h['megakernel']}{tp}): "
           f"{len(submitted)} ragged requests in {h['steps']} steps "
           f"({h['prefill_steps']} prefill / {h['decode_steps']} decode), "
           f"{fused}{h['prefix_hits']} prefix-page hits, "

@@ -97,8 +97,9 @@ def test_kernel_wrappers_count_only_kernel_launches():
     training step with attention dropout, a BERT MLM step (masked,
     non-causal attention with dropout, AdamW), and
     megakernel decode steps on the CPU, greedy and sampled through the
-    top-K fold, and speculative verify passes (the op chain's verify
-    entry and the megakernel's tq > 1 schedule) launch nothing either."""
+    top-K fold, speculative verify passes (the op chain's verify entry and
+    the megakernel's tq > 1 schedule) and tensor-parallel megakernel steps
+    (the segments, tp = 2) launch nothing either."""
     from paddle_tpu_torch.inference.sampling import SamplingParams
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     from paddle_tpu_torch.models import SpmdTrainer
@@ -127,6 +128,10 @@ def test_kernel_wrappers_count_only_kernel_launches():
         spec.generate_many([np.arange(5) % 2, np.arange(3)],
                            max_new_tokens=4)
         assert spec.health()["spec_passes"] > 0
+    tp2 = ContinuousBatchingEngine(tr.model, max_len=32, page_size=8,
+                                   max_batch=2, megakernel="multi", tp=2,
+                                   device="cpu")
+    tp2.generate_many([np.arange(5), np.arange(3)], max_new_tokens=3)
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
     gpt = SpmdTrainer(GPTForCausalLM(GPTConfig.tiny(num_hidden_layers=1),
                                      device="cpu"), recompute=True)
@@ -148,6 +153,7 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                  "decode_megakernel": 0,
                                  "decode_megakernel_topk": 0,
                                  "decode_megakernel_verify": 0,
+                                 "decode_megakernel_tp": 0,
                                  "flash_attention_fwd_dropout": 0,
                                  "flash_attention_bwd_dropout": 0,
                                  "flash_attention_fwd_masked": 0,

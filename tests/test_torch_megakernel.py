@@ -407,15 +407,23 @@ def test_knob_resolution_health_and_refusals():
         eng = ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
                                        do_sample=True, **ENGINE_KW)
     assert eng.megakernel == "multi" and eng.sample_k == 8
-    with pytest.raises(ValueError, match="tp"):
+    # tensor parallelism composes in exact mode (the per-shard segments);
+    # psum mode is refused, as in the reference
+    eng = ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
+                                   tp=2, **ENGINE_KW)
+    assert eng.health()["megakernel"] == "multi" and len(eng._mk_packs) == 2
+    with pytest.raises(ValueError, match="exact"):
         ContinuousBatchingEngine(tm, device="cpu", megakernel="multi", tp=2,
-                                 **ENGINE_KW)
+                                 tp_mode="psum", **ENGINE_KW)
     # the kernel's own geometry gate (the CPU plain version has none)
     assert megakernel_supported(32, 32, 128, 4096, 11008)
     assert megakernel_supported(32, 8, 128, 4096, 14336)
     assert not megakernel_supported(4, 2, 8, 32, 48)      # d % 16
     assert not megakernel_supported(32, 1, 128, 4096, 11008)  # rep * d
     assert not megakernel_supported(32, 32, 128, 2048, 11008)  # nh d != H
+    # a shard's local dims: 16 of 32 heads, half the ffn, at tp 2
+    assert megakernel_supported(16, 16, 128, 4096, 5504, tp=2)
+    assert not megakernel_supported(16, 16, 128, 4096, 5504)
 
 
 def test_pointer_table_survives_reset_kv():

@@ -271,7 +271,8 @@ def test_health_keys_and_unported_options():
         "megakernel_whole_step", "sampled_requests", "sample_k",
         "sample_fold", "speculate", "drafter", "spec_passes", "spec_emitted",
         "spec_accept_rate", "spec_tokens_per_pass", "draft_errors",
-        "spec_sampled_accept_rate"}
+        "spec_sampled_accept_rate", "tp", "tp_mode", "tp_compress"}
+    assert (eng.health()["tp"], eng.health()["tp_mode"]) == (1, None)
     _, tm = _pair()
     # speculation is ported (A5(d)); tiering's directory knobs are taken
     # and refused with the other tiering knobs
@@ -285,8 +286,12 @@ def test_health_keys_and_unported_options():
                      (dict(telemetry=True), "A7.3")):
         with pytest.raises(NotImplementedError, match=item):
             tsched.ContinuousBatchingEngine(tm, device="cpu", **kw)
-    with pytest.raises(ValueError, match="tp"):
-        tsched.ContinuousBatchingEngine(tm, device="cpu", tp=2)
+    # tensor parallelism is ported (A7.10): the reference's refusals stay
+    with pytest.raises(ValueError, match="tp_mode"):
+        tsched.ContinuousBatchingEngine(tm, device="cpu", tp=2,
+                                        tp_mode="gather?")
+    assert tsched.ContinuousBatchingEngine(
+        tm, device="cpu", tp=2, tp_mode="psum").health()["tp_mode"] == "psum"
     # sampling is ported (A5(c)): a spec dict is taken and counted
     eng.add_request(np.arange(4), 2, sampling={"do_sample": True})
     assert eng.health()["sampled_requests"] == 1

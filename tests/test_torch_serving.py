@@ -260,9 +260,18 @@ def test_sampled_ids_equal_jax(kw, device_loop):
 
 
 def test_unported_options_raise():
+    """tp is ported (inference/tp.py): the reference's refusals stay —
+    tp must divide the heads, and compression rides psum only; a single
+    CUDA device for tp shards is refused (pass one per shard)."""
     _, tm = _pair(None)
-    with pytest.raises(ValueError, match="tp"):
-        tserving.LLMEngine(tm, tp=2, device="cpu")
+    with pytest.raises(ValueError, match="must divide"):
+        tserving.LLMEngine(tm, tp=3, device="cpu")
+    with pytest.raises(ValueError, match="psum"):
+        tserving.LLMEngine(tm, tp=2, tp_compress="int8", device="cpu")
+    with pytest.raises(ValueError, match="one device per shard"):
+        tserving.LLMEngine(tm, tp=2, device="cuda:0")
+    eng = tserving.LLMEngine(tm, tp=2, device="cpu")
+    assert eng.tp == 2 and eng.nh_l == eng.nh // 2
     with pytest.raises(ValueError, match="quant_scales"):
         tserving.LLMEngine(tm, quant="int8", quant_scales=object(),
                            device="cpu")

@@ -159,9 +159,11 @@ def test_reference_parameters_lead_in_order(name):
 
 
 def test_unported_reference_parameters_are_taken():
-    """The reference's parameters the port refuses (use_pallas, tp_mode,
-    tp_compress, tier_dir, tier_host_cap_mb) are in its signatures, so a
-    reference call gets a typed refusal, never a TypeError."""
+    """The reference's parameters the port refuses (use_pallas, tier_dir,
+    tier_host_cap_mb) are in its signatures, so a reference call gets a
+    typed refusal, never a TypeError. tp_mode and tp_compress are taken
+    (tensor parallelism is ported): ignored at tp = 1, as the reference
+    ignores them, and checked at tp > 1."""
     llm = inspect.signature(tserving.LLMEngine.__init__).parameters
     cb = inspect.signature(tsched.ContinuousBatchingEngine.__init__).parameters
     for p in ("use_pallas", "tp_mode", "tp_compress"):
@@ -176,8 +178,10 @@ def test_unported_reference_parameters_are_taken():
         with pytest.raises(ValueError, match="use_pallas"):
             tserving.LLMEngine(model, use_pallas=bad, **kw)
     for tkw in (dict(tp_mode="psum"), dict(tp_compress="int8")):
-        with pytest.raises(ValueError, match="A7.10"):
-            tserving.LLMEngine(model, **tkw, **kw)
+        eng = tserving.LLMEngine(model, **tkw, **kw)
+        assert (eng.tp_mode, eng.tp_compress) == (None, None)
+    with pytest.raises(ValueError, match="psum"):
+        tserving.LLMEngine(model, tp=2, tp_compress="int8", **kw)
     for tkw in (dict(tier_dir="kv_tier"), dict(tier_host_cap_mb=8)):
         with pytest.raises(NotImplementedError, match="A7.4"):
             tsched.ContinuousBatchingEngine(model, **tkw, **kw)

@@ -16,7 +16,12 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   card-against-CPU parity phase;
 - `bert`: `train_bert.run_bert("base")` in f32 and bf16 for 1 warmup + 2
   timed steps plus one profiled step with exact launch counts, then the
-  BERT card-against-CPU parity phase.
+  BERT card-against-CPU parity phase;
+- `tp`: the decode megakernel's tensor-parallel segment rows
+  (`check_megakernel_tp`) and the tp = 1 greedy rows beside them;
+- `tp_path`: LLaMA-7B at full width and depth, the cb_stream through
+  `tp_cb_runs` (tp = 2, both shards on the card), after the tp = 1 runs
+  it is held against; then the tp = 2 card-against-CPU parity row.
 
     python3 tools/card_check.py flash mask bert   # from the repository root; needs one CUDA card
 """
@@ -62,7 +67,40 @@ def bert(dev):
     yield from C.bert_train_parity(torch, dev)
 
 
-PHASES = dict(flash=flash, mask=mask, gpt=gpt, bert=bert)
+def tp(dev):
+    ptx = C.ptxas_summary(_build.build_log() or "")
+    for r in C.check_megakernel_tp(torch, dev, ptx):
+        yield dict(kernel="decode_megakernel_tp", **r)
+
+
+def tp_path(dev):
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama_7b()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    geom = dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
+                prefix_cache=True, weight_dtype="bfloat16", device=dev)
+    prompts, budgets = C.cb_stream(cfg)
+    specs = C.sampled_specs(len(prompts))
+    streams = {}
+    for ref in sorted({r[6] for r in C.TP_RUNS}):
+        mk = "multi" if "multi" in ref else "layer" if "layer" in ref else False
+        eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=mk,
+                                       quant="int8" if "int8" in ref else None,
+                                       sample_k=8, **geom)
+        streams[ref] = C.drive_cb(torch, eng, prompts, budgets,
+                                  specs if ref.startswith("sampled") else None)[0]
+        del eng
+        torch.cuda.empty_cache()
+    out = C.tp_cb_runs(torch, model, geom, prompts, budgets, streams, {})
+    del model
+    torch.cuda.empty_cache()
+    yield from out["runs"]
+    yield dict(peak_gb=out["peak_gb"], seconds=out["seconds"], ok=True)
+    yield from (r for r in C.parity_cb_2layer(torch, dev) if r["tp"] == 2)
+
+
+PHASES = dict(flash=flash, mask=mask, gpt=gpt, bert=bert, tp=tp, tp_path=tp_path)
 
 
 def main(names):
@@ -79,7 +117,7 @@ def main(names):
     _build.library()
     print(json.dumps(dict(build_s=time.perf_counter() - t0)))
     print("\n".join(l for l in C.ptxas_summary(_build.build_log() or "")
-                    if "flash" in l))
+                    if "flash" in l or "megakernel" in l))
     ok = True
     for n in names:
         for r in PHASES[n](dev):

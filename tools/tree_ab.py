@@ -12,7 +12,10 @@ difference between a tree's two rows. Probes:
   megakernel, `chip_smoke.check_megakernel`'s greedy rows (bf16 and int8,
   ms and one "layer" launch's ms) and, where the tree has them,
   `check_megakernel_topk`'s fold rows and `check_megakernel_verify`'s
-  speculative verify rows (tq = 4).
+  speculative verify rows (tq = 4); and a digest of the outputs' bytes of
+  seg "full" launches on seeded inputs (bf16 and int8 weights, 8 slots:
+  the greedy whole step, the top-8 fold, one layer), so equal digests
+  across trees mean bit-equal outputs.
 - `flash`: the flash kernels' launches without a mask: the causal forward
   and backward, with and without dropout, on seeded inputs at the training
   and serving shapes of `chip_smoke.py`'s rows; each row's ms (CUDA
@@ -50,6 +53,33 @@ if hasattr(cs, "check_megakernel_verify"):
     for r in cs.check_megakernel_verify(torch, dev, ptx):
         out["verify"].append(dict(weights=r["weights"], ms=r["ms"],
                                   sequential_ms=r["sequential_ms"], ok=r["ok"]))
+import hashlib
+from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops.pallas.decode_megakernel import decode_megakernel
+model = LlamaForCausalLM(LlamaConfig(hidden_size=4096, intermediate_size=11008,
+                                     num_hidden_layers=2, num_attention_heads=32),
+                         device=dev, seed=11)
+out["digests"] = {}
+for quant in (None, "int8"):
+    eng = ContinuousBatchingEngine(model, megakernel="multi", max_len=512, page_size=64,
+                                   max_batch=8, quant=quant, weight_dtype="bfloat16",
+                                   device=dev)
+    tok, table, lens, act = cs.topk_inputs(torch, dev, eng, 8, seed=12)
+    h0 = eng.weights["emb"][tok].to(torch.bfloat16)
+    res = (decode_megakernel(h0.clone(), cs.clone_pack(eng._mk_pack), table, lens, act,
+                             head=True)
+           + decode_megakernel(h0.clone(), cs.clone_pack(eng._mk_pack), table, lens, act,
+                               head=True, head_k=8)
+           + (decode_megakernel(h0.clone(), cs.clone_pack(eng._mk_pack), table, lens, act,
+                                layer=0),))
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for x in res:
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    out["digests"][quant or "bf16"] = h.hexdigest()[:16]
+    del eng
+    torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
