@@ -3,9 +3,16 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device   the card's name and power limit; TF32 off
-  2. build    nvcc builds every kernel under paddle_tpu_torch/csrc
+  2. build    nvcc builds every kernel under paddle_tpu_torch/csrc; the
+              tensor-core builds' HMMA / HGMMA counts in cuobjdump's SASS
   3. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes (bf16), with times, bounds and library times;
+              the ragged kernel's chunked prefill on its tensor-core build
+              (the main row, a GQA group, page 16 at d 64 with an inactive
+              slot, page 128) beside its per-page build's f32 row; the
+              bf16 flash backward on its two tensor-core kernels, one
+              launch's transient memory beside the f32 build's dQ
+              partials;
               the decode megakernel at 7B width (one layer, a 2-layer whole
               step with the head, a constructed argmax tie; bf16 and int8)
               beside the op chain's time on the same inputs; its top-K
@@ -42,7 +49,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               requests at decode_block 8 (bf16, int8) and 1 (bf16) on the
               op chain (megakernel=False), then through the megakernel
               ("multi" bf16 and int8, "layer" bf16, K=8), each stream
-              twice; a single request with exact launch counts; one
+              twice, every prefill launch on the ragged kernel's
+              tensor-core build; a single request with exact launch counts; one
               steady-state stretch of fused blocks under torch.profiler
               (op chain and "multi") for the device's busy share;
               cb_sampled: the stream with greedy and sampled requests
@@ -93,7 +101,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               against the CPU (f32), the global generator seeded alike
 
 Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
-bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row.
+bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row:
+tq = 1 and the verify entry stay on the per-page build for those bits.
 The line before the last holds {"kernels": [...]}, and the last line is
 {"ok": true, "device": {...}}.
 
@@ -125,23 +134,32 @@ REPLACES = {
     "flash_attention_fwd_masked": "paddle_tpu/ops/pallas/flash_attention.py:149",
     "flash_attention_bwd_masked": "paddle_tpu/ops/pallas/flash_attention.py:461",
     "decode_megakernel_tp": "paddle_tpu/ops/pallas/decode_megakernel.py:312",
+    "ragged_paged_attention_tc": "paddle_tpu/ops/pallas/paged_attention.py:211",
+    "flash_attention_bwd_tc": "paddle_tpu/ops/pallas/flash_attention.py:430",
+    "flash_attention_bwd_f32": "paddle_tpu/ops/pallas/flash_attention.py:430",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
     "flash_attention_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
-    "ragged_paged_attention": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+    "ragged_paged_attention": "paddle_tpu_torch/csrc/ragged_paged_attention_tc.cu",
     "rms_norm": "paddle_tpu_torch/csrc/rms_norm.cu",
-    "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
     "decode_megakernel": "paddle_tpu_torch/csrc/decode_megakernel.cu",
     "decode_megakernel_topk": "paddle_tpu_torch/csrc/decode_megakernel.cu",
     "spec_verify_attention": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
     "decode_megakernel_verify": "paddle_tpu_torch/csrc/decode_megakernel.cu",
     "flash_attention_fwd_dropout": "paddle_tpu_torch/csrc/flash_attention.cu",
-    "flash_attention_bwd_dropout": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dropout": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
     "flash_attention_fwd_masked": "paddle_tpu_torch/csrc/flash_attention.cu",
-    "flash_attention_bwd_masked": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_masked": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
     "decode_megakernel_tp": "paddle_tpu_torch/csrc/decode_megakernel_tp.cu",
+    # the builds behind the entries: the chunked prefill's and the bf16
+    # backward's tensor-core builds (their main rows are the entries'), and
+    # the f32 backward (its row: BERT-base's f32 mask row)
+    "ragged_paged_attention_tc": "paddle_tpu_torch/csrc/ragged_paged_attention_tc.cu",
+    "flash_attention_bwd_tc": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+    "flash_attention_bwd_f32": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 
 
@@ -203,6 +221,43 @@ def ptxas_summary(log):
             out.append(f"{name}: {m.group(1)} regs, {spill} B spilled")
             name = None
     return out
+
+
+TC_KERNELS = ("ragged_tc_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+
+
+def sass_mma_counts(lib_path, names=TC_KERNELS):
+    """Tensor-core instructions in the built library's SASS (`cuobjdump
+    -sass`): {mangled kernel name: {"HMMA": n, "HGMMA": n}} for every
+    kernel whose name holds one of `names`."""
+    import os
+    import re
+    import shutil
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(cuda, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        return {}
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1) if any(n in m.group(1) for n in names) else None
+            if cur:
+                counts[cur] = {"HMMA": 0, "HGMMA": 0}
+        elif cur and "HGMMA" in ln:
+            counts[cur]["HGMMA"] += 1
+        elif cur and "HMMA" in ln:
+            counts[cur]["HMMA"] += 1
+    return counts
+
+
+def tc_sass_ok(counts):
+    """Every tensor-core kernel is in the SASS, each with HMMA or HGMMA."""
+    return all(any(n in k for k in counts) for n in TC_KERNELS) and all(
+        c["HMMA"] + c["HGMMA"] > 0 for c in counts.values())
 
 
 def max_err(a, b):
@@ -389,24 +444,32 @@ def ragged_inputs(torch, dev, b, tq, h, h_kv, d, p, max_pages, dtype, seed):
 
 def check_ragged(torch, dev):
     from paddle_tpu_torch.ops.pallas.paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_reference)
+        ragged_paged_attention, ragged_paged_attention_reference, ragged_route)
     bf16, f32 = torch.bfloat16, torch.float32
     rows = []
     # main path shape (8 slots, 128-token chunks at ragged offsets; slot 3
-    # ends mid-chunk, slot 7 inactive), then a GQA group, then the tiny
-    # model's d = 16 in f32
+    # ends mid-chunk, slot 7 inactive), then a GQA group, then the tensor-core
+    # build's other page sizes and d 64 (page 16 with a GQA group, a chunk
+    # ending mid-page and an inactive slot; page 128), then the tiny model's
+    # d = 16 in f32 (the per-page build)
     main_starts = [0, 128, 384, 640, 0, 256, 512, 0]
     cases = (("main", 8, 128, 32, 32, 128, 64, 16, main_starts,
               [128, 256, 512, 690, 128, 384, 640, 128], [1, 1, 1, 1, 1, 1, 1, 0], bf16),
              ("gqa rep=4", 4, 128, 32, 8, 128, 64, 16, [0, 200, 64, 700],
               [128, 328, 100, 828], [1, 1, 1, 1], bf16),
+             ("page=16 d=64 rep=4", 4, 64, 8, 2, 64, 16, 40, [0, 100, 37, 500],
+              [64, 164, 60, 530], [1, 1, 1, 0], bf16),
+             ("page=128", 2, 128, 32, 32, 128, 128, 8, [0, 300], [128, 428], [1, 1], bf16),
              ("d=16 f32", 3, 8, 4, 2, 16, 8, 6, [0, 5, 23], [8, 13, 27], [1, 0, 1], f32))
     for name, b, tq, h, h_kv, d, p, mp, starts, ctx, active, dt in cases:
         q, kp, vp, table = ragged_inputs(torch, dev, b, tq, h, h_kv, d, p, mp, dt, seed=4)
         st = torch.tensor(starts, dtype=torch.int32, device=dev)
         cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
         act = torch.tensor(active, dtype=torch.int32, device=dev)
+        route = ragged_route("prefill", dt, d, p, tq)
+        tc0 = ragged_paged_attention.tc_launches
         got = ragged_paged_attention(q, kp, vp, table, cl, st, active=act)
+        tc_ran = ragged_paged_attention.tc_launches - tc0 == (route == "tc")
         ref = ragged_paged_attention_reference(q, kp, vp, table, cl, st, active=act)
         torch.cuda.synchronize()
         # rows past a slot's real chunk end are garbage by contract: compare
@@ -423,9 +486,9 @@ def check_ragged(torch, dev):
         # only in the order of the sums
         tol = 1e-2 if dt == bf16 else 1e-4
         row = dict(case=name, b=b, tq=tq, h=h, h_kv=h_kv, d=d, p=p, max_pages=mp,
-                   q_starts=starts, ctx_lens=ctx, active=active, max_abs_err=err, tol=tol,
-                   inactive_zero=zeros_ok, finite=finite,
-                   ok=err <= tol and zeros_ok and finite)
+                   q_starts=starts, ctx_lens=ctx, active=active, route=route,
+                   max_abs_err=err, tol=tol, inactive_zero=zeros_ok, finite=finite,
+                   route_counted=tc_ran, ok=err <= tol and zeros_ok and finite and tc_ran)
         if name == "main":
             row["ms"] = time_ms(torch, lambda: ragged_paged_attention(q, kp, vp, table, cl, st,
                                                                       active=act))
@@ -524,7 +587,8 @@ def check_rms(torch, dev):
 def check_flash_bwd(torch, dev):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.pallas.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd)
+        BWD_TILE, flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
+        flash_bwd_route)
     bf16 = torch.bfloat16
     rows = []
     for b, s, h, d, dt in FLASH_BWD_CASES:
@@ -534,7 +598,17 @@ def check_flash_bwd(torch, dev):
                        for _ in range(4))
         scale = 1.0 / math.sqrt(d)
         o, lse = flash_attention_fwd(q, k, v, True, scale)
+        route, part_shape = flash_bwd_route(dt, b, s, h, d)
+        # one launch's transient memory (everything it allocates, outputs
+        # included) beside the per-key-tile dQ partials the f32 build
+        # allocates, [ceil(s / 64), b, s, h, d] f32
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         got = flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+        torch.cuda.synchronize()
+        launch_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+        partial_gb = 4 * -(-s // BWD_TILE) * b * s * h * d / 1e9
         ref = flash_attention_bwd_reference(q, k, v, o, lse, do, True, scale)
         torch.cuda.synchronize()
         errs = {n: max_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
@@ -543,9 +617,15 @@ def check_flash_bwd(torch, dev):
         rel = 1e-2 if dt == bf16 else 1e-4
         tols = {n: rel * float(r.float().abs().max()) for n, r in zip(("dq", "dk", "dv"), ref)}
         del got, ref
-        row = dict(b=b, s=s, h=h, d=d, dtype=str(dt), max_abs_err=max(errs.values()),
-                   max_abs_err_by_grad=errs, tol_by_grad=tols,
-                   ok=all(errs[n] <= tols[n] for n in errs))
+        # the bf16 build allocates no partial buffer: its launch's whole
+        # transient stays below the partials' size
+        no_partial = part_shape is None and launch_gb < partial_gb
+        row = dict(b=b, s=s, h=h, d=d, dtype=str(dt), route=route,
+                   max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                   tol_by_grad=tols, launch_peak_gb=launch_gb,
+                   f32_build_partial_gb=partial_gb,
+                   ok=all(errs[n] <= tols[n] for n in errs)
+                   and (no_partial if dt == bf16 else part_shape is not None))
         if dt == bf16:
             row["ms"] = time_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                                                    True, scale), iters=5)
@@ -2003,6 +2083,12 @@ def profile_blocks(torch, eng, vocab, n_steps=3):
                 busy_share=busy_ms / wall_ms if busy_ms else None)
 
 
+def tc_prefill(counts):
+    """Every chunked-prefill launch of a CB stream (bf16, 128-token chunks,
+    d 128, page 64) went through the ragged kernel's tensor-core build."""
+    return counts["ragged_paged_attention_tc"] == counts["ragged_paged_attention"]
+
+
 def serve_cb_7b(torch, dev):
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -2045,7 +2131,8 @@ def serve_cb_7b(torch, dev):
                      and (counts["quantized_matmul"] > 0) == bool(quant)
                      and counts["ragged_paged_attention"] % L == 0
                      and ((counts["ragged_paged_attention"] > 0) if K > 1
-                          else counts["ragged_paged_attention"] == 0))
+                          else counts["ragged_paged_attention"] == 0)
+                     and tc_prefill(counts))
         row = dict(run=name, decode_block=K, weights=quant or "bf16",
                    megakernel=h1["megakernel"], requests=len(prompts),
                    prompt_tokens=prompt_tokens, generated_tokens=gen)
@@ -2106,7 +2193,8 @@ def serve_cb_7b(torch, dev):
     counts = kernel_launches()
     h = eng.health()
     expect = dict.fromkeys(counts, 0)
-    expect.update({"paged_attention": 2 * 8 * L, "ragged_paged_attention": 3 * L})
+    expect.update({"paged_attention": 2 * 8 * L, "ragged_paged_attention": 3 * L,
+                   "ragged_paged_attention_tc": 3 * L})
     single = dict(run="single t0=300 budget=17 K=8", launches=counts,
                   expected_launches=expect, fused_blocks=h["fused_blocks"],
                   chained_blocks=h["chained_blocks"], out_len=int(out.size),
@@ -2194,6 +2282,7 @@ def sampled_cb_runs(torch, model, geom, prompts, budgets, greedy_rows, launches,
             launch_ok = (counts["decode_megakernel"] == 0
                          and counts["decode_megakernel_topk"] == 0
                          and counts["paged_attention"] == L * dec)
+        launch_ok = launch_ok and tc_prefill(counts)
         outs_by[name] = streams[name] = outs
         g = greedy[gname]
         row = dict(run=name, decode_block=8, weights=quant or "bf16",
@@ -2349,6 +2438,7 @@ def spec_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
                          and counts["decode_megakernel"] == 0)
         launch_ok = (launch_ok and n > 0 and counts["paged_attention"] == 0
                      and counts["ragged_paged_attention"] % L == 0
+                     and tc_prefill(counts)
                      and (counts["decode_megakernel_topk"] > 0) == sampled)
         same = sum(int((o[p.size:] == r[p.size:]).sum())
                    for o, r, p in zip(outs, ref, prompts))
@@ -2458,6 +2548,7 @@ def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
         launch_ok = (all(counts[k] == v for k, v in expect.items())
                      and dec > 0 and n_pf > 0
                      and counts["ragged_paged_attention"] == L * TP * n_pf
+                     and tc_prefill(counts)
                      and (steps["sampled"] > 0) == sampled)
         ref = streams[refname]
         same = sum(int((o[p.size:] == r[p.size:]).sum())
@@ -2752,10 +2843,10 @@ TRAIN_RUNS = (
     # their o and lse), 16 backward, norms 2 x 16 + 1 forward and 2 x 16
     # again in the recompute
     ("llama350m", 3, 10, {"flash_attention_fwd": 16, "flash_attention_bwd": 16,
-                          "rms_norm": 65}),
+                          "flash_attention_bwd_tc": 16, "rms_norm": 65}),
     # llama1p3b, full: every layer's forward runs again in backward
     ("llama1p3b", 2, 5, {"flash_attention_fwd": 48, "flash_attention_bwd": 24,
-                         "rms_norm": 97}),
+                         "flash_attention_bwd_tc": 24, "rms_norm": 97}),
 )
 
 
@@ -2763,7 +2854,7 @@ TRAIN_RUNS = (
 # then 24 again in the recompute) and backward (24) has dropout
 GPT_TRAIN_RUNS = (
     ("gpt3_1p3b", 2, 5, {"flash_attention_fwd": 48, "flash_attention_bwd": 24,
-                         "flash_attention_fwd_dropout": 48,
+                         "flash_attention_bwd_tc": 24, "flash_attention_fwd_dropout": 48,
                          "flash_attention_bwd_dropout": 24}),
 )
 
@@ -2900,7 +2991,8 @@ def gpt_train_parity(torch, dev):
 # f32 (the reference's default dtype), then bf16 parameters under
 # AdamW(multi_precision=True); every step launches each flash kernel once
 # per layer (12), every launch with the padding mask, non-causal and with
-# attention dropout
+# attention dropout; the bf16 run's backward launches take the tensor-core
+# build ("flash_attention_bwd_tc")
 BERT_TRAIN_RUNS = (("float32", 2, 5), ("bfloat16", 2, 5))
 BERT_PER_STEP = {f"flash_attention_{kind}{branch}": 12 for kind in ("fwd", "bwd")
                  for branch in ("", "_dropout", "_masked", "_noncausal")}
@@ -2916,7 +3008,8 @@ def bert_train_path(torch, dev):
         r = run_bert("base", dtype, steps, warmup, dev, profile=True)
         counts = kernel_launches()
         n = warmup + steps + (r["profile"] is not None)   # the profiled step
-        expect = {k: BERT_PER_STEP.get(k, 0) * n for k in counts}
+        per_step = dict(BERT_PER_STEP, flash_attention_bwd_tc=12 if dtype == "bfloat16" else 0)
+        expect = {k: per_step.get(k, 0) * n for k in counts}
         losses = r["losses"]
         finite = all(math.isfinite(x) for x in losses)
         ok = finite and losses[-1] < losses[0] and counts == expect
@@ -3012,8 +3105,10 @@ def main():
     _build.library()
     build_s = time.perf_counter() - t
     ptxas = ptxas_summary(_build.build_log() or "")
+    sass = sass_mma_counts(_build.build_info()["path"])
     emit(dict(phase="build", seconds=build_s, path=_build.build_info()["path"],
-              ptxas=ptxas))
+              ptxas=ptxas, tensor_core_sass=sass, ok=tc_sass_ok(sass)))
+    ok &= tc_sass_ok(sass)
 
     # 3. kernels
     main_rows = {}
@@ -3034,8 +3129,9 @@ def main():
               ("flash_attention_bwd_dropout", check_flash_bwd_dropout),
               ("flash_attention_fwd_masked", check_flash_masked),
               ("flash_attention_bwd_masked", check_flash_bwd_masked))
+    all_rows = {}
     for name, check in checks:
-        rows = check(torch, dev)
+        rows = all_rows[name] = check(torch, dev)
         for r in rows:
             emit(dict(phase="kernels", kernel=name, **r))
             ok &= r["ok"]
@@ -3047,6 +3143,10 @@ def main():
             name != "decode_megakernel_topk" or (r["R"] == 8 and r["head_k"] == 8)) and (
             name != "decode_megakernel_tp" or (r["tp"] == 2 and r["R"] == 8
                                                and r["weights"] == "bf16")))
+    main_rows["ragged_paged_attention_tc"] = main_rows["ragged_paged_attention"]
+    main_rows["flash_attention_bwd_tc"] = main_rows["flash_attention_bwd"]
+    main_rows["flash_attention_bwd_f32"] = next(
+        r for r in all_rows["flash_attention_bwd_masked"] if r["case"] == "bert_base_f32")
     for r in flash_mask_gates(torch, dev):
         emit(dict(phase="kernels", kernel="flash_attention_mask_gates", **r))
         ok &= r["ok"]
@@ -3153,6 +3253,9 @@ def main():
         ok &= r["ok"]
     emit(dict(phase="bert_train_parity", launches=launches,
               elapsed_s=time.perf_counter() - t_start))
+    # the f32 backward build's launches: the backward's less the bf16 ones
+    launches["flash_attention_bwd_f32"] = (launches.get("flash_attention_bwd", 0)
+                                           - launches.get("flash_attention_bwd_tc", 0))
     # every kernel was launched on the main paths
     ok &= all(launches.get(k, 0) > 0 for k in SOURCES)
 

@@ -37,7 +37,7 @@ _L = ctypes.c_int64
 SIGNATURES = {
     "ptt_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # (q, k, v, o, lse, mask and its four strides, b, s, h, d, s_true,
     # causal, scale, dtype, dropout, seed, thresh, inv_keep, device, stream)
     "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
@@ -46,11 +46,23 @@ SIGNATURES = {
     "ptt_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                    _I, _P],
+    # (q, k, v, table, ctx, starts, active, out, b, tq, h, h_kv, d, p,
+    # n_pages, max_pages, scale, device, stream): the bf16 tensor-core build
+    "ptt_ragged_paged_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                      _I, _P],
     "ptt_rms_norm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "ptt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _L, _L, _L, _L,
                                 _I, _I, _I, _I, _I, _I, _F, _I, _I, _U, _U,
                                 _F, _I, _P],
+    # (q, k, v, dout, lse, delta, dq, dk, dv, mask and its four strides, b,
+    # s, h, d, s_true, causal, scale, dropout, seed, thresh, inv_keep,
+    # device, stream): the bf16 tensor-core build, no dQ partial buffer
+    "ptt_flash_attention_bwd_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _L, _L, _L, _L,
+                                   _I, _I, _I, _I, _I, _I, _F, _I, _U, _U,
+                                   _F, _I, _P],
     # (args struct, dtype, weight kind, device, stream, grid out)
     "ptt_decode_megakernel": [_P, _I, _I, _I, _P, _P],
     # (args struct, segment, weight kind, device, stream, grid out)
@@ -168,6 +180,12 @@ def check(code, name):
     if code != 0:
         msg = library().ptt_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def aligned16(t):
+    """t, or a copy of it when its data does not start on 16 bytes (the
+    tensor-core builds copy rows in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_ptr(device):

@@ -1,4 +1,5 @@
-// Flash-attention backward on [b, s, h, d]: dQ, dK and dV of
+// Flash-attention backward on [b, s, h, d], the f32 build (bf16 takes the
+// tensor-core build, flash_attention_bwd_tc.cu): dQ, dK and dV of
 // o = softmax(q k^T * scale + mask, masked at keys >= s_true and, when
 // causal, above the diagonal) v, from q, k, v, dO, the forward's lse
 // ([b, h, s] f32) and delta = rowsum(dO * o) ([b, h, s] f32, computed by
@@ -54,7 +55,10 @@
 // dS = P (dP - delta) * scale in the same registers; P and then dS pass
 // through one shared tile for the three products that read them by column.
 // Each thread owns 4 key rows x d/16 features of dK and dV and 4 query rows
-// x d/16 features of the dQ partial. d 64 or 128; bf16 or f32 in and out.
+// x d/16 features of the dQ partial. d 64 or 128; f32 in and out (on the
+// tensor cores f32 would run as TF32, which the f32 training paths'
+// tolerances do not allow; its bf16 instantiations went to the
+// tensor-core build).
 //
 // Dropout (the `kDrop` instantiations): each thread hashes its 16 (query,
 // key) pairs with `ptt::dropout_keep` on their global positions, as the
@@ -327,8 +331,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace
 
-// q, k, v, dout, dk, dv: [b, s, h, d] of one dtype (0 = float32,
-// 1 = bfloat16); lse and delta: [b, h, s] f32; dq_part: [ceil(s / 64), b, s,
+// q, k, v, dout, dk, dv: [b, s, h, d] f32 (dtype 0; bf16 goes to
+// ptt_flash_attention_bwd_tc); lse and delta: [b, h, s] f32; dq_part: [ceil(s / 64), b, s,
 // h, d] f32, every element written. d must be 64 or 128. mask, causal and
 // dropout (seed, thresh, inv_keep) as the forward's.
 extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -348,13 +352,7 @@ extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void*
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* dqp = static_cast<float*>(dq_part);
-  if (dtype == 1 && d == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true,
-                                     causal, scale, drop, m, st);
-  else if (dtype == 1 && d == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true,
-                                    causal, scale, drop, m, st);
-  else if (dtype == 0 && d == 128)
+  if (dtype == 0 && d == 128)
     err = launch<float, 128>(q, k, v, dout, l, dl, dqp, dk, dv, b, s, h, s_true, causal, scale,
                              drop, m, st);
   else if (dtype == 0 && d == 64)

@@ -1203,6 +1203,11 @@ class ContinuousBatchingEngine(LLMEngine):
             return self._tp_topk(locs, topk)
         return self._gather_logits(locs), self._tp_greedy_token(locs)
 
+    def _decode_at_full_width(self):
+        """Whether the op chain decodes at the full slot width (on CUDA;
+        see _decode_math)."""
+        return self.device.type == "cuda"
+
     def _decode_math(self, tok, tables, lens, active, topk=None):
         """One decode step at slot width w = tok.shape[0]: tok [w] is the
         token at position lens [w]; inactive slots write nothing and
@@ -1213,11 +1218,25 @@ class ContinuousBatchingEngine(LLMEngine):
         "multi" mode from the kernel's in-kernel fold (no logits), else
         the top K of the materialized logits (the same bits). Under tp
         every shard runs its share of each layer (`_layer_tail` gathers or
-        reduces between them)."""
+        reduces between them). On CUDA the op chain runs at the full slot
+        width, the extra rows inactive: cuBLAS picks its product kernel by
+        the row count, so a row's bits would otherwise depend on how many
+        slots share its step, and a greedy near-tie would decode
+        differently when the schedule changes (a warm prefix cache). The
+        megakernel sums each row in an order that does not depend on its
+        row count."""
         if self.megakernel:
             return self._decode_math_mk(tok, tables, lens, active, topk)
-        p = self.page_size
         w = tok.shape[0]
+        if self._decode_at_full_width() and w < self.max_batch:
+            n = self.max_batch - w
+            out = self._decode_math(
+                torch.cat([tok, tok.new_zeros(n)]),
+                torch.cat([tables, tables.new_zeros((n, tables.shape[1]))]),
+                torch.cat([lens, lens.new_zeros(n)]),
+                torch.cat([active, active.new_zeros(n)]), topk)
+            return tuple(x[:w] for x in out)
+        p = self.page_size
         hs = self._embed(tok[:, None])
         pos = self._clamp_pos(lens)
         slots = tables[self._ar(w), pos // p] * p + pos % p

@@ -4,7 +4,10 @@ differentiable `FlashAttention` built from them.
 Counterpart of `paddle_tpu/ops/pallas/flash_attention.py`. Its two Pallas
 TPU kernels are replaced by hand-written CUDA: the forward `_fwd_kernel`
 (via `_flash_fwd`) by `csrc/flash_attention.cu`, the fused backward
-`_fused_bwd_kernel` (via `_flash_bwd`) by `csrc/flash_attention_bwd.cu`.
+`_fused_bwd_kernel` (via `_flash_bwd`) by two builds, chosen by
+`flash_bwd_route`: `csrc/flash_attention_bwd_tc.cu` (bf16, tensor cores, a
+dK/dV kernel and a dQ kernel) and `csrc/flash_attention_bwd.cu` (f32, CUDA
+cores, per-key-tile dQ partials).
 The plain PyTorch versions beside them (`flash_attention_reference`, the
 counterpart of `_xla_ref`, and `flash_attention_bwd_reference`) serve CPU
 tensors and are the yardsticks the kernels are held against on the card.
@@ -313,6 +316,19 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
 BWD_TILE = 64   # key tile of csrc/flash_attention_bwd.cu: one dQ partial each
 
 
+def flash_bwd_route(dtype, b, s, h, d):
+    """(build, dQ partial shape) of a CUDA backward launch, by dtype and
+    shape alone. bf16 takes "tc" (`csrc/flash_attention_bwd_tc.cu`: a
+    dK/dV kernel and a dQ kernel on the tensor cores, each gradient
+    written once, no partial buffer: shape None). f32 takes "f32"
+    (`csrc/flash_attention_bwd.cu` on the CUDA cores: the tensor cores
+    would run it as TF32), whose per-key-tile dQ partials, [ceil(s / 64),
+    b, s, h, d] f32, the wrapper sums."""
+    if dtype == torch.bfloat16:
+        return "tc", None
+    return "f32", (-(-s // BWD_TILE), b, s, h, d)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
                         s_true=None, mask=None, dropout_p=0.0, seed=None):
     """Gradients (dq, dk, dv) of the flash attention, from the forward's o
@@ -320,14 +336,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
     [b, h, s] f32. `causal`, `mask`, `dropout_p` and `seed` are the
     forward's; the mask gets no gradient.
 
-    A CPU tensor takes the plain version. A CUDA tensor launches
-    `csrc/flash_attention_bwd.cu` (causal or not, with or without a mask,
-    d 64 or 128, bf16 or f32) or raises; there is no fallback. delta =
-    rowsum(dO * o) and the sum of the kernel's per-key-tile dQ partials
-    are torch ops around the launch, as they are jnp around the
-    `pallas_call` in the reference's `_flash_bwd`. A launch counts in
-    `.dropout_launches`, `.mask_launches` and `.noncausal_launches` as the
-    forward's does."""
+    A CPU tensor takes the plain version. A CUDA tensor launches the
+    build `flash_bwd_route` picks (causal or not, with or without a mask,
+    d 64 or 128) or raises; there is no fallback: bf16 the two
+    tensor-core kernels of `csrc/flash_attention_bwd_tc.cu`, f32
+    `csrc/flash_attention_bwd.cu`, whose per-key-tile dQ partials are
+    summed here. delta = rowsum(dO * o) and that sum are torch ops around
+    the launch, as they are jnp around the `pallas_call` in the
+    reference's `_flash_bwd`. A call counts once in `.launches` (and in
+    `.tc_launches` on the bf16 build), and in `.dropout_launches`,
+    `.mask_launches` and `.noncausal_launches` as the forward's does."""
     _check_qkv("flash_attention_bwd", q, k, v)
     dropout_p = _check_dropout("flash_attention_bwd", dropout_p, seed)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
@@ -352,29 +370,43 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
     dev = q.device
     if any(t.device != dev for t in (k, v, o, lse, do)):
         raise ValueError("flash_attention_bwd: operands on different devices")
+    build, part_shape = flash_bwd_route(q.dtype, b, s, h, d)
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    if build == "tc":
+        q, k, v, do = (_build.aligned16(t) for t in (q, k, v, do))
     lse = lse.float().contiguous()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    nk = -(-s // BWD_TILE)
-    dq_part = torch.empty((nk, b, s, h, d), dtype=torch.float32, device=dev)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if b * h * s == 0:
         return torch.zeros_like(q), dk, dv
     margs, _keep = _mask_args(mask, b, h, s, dev)
-    code = _build.library().ptt_flash_attention_bwd(
-        *(ctypes.c_void_p(t.data_ptr())
-          for t in (q, k, v, do, lse, delta, dq_part, dk, dv)), *margs,
-        b, s, h, d, s_true, int(bool(causal)), float(scale),
-        _DTYPE_CODE[q.dtype], *_dropout_args(dropout_p, seed), dev.index,
-        _build.stream_ptr(dev))
+    lib = _build.library()
+    tail = (b, s, h, d, s_true, int(bool(causal)), float(scale))
+    if build == "tc":
+        dq = torch.empty_like(q)
+        code = lib.ptt_flash_attention_bwd_tc(
+            *(ctypes.c_void_p(t.data_ptr())
+              for t in (q, k, v, do, lse, delta, dq, dk, dv)), *margs, *tail,
+            *_dropout_args(dropout_p, seed), dev.index, _build.stream_ptr(dev))
+    else:
+        dq_part = torch.empty(part_shape, dtype=torch.float32, device=dev)
+        code = lib.ptt_flash_attention_bwd(
+            *(ctypes.c_void_p(t.data_ptr())
+              for t in (q, k, v, do, lse, delta, dq_part, dk, dv)), *margs,
+            *tail, _DTYPE_CODE[q.dtype], *_dropout_args(dropout_p, seed),
+            dev.index, _build.stream_ptr(dev))
     _build.check(code, "flash_attention_bwd")
     _count(flash_attention_bwd, causal, mask, dropout_p)
-    dq = (dq_part[0] if nk == 1 else dq_part.sum(0)).to(q.dtype)
+    flash_attention_bwd.tc_launches += build == "tc"
+    if build == "tc":
+        return dq, dk, dv
+    dq = (dq_part[0] if part_shape[0] == 1 else dq_part.sum(0)).to(q.dtype)
     return dq, dk, dv
 
 
 _reset(flash_attention_bwd)
+flash_attention_bwd.tc_launches = 0
 
 
 class AttnResidualStash:

@@ -4,9 +4,12 @@ chunked prefill; `spec_verify_attention`, its speculative-verify entry).
 
 Counterpart of `paddle_tpu/ops/pallas/paged_attention.py`. The Pallas
 TPU kernels `_decode_kernel` and `_ragged_kernel` are replaced by
-`csrc/paged_attention.cu` and `csrc/ragged_paged_attention.cu`; the plain
-PyTorch versions beside them serve CPU tensors and are the yardsticks the
-kernels are held against on the card.
+`csrc/paged_attention.cu` and two builds of the ragged kernel, chosen by
+`ragged_route`: `csrc/ragged_paged_attention_tc.cu` (tensor cores, the
+bf16 chunked prefill) and `csrc/ragged_paged_attention.cu` (per page, on
+the CUDA cores: tq = 1, the verify entry, f32). The plain PyTorch versions
+beside them serve CPU tensors and are the yardsticks the kernels are held
+against on the card.
 
 Decode layout (as in the reference):
   q          : [b, h, d]
@@ -174,11 +177,34 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     return torch.einsum("bhqk,bkhd->bqhd", w, vs.float()).to(q.dtype)
 
 
-def _ragged(q, k_pages, v_pages, page_table, ctx_lens, q_starts, active,
-            scale):
+TC_DIMS = (64, 128)      # head dims of the tensor-core build
+TC_MAX_PAGE = 128        # its largest page (a multiple of 16)
+
+
+def ragged_route(entry, dtype, d, p, tq):
+    """The build a CUDA launch of the ragged kernel takes, by entry, dtype
+    and shape alone: "tc" (`csrc/ragged_paged_attention_tc.cu`, tensor
+    cores) for the chunked-prefill entry ("prefill") in bf16 at tq > 1, d
+    64 or 128 and a page size a multiple of 16 up to 128; "page"
+    (`csrc/ragged_paged_attention.cu`, per page on the CUDA cores)
+    otherwise. The verify entry ("verify") and tq = 1 stay per page: their
+    rows equal sequential decode steps (`paged_attention`) bit for bit,
+    which an mma's sum order cannot give; f32 on the tensor cores would be
+    TF32."""
+    if entry not in ("prefill", "verify"):
+        raise ValueError(f"ragged_route: unknown entry {entry!r}")
+    if entry == "prefill" and dtype == torch.bfloat16 and tq > 1 \
+            and d in TC_DIMS and p % 16 == 0 and 0 < p <= TC_MAX_PAGE:
+        return "tc"
+    return "page"
+
+
+def _ragged(entry, q, k_pages, v_pages, page_table, ctx_lens, q_starts,
+            active, scale):
     """The ragged kernel's dispatch, shared by its two entries (each counts
-    its own launches): the plain version for a CPU tensor, the kernel or a
-    raise for a CUDA one."""
+    its own launches): the plain version for a CPU tensor, the build
+    `ragged_route` picks or a raise for a CUDA one. Returns (out, build),
+    build None for the plain version."""
     b, tq, h, d = q.shape
     n_pages, p, h_kv, dd = k_pages.shape
     if dd != d or h % h_kv or tuple(v_pages.shape) != tuple(k_pages.shape) \
@@ -194,7 +220,7 @@ def _ragged(q, k_pages, v_pages, page_table, ctx_lens, q_starts, active,
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
             q, k_pages, v_pages, page_table, ctx_lens, q_starts,
-            active=active, scale=s)
+            active=active, scale=s), None
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_paged_attention: unsupported device {q.device}")
@@ -213,9 +239,15 @@ def _ragged(q, k_pages, v_pages, page_table, ctx_lens, q_starts, active,
         if t.device != dev:
             raise ValueError(
                 "ragged_paged_attention: operands on different devices")
+    build = ragged_route(entry, q.dtype, d, p, tq)
     q = q.contiguous()
     k_pages = k_pages.contiguous()
     v_pages = v_pages.contiguous()
+    if build == "tc":
+        q = _build.aligned16(q)
+        if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+            raise ValueError("ragged_paged_attention: the KV pools must "
+                             "start on 16 bytes")
     table = page_table.to(device=dev, dtype=torch.int32).contiguous()
     ctx = ctx_lens.to(device=dev, dtype=torch.int32).contiguous()
     starts = q_starts.to(device=dev, dtype=torch.int32).contiguous()
@@ -223,18 +255,22 @@ def _ragged(q, k_pages, v_pages, page_table, ctx_lens, q_starts, active,
         active.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     if b == 0:
-        return out
+        return out, build
     lib = _build.library()
-    code = lib.ptt_ragged_paged_attention(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_pages.data_ptr()),
-        ctypes.c_void_p(v_pages.data_ptr()), ctypes.c_void_p(table.data_ptr()),
-        ctypes.c_void_p(ctx.data_ptr()), ctypes.c_void_p(starts.data_ptr()),
-        ctypes.c_void_p(0 if act is None else act.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
-        b, tq, h, h_kv, d, p, n_pages, table.shape[1], float(s),
-        _DTYPE_CODE[q.dtype], dev.index, _build.stream_ptr(dev))
+    ptrs = [ctypes.c_void_p(t.data_ptr())
+            for t in (q, k_pages, v_pages, table, ctx, starts)]
+    ptrs += [ctypes.c_void_p(0 if act is None else act.data_ptr()),
+             ctypes.c_void_p(out.data_ptr())]
+    dims = (b, tq, h, h_kv, d, p, n_pages, table.shape[1], float(s))
+    if build == "tc":
+        code = lib.ptt_ragged_paged_attention_tc(
+            *ptrs, *dims, dev.index, _build.stream_ptr(dev))
+    else:
+        code = lib.ptt_ragged_paged_attention(
+            *ptrs, *dims, _DTYPE_CODE[q.dtype], dev.index,
+            _build.stream_ptr(dev))
     _build.check(code, "ragged_paged_attention")
-    return out
+    return out, build
 
 
 def ragged_paged_attention(q, k_pages, v_pages, page_table, ctx_lens,
@@ -251,17 +287,22 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, ctx_lens,
       ctx_lens, q_starts : [b] int32
       active     : optional [b] mask; inactive slots emit zeros
 
-    A CPU tensor takes the plain version. A CUDA tensor launches
+    A CPU tensor takes the plain version. A CUDA tensor launches the build
+    `ragged_route("prefill", ...)` picks, or raises; there is no fallback:
+    `csrc/ragged_paged_attention_tc.cu` (bf16, tq > 1, d 64 or 128, page a
+    multiple of 16 up to 128; counted in `.tc_launches` too) or
     `csrc/ragged_paged_attention.cu` (bf16 or f32, d a multiple of 16 up
-    to 256) or raises; there is no fallback."""
-    out = _ragged(q, k_pages, v_pages, page_table, ctx_lens, q_starts,
-                  active, scale)
-    if q.device.type == "cuda" and q.shape[0]:
+    to 256)."""
+    out, build = _ragged("prefill", q, k_pages, v_pages, page_table,
+                         ctx_lens, q_starts, active, scale)
+    if build is not None and q.shape[0]:
         ragged_paged_attention.launches += 1
+        ragged_paged_attention.tc_launches += build == "tc"
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.tc_launches = 0
 
 
 def spec_verify_attention(q, k_pages, v_pages, page_table, lens,
@@ -280,13 +321,14 @@ def spec_verify_attention(q, k_pages, v_pages, page_table, lens,
     Returns [b, T, h, d].
 
     A CPU tensor takes the ragged kernel's plain version. A CUDA tensor
-    launches `csrc/ragged_paged_attention.cu` or raises; launches count as
+    launches `csrc/ragged_paged_attention.cu` (the per-page build, always:
+    `ragged_route("verify", ...)`) or raises; launches count as
     `spec_verify_attention.launches` (not the ragged wrapper's)."""
     T = q.shape[1]
     lens = lens.to(torch.int32)
-    out = _ragged(q, k_pages, v_pages, page_table, lens + T, lens, active,
-                  scale)
-    if q.device.type == "cuda" and q.shape[0]:
+    out, build = _ragged("verify", q, k_pages, v_pages, page_table, lens + T,
+                         lens, active, scale)
+    if build is not None and q.shape[0]:
         spec_verify_attention.launches += 1
     return out
 

@@ -190,6 +190,39 @@ def test_chained_blocks_same_ids():
     _assert_no_leak(eng)
 
 
+@pytest.mark.parametrize("K", [1, 4])
+def test_full_width_decode_same_ids(K, monkeypatch):
+    """On CUDA the op chain decodes at the full slot width, the extra rows
+    inactive (cuBLAS picks its product kernel by the row count, so a row's
+    bits must not depend on how many slots share its step). Forced on the
+    CPU with max_batch 4 and two requests, so that every step is narrower
+    than the slots: the padded steps give the bucketed engine's ids and
+    leak no page."""
+    _, tm = _pair()
+    prompts, budgets = _stream(2, seed=6, max_budget=14)
+    geom = dict(GEOM, max_batch=4)
+    ref = tsched.ContinuousBatchingEngine(
+        tm, decode_block=K, device="cpu", **geom).generate_many(
+            prompts, max_new_tokens=budgets)
+    widths = []
+    math = tsched.ContinuousBatchingEngine._decode_math
+
+    def spy(self, tok, *a, **k):
+        widths.append(tok.shape[0])
+        return math(self, tok, *a, **k)
+
+    monkeypatch.setattr(tsched.ContinuousBatchingEngine,
+                        "_decode_at_full_width", lambda self: True)
+    monkeypatch.setattr(tsched.ContinuousBatchingEngine, "_decode_math", spy)
+    eng = tsched.ContinuousBatchingEngine(tm, decode_block=K, device="cpu",
+                                          **geom)
+    got = eng.generate_many(prompts, max_new_tokens=budgets)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(b, a)
+    assert min(widths) < 4 and 4 in widths
+    _assert_no_leak(eng)
+
+
 # -------------------------------------------------------- engine behaviour
 def _tiny_engine(**kw):
     _, tm = _pair()

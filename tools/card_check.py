@@ -7,9 +7,12 @@ the order given. One JSON line per row; the last line says whether every
 gate held. It is the quick first call after a change to a flash kernel or
 to a training path; `chip_smoke.py` is the whole check. Phases:
 
+- `ragged`: the ragged kernel's rows (the chunked-prefill entry on its
+  tensor-core build, the per-page build's f32 row), the tq = 1 identity
+  with the decode kernel and the verify entry's rows;
 - `flash`: the flash rows without a mask (the causal forward, the backward
-  at the llama1p3b / gpt3_1p3b shape and the small f32 rows, both dropout
-  branches);
+  at the llama350m, llama1p3b / gpt3_1p3b shapes and the small f32 rows,
+  both dropout branches);
 - `mask`: the mask and non-causal rows and the mask bit gates;
 - `gpt`: `train_llama.run_config("gpt3_1p3b")` for 1 warmup + 3 timed
   steps plus one profiled step with exact launch counts, then the GPT
@@ -23,7 +26,7 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   `tp_cb_runs` (tp = 2, both shards on the card), after the tp = 1 runs
   it is held against; then the tp = 2 card-against-CPU parity row.
 
-    python3 tools/card_check.py flash mask bert   # from the repository root; needs one CUDA card
+    python3 tools/card_check.py ragged flash mask bert   # from the repository root; needs one CUDA card
 """
 import json
 import subprocess
@@ -38,8 +41,15 @@ import chip_smoke as C  # noqa: E402
 from paddle_tpu_torch import _build  # noqa: E402
 
 
+def ragged(dev):
+    for name, fn in (("paged_attention", C.check_paged_attention),
+                     ("ragged_paged_attention", C.check_ragged),
+                     ("spec_verify_attention", C.check_spec_verify)):
+        for r in fn(torch, dev):
+            yield dict(kernel=name, **r)
+
+
 def flash(dev):
-    C.FLASH_BWD_CASES = C.FLASH_BWD_CASES[1:]
     for name, fn in (("flash_attention_fwd", C.check_flash),
                      ("flash_attention_bwd", C.check_flash_bwd),
                      ("fwd_dropout", C.check_flash_dropout),
@@ -100,7 +110,7 @@ def tp_path(dev):
     yield from (r for r in C.parity_cb_2layer(torch, dev) if r["tp"] == 2)
 
 
-PHASES = dict(flash=flash, mask=mask, gpt=gpt, bert=bert, tp=tp, tp_path=tp_path)
+PHASES = dict(ragged=ragged, flash=flash, mask=mask, gpt=gpt, bert=bert, tp=tp, tp_path=tp_path)
 
 
 def main(names):
@@ -117,8 +127,10 @@ def main(names):
     _build.library()
     print(json.dumps(dict(build_s=time.perf_counter() - t0)))
     print("\n".join(l for l in C.ptxas_summary(_build.build_log() or "")
-                    if "flash" in l or "megakernel" in l))
-    ok = True
+                    if "flash" in l or "megakernel" in l or "bwd" in l or "ragged" in l))
+    sass = C.sass_mma_counts(_build.build_info()["path"])
+    print(json.dumps(dict(tensor_core_sass=sass, ok=C.tc_sass_ok(sass))))
+    ok = C.tc_sass_ok(sass)
     for n in names:
         for r in PHASES[n](dev):
             print(json.dumps(r), flush=True)

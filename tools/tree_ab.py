@@ -16,13 +16,18 @@ difference between a tree's two rows. Probes:
   seg "full" launches on seeded inputs (bf16 and int8 weights, 8 slots:
   the greedy whole step, the top-8 fold, one layer), so equal digests
   across trees mean bit-equal outputs.
-- `flash`: the flash kernels' launches without a mask: the causal forward
-  and backward, with and without dropout, on seeded inputs at the training
-  and serving shapes of `chip_smoke.py`'s rows; each row's ms (CUDA
-  events) and a digest of its outputs' bytes, so equal digests across
-  trees mean bit-equal outputs.
+- `flash`: the flash kernels' launches: the causal forward and backward,
+  with and without dropout, on seeded inputs at the training and serving
+  shapes of `chip_smoke.py`'s rows, and the backward of BERT-base's masked
+  non-causal row; each row's ms (CUDA events) and a digest of its outputs'
+  bytes, so equal digests across trees mean bit-equal outputs.
+- `ragged`: the ragged kernel's chunked-prefill entry at `chip_smoke.py`'s
+  main and GQA rows (bf16, 8 and 4 slots of 128-token chunks, d 128, page
+  64), with the build's ragged ptxas lines; each row's ms and a digest of
+  its output.
 
     python3 tools/tree_ab.py flash chipwork/parent .     # needs one CUDA card
+    python3 tools/tree_ab.py ragged chipwork/parent .
 """
 import json
 import subprocess
@@ -83,19 +88,17 @@ for quant in (None, "int8"):
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
-FLASH = r'''
+# the timing and digest helpers of the `flash` and `ragged` probes
+TIMED = r'''
 import hashlib, json, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 from paddle_tpu_torch import _build
-from paddle_tpu_torch.ops.pallas.flash_attention import (flash_attention_bwd,
-                                                         flash_attention_fwd)
 t = time.perf_counter()
 _build.library()
-ptx = [l for l in cs.ptxas_summary(_build.build_log() or "") if "flash" in l]
 dev = torch.device("cuda", 0)
-out = dict(build_s=time.perf_counter() - t, ptxas=ptx, rows=[])
+out = dict(build_s=time.perf_counter() - t, rows=[])
 
 
 def ms(fn, iters):
@@ -116,6 +119,13 @@ def digest(ts):
     for x in ts:
         h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+'''
+
+FLASH = TIMED + r'''
+from paddle_tpu_torch.ops.pallas.flash_attention import (flash_attention_bwd,
+                                                         flash_attention_fwd)
+out["ptxas"] = [l for l in cs.ptxas_summary(_build.build_log() or "") if "flash" in l
+                or "bwd" in l]
 
 
 # (kind, b, s, h, d, s_true, dropout_p): chip_smoke's causal forward row
@@ -143,9 +153,41 @@ for kind, b, s, h, d, s_true, p in (("fwd", 4, 320, 32, 128, 300, 0.0),
                             digest=digest(res)))
     del q, k, v, do, o, lse, res
     torch.cuda.empty_cache()
+# BERT-base's masked, non-causal backward (chip_smoke's bert_base mask row)
+g = torch.Generator(device=dev).manual_seed(12)
+b, s, h, d = 32, 512, 12, 64
+q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(4))
+mask = cs.make_mask(torch, dev, "key_padding", b, s, h, torch.bfloat16, g)
+o, lse = flash_attention_fwd(q, k, v, False, d ** -0.5, None, 0.0, None, mask)
+fn = lambda: flash_attention_bwd(q, k, v, o, lse, do, False, d ** -0.5, None, mask)
+res = fn()
+torch.cuda.synchronize()
+out["rows"].append(dict(kind="bwd_masked", b=b, s=s, h=h, d=d, dropout_p=0.0,
+                        ms=ms(fn, 5), digest=digest(res)))
 print("RESULT " + json.dumps(out), flush=True)
 '''
-PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH)
+
+RAGGED = TIMED + r'''
+from paddle_tpu_torch.ops.pallas.paged_attention import ragged_paged_attention
+out["ptxas"] = [l for l in cs.ptxas_summary(_build.build_log() or "") if "ragged" in l]
+# chip_smoke.check_ragged's main and GQA rows
+for name, b, tq, h, h_kv, d, p, mp, starts, ctx, active in (
+        ("main", 8, 128, 32, 32, 128, 64, 16, [0, 128, 384, 640, 0, 256, 512, 0],
+         [128, 256, 512, 690, 128, 384, 640, 128], [1, 1, 1, 1, 1, 1, 1, 0]),
+        ("gqa rep=4", 4, 128, 32, 8, 128, 64, 16, [0, 200, 64, 700],
+         [128, 328, 100, 828], [1, 1, 1, 1])):
+    q, kp, vp, table = cs.ragged_inputs(torch, dev, b, tq, h, h_kv, d, p, mp,
+                                        torch.bfloat16, seed=4)
+    st, cl, act = (torch.tensor(x, dtype=torch.int32, device=dev)
+                   for x in (starts, ctx, active))
+    fn = lambda: ragged_paged_attention(q, kp, vp, table, cl, st, active=act)
+    res = fn()
+    torch.cuda.synchronize()
+    out["rows"].append(dict(case=name, ms=ms(fn, 50), digest=digest([res])))
+print("RESULT " + json.dumps(out), flush=True)
+'''
+PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH, ragged=RAGGED)
 
 
 def main(argv):
