@@ -5,8 +5,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device   the card's name and power limit; TF32 off
   2. build    nvcc builds every kernel under paddle_tpu_torch/csrc; the
               tensor-core builds' HMMA / HGMMA counts in cuobjdump's SASS
+              (HGMMA in every instantiation of the wgmma flash forward)
   3. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes (bf16), with times, bounds and library times;
+              the causal flash forward on its wgmma build at the serving
+              prefill's shape and at llama350m's and llama1p3b's training
+              shapes, beside its f32 CUDA-core build;
               the ragged kernel's chunked prefill on its tensor-core build
               (the main row, a GQA group, page 16 at d 64 with an inactive
               slot, page 128) beside its per-page build's f32 row; the
@@ -50,7 +54,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               op chain (megakernel=False), then through the megakernel
               ("multi" bf16 and int8, "layer" bf16, K=8), each stream
               twice, every prefill launch on the ragged kernel's
-              tensor-core build; a single request with exact launch counts; one
+              tensor-core build; a single request with exact launch counts;
+              a staggered stream (5 requests one step apart, prefills at
+              slot widths 1-8, a shared prefix) at decode_block 8 and 4,
+              cold and warm, unspeculated and at speculate=4, ids equal in
+              each four (the op chain's rows do not depend on the block
+              width); one
               steady-state stretch of fused blocks under torch.profiler
               (op chain and "multi") for the device's busy share;
               cb_sampled: the stream with greedy and sampled requests
@@ -137,11 +146,13 @@ REPLACES = {
     "ragged_paged_attention_tc": "paddle_tpu/ops/pallas/paged_attention.py:211",
     "flash_attention_bwd_tc": "paddle_tpu/ops/pallas/flash_attention.py:430",
     "flash_attention_bwd_f32": "paddle_tpu/ops/pallas/flash_attention.py:430",
+    "flash_attention_fwd_tc": "paddle_tpu/ops/pallas/flash_attention.py:109",
+    "flash_attention_fwd_f32": "paddle_tpu/ops/pallas/flash_attention.py:109",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
-    "flash_attention_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_fwd": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
     "ragged_paged_attention": "paddle_tpu_torch/csrc/ragged_paged_attention_tc.cu",
     "rms_norm": "paddle_tpu_torch/csrc/rms_norm.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
@@ -149,17 +160,19 @@ SOURCES = {
     "decode_megakernel_topk": "paddle_tpu_torch/csrc/decode_megakernel.cu",
     "spec_verify_attention": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
     "decode_megakernel_verify": "paddle_tpu_torch/csrc/decode_megakernel.cu",
-    "flash_attention_fwd_dropout": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_fwd_dropout": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
     "flash_attention_bwd_dropout": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
-    "flash_attention_fwd_masked": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_fwd_masked": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
     "flash_attention_bwd_masked": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
     "decode_megakernel_tp": "paddle_tpu_torch/csrc/decode_megakernel_tp.cu",
     # the builds behind the entries: the chunked prefill's and the bf16
-    # backward's tensor-core builds (their main rows are the entries'), and
-    # the f32 backward (its row: BERT-base's f32 mask row)
+    # flash kernels' tensor-core builds (their main rows are the entries'),
+    # and the f32 flash builds (their rows: BERT-base's f32 mask rows)
     "ragged_paged_attention_tc": "paddle_tpu_torch/csrc/ragged_paged_attention_tc.cu",
     "flash_attention_bwd_tc": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
     "flash_attention_bwd_f32": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_fwd_tc": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
+    "flash_attention_fwd_f32": "paddle_tpu_torch/csrc/flash_attention.cu",
 }
 
 
@@ -223,7 +236,9 @@ def ptxas_summary(log):
     return out
 
 
-TC_KERNELS = ("ragged_tc_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+TC_KERNELS = ("ragged_tc_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "flash_fwd_tc_kernel")
+# the kernels built on wgmma: HMMA alone (mma.sync) is not their design
+WGMMA_KERNELS = ("flash_fwd_tc_kernel",)
 
 
 def sass_mma_counts(lib_path, names=TC_KERNELS):
@@ -255,9 +270,12 @@ def sass_mma_counts(lib_path, names=TC_KERNELS):
 
 
 def tc_sass_ok(counts):
-    """Every tensor-core kernel is in the SASS, each with HMMA or HGMMA."""
-    return all(any(n in k for k in counts) for n in TC_KERNELS) and all(
-        c["HMMA"] + c["HGMMA"] > 0 for c in counts.values())
+    """Every tensor-core kernel is in the SASS, each with HMMA or HGMMA,
+    and every instantiation of a wgmma kernel with HGMMA."""
+    return (all(any(n in k for k in counts) for n in TC_KERNELS)
+            and all(c["HMMA"] + c["HGMMA"] > 0 for c in counts.values())
+            and all(c["HGMMA"] > 0 for k, c in counts.items()
+                    if any(n in k for n in WGMMA_KERNELS)))
 
 
 def max_err(a, b):
@@ -509,28 +527,40 @@ def check_ragged(torch, dev):
     return rows
 
 
+# the causal forward's rows: the static engine's long-prompt prefill (the
+# main row), the training shapes of llama350m (b32 s1024 h16 d64) and
+# llama1p3b (b8 s1024 h16 d128), then a small f32 row
+FLASH_CASES = ((4, 320, 300, 32, 128, "bfloat16"), (32, 1024, 1024, 16, 64, "bfloat16"),
+               (8, 1024, 1024, 16, 128, "bfloat16"), (2, 130, 100, 2, 64, "float32"))
+
+
 def check_flash(torch, dev):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.pallas.flash_attention import (
-        flash_attention_fwd, flash_attention_reference)
+        flash_attention_fwd, flash_attention_reference, flash_fwd_route)
     rows = []
-    for b, s, s_true, h, d, dt in ((4, 320, 300, 32, 128, torch.bfloat16),
-                                   (2, 130, 100, 2, 64, torch.float32)):
+    for b, s, s_true, h, d, dt in FLASH_CASES:
+        dt = getattr(torch, dt)
         g = torch.Generator(device=dev).manual_seed(3)
         q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
                    for _ in range(3))
         scale = 1.0 / math.sqrt(d)
+        route = flash_fwd_route(dt, b, s, h, d)
+        tc0 = flash_attention_fwd.tc_launches
         o, lse = flash_attention_fwd(q, k, v, True, scale, s_true=s_true)
+        tc_ran = (flash_attention_fwd.tc_launches - tc0 == 1) == (route == "tc")
         o_ref, lse_ref = flash_attention_reference(q, k, v, True, scale, s_true=s_true)
         torch.cuda.synchronize()
         err = max_err(o, o_ref)
         lse_err = max_err(lse, lse_ref)
         # o: bf16 rounding (or, in f32, the order of the sums); lse is f32
         tol, lse_tol = (1e-2 if dt == torch.bfloat16 else 1e-4), 1e-3
-        row = dict(b=b, s=s, s_true=s_true, h=h, d=d, dtype=str(dt), max_abs_err=err, tol=tol,
+        row = dict(b=b, s=s, s_true=s_true, h=h, d=d, dtype=str(dt), route=route,
+                   route_launched=tc_ran, max_abs_err=err, tol=tol,
                    lse_max_abs_err=lse_err, lse_tol=lse_tol,
-                   ok=err <= tol and lse_err <= lse_tol)
-        if d == 128:
+                   ok=err <= tol and lse_err <= lse_tol and tc_ran)
+        del o, lse, o_ref, lse_ref
+        if dt == torch.bfloat16:
             row["ms"] = time_ms(torch, lambda: flash_attention_fwd(q, k, v, True, scale,
                                                                    s_true=s_true))
             row["plain_ms"] = time_ms(torch, lambda: flash_attention_reference(
@@ -538,10 +568,16 @@ def check_flash(torch, dev):
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, scale=scale))
+            row["library_call"] = ("torch.nn.functional.scaled_dot_product_attention("
+                                   "is_causal=True)" + ("" if s_true == s else
+                                                        "; it attends to the padding keys too"))
+            del qt, kt, vt
             pairs = sum(min(r + 1, s_true) for r in range(s))
             n_bytes = 4 * b * s * h * d * 2 + b * h * s * 4
             row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 4 * b * h * d * pairs)
         rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1908,6 +1944,7 @@ def serve_7b(torch, dev):
                 "paged_attention": L * n_loop,
                 "quantized_matmul": (7 * L + 1) * (1 + n_loop) if wname == "int8" else 0,
                 "flash_attention_fwd": L if t_pad >= eng.flash_prefill_min else 0,
+                "flash_attention_fwd_tc": L if t_pad >= eng.flash_prefill_min else 0,
             })
             decode_ms = 1e3 * (total_s - prefill_s) / n_loop
             # prefill reads every weight once; each layer weight meets every
@@ -2205,11 +2242,93 @@ def serve_cb_7b(torch, dev):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del eng
     torch.cuda.empty_cache()
+    width = width_runs(torch, model, geom)
     tp = tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches)
     del model
     torch.cuda.empty_cache()
     return dict(runs=results, single=single, sampled=sampled, proc=proc, spec=spec,
-                tp=tp, peak_gb=peak_gb, busy=busy), launches
+                width=width, tp=tp, peak_gb=peak_gb, busy=busy), launches
+
+
+# The block-width gate: 5 requests submitted one engine step apart, so that
+# their prefills run at slot widths 1, 2, 4 and 8; prompts of 200-520 tokens
+# (several 128-token chunks), four of them extending one WIDTH_PREFIX-token
+# prefix (prefix hits: the warm run skips those pages and prefills at other
+# offsets, widths and company)
+WIDTH_PREFIX = 192
+WIDTH_LENS, WIDTH_BUDGETS = (300, 450, 200, 520, 380), (24, 16, 20, 16, 24)
+
+
+def width_stream(cfg):
+    import numpy as np
+    rng = np.random.RandomState(7)
+    prefix = rng.randint(0, cfg.vocab_size, WIDTH_PREFIX).astype(np.int64)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int64) for n in WIDTH_LENS]
+    for i in (0, 1, 3, 4):
+        prompts[i][:WIDTH_PREFIX] = prefix
+    return prompts, list(WIDTH_BUDGETS)
+
+
+def drive_staggered(torch, eng, prompts, budgets):
+    """Submit one request per engine step, then step to idle; returns the
+    outputs and the slot widths the prefill phase was called at (before
+    its padding to max_batch)."""
+    widths, phase = [], eng._prefill_phase
+
+    def spy(ids, *a, **k):
+        widths.append(int(ids.shape[0]))
+        return phase(ids, *a, **k)
+
+    eng._prefill_phase = spy
+    uids = []
+    for p, n in zip(prompts, budgets):
+        uids.append(eng.add_request(p, n))
+        eng.step()
+    while eng.step():
+        pass
+    torch.cuda.synchronize()
+    del eng._prefill_phase
+    return [eng.result(u) for u in uids], widths
+
+
+def width_runs(torch, model, geom):
+    """The staggered stream on the op chain (bf16) at decode_block 8 and 4,
+    each cold and then warm (prefix hits), unspeculated and at speculate=4
+    (n-gram drafts): within each, the four id streams equal bit for bit,
+    and the cold runs prefilled at several widths below max_batch (the op
+    chain runs a fused block's prefill, its decode steps and its verify
+    passes at max_batch slots, so a row's bits do not depend on the
+    schedule)."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    import numpy as np
+    prompts, budgets = width_stream(model.config)
+    runs, refs = [], {}
+    for spec in (None, 4):
+        for K in (8, 4):
+            eng = ContinuousBatchingEngine(model, decode_block=K, megakernel=False,
+                                           speculate=spec, **geom)
+            for cache in ("cold", "warm"):
+                hits0 = eng.health()["prefix_hits"]
+                outs, widths = drive_staggered(torch, eng, prompts, budgets)
+                ref = refs.setdefault(spec, outs)
+                narrow = sorted({w for w in widths if w < eng.max_batch})
+                runs.append(dict(
+                    speculate=spec, decode_block=K, cache=cache, prefill_widths=narrow,
+                    prefix_hits=eng.health()["prefix_hits"] - hits0,
+                    ids_equal=all(np.array_equal(a, b) for a, b in zip(outs, ref)),
+                    budgets_met=all(o.size == p.size + n
+                                    for o, p, n in zip(outs, prompts, budgets))))
+            del eng
+            torch.cuda.empty_cache()
+    ok = (all(r["ids_equal"] and r["budgets_met"] for r in runs)
+          and all(len(r["prefill_widths"]) >= 2 for r in runs if r["cache"] == "cold")
+          and all(r["prefix_hits"] > 0 for r in runs if r["cache"] == "warm"))
+    return dict(run="staggered stream, op chain bf16, K 8 and 4, cold and warm, speculate "
+                "off and 4", requests=len(prompts), prompt_lens=list(WIDTH_LENS),
+                prefix=WIDTH_PREFIX, runs=runs,
+                spec_equals_unspeculated=all(np.array_equal(a, b) for a, b
+                                             in zip(refs[None], refs[4])),
+                ok=ok)
 
 
 # the sampled stream: the cb_stream prompts and budgets; every third request
@@ -2841,20 +2960,24 @@ TRAIN_RUNS = (
     # config, warmup, timed steps, exact kernel launches per step
     # llama350m, save_attn: 16 forward attentions (the recompute replays
     # their o and lse), 16 backward, norms 2 x 16 + 1 forward and 2 x 16
-    # again in the recompute
-    ("llama350m", 3, 10, {"flash_attention_fwd": 16, "flash_attention_bwd": 16,
-                          "flash_attention_bwd_tc": 16, "rms_norm": 65}),
+    # again in the recompute; every flash launch on its bf16 tensor-core
+    # build
+    ("llama350m", 3, 10, {"flash_attention_fwd": 16, "flash_attention_fwd_tc": 16,
+                          "flash_attention_bwd": 16, "flash_attention_bwd_tc": 16,
+                          "rms_norm": 65}),
     # llama1p3b, full: every layer's forward runs again in backward
-    ("llama1p3b", 2, 5, {"flash_attention_fwd": 48, "flash_attention_bwd": 24,
-                         "flash_attention_bwd_tc": 24, "rms_norm": 97}),
+    ("llama1p3b", 2, 5, {"flash_attention_fwd": 48, "flash_attention_fwd_tc": 48,
+                         "flash_attention_bwd": 24, "flash_attention_bwd_tc": 24,
+                         "rms_norm": 97}),
 )
 
 
 # gpt3_1p3b, full recompute, dropout 0.1: every attention forward (24,
 # then 24 again in the recompute) and backward (24) has dropout
 GPT_TRAIN_RUNS = (
-    ("gpt3_1p3b", 2, 5, {"flash_attention_fwd": 48, "flash_attention_bwd": 24,
-                         "flash_attention_bwd_tc": 24, "flash_attention_fwd_dropout": 48,
+    ("gpt3_1p3b", 2, 5, {"flash_attention_fwd": 48, "flash_attention_fwd_tc": 48,
+                         "flash_attention_bwd": 24, "flash_attention_bwd_tc": 24,
+                         "flash_attention_fwd_dropout": 48,
                          "flash_attention_bwd_dropout": 24}),
 )
 
@@ -2991,8 +3114,8 @@ def gpt_train_parity(torch, dev):
 # f32 (the reference's default dtype), then bf16 parameters under
 # AdamW(multi_precision=True); every step launches each flash kernel once
 # per layer (12), every launch with the padding mask, non-causal and with
-# attention dropout; the bf16 run's backward launches take the tensor-core
-# build ("flash_attention_bwd_tc")
+# attention dropout; the bf16 run's launches take the tensor-core builds
+# ("flash_attention_fwd_tc", "flash_attention_bwd_tc")
 BERT_TRAIN_RUNS = (("float32", 2, 5), ("bfloat16", 2, 5))
 BERT_PER_STEP = {f"flash_attention_{kind}{branch}": 12 for kind in ("fwd", "bwd")
                  for branch in ("", "_dropout", "_masked", "_noncausal")}
@@ -3008,7 +3131,8 @@ def bert_train_path(torch, dev):
         r = run_bert("base", dtype, steps, warmup, dev, profile=True)
         counts = kernel_launches()
         n = warmup + steps + (r["profile"] is not None)   # the profiled step
-        per_step = dict(BERT_PER_STEP, flash_attention_bwd_tc=12 if dtype == "bfloat16" else 0)
+        tc = 12 if dtype == "bfloat16" else 0
+        per_step = dict(BERT_PER_STEP, flash_attention_fwd_tc=tc, flash_attention_bwd_tc=tc)
         expect = {k: per_step.get(k, 0) * n for k in counts}
         losses = r["losses"]
         finite = all(math.isfinite(x) for x in losses)
@@ -3147,6 +3271,9 @@ def main():
     main_rows["flash_attention_bwd_tc"] = main_rows["flash_attention_bwd"]
     main_rows["flash_attention_bwd_f32"] = next(
         r for r in all_rows["flash_attention_bwd_masked"] if r["case"] == "bert_base_f32")
+    main_rows["flash_attention_fwd_tc"] = main_rows["flash_attention_fwd"]
+    main_rows["flash_attention_fwd_f32"] = next(
+        r for r in all_rows["flash_attention_fwd_masked"] if r["case"] == "bert_base_f32")
     for r in flash_mask_gates(torch, dev):
         emit(dict(phase="kernels", kernel="flash_attention_mask_gates", **r))
         ok &= r["ok"]
@@ -3178,7 +3305,7 @@ def main():
     # run inside serve_cb_7b and read just after it
     cb, counts = serve_cb_7b(torch, dev)
     add(counts)
-    for r in cb["runs"] + [cb["single"]]:
+    for r in cb["runs"] + [cb["single"], cb["width"]]:
         emit(dict(phase="cb_path", **r))
         ok &= r["ok"]
     for r in cb["sampled"]:
@@ -3253,9 +3380,11 @@ def main():
         ok &= r["ok"]
     emit(dict(phase="bert_train_parity", launches=launches,
               elapsed_s=time.perf_counter() - t_start))
-    # the f32 backward build's launches: the backward's less the bf16 ones
-    launches["flash_attention_bwd_f32"] = (launches.get("flash_attention_bwd", 0)
-                                           - launches.get("flash_attention_bwd_tc", 0))
+    # the f32 builds' launches: each kernel's less its bf16 ones
+    for kind in ("fwd", "bwd"):
+        launches[f"flash_attention_{kind}_f32"] = (
+            launches.get(f"flash_attention_{kind}", 0)
+            - launches.get(f"flash_attention_{kind}_tc", 0))
     # every kernel was launched on the main paths
     ok &= all(launches.get(k, 0) > 0 for k in SOURCES)
 

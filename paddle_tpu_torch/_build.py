@@ -43,6 +43,12 @@ SIGNATURES = {
     "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
                                 _I, _I, _I, _I, _I, _I, _F, _I, _I, _U, _U,
                                 _F, _I, _P],
+    # (q, k, v, o, lse, mask and its four strides, b, s, h, d, s_true,
+    # causal, scale, dropout, seed, thresh, inv_keep, device, stream): the
+    # bf16 build on wgmma and TMA
+    "ptt_flash_attention_fwd_tc": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
+                                   _I, _I, _I, _I, _I, _I, _F, _I, _U, _U,
+                                   _F, _I, _P],
     "ptt_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                    _I, _P],

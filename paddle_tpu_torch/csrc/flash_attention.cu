@@ -3,8 +3,10 @@
 // logsumexp of each row.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (called
-// from `_flash_fwd` / `make_flash_attention`), causal or not, with or
-// without an additive mask, with or without attention dropout. On the TPU
+// from `_flash_fwd` / `make_flash_attention`) in f32, causal or not, with or
+// without an additive mask, with or without attention dropout; the bf16
+// builds are flash_attention_tc.cu's (wgmma; TF32 tensor cores would break
+// the f32 parity gates, so f32 stays on the CUDA cores). On the TPU
 // the k-block axis is the innermost, sequential grid dimension and (m, l,
 // acc) persist in VMEM scratch across it; here it is a loop inside one
 // block.
@@ -36,8 +38,7 @@
 // ~80 flops/byte: the function is bound by memory, and becomes bound by the
 // tensor cores only from s of about 1200 up. Dropout adds the hash, ~16
 // integer operations per visible (query, key) pair on the CUDA cores. This
-// first kernel computes on the CUDA cores in f32 and is far from both
-// bounds; wgmma/TMA tiles are later work.
+// kernel computes on the CUDA cores in f32 and is far from both bounds.
 //
 // Design: one block of 128 threads per (batch x head, 64-row query tile).
 // The block stages the query tile (pre-scaled, f32) in shared memory, then
@@ -236,8 +237,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); lse is f32
-// [b, h, s]. d must be 64 or 128. mask: null, or the f32 additive mask
+// dtype: 0 = float32 (q, k, v and o share it; bf16 takes
+// flash_attention_tc.cu); lse is f32 [b, h, s]. d must be 64 or 128. mask: null, or the f32 additive mask
 // read at mask[bi * msb + hh * msh + row * msq + col * msk]. causal != 0
 // masks keys above the diagonal. dropout != 0 drops attention weights
 // with the reference's hash of seed, kept where it is >= thresh, scaled by
@@ -256,11 +257,7 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k, const void*
   float* l = static_cast<float*>(lse);
   const ptt::Dropout drop{dropout, seed, thresh, inv_keep};
   const ptt::AddMask m{static_cast<const float*>(mask), msb, msh, msq, msk};
-  if (dtype == 1 && d == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, o, l, b, s, h, s_true, causal, scale, drop, m, st);
-  else if (dtype == 1 && d == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, o, l, b, s, h, s_true, causal, scale, drop, m, st);
-  else if (dtype == 0 && d == 128)
+  if (dtype == 0 && d == 128)
     err = launch<float, 128>(q, k, v, o, l, b, s, h, s_true, causal, scale, drop, m, st);
   else if (dtype == 0 && d == 64)
     err = launch<float, 64>(q, k, v, o, l, b, s, h, s_true, causal, scale, drop, m, st);

@@ -384,6 +384,13 @@ def _not_ported(name, item):
         f"{name} is not ported to paddle_tpu_torch yet (ROADMAP {item})")
 
 
+def _pad_slots(n, *xs):
+    """Each per-slot tensor with n zero slots appended (inactive slots of
+    the op chain's full-width phases)."""
+    return [torch.cat([x, x.new_zeros((n,) + tuple(x.shape[1:]))])
+            for x in xs]
+
+
 class ContinuousBatchingEngine(LLMEngine):
     """Request-at-a-time serving over the paged-KV engine, greedy or
     sampled per request.
@@ -1203,9 +1210,9 @@ class ContinuousBatchingEngine(LLMEngine):
             return self._tp_topk(locs, topk)
         return self._gather_logits(locs), self._tp_greedy_token(locs)
 
-    def _decode_at_full_width(self):
-        """Whether the op chain decodes at the full slot width (on CUDA;
-        see _decode_math)."""
+    def _at_full_width(self):
+        """Whether the op chain runs its decode, prefill and verify rows at
+        the full slot width (on CUDA; see _decode_math)."""
         return self.device.type == "cuda"
 
     def _decode_math(self, tok, tables, lens, active, topk=None):
@@ -1222,19 +1229,17 @@ class ContinuousBatchingEngine(LLMEngine):
         width, the extra rows inactive: cuBLAS picks its product kernel by
         the row count, so a row's bits would otherwise depend on how many
         slots share its step, and a greedy near-tie would decode
-        differently when the schedule changes (a warm prefix cache). The
-        megakernel sums each row in an order that does not depend on its
-        row count."""
+        differently when the schedule changes (a warm prefix cache). A
+        fused block's prefill and the verify pass pad the same way
+        (max_batch x chunk and max_batch x T rows). The megakernel sums
+        each row in an order that does not depend on its row count."""
         if self.megakernel:
             return self._decode_math_mk(tok, tables, lens, active, topk)
         w = tok.shape[0]
-        if self._decode_at_full_width() and w < self.max_batch:
-            n = self.max_batch - w
+        if self._at_full_width() and w < self.max_batch:
             out = self._decode_math(
-                torch.cat([tok, tok.new_zeros(n)]),
-                torch.cat([tables, tables.new_zeros((n, tables.shape[1]))]),
-                torch.cat([lens, lens.new_zeros(n)]),
-                torch.cat([active, active.new_zeros(n)]), topk)
+                *_pad_slots(self.max_batch - w, tok, tables, lens, active),
+                topk)
             return tuple(x[:w] for x in out)
         p = self.page_size
         hs = self._embed(tok[:, None])
@@ -1443,8 +1448,14 @@ class ContinuousBatchingEngine(LLMEngine):
         if self.megakernel:
             return self._spec_verify_math_mk(feed, tables, lens, active, rem,
                                              dlen, topk)
+        w, T = feed.shape
+        if self._at_full_width() and w < self.max_batch:
+            # max_batch x T rows, the extra slots inactive (_decode_math)
+            out = self._spec_verify_math(
+                *_pad_slots(self.max_batch - w, feed, tables, lens, active,
+                            rem, dlen), topk)
+            return tuple(x[:w] for x in out)
         p = self.page_size
-        T = feed.shape[1]
         hs = self._embed(feed)
         pos = self._clamp_pos(lens[:, None] + self._ar(T)[None, :])
         slots = tables.gather(1, pos // p) * p + pos % p
@@ -1561,9 +1572,15 @@ class ContinuousBatchingEngine(LLMEngine):
         logits of its chunk's last real position, [w, V]. The per-step
         path runs it at width 1 with dense=True (the reference's chunk
         prefill); a fused block attends through the ragged kernel unless
-        ragged_kernel (or the CPU default) picks the dense form."""
-        p = self.page_size
+        ragged_kernel (or the CPU default) picks the dense form. On CUDA a
+        fused block's prefill runs at max_batch x chunk rows, the extra
+        slots inactive (_decode_math): its width w is the schedule's. The
+        per-step path always prefills one request, a fixed width."""
         w, chunk = ids.shape
+        if self._at_full_width() and w < self.max_batch and not dense:
+            return self._prefill_phase(*_pad_slots(
+                self.max_batch - w, ids, tables, starts, ends, pf_act))[:w]
+        p = self.page_size
         hs = self._embed(ids)
         pos = starts[:, None] + self._ar(chunk)[None, :]
         pos_c = self._clamp_pos(pos)

@@ -18,8 +18,9 @@ The ragged kernel has two entries, each counted on its own:
 `ragged_paged_attention` (chunked prefill) and `spec_verify_attention`
 (the speculative verify pass). The launches of the tensor-core builds are
 counted on their own too, as "ragged_paged_attention_tc" (the chunked
-prefill in bf16, also in "ragged_paged_attention") and
-"flash_attention_bwd_tc" (the bf16 backward, also in
+prefill in bf16, also in "ragged_paged_attention"),
+"flash_attention_fwd_tc" (the bf16 forward, also in "flash_attention_fwd")
+and "flash_attention_bwd_tc" (the bf16 backward, also in
 "flash_attention_bwd").
 """
 from .pallas.decode_megakernel import decode_megakernel
@@ -48,6 +49,7 @@ def kernel_launches():
     out["decode_megakernel_verify"] = decode_megakernel.verify_launches
     out["decode_megakernel_tp"] = decode_megakernel.seg_launches
     out["ragged_paged_attention_tc"] = ragged_paged_attention.tc_launches
+    out["flash_attention_fwd_tc"] = flash_attention_fwd.tc_launches
     out["flash_attention_bwd_tc"] = flash_attention_bwd.tc_launches
     for fn in (flash_attention_fwd, flash_attention_bwd):
         out[fn.__name__ + "_dropout"] = fn.dropout_launches
@@ -63,6 +65,7 @@ def reset_kernel_launches():
     decode_megakernel.verify_launches = 0
     decode_megakernel.seg_launches = 0
     ragged_paged_attention.tc_launches = 0
+    flash_attention_fwd.tc_launches = 0
     flash_attention_bwd.tc_launches = 0
     for fn in (flash_attention_fwd, flash_attention_bwd):
         fn.dropout_launches = fn.mask_launches = fn.noncausal_launches = 0

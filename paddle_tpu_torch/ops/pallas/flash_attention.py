@@ -2,12 +2,14 @@
 differentiable `FlashAttention` built from them.
 
 Counterpart of `paddle_tpu/ops/pallas/flash_attention.py`. Its two Pallas
-TPU kernels are replaced by hand-written CUDA: the forward `_fwd_kernel`
-(via `_flash_fwd`) by `csrc/flash_attention.cu`, the fused backward
-`_fused_bwd_kernel` (via `_flash_bwd`) by two builds, chosen by
-`flash_bwd_route`: `csrc/flash_attention_bwd_tc.cu` (bf16, tensor cores, a
-dK/dV kernel and a dQ kernel) and `csrc/flash_attention_bwd.cu` (f32, CUDA
-cores, per-key-tile dQ partials).
+TPU kernels are replaced by hand-written CUDA, each in two builds: the
+forward `_fwd_kernel` (via `_flash_fwd`), chosen by `flash_fwd_route`, by
+`csrc/flash_attention_tc.cu` (bf16, wgmma with TMA-fed K/V tiles) and
+`csrc/flash_attention.cu` (f32, CUDA cores); the fused backward
+`_fused_bwd_kernel` (via `_flash_bwd`), chosen by `flash_bwd_route`, by
+`csrc/flash_attention_bwd_tc.cu` (bf16, tensor cores, a dK/dV kernel and a
+dQ kernel) and `csrc/flash_attention_bwd.cu` (f32, CUDA cores,
+per-key-tile dQ partials).
 The plain PyTorch versions beside them (`flash_attention_reference`, the
 counterpart of `_xla_ref`, and `flash_attention_bwd_reference`) serve CPU
 tensors and are the yardsticks the kernels are held against on the card.
@@ -201,10 +203,12 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None,
     `dropout_p > 0` drops attention weights by the hash of int32 `seed`;
     `mask` is additive (or bool), broadcast to [b, h, s, s].
 
-    A CPU tensor takes the plain version. A CUDA tensor launches
-    `csrc/flash_attention.cu` (causal or not, with or without a mask, d 64
-    or 128, bf16 or f32) or raises; there is no fallback. A launch also
-    counts in `flash_attention_fwd.dropout_launches` with dropout, in
+    A CPU tensor takes the plain version. A CUDA tensor launches the
+    build `flash_fwd_route` picks (causal or not, with or without a mask,
+    d 64 or 128) or raises; there is no fallback: bf16
+    `csrc/flash_attention_tc.cu`, f32 `csrc/flash_attention.cu`. A call
+    counts once in `flash_attention_fwd.launches` (and in `.tc_launches`
+    on the bf16 build), in `.dropout_launches` with dropout, in
     `.mask_launches` with a mask and in `.noncausal_launches` when not
     causal."""
     _check_qkv("flash_attention_fwd", q, k, v)
@@ -224,23 +228,39 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None,
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention_fwd: operands on different devices")
+    build = flash_fwd_route(q.dtype, b, s, h, d)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if build == "tc":
+        q, k, v = (_build.aligned16(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     if b * h * s == 0:
         return o, lse
     margs, _keep = _mask_args(mask, b, h, s, dev)
     lib = _build.library()
-    code = lib.ptt_flash_attention_fwd(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(o.data_ptr()),
-        ctypes.c_void_p(lse.data_ptr()), *margs,
-        b, s, h, d, s_true, int(bool(causal)), float(scale),
-        _DTYPE_CODE[q.dtype], *_dropout_args(dropout_p, seed), dev.index,
-        _build.stream_ptr(dev))
+    ptrs = (ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, lse))
+    tail = (b, s, h, d, s_true, int(bool(causal)), float(scale))
+    if build == "tc":
+        code = lib.ptt_flash_attention_fwd_tc(
+            *ptrs, *margs, *tail, *_dropout_args(dropout_p, seed), dev.index,
+            _build.stream_ptr(dev))
+    else:
+        code = lib.ptt_flash_attention_fwd(
+            *ptrs, *margs, *tail, _DTYPE_CODE[q.dtype],
+            *_dropout_args(dropout_p, seed), dev.index, _build.stream_ptr(dev))
     _build.check(code, "flash_attention_fwd")
     _count(flash_attention_fwd, causal, mask, dropout_p)
+    flash_attention_fwd.tc_launches += build == "tc"
     return o, lse
+
+
+def flash_fwd_route(dtype, b, s, h, d):
+    """The build of a CUDA forward launch, by dtype and shape alone: bf16
+    takes "tc" (`csrc/flash_attention_tc.cu`: wgmma for both products, K
+    and V streamed by TMA into a ring of shared-memory stages); f32 takes
+    "f32" (`csrc/flash_attention.cu` on the CUDA cores: the tensor cores
+    would run it as TF32, outside the f32 parity gates)."""
+    return "tc" if dtype == torch.bfloat16 else "f32"
 
 
 def _count(fn, causal, mask, dropout_p):
@@ -256,6 +276,7 @@ def _reset(fn):
 
 
 _reset(flash_attention_fwd)
+flash_attention_fwd.tc_launches = 0
 
 
 def _dropout_args(dropout_p, seed):

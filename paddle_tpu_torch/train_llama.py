@@ -97,7 +97,7 @@ def model_flops_per_token(cfg, n_params, seq):
 # reports them; the port's kernels sit in an anonymous namespace)
 KERNEL_GROUPS = (
     ("flash_attention_bwd", re.compile(r"flash_bwd_kernel|bwd_dkdv_kernel|bwd_dq_kernel")),
-    ("flash_attention_fwd", re.compile(r"flash_fwd_kernel")),
+    ("flash_attention_fwd", re.compile(r"flash_fwd_kernel|flash_fwd_tc_kernel")),
     ("rms_norm", re.compile(r"rms_fwd_kernel")),
     ("matmul", re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I)),
 )

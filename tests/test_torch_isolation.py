@@ -155,6 +155,7 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                  "decode_megakernel_verify": 0,
                                  "decode_megakernel_tp": 0,
                                  "ragged_paged_attention_tc": 0,
+                                 "flash_attention_fwd_tc": 0,
                                  "flash_attention_bwd_tc": 0,
                                  "flash_attention_fwd_dropout": 0,
                                  "flash_attention_bwd_dropout": 0,

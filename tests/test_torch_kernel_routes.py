@@ -5,8 +5,10 @@ The ragged kernel has two builds (`ragged_route`): the tensor-core build
 for the chunked-prefill entry in bf16 at tq > 1 (d 64 or 128, page a
 multiple of 16 up to 128), the per-page build for everything else (tq = 1
 and the verify entry, held bit for bit to the decode kernel; f32). The
-flash backward has two (`flash_bwd_route`): bf16 on the tensor cores with
-no dQ partial buffer, f32 with its [ceil(s / 64), b, s, h, d] partials.
+flash forward has two (`flash_fwd_route`): bf16 on wgmma, f32 on the CUDA
+cores. The flash backward has two (`flash_bwd_route`): bf16 on the tensor
+cores with no dQ partial buffer, f32 with its [ceil(s / 64), b, s, h, d]
+partials.
 The routes are functions of entry, dtype and shape alone, so they are
 pinned here without a card; so are the C entries' argument counts against
 `_build.SIGNATURES`, parsed from `csrc/`.
@@ -64,6 +66,27 @@ def test_bf16_backward_has_no_partial_buffer(b, s, h, d):
     assert shape == (math.ceil(s / tf.BWD_TILE), b, s, h, d)
 
 
+# (branch, dtype, b, s, h, d, build): every forward launch of the serving
+# and training paths, each branch at its main path's shape
+@pytest.mark.parametrize("branch,dtype,b,s,h,d,build", [
+    ("causal, serving prefill", BF16, 4, 320, 32, 128, "tc"),
+    ("causal, llama350m", BF16, 32, 1024, 16, 64, "tc"),
+    ("causal, llama1p3b", BF16, 8, 1024, 16, 128, "tc"),
+    ("dropout, gpt3_1p3b", BF16, 8, 1024, 16, 128, "tc"),
+    ("mask, non-causal, bert_base", BF16, 32, 512, 12, 64, "tc"),
+    ("mask, d 128", BF16, 2, 300, 4, 128, "tc"),
+    ("causal, f32 train_parity", F32, 4, 256, 16, 64, "f32"),
+    ("dropout, f32", F32, 2, 1024, 16, 128, "f32"),
+    ("mask, non-causal, bert_base f32", F32, 32, 512, 12, 64, "f32"),
+    ("mask, f32, d 128", F32, 2, 300, 4, 128, "f32"),
+])
+def test_flash_fwd_route(branch, dtype, b, s, h, d, build):
+    """bf16 takes the wgmma build at d 64 and 128 whatever the branch
+    (causal, dropout, mask); f32 keeps the CUDA-core build (TF32 would
+    break the f32 parity gates)."""
+    assert tf.flash_fwd_route(dtype, b, s, h, d) == build
+
+
 def _c_entries():
     """{name: number of parameters} of every `extern "C" int` in csrc/."""
     out = {}
@@ -88,7 +111,8 @@ def test_every_signature_has_a_c_entry(name):
 def test_tensor_core_sources_are_built():
     names = {s.name for s in _build.sources()}
     assert {"ragged_paged_attention_tc.cu", "flash_attention_bwd_tc.cu",
-            "ragged_paged_attention.cu", "flash_attention_bwd.cu"} <= names
+            "ragged_paged_attention.cu", "flash_attention_bwd.cu",
+            "flash_attention_tc.cu", "flash_attention.cu"} <= names
 
 
 def _no_library(monkeypatch):
@@ -130,6 +154,36 @@ def test_flash_backward_validates_before_launch(monkeypatch):
         tf.flash_attention_bwd(q, q, q, q, lse, q)
 
 
+def test_flash_forward_validates_before_launch(monkeypatch):
+    """Shapes, s_true, dropout and the mask's broadcast are checked before
+    the device: meta tensors reach no library."""
+    _no_library(monkeypatch)
+    q = torch.empty(1, 64, 2, 64, dtype=BF16, device="meta")
+    with pytest.raises(ValueError, match="equal"):
+        tf.flash_attention_fwd(q, q[:, :32], q)
+    with pytest.raises(ValueError, match="s_true"):
+        tf.flash_attention_fwd(q, q, q, s_true=65)
+    with pytest.raises(ValueError, match="dropout_p"):
+        tf.flash_attention_fwd(q, q, q, dropout_p=1.0)
+    with pytest.raises(ValueError, match="seed"):
+        tf.flash_attention_fwd(q, q, q, dropout_p=0.1)
+    mask = torch.empty(1, 3, 64, 64, dtype=F32, device="meta")
+    with pytest.raises(ValueError, match="broadcast"):
+        tf.flash_attention_fwd(q, q, q, mask=mask)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tf.flash_attention_fwd(q, q, q)
+
+
+def test_forward_tc_launches_are_counted():
+    """`kernel_launches()` reads the wgmma build's launches apart (they are
+    also in "flash_attention_fwd") and the reset clears them."""
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    tf.flash_attention_fwd.tc_launches = 3
+    assert kernel_launches()["flash_attention_fwd_tc"] == 3
+    reset_kernel_launches()
+    assert kernel_launches()["flash_attention_fwd_tc"] == 0
+
+
 @pytest.mark.parametrize("dtypes,d,match", [
     ((BF16, BF16, BF16, F32, BF16), 64, "one dtype"),
     ((torch.float16,) * 5, 64, "one dtype"),
@@ -162,7 +216,8 @@ def test_aligned16_copies_only_misaligned_tensors():
 
 
 @pytest.mark.parametrize("kernel,group", [
-    ("flash_fwd_kernel", "flash_attention_fwd"),
+    ("flash_fwd_kernel", "flash_attention_fwd"),       # f32 forward
+    ("flash_fwd_tc_kernel", "flash_attention_fwd"),    # bf16, wgmma
     ("flash_bwd_kernel", "flash_attention_bwd"),     # f32 backward
     ("bwd_dkdv_kernel", "flash_attention_bwd"),      # bf16, tensor cores
     ("bwd_dq_kernel", "flash_attention_bwd"),

@@ -212,7 +212,7 @@ def test_full_width_decode_same_ids(K, monkeypatch):
         return math(self, tok, *a, **k)
 
     monkeypatch.setattr(tsched.ContinuousBatchingEngine,
-                        "_decode_at_full_width", lambda self: True)
+                        "_at_full_width", lambda self: True)
     monkeypatch.setattr(tsched.ContinuousBatchingEngine, "_decode_math", spy)
     eng = tsched.ContinuousBatchingEngine(tm, decode_block=K, device="cpu",
                                           **geom)
@@ -220,6 +220,43 @@ def test_full_width_decode_same_ids(K, monkeypatch):
     for a, b in zip(ref, got):
         np.testing.assert_array_equal(b, a)
     assert min(widths) < 4 and 4 in widths
+    _assert_no_leak(eng)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_full_width_prefill_same_ids(K, monkeypatch):
+    """On CUDA a fused block's prefill also runs at the full slot width
+    (max_batch x chunk rows, the extra slots inactive); the per-step path
+    (K = 1) prefills one request at a time, a width the schedule never
+    changes, and is not padded. Forced on the CPU with max_batch 4 and two
+    requests of several chunks: the padded engine gives the bucketed
+    engine's ids and leaks no page."""
+    _, tm = _pair()
+    prompts, budgets = _stream(2, seed=6, max_budget=14, lo=12, hi=30)
+    geom = dict(GEOM, max_batch=4)
+    ref = tsched.ContinuousBatchingEngine(
+        tm, decode_block=K, device="cpu", **geom).generate_many(
+            prompts, max_new_tokens=budgets)
+    widths = []
+    phase = tsched.ContinuousBatchingEngine._prefill_phase
+
+    def spy(self, ids, *a, **k):
+        widths.append(ids.shape[0])
+        return phase(self, ids, *a, **k)
+
+    monkeypatch.setattr(tsched.ContinuousBatchingEngine,
+                        "_at_full_width", lambda self: True)
+    monkeypatch.setattr(tsched.ContinuousBatchingEngine, "_prefill_phase",
+                        spy)
+    eng = tsched.ContinuousBatchingEngine(tm, decode_block=K, device="cpu",
+                                          **geom)
+    got = eng.generate_many(prompts, max_new_tokens=budgets)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(b, a)
+    if K == 1:
+        assert set(widths) == {1}
+    else:   # every narrow call is followed by its padded one
+        assert min(widths) < 4 and widths.count(4) >= sum(w < 4 for w in widths)
     _assert_no_leak(eng)
 
 

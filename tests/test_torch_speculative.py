@@ -403,6 +403,34 @@ def test_greedy_spec_int8_equals_unspeculated_and_jax():
         assert_no_leak(eng)
 
 
+@pytest.mark.parametrize("db", [1, 4])
+def test_full_width_verify_same_ids(db, monkeypatch):
+    """On CUDA the op chain's verify pass runs at max_batch x T rows, the
+    extra slots inactive (cuBLAS picks its product kernel by the row
+    count). Forced on the CPU with slot buckets below max_batch and two
+    requests: the padded passes give the bucketed engine's ids and leak no
+    page."""
+    geom = dict(slot_buckets=(1, 2))
+    prompts = spec_prompts()[:2]
+    ref = mk(speculate=4, decode_block=db, **geom).generate_many(
+        prompts, max_new_tokens=NEW)
+    widths = []
+    verify = ContinuousBatchingEngine._spec_verify_math
+
+    def spy(self, feed, *a, **k):
+        widths.append(feed.shape[0])
+        return verify(self, feed, *a, **k)
+
+    monkeypatch.setattr(ContinuousBatchingEngine, "_at_full_width",
+                        lambda self: True)
+    monkeypatch.setattr(ContinuousBatchingEngine, "_spec_verify_math", spy)
+    eng = mk(speculate=4, decode_block=db, **geom)
+    _same(ref, eng.generate_many(prompts, max_new_tokens=NEW),
+          f"full width db={db}")
+    assert min(widths) < 4 and 4 in widths
+    assert_no_leak(eng)
+
+
 def test_eos_mid_pass_matches(jax_runs):
     """Exact: an EOS met inside a verify pass retires the request where
     the unspeculated engine does (decode_block 1 and 4)."""

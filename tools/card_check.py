@@ -25,6 +25,17 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
 - `tp_path`: LLaMA-7B at full width and depth, the cb_stream through
   `tp_cb_runs` (tp = 2, both shards on the card), after the tp = 1 runs
   it is held against; then the tp = 2 card-against-CPU parity row.
+- `width`: whether a row of the op chain's products depends on how many
+  rows share the product (cuBLAS picks its kernel by the row count; the
+  int8 matmul takes its GEMV at m <= 8). LLaMA-7B's products (q, k, v, o,
+  gate, up, down, the head), bf16 and int8 weights, on seeded inputs: each
+  row of an M-row product against the same row of the full-width product,
+  bit for bit, at the prefill widths M = 128, 256, 512, 1024 (full 8 x
+  128), the verify widths M = 4 w (full 8 x 4) and the decode (and
+  prefill head) widths M = w (full 8), w = 1..8; and the same rows moved
+  one slot down the full product. Then the cost of running the op chain
+  at the full width: the 7B cb_stream's wall with the padding on and off,
+  in turns (op chain K=8 and K=1, and at speculate=4 in bf16 and int8).
 
     python3 tools/card_check.py ragged flash mask bert   # from the repository root; needs one CUDA card
 """
@@ -110,7 +121,75 @@ def tp_path(dev):
     yield from (r for r in C.parity_cb_2layer(torch, dev) if r["tp"] == 2)
 
 
-PHASES = dict(ragged=ragged, flash=flash, mask=mask, gpt=gpt, bert=bert, tp=tp, tp_path=tp_path)
+WIDTH_PRODUCTS = (("q", 4096, 4096), ("k", 4096, 4096), ("v", 4096, 4096),
+                  ("o", 4096, 4096), ("gate", 4096, 11008), ("up", 4096, 11008),
+                  ("down", 11008, 4096), ("head", 4096, 32000))
+# (phase, full width, widths): max_batch 8 x chunk 128, 8 x T 4, and the
+# 8 rows of a decode step or of the prefill's head
+WIDTH_CASES = (("prefill", 1024, (128, 256, 512, 1024)),
+               ("verify", 32, tuple(4 * w for w in range(1, 9))),
+               ("decode, head", 8, tuple(range(1, 9))))
+
+
+def width(dev):
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.pallas.quantized_matmul import quantize_weights, quantized_matmul
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(17)
+    for name, k, n in WIDTH_PRODUCTS:
+        w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+        wq, sc = quantize_weights(w)
+        wb = w.to(bf16)
+        del w
+        for weights, prod in (("bf16", lambda x: x @ wb),
+                              ("int8", lambda x: quantized_matmul(x, wq, sc))):
+            for phase, full, widths in WIDTH_CASES:
+                x = torch.randn((full, k), generator=g, device=dev).to(bf16)
+                ref = prod(x)
+                differ = {str(m): int((prod(x[:m]) != ref[:m]).any(-1).sum()) for m in widths}
+                shift = full // 8     # one slot's rows
+                moved = prod(torch.roll(x, shift, 0)).roll(-shift, 0)
+                yield dict(probe="width", product=name, k=k, n=n, weights=weights, phase=phase,
+                           full_rows=full, rows_differing=differ,
+                           moved_rows_differing=int((moved != ref).any(-1).sum()), ok=True)
+        del wq, sc, wb
+        torch.cuda.empty_cache()
+
+    # the cost of the full width on the 7B stream, padding on and off in turns
+    cfg = LlamaConfig.llama_7b()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    geom = dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
+                prefix_cache=True, weight_dtype="bfloat16", device=dev)
+    prompts, budgets = C.cb_stream(cfg)
+    full = ContinuousBatchingEngine._at_full_width
+    try:
+        for run, K, spec, quant in (("K=8 bf16", 8, 0, None), ("K=1 bf16", 1, 0, None),
+                                    ("spec=4 K=8 bf16", 8, 4, None),
+                                    ("spec=4 K=8 int8", 8, 4, "int8")):
+            walls, outs = {True: [], False: []}, {}
+            for pad in (True, False, False, True):
+                ContinuousBatchingEngine._at_full_width = (full if pad else lambda self: False)
+                eng = ContinuousBatchingEngine(model, decode_block=K, megakernel=False,
+                                               speculate=spec or None, quant=quant, **geom)
+                o, wall, _ = C.drive_cb(torch, eng, prompts, budgets)
+                walls[pad].append(wall)
+                outs[pad] = o
+                del eng
+                torch.cuda.empty_cache()
+            on, off = (sum(walls[p]) / 2 for p in (True, False))
+            yield dict(probe="width_cost", run=run, wall_s_padded=walls[True],
+                       wall_s_unpadded=walls[False], ms_per_stream=1e3 * (on - off),
+                       ids_equal=all((a == b).all() for a, b in zip(outs[True], outs[False])),
+                       ok=True)
+    finally:
+        ContinuousBatchingEngine._at_full_width = full
+    del model
+    torch.cuda.empty_cache()
+
+
+PHASES = dict(ragged=ragged, flash=flash, mask=mask, gpt=gpt, bert=bert, tp=tp, tp_path=tp_path,
+              width=width)
 
 
 def main(names):
@@ -128,6 +207,10 @@ def main(names):
     print(json.dumps(dict(build_s=time.perf_counter() - t0)))
     print("\n".join(l for l in C.ptxas_summary(_build.build_log() or "")
                     if "flash" in l or "megakernel" in l or "bwd" in l or "ragged" in l))
+    # nvcc's own lines for the wgmma build (warnings such as wgmma
+    # serialization show here)
+    log = (_build.build_log() or "").split("\n== ")
+    print("\n".join(b for b in log if b.startswith("flash_attention_tc.cu")))
     sass = C.sass_mma_counts(_build.build_info()["path"])
     print(json.dumps(dict(tensor_core_sass=sass, ok=C.tc_sass_ok(sass))))
     ok = C.tc_sass_ok(sass)

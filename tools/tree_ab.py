@@ -18,15 +18,20 @@ difference between a tree's two rows. Probes:
   across trees mean bit-equal outputs.
 - `flash`: the flash kernels' launches: the causal forward and backward,
   with and without dropout, on seeded inputs at the training and serving
-  shapes of `chip_smoke.py`'s rows, and the backward of BERT-base's masked
-  non-causal row; each row's ms (CUDA events) and a digest of its outputs'
-  bytes, so equal digests across trees mean bit-equal outputs.
+  shapes of `chip_smoke.py`'s rows (the forward also at llama350m's and
+  llama1p3b's shapes, and an f32 dropout row), and the backward of
+  BERT-base's masked non-causal row; each row's ms (CUDA events) and a
+  digest of its outputs' bytes, so equal digests across trees mean
+  bit-equal outputs.
+- `mask`: the forward's mask rows: BERT-base's padding mask (bf16, with
+  and without dropout, and f32) and a causal launch with the mask.
 - `ragged`: the ragged kernel's chunked-prefill entry at `chip_smoke.py`'s
   main and GQA rows (bf16, 8 and 4 slots of 128-token chunks, d 128, page
   64), with the build's ragged ptxas lines; each row's ms and a digest of
   its output.
 
     python3 tools/tree_ab.py flash chipwork/parent .     # needs one CUDA card
+    python3 tools/tree_ab.py mask chipwork/parent .
     python3 tools/tree_ab.py ragged chipwork/parent .
 """
 import json
@@ -128,16 +133,21 @@ out["ptxas"] = [l for l in cs.ptxas_summary(_build.build_log() or "") if "flash"
                 or "bwd" in l]
 
 
-# (kind, b, s, h, d, s_true, dropout_p): chip_smoke's causal forward row
-# (serving prefill), the backward at llama350m's and llama1p3b's shapes,
-# and the dropout rows at gpt3_1p3b's
-for kind, b, s, h, d, s_true, p in (("fwd", 4, 320, 32, 128, 300, 0.0),
-                                   ("bwd", 32, 1024, 16, 64, None, 0.0),
-                                   ("bwd", 8, 1024, 16, 128, None, 0.0),
-                                   ("fwd", 8, 1024, 16, 128, None, 0.1),
-                                   ("bwd", 8, 1024, 16, 128, None, 0.1)):
+# (kind, b, s, h, d, s_true, dropout_p, dtype): chip_smoke's causal forward
+# rows (serving prefill, llama350m's and llama1p3b's shapes), the backward
+# at llama350m's and llama1p3b's shapes, the dropout rows at gpt3_1p3b's,
+# and an f32 dropout forward
+for kind, b, s, h, d, s_true, p, dt in (
+        ("fwd", 4, 320, 32, 128, 300, 0.0, torch.bfloat16),
+        ("fwd", 32, 1024, 16, 64, None, 0.0, torch.bfloat16),
+        ("fwd", 8, 1024, 16, 128, None, 0.0, torch.bfloat16),
+        ("bwd", 32, 1024, 16, 64, None, 0.0, torch.bfloat16),
+        ("bwd", 8, 1024, 16, 128, None, 0.0, torch.bfloat16),
+        ("fwd", 8, 1024, 16, 128, None, 0.1, torch.bfloat16),
+        ("bwd", 8, 1024, 16, 128, None, 0.1, torch.bfloat16),
+        ("fwd", 2, 1024, 16, 128, None, 0.1, torch.float32)):
     g = torch.Generator(device=dev).manual_seed(21)
-    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
                    for _ in range(4))
     seed = 1234567 if p > 0 else None
     scale = d ** -0.5
@@ -149,8 +159,8 @@ for kind, b, s, h, d, s_true, p in (("fwd", 4, 320, 32, 128, 300, 0.0),
         fn = lambda: flash_attention_bwd(q, k, v, o, lse, do, True, scale, s_true, None, p, seed)
         res, iters = fn(), 5
     torch.cuda.synchronize()
-    out["rows"].append(dict(kind=kind, b=b, s=s, h=h, d=d, dropout_p=p, ms=ms(fn, iters),
-                            digest=digest(res)))
+    out["rows"].append(dict(kind=kind, b=b, s=s, h=h, d=d, dropout_p=p, dtype=str(dt),
+                            ms=ms(fn, iters), digest=digest(res)))
     del q, k, v, do, o, lse, res
     torch.cuda.empty_cache()
 # BERT-base's masked, non-causal backward (chip_smoke's bert_base mask row)
@@ -165,6 +175,28 @@ res = fn()
 torch.cuda.synchronize()
 out["rows"].append(dict(kind="bwd_masked", b=b, s=s, h=h, d=d, dropout_p=0.0,
                         ms=ms(fn, 5), digest=digest(res)))
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+MASK = TIMED + r'''
+from paddle_tpu_torch.ops.pallas.flash_attention import flash_attention_fwd
+# chip_smoke's forward mask rows: BERT-base's [b, 1, 1, s] padding mask
+# (bf16, with dropout 0.1, f32) and causal plus the mask
+for case, b, s, h, d, dt, causal, p in (
+        ("bert_base", 32, 512, 12, 64, torch.bfloat16, False, 0.0),
+        ("bert_base_dropout", 32, 512, 12, 64, torch.bfloat16, False, 0.1),
+        ("bert_base_f32", 32, 512, 12, 64, torch.float32, False, 0.0),
+        ("causal_mask", 4, 512, 12, 64, torch.bfloat16, True, 0.0)):
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt) for _ in range(3))
+    mask = cs.make_mask(torch, dev, "key_padding", b, s, h, dt, g)
+    seed = 2468 if p > 0 else None
+    fn = lambda: flash_attention_fwd(q, k, v, causal, d ** -0.5, None, p, seed, mask)
+    res = fn()
+    torch.cuda.synchronize()
+    out["rows"].append(dict(case=case, dtype=str(dt), ms=ms(fn, 10), digest=digest(res)))
+    del q, k, v, mask, res
+    torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
@@ -187,7 +219,7 @@ for name, b, tq, h, h_kv, d, p, mp, starts, ctx, active in (
     out["rows"].append(dict(case=name, ms=ms(fn, 50), digest=digest([res])))
 print("RESULT " + json.dumps(out), flush=True)
 '''
-PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH, ragged=RAGGED)
+PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH, mask=MASK, ragged=RAGGED)
 
 
 def main(argv):
