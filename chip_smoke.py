@@ -112,6 +112,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
 Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
 bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row:
 tq = 1 and the verify entry stay on the per-page build for those bits.
+The decode kernel and the per-page build run the walk `paged_route`
+names (pages staged in shared memory, or read in place): the identity
+cases also launch the direct walk on the same inputs and gate the staged
+outputs equal to it, and the main paths' staged launches are gated equal
+to the wrappers' launches. The paged rows add `paged_attention_dense` (a
+dense [b, L, h, d] cache as identity-tabled pages) and report `device_ms`,
+one launch's time in a replayed CUDA graph, beside `ms` (back-to-back
+calls, which read the wrapper's host work where the kernel is shorter).
+Every phase runs under a watchdog: one that does not finish in time ends
+the run with a non-zero exit.
 The line before the last holds {"kernels": [...]}, and the last line is
 {"ok": true, "device": {...}}.
 
@@ -124,6 +134,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+KERNEL_PHASE_S = 300          # watchdog limits: one kernel check, one path phase
+PATH_PHASE_S = 900
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 CORE_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 
@@ -148,6 +160,8 @@ REPLACES = {
     "flash_attention_bwd_f32": "paddle_tpu/ops/pallas/flash_attention.py:430",
     "flash_attention_fwd_tc": "paddle_tpu/ops/pallas/flash_attention.py:109",
     "flash_attention_fwd_f32": "paddle_tpu/ops/pallas/flash_attention.py:109",
+    "paged_attention_staged": "paddle_tpu/ops/pallas/paged_attention.py:39",
+    "spec_verify_attention_staged": "paddle_tpu/ops/pallas/paged_attention.py:354",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
@@ -173,12 +187,44 @@ SOURCES = {
     "flash_attention_bwd_f32": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_fwd_tc": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
     "flash_attention_fwd_f32": "paddle_tpu_torch/csrc/flash_attention.cu",
+    # the staged walks of the decode kernel and of the ragged kernel's
+    # per-page build (`paged_route`; the verify entry's main row), pages
+    # staged in shared memory by bulk copies (`ptt::PageRing`, common.cuh)
+    "paged_attention_staged": "paddle_tpu_torch/csrc/paged_attention.cu",
+    "spec_verify_attention_staged": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
 }
 
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+class watchdog:
+    """Fails the run when a phase outlasts `seconds`: a kernel that never
+    finishes (say a barrier whose bytes never land) would otherwise hold
+    `torch.cuda.synchronize()` until the command's own limit. The process
+    exits non-zero at once and prints no result."""
+
+    def __init__(self, phase, seconds):
+        self.phase, self.seconds = phase, seconds
+
+    def _fire(self):
+        import os
+        print(f"chip_smoke: phase {self.phase} did not finish within {self.seconds} s",
+              file=sys.stderr, flush=True)
+        os._exit(1)
+
+    def __enter__(self):
+        import threading
+        self.timer = threading.Timer(self.seconds, self._fire)
+        self.timer.daemon = True
+        self.timer.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.timer.cancel()
+        return False
 
 
 def bound_ms(n_bytes, flops, core_ops=0):
@@ -203,6 +249,35 @@ def time_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, launches=20, replays=10):
+    """Device time of one fn() in ms with the host out of the way: fn()
+    `launches` times captured in one CUDA graph, the graph replayed
+    `replays` times between CUDA events. `time_ms` times back-to-back
+    calls, so a call whose kernel takes less than the wrapper's host work
+    reads the host's issue rate there."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
 
 
 def ptxas_summary(log):
@@ -354,7 +429,7 @@ def paged_inputs(torch, dev, b, h, h_kv, d, p, lens, active, dtype, seed):
 
 def check_paged_attention(torch, dev):
     from paddle_tpu_torch.ops.pallas.paged_attention import (
-        paged_attention, paged_attention_reference, ragged_paged_attention)
+        paged_attention, paged_attention_reference, paged_route, paged_stage_plan)
     rows = []
     # main path shape, then a GQA group and the tiny model's d = 16 (f32)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -364,7 +439,10 @@ def check_paged_attention(torch, dev):
     for name, b, h, h_kv, d, p, lens, active, dt in cases:
         q, kp, vp, table, lens_t, act = paged_inputs(torch, dev, b, h, h_kv, d, p,
                                                      lens, active, dt, seed=2)
+        s0 = paged_attention.staged_launches
         got = paged_attention(q, kp, vp, table, lens_t, active=act)
+        route = paged_route(dt, d, p)
+        walk_counted = paged_attention.staged_launches - s0 == (route == "staged")
         ref = paged_attention_reference(q, kp, vp, table, lens_t, active=act)
         torch.cuda.synchronize()
         err = max_err(got, ref)
@@ -372,7 +450,9 @@ def check_paged_attention(torch, dev):
         # f32 differs only in the order of the sums
         tol = 1e-2 if dt == bf16 else 1e-4
         row = dict(case=name, b=b, h=h, h_kv=h_kv, d=d, p=p, lens=lens, active=active,
-                   max_abs_err=err, tol=tol, ok=err <= tol)
+                   route=route, stages=paged_stage_plan(dt, d, p)[0],
+                   walk_counted=walk_counted, max_abs_err=err, tol=tol,
+                   ok=err <= tol and walk_counted)
         if name == "mha":
             row["ms"] = time_ms(torch, lambda: paged_attention(q, kp, vp, table, lens_t,
                                                                active=act))
@@ -385,13 +465,75 @@ def check_paged_attention(torch, dev):
             row["library_ms"] = sdpa_paged_ms(torch, q[:, None], kp, vp, table,
                                               lens_t - 1, lens_t, act)
             row["library_call"] = LIBRARY_CALL
+            row["device_ms"] = graph_ms(torch, lambda: paged_attention(
+                q, kp, vp, table, lens_t, active=act))
+            row["library_device_ms"] = sdpa_paged_ms(torch, q[:, None], kp, vp, table,
+                                                     lens_t - 1, lens_t, act, graph_ms)
             # the ragged kernel at tq = 1, q_start = len - 1, against the
-            # decode kernel: bit for bit (they share one per-page step)
+            # decode kernel: bit for bit (they share one per-page step);
+            # and both staged walks against the direct walks
             tq1 = tq1_identity(torch, dev)
             row["ragged_tq1"] = tq1
             row["ragged_tq1_max_abs_diff"] = max(c["max_abs_diff"] for c in tq1)
             row["ragged_tq1_identical"] = all(c["identical"] for c in tq1)
-            row["ok"] = row["ok"] and row["ragged_tq1_identical"]
+            row["staged_equals_direct"] = all(c["staged_equals_direct"] for c in tq1)
+            row["ok"] = (row["ok"] and row["ragged_tq1_identical"]
+                         and row["staged_equals_direct"])
+        rows.append(row)
+    rows += check_paged_dense(torch, dev)
+    return rows
+
+
+def check_paged_dense(torch, dev):
+    """`paged_attention_dense` (the decode kernel on a dense [b, L, h, d]
+    cache viewed as identity-tabled pages) against the plain version on the
+    same page view: the static engine's decode shape with [b] lengths and
+    the default page (64: 128 does not divide L = 320), timed beside SDPA on
+    the dense cache with a key-padding mask; a scalar length with an
+    explicit page of 16."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas.paged_attention import (
+        paged_attention, paged_attention_dense, paged_attention_reference)
+    rows = []
+    b, L, h, d = 4, 320, 32, 128
+    for name, seq_len, page in (("dense", [300, 257, 311, 290], None),
+                                ("dense scalar len, page 16", 200, 16)):
+        g = torch.Generator(device=dev).manual_seed(8)
+        q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
+        kc, vc = (torch.randn((b, L, h, d), generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        p = page or 64
+        lens = torch.tensor(seq_len, dtype=torch.int32, device=dev).expand(b)
+        table = torch.arange(b * L // p, dtype=torch.int32, device=dev).reshape(b, L // p)
+        n0 = paged_attention.launches
+        got = paged_attention_dense(q, kc, vc, lens if page is None else seq_len,
+                                    page_size=page)
+        launched = paged_attention.launches - n0 == 1
+        ref = paged_attention_reference(q, kc.reshape(-1, p, h, d), vc.reshape(-1, p, h, d),
+                                        table, lens)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        tol = 1e-2      # convex mixes of N(0,1) rows: bf16 rounds at ~4e-3
+        row = dict(case=name, b=b, L=L, h=h, d=d, page=p, seq_len=seq_len,
+                   launched=launched, max_abs_err=err, tol=tol, ok=err <= tol and launched)
+        if page is None:
+            row["ms"] = time_ms(torch, lambda: paged_attention_dense(q, kc, vc, lens))
+            row["plain_ms"] = time_ms(torch, lambda: paged_attention_reference(
+                q, kc.reshape(-1, p, h, d), vc.reshape(-1, p, h, d), table, lens), iters=5)
+            live = int(lens.sum())
+            n_bytes = 2 * b * h * d * 2 + live * h * d * 2 * 2 + b * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 4 * live * h * d)
+            qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+            mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None]
+            torch.cuda.synchronize()
+            row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+            row["device_ms"] = graph_ms(torch, lambda: paged_attention_dense(q, kc, vc, lens))
+            row["library_device_ms"] = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+            row["library_call"] = ("torch.nn.functional.scaled_dot_product_attention on "
+                                   "the dense cache (strided views) with a boolean "
+                                   "key-padding mask")
         rows.append(row)
     return rows
 
@@ -399,9 +541,9 @@ def check_paged_attention(torch, dev):
 def tq1_identity(torch, dev):
     """B5 at tq = 1 with q_start = len - 1 against B3 on the same inputs:
     bf16 and f32, page 64 and page 8, MHA and a GQA group of 4, ragged
-    lengths (one inactive slot, one of length 1)."""
-    from paddle_tpu_torch.ops.pallas.paged_attention import (
-        paged_attention, ragged_paged_attention)
+    lengths (one inactive slot, one of length 1); and each kernel's staged
+    walk against its direct walk (`stages` 0) on the same inputs."""
+    from paddle_tpu_torch.ops.pallas import paged_attention as pa
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         for p in (64, 8):
@@ -416,13 +558,21 @@ def tq1_identity(torch, dev):
                 table = table.reshape(b, mp).to(torch.int32)
                 ln = torch.tensor(lens, dtype=torch.int32, device=dev)
                 ac = torch.tensor(active, dtype=torch.int32, device=dev)
-                dec = paged_attention(q, kp, vp, table, ln, active=ac)
-                rag = ragged_paged_attention(q[:, None], kp, vp, table, ln, ln - 1,
-                                             active=ac)[:, 0]
+                dec = pa.paged_attention(q, kp, vp, table, ln, active=ac)
+                rag = pa.ragged_paged_attention(q[:, None], kp, vp, table, ln, ln - 1,
+                                                active=ac)[:, 0]
+                scale = 1.0 / math.sqrt(d)     # the wrappers' default
+                dec_direct = pa._paged_launch(q, kp, vp, table, ln, scale, ac, 0)
+                rag_direct = pa._ragged_launch(q[:, None], kp, vp, table, ln, ln - 1, ac,
+                                               scale, 0)[:, 0]
                 torch.cuda.synchronize()
                 cases.append(dict(dtype=str(dt), page=p, h=h, h_kv=h_kv,
+                                  route=pa.paged_route(dt, d, p),
+                                  stages=pa.paged_stage_plan(dt, d, p)[0],
                                   max_abs_diff=max_err(rag, dec),
-                                  identical=bool(torch.equal(rag, dec))))
+                                  identical=bool(torch.equal(rag, dec)),
+                                  staged_equals_direct=bool(torch.equal(dec, dec_direct))
+                                  and bool(torch.equal(rag, rag_direct))))
     return cases
 
 
@@ -430,9 +580,10 @@ LIBRARY_CALL = ("torch.nn.functional.scaled_dot_product_attention with a boolean
                 "K/V gathered into contiguous form beforehand (the gather is not timed)")
 
 
-def sdpa_paged_ms(torch, q, kp, vp, table, q_starts, ctx_lens, act):
+def sdpa_paged_ms(torch, q, kp, vp, table, q_starts, ctx_lens, act, timer=time_ms):
     """Yardstick: one SDPA call on each slot's pages gathered beforehand
-    (GQA heads expanded), masked causally at the ragged offsets."""
+    (GQA heads expanded), masked causally at the ragged offsets, timed by
+    `timer` (`time_ms`, or `graph_ms` for the device time alone)."""
     import torch.nn.functional as F
     b, tq, h, d = q.shape
     n_pages, p, h_kv, _ = kp.shape
@@ -446,8 +597,7 @@ def sdpa_paged_ms(torch, q, kp, vp, table, q_starts, ctx_lens, act):
     mask = (kpos <= qpos) & (kpos < ctx_lens.long()[:, None, None, None])
     mask = mask & (act != 0)[:, None, None, None]
     torch.cuda.synchronize()
-    return time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                attn_mask=mask))
+    return timer(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
 
 
 def ragged_inputs(torch, dev, b, tq, h, h_kv, d, p, max_pages, dtype, seed):
@@ -462,7 +612,7 @@ def ragged_inputs(torch, dev, b, tq, h, h_kv, d, p, max_pages, dtype, seed):
 
 def check_ragged(torch, dev):
     from paddle_tpu_torch.ops.pallas.paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_reference, ragged_route)
+        paged_route, ragged_paged_attention, ragged_paged_attention_reference, ragged_route)
     bf16, f32 = torch.bfloat16, torch.float32
     rows = []
     # main path shape (8 slots, 128-token chunks at ragged offsets; slot 3
@@ -485,9 +635,14 @@ def check_ragged(torch, dev):
         cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
         act = torch.tensor(active, dtype=torch.int32, device=dev)
         route = ragged_route("prefill", dt, d, p, tq)
+        if route == "page":
+            route += " " + paged_route(dt, d, p)
         tc0 = ragged_paged_attention.tc_launches
+        s0 = ragged_paged_attention.staged_launches
         got = ragged_paged_attention(q, kp, vp, table, cl, st, active=act)
-        tc_ran = ragged_paged_attention.tc_launches - tc0 == (route == "tc")
+        tc_ran = (ragged_paged_attention.tc_launches - tc0 == (route == "tc")
+                  and ragged_paged_attention.staged_launches - s0
+                  == (route == "page staged"))
         ref = ragged_paged_attention_reference(q, kp, vp, table, cl, st, active=act)
         torch.cuda.synchronize()
         # rows past a slot's real chunk end are garbage by contract: compare
@@ -1437,9 +1592,9 @@ def verify_identity(torch, dev):
     """B5's verify entry (tq = 4, ctx = lens + 4, q_starts = lens) against
     4 sequential B3 steps on the same pool, row j against the step at
     lens + j: bf16 and f32, page 64 and 8, MHA and a GQA group of 4,
-    ragged lengths (one inactive slot, one of length 0)."""
-    from paddle_tpu_torch.ops.pallas.paged_attention import (
-        paged_attention, spec_verify_attention)
+    ragged lengths (one inactive slot, one of length 0); and the verify
+    launch's staged walk against its direct walk (`stages` 0)."""
+    from paddle_tpu_torch.ops.pallas import paged_attention as pa
     T, cases = SPEC_T, []
     for dt in (torch.bfloat16, torch.float32):
         for p in (64, 8):
@@ -1454,13 +1609,18 @@ def verify_identity(torch, dev):
                 table = table.reshape(b, mp).to(torch.int32)
                 ln = torch.tensor(lens, dtype=torch.int32, device=dev)
                 ac = torch.tensor(active, dtype=torch.int32, device=dev)
-                ver = spec_verify_attention(q, kp, vp, table, ln, active=ac)
-                seq = torch.stack([paged_attention(q[:, j], kp, vp, table, ln + j + 1,
-                                                   active=ac) for j in range(T)], 1)
+                ver = pa.spec_verify_attention(q, kp, vp, table, ln, active=ac)
+                seq = torch.stack([pa.paged_attention(q[:, j], kp, vp, table, ln + j + 1,
+                                                      active=ac) for j in range(T)], 1)
+                direct = pa._ragged_launch(q, kp, vp, table, ln + T, ln, ac,
+                                           1.0 / math.sqrt(d), 0)
                 torch.cuda.synchronize()
                 cases.append(dict(dtype=str(dt), page=p, h=h, h_kv=h_kv,
+                                  route=pa.paged_route(dt, d, p),
+                                  stages=pa.paged_stage_plan(dt, d, p)[0],
                                   max_abs_diff=max_err(ver, seq),
-                                  identical=bool(torch.equal(ver, seq))))
+                                  identical=bool(torch.equal(ver, seq)),
+                                  staged_equals_direct=bool(torch.equal(ver, direct))))
     return cases
 
 
@@ -1471,29 +1631,41 @@ def check_spec_verify(torch, dev):
     gathered first, as #4/#5) and bound. Gate: row j equal to sequential
     B3 steps bit for bit (verify_identity)."""
     from paddle_tpu_torch.ops.pallas.paged_attention import (
-        ragged_paged_attention_reference, spec_verify_attention)
+        paged_route, paged_stage_plan, ragged_paged_attention_reference,
+        spec_verify_attention)
     T, b, h, h_kv, d, p, mp = SPEC_T, 8, 32, 32, 128, 64, 16
     q, kp, vp, table = ragged_inputs(torch, dev, b, T, h, h_kv, d, p, mp, torch.bfloat16,
                                      seed=7)
     ln = torch.tensor(SPEC_LENS, dtype=torch.int32, device=dev)
     act = torch.tensor(SPEC_ACTIVE, dtype=torch.int32, device=dev)
+    s0 = spec_verify_attention.staged_launches
     got = spec_verify_attention(q, kp, vp, table, ln, active=act)
+    route = paged_route(torch.bfloat16, d, p)
+    walk_counted = spec_verify_attention.staged_launches - s0 == (route == "staged")
     ref = ragged_paged_attention_reference(q, kp, vp, table, ln + T, ln, active=act)
     torch.cuda.synchronize()
     err = max_err(got, ref)
     tol = 1e-2      # convex mixes of N(0,1) rows: bf16 rounds at ~4e-3
     ident = verify_identity(torch, dev)
     row = dict(case="main", b=b, tq=T, h=h, h_kv=h_kv, d=d, p=p, lens=SPEC_LENS,
-               active=SPEC_ACTIVE, max_abs_err=err, tol=tol, sequential=ident,
+               active=SPEC_ACTIVE, route=route,
+               stages=paged_stage_plan(torch.bfloat16, d, p)[0], walk_counted=walk_counted,
+               max_abs_err=err, tol=tol, sequential=ident,
                sequential_identical=all(c["identical"] for c in ident),
-               sequential_max_abs_diff=max(c["max_abs_diff"] for c in ident))
-    row["ok"] = err <= tol and row["sequential_identical"]
+               sequential_max_abs_diff=max(c["max_abs_diff"] for c in ident),
+               staged_equals_direct=all(c["staged_equals_direct"] for c in ident))
+    row["ok"] = (err <= tol and row["sequential_identical"] and walk_counted
+                 and row["staged_equals_direct"])
     row["ms"] = time_ms(torch, lambda: spec_verify_attention(q, kp, vp, table, ln,
                                                              active=act))
     row["plain_ms"] = time_ms(torch, lambda: ragged_paged_attention_reference(
         q, kp, vp, table, ln + T, ln, active=act), iters=5)
     row["library_ms"] = sdpa_paged_ms(torch, q, kp, vp, table, ln, ln + T, act)
     row["library_call"] = LIBRARY_CALL
+    row["device_ms"] = graph_ms(torch, lambda: spec_verify_attention(q, kp, vp, table, ln,
+                                                                     active=act))
+    row["library_device_ms"] = sdpa_paged_ms(torch, q, kp, vp, table, ln, ln + T, act,
+                                             graph_ms)
     live = sum(L + T for L, a in zip(SPEC_LENS, SPEC_ACTIVE) if a)
     pairs = sum(L + j + 1 for L, a in zip(SPEC_LENS, SPEC_ACTIVE) if a for j in range(T))
     n_bytes = 2 * b * T * h * d * 2 + live * h_kv * d * 2 * 2 + table.numel() * 4 + 3 * b * 4
@@ -1942,6 +2114,7 @@ def serve_7b(torch, dev):
             expect = dict.fromkeys(counts, 0)
             expect.update({
                 "paged_attention": L * n_loop,
+                "paged_attention_staged": L * n_loop,
                 "quantized_matmul": (7 * L + 1) * (1 + n_loop) if wname == "int8" else 0,
                 "flash_attention_fwd": L if t_pad >= eng.flash_prefill_min else 0,
                 "flash_attention_fwd_tc": L if t_pad >= eng.flash_prefill_min else 0,
@@ -2162,6 +2335,7 @@ def serve_cb_7b(torch, dev):
         expect_mk = {False: 0, "layer": L * dec, "multi": dec}[mk]
         launch_ok = (counts["flash_attention_fwd"] == 0
                      and counts["paged_attention"] == (0 if mk else L * dec)
+                     and counts["paged_attention_staged"] == counts["paged_attention"]
                      and counts["decode_megakernel"] == expect_mk
                      and dec > 0
                      and counts["quantized_matmul"] == expect_qmm
@@ -2230,8 +2404,8 @@ def serve_cb_7b(torch, dev):
     counts = kernel_launches()
     h = eng.health()
     expect = dict.fromkeys(counts, 0)
-    expect.update({"paged_attention": 2 * 8 * L, "ragged_paged_attention": 3 * L,
-                   "ragged_paged_attention_tc": 3 * L})
+    expect.update({"paged_attention": 2 * 8 * L, "paged_attention_staged": 2 * 8 * L,
+                   "ragged_paged_attention": 3 * L, "ragged_paged_attention_tc": 3 * L})
     single = dict(run="single t0=300 budget=17 K=8", launches=counts,
                   expected_launches=expect, fused_blocks=h["fused_blocks"],
                   chained_blocks=h["chained_blocks"], out_len=int(out.size),
@@ -2401,7 +2575,8 @@ def sampled_cb_runs(torch, model, geom, prompts, budgets, greedy_rows, launches,
             launch_ok = (counts["decode_megakernel"] == 0
                          and counts["decode_megakernel_topk"] == 0
                          and counts["paged_attention"] == L * dec)
-        launch_ok = launch_ok and tc_prefill(counts)
+        launch_ok = (launch_ok and tc_prefill(counts)
+                     and counts["paged_attention_staged"] == counts["paged_attention"])
         outs_by[name] = streams[name] = outs
         g = greedy[gname]
         row = dict(run=name, decode_block=8, weights=quant or "bf16",
@@ -2556,6 +2731,8 @@ def spec_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
             launch_ok = (counts["spec_verify_attention"] == L * n
                          and counts["decode_megakernel"] == 0)
         launch_ok = (launch_ok and n > 0 and counts["paged_attention"] == 0
+                     and counts["spec_verify_attention_staged"]
+                     == counts["spec_verify_attention"]
                      and counts["ragged_paged_attention"] % L == 0
                      and tc_prefill(counts)
                      and (counts["decode_megakernel_topk"] > 0) == sampled)
@@ -2662,6 +2839,7 @@ def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
                       decode_megakernel_tp=3 * L * TP * dec if mk else 0,
                       decode_megakernel_topk=TP * steps["sampled"] if mk else 0,
                       paged_attention=0 if mk else L * TP * dec,
+                      paged_attention_staged=0 if mk else L * TP * dec,
                       quantized_matmul=(7 * L + 1) * TP * (n_pf + (0 if mk else dec))
                       if quant else 0)
         launch_ok = (all(counts[k] == v for k, v in expect.items())
@@ -2730,6 +2908,7 @@ def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
                generated_tokens_per_s=4 * n_new / wall, launches=counts,
                expected_paged_attention=L * TP * n_loop,
                launches_ok=(counts["paged_attention"] == L * TP * n_loop
+                            and counts["paged_attention_staged"] == L * TP * n_loop
                             and counts["flash_attention_fwd"] == 0
                             and counts["decode_megakernel"] == 0),
                tokens_equal_to_tp1=float((out[:, 12:] == one[:, 12:]).mean()),
@@ -3255,7 +3434,8 @@ def main():
               ("flash_attention_bwd_masked", check_flash_bwd_masked))
     all_rows = {}
     for name, check in checks:
-        rows = all_rows[name] = check(torch, dev)
+        with watchdog(f"kernels {name}", KERNEL_PHASE_S):
+            rows = all_rows[name] = check(torch, dev)
         for r in rows:
             emit(dict(phase="kernels", kernel=name, **r))
             ok &= r["ok"]
@@ -3267,6 +3447,8 @@ def main():
             name != "decode_megakernel_topk" or (r["R"] == 8 and r["head_k"] == 8)) and (
             name != "decode_megakernel_tp" or (r["tp"] == 2 and r["R"] == 8
                                                and r["weights"] == "bf16")))
+    main_rows["paged_attention_staged"] = main_rows["paged_attention"]
+    main_rows["spec_verify_attention_staged"] = main_rows["spec_verify_attention"]
     main_rows["ragged_paged_attention_tc"] = main_rows["ragged_paged_attention"]
     main_rows["flash_attention_bwd_tc"] = main_rows["flash_attention_bwd"]
     main_rows["flash_attention_bwd_f32"] = next(
@@ -3274,7 +3456,9 @@ def main():
     main_rows["flash_attention_fwd_tc"] = main_rows["flash_attention_fwd"]
     main_rows["flash_attention_fwd_f32"] = next(
         r for r in all_rows["flash_attention_fwd_masked"] if r["case"] == "bert_base_f32")
-    for r in flash_mask_gates(torch, dev):
+    with watchdog("kernels flash_attention_mask_gates", KERNEL_PHASE_S):
+        gates = flash_mask_gates(torch, dev)
+    for r in gates:
         emit(dict(phase="kernels", kernel="flash_attention_mask_gates", **r))
         ok &= r["ok"]
     emit(dict(phase="kernels", elapsed_s=time.perf_counter() - t_start))
@@ -3288,7 +3472,8 @@ def main():
             launches[kname] = launches.get(kname, 0) + c
 
     reset_kernel_launches()
-    path, counts = serve_7b(torch, dev)
+    with watchdog("path", PATH_PHASE_S):
+        path, counts = serve_7b(torch, dev)
     add(counts)
     for r in path["runs"]:
         emit(dict(phase="path", **r))
@@ -3296,14 +3481,17 @@ def main():
     emit(dict(phase="path", setup_s=path["setup_s"], peak_gb=path["peak_gb"],
               elapsed_s=time.perf_counter() - t_start))
     # 5. parity on the card
-    for r in parity_2layer(torch, dev):
+    with watchdog("parity", PATH_PHASE_S):
+        parity_rows = parity_2layer(torch, dev)
+    for r in parity_rows:
         emit(dict(phase="parity", **r))
         ok &= r["ok"]
     emit(dict(phase="parity", elapsed_s=time.perf_counter() - t_start))
 
     # 6. the continuous-batching path; counts are zeroed just before each
     # run inside serve_cb_7b and read just after it
-    cb, counts = serve_cb_7b(torch, dev)
+    with watchdog("cb_path", PATH_PHASE_S):
+        cb, counts = serve_cb_7b(torch, dev)
     add(counts)
     for r in cb["runs"] + [cb["single"], cb["width"]]:
         emit(dict(phase="cb_path", **r))
@@ -3325,17 +3513,22 @@ def main():
               elapsed_s=time.perf_counter() - t_start))
 
     # 7. continuous-batching parity on the card
-    for r in parity_cb_2layer(torch, dev):
+    with watchdog("cb_parity", PATH_PHASE_S):
+        cb_parity_rows = parity_cb_2layer(torch, dev)
+    for r in cb_parity_rows:
         emit(dict(phase="cb_parity", **r))
         ok &= r["ok"]
-    for r in parity_cb_sampled(torch, dev):
+    with watchdog("cb_sampled_parity", PATH_PHASE_S):
+        cb_sampled_parity_rows = parity_cb_sampled(torch, dev)
+    for r in cb_sampled_parity_rows:
         emit(dict(phase="cb_sampled_parity", **r))
         ok &= r["ok"]
     emit(dict(phase="cb_parity", elapsed_s=time.perf_counter() - t_start))
 
     # 8. the training path; counts are zeroed just before each
     # configuration's run inside train_path and read just after it
-    runs, counts = train_path(torch, dev)
+    with watchdog("train_path", PATH_PHASE_S):
+        runs, counts = train_path(torch, dev)
     add(counts)
     for r in runs:
         emit(dict(phase="train_path", **r))
@@ -3343,14 +3536,17 @@ def main():
     emit(dict(phase="train_path", elapsed_s=time.perf_counter() - t_start))
 
     # 9. training parity on the card
-    for r in train_parity(torch, dev):
+    with watchdog("train_parity", PATH_PHASE_S):
+        train_parity_rows = train_parity(torch, dev)
+    for r in train_parity_rows:
         emit(dict(phase="train_parity", **r))
         ok &= r["ok"]
     emit(dict(phase="train_parity", elapsed_s=time.perf_counter() - t_start))
 
     # 10. the GPT training path (dropout on); counts are zeroed just
     # before the run inside train_path and read just after it
-    runs, counts = train_path(torch, dev, GPT_TRAIN_RUNS)
+    with watchdog("gpt_train_path", PATH_PHASE_S):
+        runs, counts = train_path(torch, dev, GPT_TRAIN_RUNS)
     add(counts)
     for r in runs:
         emit(dict(phase="gpt_train_path", **r))
@@ -3359,7 +3555,9 @@ def main():
               elapsed_s=time.perf_counter() - t_start))
 
     # 11. GPT training parity on the card, dropout on
-    for r in gpt_train_parity(torch, dev):
+    with watchdog("gpt_train_parity", PATH_PHASE_S):
+        gpt_train_parity_rows = gpt_train_parity(torch, dev)
+    for r in gpt_train_parity_rows:
         emit(dict(phase="gpt_train_parity", **r))
         ok &= r["ok"]
     emit(dict(phase="gpt_train_parity", elapsed_s=time.perf_counter() - t_start))
@@ -3367,7 +3565,8 @@ def main():
     # 12. the BERT MLM training path (masked, non-causal attention with
     # dropout); counts are zeroed just before each run inside
     # bert_train_path and read just after it
-    runs, counts = bert_train_path(torch, dev)
+    with watchdog("bert_train_path", PATH_PHASE_S):
+        runs, counts = bert_train_path(torch, dev)
     add(counts)
     for r in runs:
         emit(dict(phase="bert_train_path", **r))
@@ -3375,7 +3574,9 @@ def main():
     emit(dict(phase="bert_train_path", elapsed_s=time.perf_counter() - t_start))
 
     # 13. BERT training parity on the card, dropout on
-    for r in bert_train_parity(torch, dev):
+    with watchdog("bert_train_parity", PATH_PHASE_S):
+        bert_train_parity_rows = bert_train_parity(torch, dev)
+    for r in bert_train_parity_rows:
         emit(dict(phase="bert_train_parity", **r))
         ok &= r["ok"]
     emit(dict(phase="bert_train_parity", launches=launches,

@@ -36,8 +36,10 @@ _L = ctypes.c_int64
 # argtypes of every kernel entry point; each returns cudaGetLastError()
 SIGNATURES = {
     "ptt_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (q, k, v, table, lens, active, out, b, h, h_kv, d, p, n_pages,
+    # max_pages, scale, dtype, stages, device, stream)
     "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # (q, k, v, o, lse, mask and its four strides, b, s, h, d, s_true,
     # causal, scale, dtype, dropout, seed, thresh, inv_keep, device, stream)
     "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
@@ -49,9 +51,11 @@ SIGNATURES = {
     "ptt_flash_attention_fwd_tc": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
                                    _I, _I, _I, _I, _I, _I, _F, _I, _U, _U,
                                    _F, _I, _P],
+    # (q, k, v, table, ctx, starts, active, out, b, tq, h, h_kv, d, p,
+    # n_pages, max_pages, scale, dtype, stages, device, stream)
     "ptt_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                   _I, _P],
+                                   _I, _I, _P],
     # (q, k, v, table, ctx, starts, active, out, b, tq, h, h_kv, d, p,
     # n_pages, max_pages, scale, device, stream): the bf16 tensor-core build
     "ptt_ragged_paged_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -195,5 +199,10 @@ def aligned16(t):
 
 
 def stream_ptr(device):
+    """The current CUDA stream of `device` (a torch.device with an index), as
+    a pointer. Read through torch's raw-stream getter, the one its own
+    generated kernels use: `torch.cuda.current_stream(device)` builds a
+    Stream object on every call, several microseconds of a launch's host
+    time."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))

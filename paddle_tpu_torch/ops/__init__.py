@@ -21,7 +21,11 @@ counted on their own too, as "ragged_paged_attention_tc" (the chunked
 prefill in bf16, also in "ragged_paged_attention"),
 "flash_attention_fwd_tc" (the bf16 forward, also in "flash_attention_fwd")
 and "flash_attention_bwd_tc" (the bf16 backward, also in
-"flash_attention_bwd").
+"flash_attention_bwd"). The launches of the decode kernel and of the ragged
+kernel's per-page build that take the staged walk (`paged_route`) are
+counted on their own as well: "paged_attention_staged",
+"ragged_paged_attention_staged" and "spec_verify_attention_staged" (each
+also in its wrapper's count).
 """
 from .pallas.decode_megakernel import decode_megakernel
 from .pallas.flash_attention import flash_attention_bwd, flash_attention_fwd
@@ -51,6 +55,8 @@ def kernel_launches():
     out["ragged_paged_attention_tc"] = ragged_paged_attention.tc_launches
     out["flash_attention_fwd_tc"] = flash_attention_fwd.tc_launches
     out["flash_attention_bwd_tc"] = flash_attention_bwd.tc_launches
+    for fn in (paged_attention, ragged_paged_attention, spec_verify_attention):
+        out[fn.__name__ + "_staged"] = fn.staged_launches
     for fn in (flash_attention_fwd, flash_attention_bwd):
         out[fn.__name__ + "_dropout"] = fn.dropout_launches
         out[fn.__name__ + "_masked"] = fn.mask_launches
@@ -67,5 +73,7 @@ def reset_kernel_launches():
     ragged_paged_attention.tc_launches = 0
     flash_attention_fwd.tc_launches = 0
     flash_attention_bwd.tc_launches = 0
+    for fn in (paged_attention, ragged_paged_attention, spec_verify_attention):
+        fn.staged_launches = 0
     for fn in (flash_attention_fwd, flash_attention_bwd):
         fn.dropout_launches = fn.mask_launches = fn.noncausal_launches = 0

@@ -162,7 +162,10 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                  "flash_attention_fwd_masked": 0,
                                  "flash_attention_bwd_masked": 0,
                                  "flash_attention_fwd_noncausal": 0,
-                                 "flash_attention_bwd_noncausal": 0}
+                                 "flash_attention_bwd_noncausal": 0,
+                                 "paged_attention_staged": 0,
+                                 "ragged_paged_attention_staged": 0,
+                                 "spec_verify_attention_staged": 0}
 
 
 def test_training_entry_points_refuse_cpu_without_being_asked():

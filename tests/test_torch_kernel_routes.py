@@ -231,3 +231,153 @@ def test_profile_groups_name_every_training_kernel(kernel, group):
     assert re.search(rf"\b{kernel}\(", defined), f"{kernel} not in csrc/"
     name = f"void (anonymous namespace)::{kernel}<128, false, false>(int)"
     assert next(g for g, pat in KERNEL_GROUPS if pat.search(name)) == group
+
+
+# every (dtype, d, page) the engines and chip_smoke.py launch the decode
+# kernel or the per-page ragged build at: pages 8, 16, 64, 128; d 16, 64,
+# 128; bf16 and f32 (the GQA factor does not enter the plan). Two stages
+# of f32 pages of 128 tokens at d 128 (2 x 128 KB) exceed the ring's
+# budget: that shape keeps the direct walk.
+_PAGED_SHAPES = [(dt, d, p) for dt in (BF16, F32) for d in (16, 64, 128)
+                 for p in (8, 16, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype,d,p", _PAGED_SHAPES)
+def test_paged_route_and_stage_plan(dtype, d, p):
+    stages, nbytes = tp.paged_stage_plan(dtype, d, p)
+    stage = 2 * p * d * (4 if dtype == F32 else 2)
+    direct = (dtype, d, p) == (F32, 128, 128)
+    assert tp.paged_route(dtype, d, p) == ("direct" if direct else "staged")
+    if direct:
+        assert (stages, nbytes) == (0, 0)
+        assert 2 * stage > tp.RING_BUDGET_BYTES
+        return
+    assert 2 <= stages <= tp.RING_MAX_STAGES
+    assert nbytes == stages * stage <= tp.RING_BUDGET_BYTES
+    # as many bytes in flight as the target asks, unless the stage cap or
+    # the budget stops the ring first; never a stage more than needed
+    assert (nbytes >= tp.RING_TARGET_BYTES or stages == tp.RING_MAX_STAGES
+            or nbytes + stage > tp.RING_BUDGET_BYTES)
+    assert stages == 2 or (stages - 1) * stage < tp.RING_TARGET_BYTES
+    assert (d * (4 if dtype == F32 else 2)) % 16 == 0   # one bulk copy a row
+
+
+@pytest.mark.parametrize("dtype,d,p", [(BF16, 256, 128), (F32, 256, 64),
+                                       (F32, 128, 128)])
+def test_paged_route_direct_where_two_stages_do_not_fit(dtype, d, p):
+    assert tp.paged_route(dtype, d, p) == "direct"
+    assert tp.paged_stage_plan(dtype, d, p) == (0, 0)
+
+
+def test_paged_stage_plan_refuses_rows_off_16_bytes():
+    with pytest.raises(ValueError, match="16 bytes"):
+        tp.paged_stage_plan(BF16, 4, 64)
+    with pytest.raises(ValueError, match="no kernel"):
+        tp.paged_stage_plan(torch.float16, 64, 64)
+
+
+def _pools(offset):
+    """Meta pools [6, 16, 2, 64] bf16 whose data starts `offset` elements
+    into their storage (a meta tensor's data_ptr is its byte offset)."""
+    flat = torch.empty(offset + 6 * 16 * 2 * 64, dtype=BF16, device="meta")
+    return flat[offset:].view(6, 16, 2, 64)
+
+
+@pytest.mark.parametrize("entry", ["paged_attention", "ragged_paged_attention",
+                                   "spec_verify_attention"])
+def test_wrappers_refuse_pools_off_16_bytes_before_launch(monkeypatch, entry):
+    """The staged walk's bulk copies and the tensor-core build move
+    16-byte pieces: a pool that does not start on 16 bytes is refused by
+    every wrapper before any build (meta tensors reach no library)."""
+    _no_library(monkeypatch)
+    table = torch.empty(2, 3, dtype=torch.int32, device="meta")
+    lens = torch.empty(2, dtype=torch.int32, device="meta")
+    good, bad = _pools(0), _pools(1)
+    assert bad.data_ptr() % 16 and good.data_ptr() % 16 == 0
+    q = torch.empty(2, 4, 64, dtype=BF16, device="meta")
+    q4 = torch.empty(2, 8, 4, 64, dtype=BF16, device="meta")
+    calls = {
+        "paged_attention": lambda kp, vp: tp.paged_attention(q, kp, vp, table, lens),
+        "ragged_paged_attention": lambda kp, vp: tp.ragged_paged_attention(
+            q4, kp, vp, table, lens, lens),
+        "spec_verify_attention": lambda kp, vp: tp.spec_verify_attention(
+            q4, kp, vp, table, lens),
+    }
+    for kp, vp in ((bad, good), (good, bad)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            calls[entry](kp, vp)
+    with pytest.raises(ValueError, match="unsupported device"):
+        calls[entry](good, good)
+
+
+def test_paged_attention_validates_before_launch(monkeypatch):
+    """Shapes, dtypes and the head dim are checked before the device and
+    before any build: meta tensors reach no library."""
+    _no_library(monkeypatch)
+    meta = dict(device="meta")
+    q = torch.empty(2, 4, 64, dtype=BF16, **meta)
+    kp = torch.empty(6, 16, 2, 64, dtype=BF16, **meta)
+    table = torch.empty(2, 3, dtype=torch.int32, **meta)
+    lens = torch.empty(2, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="shapes"):
+        tp.paged_attention(q, kp, kp[:, :, :1], table, lens)
+    with pytest.raises(ValueError, match="shapes"):
+        tp.paged_attention(q[:, :3], kp, kp, table, lens)
+    with pytest.raises(ValueError, match="shapes"):
+        tp.paged_attention(q, kp, kp, table[:1], lens)
+    with pytest.raises(ValueError, match="shapes"):
+        tp.paged_attention(q, kp, kp, table, lens[:1])
+    with pytest.raises(ValueError, match="same dtype"):
+        tp.paged_attention(q, kp.float(), kp, table, lens)
+    q40 = torch.empty(2, 4, 40, dtype=BF16, **meta)
+    kp40 = torch.empty(6, 16, 2, 40, dtype=BF16, **meta)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tp.paged_attention(q40, kp40, kp40, table, lens)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tp.paged_attention(q, kp, kp, table, lens)
+
+
+def test_per_page_kernels_share_the_page_step_and_the_ring():
+    """Both per-page kernels walk their pages through one `PageRing` and
+    one `online_softmax_page`, and the decode megakernel's attention phase
+    still calls the same page step: tq = 1 and verify rows equal decode
+    steps, and #7's attention equals #4, bit for bit."""
+    csrc = _build.sources()[0].parent
+    for name in ("paged_attention.cu", "ragged_paged_attention.cu"):
+        text = (csrc / name).read_text()
+        assert "ptt::online_softmax_page<" in text, name
+        assert "ptt::PageRing<T>" in text, name
+    assert "ptt::online_softmax_page<" in (csrc / "decode_megakernel.cuh").read_text()
+    assert "struct PageRing" in (csrc / "common.cuh").read_text()
+
+
+def test_staged_launches_are_counted_apart():
+    """Each wrapper with a staged walk counts its staged launches beside
+    `.launches`; `kernel_launches()` reads them and the reset clears them."""
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    wrappers = (tp.paged_attention, tp.ragged_paged_attention, tp.spec_verify_attention)
+    reset_kernel_launches()
+    for fn in wrappers:
+        assert fn.staged_launches == 0 and fn.launches == 0
+        assert kernel_launches()[fn.__name__ + "_staged"] == 0
+        fn.staged_launches = 2
+        assert kernel_launches()[fn.__name__ + "_staged"] == 2
+    reset_kernel_launches()
+    assert all(kernel_launches()[fn.__name__ + "_staged"] == 0 for fn in wrappers)
+
+
+def test_cpu_calls_take_the_plain_version_and_count_nothing():
+    """A CPU tensor takes the plain version on every shape, staged or
+    direct by route: no launch, no staged launch."""
+    from paddle_tpu_torch.ops import reset_kernel_launches
+    reset_kernel_launches()
+    g = torch.Generator().manual_seed(0)
+    for dt, d, p in ((BF16, 64, 16), (F32, 128, 128)):
+        q = torch.randn(2, 4, d, generator=g).to(dt)
+        kp = torch.randn(4, p, 2, d, generator=g).to(dt)
+        table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+        lens = torch.tensor([p + 3, 1], dtype=torch.int32)
+        out = tp.paged_attention(q, kp, kp, table, lens)
+        ref = tp.paged_attention_reference(q, kp, kp, table, lens)
+        assert torch.equal(out, ref)
+        assert tp.paged_attention.launches == tp.paged_attention.staged_launches == 0

@@ -66,3 +66,41 @@ def test_expand_kv_heads_matches_jax():
     np.testing.assert_array_equal(
         tp.expand_kv_heads(torch.from_numpy(x), 6).numpy(),
         np.asarray(jp.expand_kv_heads(jnp.asarray(x), 6)))
+
+
+# paged_attention_dense: [b, L, h, d] caches viewed as identity-tabled pages.
+# The reference's interpret kernel and the port's plain version both
+# compute in f32 and round once to the inputs' dtype: f32 agrees to 1e-5
+# (the same sums in another order); bf16 outputs may differ by one bf16
+# ulp where the f32 results straddle a rounding boundary (2^-7 of values
+# below 2: atol 1e-2).
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seq_len", ["scalar", "per_slot"])
+@pytest.mark.parametrize("page_size", [None, 4], ids=["default_page", "page4"])
+def test_dense_matches_reference(dtype, seq_len, page_size):
+    b, L, h, d = 2, 24, 4, 16      # the default page: 128 halved to 8
+    rs = np.random.RandomState(7)
+    q, kc, vc = (rs.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, h, d), (b, L, h, d), (b, L, h, d)))
+    sl = 13 if seq_len == "scalar" else np.asarray([13, 24], np.int32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ref = jp.paged_attention_dense(
+        *(jnp.asarray(a).astype(jdt) for a in (q, kc, vc)),
+        sl if seq_len == "scalar" else jnp.asarray(sl), page_size=page_size,
+        interpret=True)
+    tdt = getattr(torch, dtype)
+    got = tp.paged_attention_dense(
+        *(torch.from_numpy(a).to(tdt) for a in (q, kc, vc)),
+        sl if seq_len == "scalar" else torch.from_numpy(sl),
+        page_size=page_size)
+    assert got.dtype == tdt and tuple(got.shape) == (b, h, d)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_dense_refuses_a_page_that_does_not_divide_the_cache():
+    kc = torch.zeros(1, 24, 2, 16)
+    with pytest.raises(ValueError, match="divide"):
+        tp.paged_attention_dense(torch.zeros(1, 2, 16), kc, kc, 5, page_size=5)

@@ -7,9 +7,11 @@ the order given. One JSON line per row; the last line says whether every
 gate held. It is the quick first call after a change to a flash kernel or
 to a training path; `chip_smoke.py` is the whole check. Phases:
 
-- `ragged`: the ragged kernel's rows (the chunked-prefill entry on its
-  tensor-core build, the per-page build's f32 row), the tq = 1 identity
-  with the decode kernel and the verify entry's rows;
+- `ragged`: the decode kernel's rows (with the dense-cache wrapper's), the
+  ragged kernel's rows (the chunked-prefill entry on its tensor-core
+  build, the per-page build's f32 row), the tq = 1 identity with the
+  decode kernel and the verify entry's rows, each staged walk against its
+  direct walk;
 - `flash`: the flash rows without a mask (the causal forward, the backward
   at the llama350m, llama1p3b / gpt3_1p3b shapes and the small f32 rows,
   both dropout branches);
@@ -206,11 +208,14 @@ def main(names):
     _build.library()
     print(json.dumps(dict(build_s=time.perf_counter() - t0)))
     print("\n".join(l for l in C.ptxas_summary(_build.build_log() or "")
-                    if "flash" in l or "megakernel" in l or "bwd" in l or "ragged" in l))
-    # nvcc's own lines for the wgmma build (warnings such as wgmma
-    # serialization show here)
+                    if "flash" in l or "megakernel" in l or "bwd" in l or "ragged" in l
+                    or "paged" in l))
+    # nvcc's own lines for the wgmma build and the staged page walks
+    # (warnings such as wgmma serialization show here)
     log = (_build.build_log() or "").split("\n== ")
-    print("\n".join(b for b in log if b.startswith("flash_attention_tc.cu")))
+    print("\n".join(b for b in log if b.startswith(("flash_attention_tc.cu",
+                                                      "paged_attention.cu",
+                                                      "ragged_paged_attention.cu"))))
     sass = C.sass_mma_counts(_build.build_info()["path"])
     print(json.dumps(dict(tensor_core_sass=sass, ok=C.tc_sass_ok(sass))))
     ok = C.tc_sass_ok(sass)

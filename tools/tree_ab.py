@@ -29,10 +29,35 @@ difference between a tree's two rows. Probes:
   main and GQA rows (bf16, 8 and 4 slots of 128-token chunks, d 128, page
   64), with the build's ragged ptxas lines; each row's ms and a digest of
   its output.
+- `paged`: the decode kernel (#4) and the ragged kernel's per-page build
+  (#5 at tq = 1, #5v the verify entry): `chip_smoke.check_paged_attention`'s
+  "mha" row (bf16, 4 slots, 32 heads of d 128, page 64) and
+  `check_spec_verify`'s main row (bf16, 8 slots, T = 4), then every case
+  of `tq1_identity` (#4 and #5 at tq = 1) and of `verify_identity` (#5v)
+  (bf16 and f32, page 64 and 8, MHA and a GQA group of 4), on the same
+  seeded inputs as those functions. Each row: ms by CUDA events around
+  back-to-back wrapper calls (as `chip_smoke.time_ms`, the host's issue
+  included), device ms of one launch from a CUDA graph of 20 launches
+  replayed (the host out of the way), the walk (`paged_route`, "direct"
+  on a tree without it) and its stage count, and a digest of the output's
+  bytes: equal digests across trees mean bit-equal outputs. With the
+  build's ptxas lines of both kernels.
+
+- `serving`: what the decode kernel's time does to the serving path: at
+  LLaMA-7B's full width and depth (random weights, seed 0), the static
+  engine's decode ms per step and prefill ms (bf16, 4 x 12 and 4 x 300
+  prompts, 16 new tokens, device loop; as `chip_smoke.serve_7b` times
+  them), and `chip_smoke.cb_stream`'s 12 requests through the
+  continuous-batching engine at decode_block 8 in bf16 on the op chain
+  (32 decode-kernel launches a micro-step) and on the "multi" megakernel
+  (none: its row shows the card's and the host's drift between turns):
+  ms per decode micro-step and generated tokens/s.
 
     python3 tools/tree_ab.py flash chipwork/parent .     # needs one CUDA card
     python3 tools/tree_ab.py mask chipwork/parent .
     python3 tools/tree_ab.py ragged chipwork/parent .
+    python3 tools/tree_ab.py paged chipwork/parent .
+    python3 tools/tree_ab.py serving chipwork/parent .
 """
 import json
 import subprocess
@@ -106,8 +131,8 @@ dev = torch.device("cuda", 0)
 out = dict(build_s=time.perf_counter() - t, rows=[])
 
 
-def ms(fn, iters):
-    for _ in range(3):
+def ms(fn, iters, warmup=3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -124,6 +149,29 @@ def digest(ts):
     for x in ts:
         h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def graph_ms(fn, launches=20, replays=10):
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (launches * replays)
 '''
 
 FLASH = TIMED + r'''
@@ -219,7 +267,123 @@ for name, b, tq, h, h_kv, d, p, mp, starts, ctx, active in (
     out["rows"].append(dict(case=name, ms=ms(fn, 50), digest=digest([res])))
 print("RESULT " + json.dumps(out), flush=True)
 '''
-PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH, mask=MASK, ragged=RAGGED)
+PAGED = TIMED + r'''
+import math
+from paddle_tpu_torch.ops.pallas import paged_attention as pa
+out["ptxas"] = [l for l in cs.ptxas_summary(_build.build_log() or "")
+                if "paged" in l or "ragged_kernel" in l or "ragged_staged" in l]
+
+
+def walk(dt, d, p):
+    if not hasattr(pa, "paged_route"):
+        return "direct", 0
+    return pa.paged_route(dt, d, p), pa.paged_stage_plan(dt, d, p)[0]
+
+
+def row(case, dt, d, p, fn):
+    res = fn()
+    torch.cuda.synchronize()
+    route, stages = walk(dt, d, p)
+    out["rows"].append(dict(case=case, dtype=str(dt), p=p, route=route, stages=stages,
+                            ms=ms(fn, 100, warmup=20), device_ms=graph_ms(fn),
+                            digest=digest([res])))
+
+
+bf16, f32 = torch.bfloat16, torch.float32
+# chip_smoke.check_paged_attention's "mha" row (#4)
+lens, active = [300, 257, 311, 290], [1, 1, 1, 0]
+q, kp, vp, table, ln, act = cs.paged_inputs(torch, dev, 4, 32, 32, 128, 64, lens, active,
+                                            bf16, seed=2)
+row("#4 mha", bf16, 128, 64, lambda: pa.paged_attention(q, kp, vp, table, ln, active=act))
+# chip_smoke.check_spec_verify's main row (#5v)
+T = cs.SPEC_T
+q, kp, vp, table = cs.ragged_inputs(torch, dev, 8, T, 32, 32, 128, 64, 16, bf16, seed=7)
+ln = torch.tensor(cs.SPEC_LENS, dtype=torch.int32, device=dev)
+act = torch.tensor(cs.SPEC_ACTIVE, dtype=torch.int32, device=dev)
+row("#5v main", bf16, 128, 64,
+    lambda: pa.spec_verify_attention(q, kp, vp, table, ln, active=act))
+# chip_smoke.tq1_identity's and verify_identity's cases, their inputs
+for kind in ("tq1", "verify"):
+    for dt in (bf16, f32):
+        for p in (64, 8):
+            for h, h_kv in ((32, 32), (32, 8)):
+                if kind == "tq1":
+                    lens, active, seed, extra = [300, 257, 1, 290, 129], [1, 1, 1, 0, 1], 5, 0
+                else:
+                    lens, active, seed, extra = [300, 257, 0, 290, 129], [1, 1, 1, 0, 1], 6, T
+                b, d, mp = len(lens), 128, -(-(max(lens) + extra) // p)
+                g = torch.Generator(device=dev).manual_seed(seed)
+                shape = (b, h, d) if kind == "tq1" else (b, T, h, d)
+                q = torch.randn(shape, generator=g, device=dev).to(dt)
+                kp = torch.randn((b * mp, p, h_kv, d), generator=g, device=dev).to(dt)
+                vp = torch.randn((b * mp, p, h_kv, d), generator=g, device=dev).to(dt)
+                table = torch.randperm(b * mp, generator=g, device=dev)
+                table = table.reshape(b, mp).to(torch.int32)
+                ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+                ac = torch.tensor(active, dtype=torch.int32, device=dev)
+                name = f"{dt} p{p} h_kv{h_kv}"
+                if kind == "tq1":
+                    row("#4 tq1 case " + name, dt, d, p,
+                        lambda: pa.paged_attention(q, kp, vp, table, ln, active=ac))
+                    row("#5 tq=1 case " + name, dt, d, p,
+                        lambda: pa.ragged_paged_attention(q[:, None], kp, vp, table, ln,
+                                                          ln - 1, active=ac))
+                else:
+                    row("#5v verify case " + name, dt, d, p,
+                        lambda: pa.spec_verify_attention(q, kp, vp, table, ln, active=ac))
+print("RESULT " + json.dumps(out), flush=True)
+'''
+SERVING = r'''
+import json, sys, time
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch import _build
+from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+from paddle_tpu_torch.inference.serving import LLMEngine
+from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+_build.library()
+dev = torch.device("cuda", 0)
+cfg = LlamaConfig.llama_7b()
+model = LlamaForCausalLM(cfg, device=dev, seed=0)
+out = dict(static=[], cb=[])
+eng = LLMEngine(model, max_len=512, page_size=64, max_batch=4, weight_dtype="bfloat16",
+                device=dev)
+rng = np.random.RandomState(0)
+n_new = 16
+for name, t0_len in (("4x12", 12), ("4x300", 300)):
+    ids = rng.randint(0, cfg.vocab_size, (4, t0_len)).astype(np.int64)
+    n_loop = min(-(-(n_new - 1) // 32) * 32, eng.max_len - t0_len - 1)
+    eng.generate(ids, max_new_tokens=n_new, device_loop=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.generate(ids, max_new_tokens=n_new, device_loop=True)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t
+    t = time.perf_counter()
+    eng.generate(ids, max_new_tokens=1, device_loop=True)
+    torch.cuda.synchronize()
+    prefill = time.perf_counter() - t
+    out["static"].append(dict(prompts=name, decode_ms_per_step=1e3 * (total - prefill) / n_loop,
+                              prefill_ms=1e3 * prefill))
+del eng
+torch.cuda.empty_cache()
+prompts, budgets = cs.cb_stream(cfg)
+for name, mk in (("op chain K=8 bf16", False), ("multi K=8 bf16", "multi")):
+    eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=mk, page_size=64,
+                                   max_len=1024, max_batch=8, prefill_chunk=128,
+                                   prefix_cache=True, weight_dtype="bfloat16", device=dev)
+    outs, wall, dec_ms = cs.drive_cb(torch, eng, prompts, budgets)
+    gen = int(sum(o.size - p.size for o, p in zip(outs, prompts)))
+    out["cb"].append(dict(run=name, ms_per_decode_microstep=dec_ms,
+                          generated_tokens_per_s=gen / wall))
+    del eng
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH, mask=MASK, ragged=RAGGED, paged=PAGED,
+              serving=SERVING)
 
 
 def main(argv):
