@@ -33,6 +33,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               seed bit-identical, dropout_p = 0 bit-equal to the causal
               launch; their mask and non-causal branches (BERT-base's
               shape with its [b, 1, 1, s] padding mask in bf16 and f32,
+              f32 also with dropout 0.1 (what BERT's f32 training runs),
               no mask, [1, h, s, s] and [b, h, s, s] masks, a bool mask
               hiding a row, causal plus a mask, a mask with dropout, d 128)
               against the plain versions; a causal launch with a zero
@@ -227,12 +228,16 @@ class watchdog:
         return False
 
 
-def bound_ms(n_bytes, flops, core_ops=0):
+def bound_ms(n_bytes, flops, core_ops=0, f32=False):
     """The least time for the work: bytes over the memory rate, or
     tensor-core flops over the bf16 peak plus operations that run outside
-    the tensor cores (the dropout hash) over the CUDA cores' rate."""
+    the tensor cores (the dropout hash) over the CUDA cores' rate. An f32
+    row (`f32=True`) computes in f32 FFMA on the CUDA cores (the tensor
+    cores' f32 path is TF32, outside the f32 parity gates), so its flops
+    too go over the CUDA cores' rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS_PER_S + core_ops / CORE_OPS_PER_S
+    t_ops = (flops / (CORE_OPS_PER_S if f32 else BF16_FLOPS_PER_S)
+             + core_ops / CORE_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -778,8 +783,8 @@ def check_rms(torch, dev):
 def check_flash_bwd(torch, dev):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.pallas.flash_attention import (
-        BWD_TILE, flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
-        flash_bwd_route)
+        bwd_key_tile, flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_bwd_route)
     bf16 = torch.bfloat16
     rows = []
     for b, s, h, d, dt in FLASH_BWD_CASES:
@@ -792,14 +797,14 @@ def check_flash_bwd(torch, dev):
         route, part_shape = flash_bwd_route(dt, b, s, h, d)
         # one launch's transient memory (everything it allocates, outputs
         # included) beside the per-key-tile dQ partials the f32 build
-        # allocates, [ceil(s / 64), b, s, h, d] f32
+        # allocates, [ceil(s / bwd_key_tile(d)), b, s, h, d] f32
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         got = flash_attention_bwd(q, k, v, o, lse, do, True, scale)
         torch.cuda.synchronize()
         launch_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
-        partial_gb = 4 * -(-s // BWD_TILE) * b * s * h * d / 1e9
+        partial_gb = 4 * -(-s // bwd_key_tile(d)) * b * s * h * d / 1e9
         ref = flash_attention_bwd_reference(q, k, v, o, lse, do, True, scale)
         torch.cuda.synchronize()
         errs = {n: max_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
@@ -831,11 +836,8 @@ def check_flash_bwd(torch, dev):
             row["library_call"] = ("the backward alone of torch.nn.functional."
                                    "scaled_dot_product_attention(is_causal=True)")
             del qt, kt, vt, out, dot
-            # q, k, v, o, dO read and dQ, dK, dV written once, lse read;
-            # 10 d flops per visible (query, key) pair
-            pairs = b * h * s * (s + 1) // 2
-            n_bytes = 8 * b * s * h * d * q.element_size() + b * h * s * 4
-            row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 10 * d * pairs)
+            row["bound_ms"], row["bound_by"] = flash_bound("bwd", b, s, h, d,
+                                                           q.element_size(), True)
         rows.append(row)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
@@ -904,12 +906,8 @@ def check_flash_dropout(torch, dev):
             row["library_call"] = ("torch.nn.functional.scaled_dot_product_attention("
                                    "dropout_p=0.1, is_causal=True); its RNG differs")
             del qt, kt, vt
-            # q, k, v read and o written once, lse written; 4 d flops and
-            # one keep bit per visible (query, key) pair
-            pairs = b * h * s * (s + 1) // 2
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                4 * b * s * h * d * q.element_size() + b * h * s * 4, 4 * d * pairs,
-                HASH_OPS * pairs)
+            row["bound_ms"], row["bound_by"] = flash_bound(
+                "fwd", b, s, h, d, q.element_size(), True, dropout=True)
         rows.append(row)
         del q, k, v, got
         torch.cuda.empty_cache()
@@ -970,12 +968,8 @@ def check_flash_bwd_dropout(torch, dev):
                                    "scaled_dot_product_attention(dropout_p=0.1, "
                                    "is_causal=True); its RNG differs")
             del qt, kt, vt, out, dot
-            # q, k, v, o, dO read and dQ, dK, dV written once, lse read;
-            # 10 d flops and one keep bit per visible (query, key) pair
-            pairs = b * h * s * (s + 1) // 2
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                8 * b * s * h * d * q.element_size() + b * h * s * 4, 10 * d * pairs,
-                HASH_OPS * pairs)
+            row["bound_ms"], row["bound_by"] = flash_bound(
+                "bwd", b, s, h, d, q.element_size(), True, dropout=True)
         rows.append(row)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
@@ -985,13 +979,15 @@ def check_flash_bwd_dropout(torch, dev):
 # ---------------------------------------------------------------- phase 3 (masks)
 # BertConfig.base()'s attention (b 32, s 512, h 12, d 64) with its [b, 1, 1,
 # s] key-padding mask (true lengths from RandomState(0) in [128, 512], -1e9
-# past them, in the activations' dtype), bf16 and f32; then the other mask
-# layouts, a bool mask hiding one row entirely (s 200: a ragged last tile),
-# causal plus a mask, the mask with dropout 0.1, and d 128
+# past them, in the activations' dtype), bf16 and f32, with and without
+# dropout 0.1 (f32 with dropout is what BERT's f32 training launches); then
+# the other mask layouts, a bool mask hiding one row entirely (s 200: a
+# ragged last tile), causal plus a mask, the mask with dropout 0.1, and d 128
 MASK_CASES = (
     # name, b, s, h, d, dtype, mask kind, causal, dropout_p
     ("bert_base", 32, 512, 12, 64, "bfloat16", "key_padding", False, 0.0),
     ("bert_base_f32", 32, 512, 12, 64, "float32", "key_padding", False, 0.0),
+    ("bert_base_f32_dropout", 32, 512, 12, 64, "float32", "key_padding", False, 0.1),
     ("bert_base_dropout", 32, 512, 12, 64, "bfloat16", "key_padding", False, 0.1),
     ("noncausal_no_mask", 32, 512, 12, 64, "bfloat16", None, False, 0.0),
     ("head_mask_1hss", 4, 512, 12, 64, "bfloat16", "head", False, 0.0),
@@ -1036,6 +1032,20 @@ def library_mask(torch, mask, causal, dtype):
 
 def _visible_pairs(b, h, s, causal):
     return b * h * (s * (s + 1) // 2 if causal else s * s)
+
+
+def flash_bound(kind, b, s, h, d, elem_bytes, causal, mask_bytes=0, dropout=False):
+    """`bound_ms` of one flash launch ("fwd" or "bwd") at every key
+    visible below s: q, k, v and o (the backward also dO, dQ, dK and dV)
+    read or written once at elem_bytes each, lse (f32) and the mask once;
+    4 d flops per visible (query, key) pair forward, 10 d backward (S
+    again, dV, dP, dK, dQ), plus one keep bit per pair with dropout. f32
+    rows (elem_bytes 4) run on the CUDA cores."""
+    pairs = _visible_pairs(b, h, s, causal)
+    tensors, flops = (4, 4) if kind == "fwd" else (8, 10)
+    return bound_ms(tensors * b * s * h * d * elem_bytes + b * h * s * 4 + mask_bytes,
+                    flops * d * pairs, HASH_OPS * pairs if dropout else 0,
+                    f32=elem_bytes == 4)
 
 
 def check_flash_masked(torch, dev):
@@ -1085,13 +1095,9 @@ def check_flash_masked(torch, dev):
                                "same mask (causal folded into it)"
                                + ("; its RNG differs" if p > 0 else ""))
         del qt, kt, vt, lm
-        # q, k, v and the mask read and o written once, lse written; 4 d
-        # flops (and with dropout one keep bit) per visible pair
-        pairs = _visible_pairs(b, h, s, causal)
         mbytes = 0 if mask is None else mask.numel() * mask.element_size()
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            4 * b * s * h * d * q.element_size() + b * h * s * 4 + mbytes, 4 * d * pairs,
-            HASH_OPS * pairs if p > 0 else 0)
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            "fwd", b, s, h, d, q.element_size(), causal, mbytes, p > 0)
         rows.append(row)
         del q, k, v, mask
         torch.cuda.empty_cache()
@@ -1152,13 +1158,9 @@ def check_flash_bwd_masked(torch, dev):
                                "scaled_dot_product_attention with the same mask"
                                + ("; its RNG differs" if p > 0 else ""))
         del qt, kt, vt, out, dot, lm
-        # q, k, v, o, dO and the mask read, dQ, dK, dV written once, lse
-        # read; 2.5 x the forward's flops (10 d per visible pair)
-        pairs = _visible_pairs(b, h, s, causal)
         mbytes = 0 if mask is None else mask.numel() * mask.element_size()
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            8 * b * s * h * d * q.element_size() + b * h * s * 4 + mbytes, 10 * d * pairs,
-            HASH_OPS * pairs if p > 0 else 0)
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            "bwd", b, s, h, d, q.element_size(), causal, mbytes, p > 0)
         rows.append(row)
         del q, k, v, do, o, lse, mask
         torch.cuda.empty_cache()

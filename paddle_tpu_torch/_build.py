@@ -62,7 +62,10 @@ SIGNATURES = {
                                       _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                       _I, _P],
     "ptt_rms_norm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
-    "ptt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # (q, k, v, dout, lse, delta, dq_part, n_part, dk, dv, mask and its
+    # four strides, b, s, h, d, s_true, causal, scale, dtype, dropout, seed,
+    # thresh, inv_keep, device, stream): the f32 build, n_part dQ partials
+    "ptt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                                 _P, _L, _L, _L, _L,
                                 _I, _I, _I, _I, _I, _I, _F, _I, _I, _U, _U,
                                 _F, _I, _P],

@@ -9,7 +9,7 @@ forward `_fwd_kernel` (via `_flash_fwd`), chosen by `flash_fwd_route`, by
 `_fused_bwd_kernel` (via `_flash_bwd`), chosen by `flash_bwd_route`, by
 `csrc/flash_attention_bwd_tc.cu` (bf16, tensor cores, a dK/dV kernel and a
 dQ kernel) and `csrc/flash_attention_bwd.cu` (f32, CUDA cores,
-per-key-tile dQ partials).
+per-key-tile dQ partials, `bwd_key_tile` keys a tile).
 The plain PyTorch versions beside them (`flash_attention_reference`, the
 counterpart of `_xla_ref`, and `flash_attention_bwd_reference`) serve CPU
 tensors and are the yardsticks the kernels are held against on the card.
@@ -229,9 +229,8 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, s_true=None,
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention_fwd: operands on different devices")
     build = flash_fwd_route(q.dtype, b, s, h, d)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if build == "tc":
-        q, k, v = (_build.aligned16(t) for t in (q, k, v))
+    # both builds copy rows in 16-byte pieces
+    q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     if b * h * s == 0:
@@ -334,7 +333,12 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-BWD_TILE = 64   # key tile of csrc/flash_attention_bwd.cu: one dQ partial each
+def bwd_key_tile(d):
+    """Keys a block of `csrc/flash_attention_bwd.cu` (`Tile<D>::kBK`), one
+    dQ partial each: 128 at d 64, 64 at d 128 (where K, V and the
+    two-stage Q / dO ring of 128 keys would not fit one SM's shared
+    memory)."""
+    return 128 if d == 64 else 64
 
 
 def flash_bwd_route(dtype, b, s, h, d):
@@ -343,11 +347,11 @@ def flash_bwd_route(dtype, b, s, h, d):
     dK/dV kernel and a dQ kernel on the tensor cores, each gradient
     written once, no partial buffer: shape None). f32 takes "f32"
     (`csrc/flash_attention_bwd.cu` on the CUDA cores: the tensor cores
-    would run it as TF32), whose per-key-tile dQ partials, [ceil(s / 64),
-    b, s, h, d] f32, the wrapper sums."""
+    would run it as TF32), whose per-key-tile dQ partials,
+    [ceil(s / bwd_key_tile(d)), b, s, h, d] f32, the wrapper sums."""
     if dtype == torch.bfloat16:
         return "tc", None
-    return "f32", (-(-s // BWD_TILE), b, s, h, d)
+    return "f32", (-(-s // bwd_key_tile(d)), b, s, h, d)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
@@ -392,9 +396,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
     if any(t.device != dev for t in (k, v, o, lse, do)):
         raise ValueError("flash_attention_bwd: operands on different devices")
     build, part_shape = flash_bwd_route(q.dtype, b, s, h, d)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-    if build == "tc":
-        q, k, v, do = (_build.aligned16(t) for t in (q, k, v, do))
+    # both builds copy rows in 16-byte pieces
+    q, k, v, do = (_build.aligned16(t.contiguous()) for t in (q, k, v, do))
     lse = lse.float().contiguous()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dk = torch.empty_like(k)
@@ -414,7 +417,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None,
         dq_part = torch.empty(part_shape, dtype=torch.float32, device=dev)
         code = lib.ptt_flash_attention_bwd(
             *(ctypes.c_void_p(t.data_ptr())
-              for t in (q, k, v, do, lse, delta, dq_part, dk, dv)), *margs,
+              for t in (q, k, v, do, lse, delta, dq_part)), part_shape[0],
+            *(ctypes.c_void_p(t.data_ptr()) for t in (dk, dv)), *margs,
             *tail, _DTYPE_CODE[q.dtype], *_dropout_args(dropout_p, seed),
             dev.index, _build.stream_ptr(dev))
     _build.check(code, "flash_attention_bwd")

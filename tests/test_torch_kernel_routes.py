@@ -7,12 +7,13 @@ multiple of 16 up to 128), the per-page build for everything else (tq = 1
 and the verify entry, held bit for bit to the decode kernel; f32). The
 flash forward has two (`flash_fwd_route`): bf16 on wgmma, f32 on the CUDA
 cores. The flash backward has two (`flash_bwd_route`): bf16 on the tensor
-cores with no dQ partial buffer, f32 with its [ceil(s / 64), b, s, h, d]
-partials.
+cores with no dQ partial buffer, f32 with its [ceil(s / key tile), b, s,
+h, d] partials (128 keys a tile at d 64, 64 at d 128).
 The routes are functions of entry, dtype and shape alone, so they are
 pinned here without a card; so are the C entries' argument counts against
 `_build.SIGNATURES`, parsed from `csrc/`.
 """
+import ctypes
 import math
 import re
 
@@ -58,12 +59,49 @@ def test_ragged_route_refuses_unknown_entries():
                                      (2, 200, 2, 64)])
 def test_bf16_backward_has_no_partial_buffer(b, s, h, d):
     """Every bf16 backward takes the tensor-core build, which allocates no
-    [nk, b, s, h, d] dQ partial; f32 keeps the partials, one per 64-key
-    tile."""
+    [nk, b, s, h, d] dQ partial; f32 keeps the partials, one per key tile
+    of `csrc/flash_attention_bwd.cu` (128 keys at d 64, 64 at d 128)."""
     assert tf.flash_bwd_route(BF16, b, s, h, d) == ("tc", None)
     build, shape = tf.flash_bwd_route(F32, b, s, h, d)
     assert build == "f32"
-    assert shape == (math.ceil(s / tf.BWD_TILE), b, s, h, d)
+    assert shape == (math.ceil(s / tf.bwd_key_tile(d)), b, s, h, d)
+
+
+# (b, s, h, d, partials): the f32 backward's dQ partial count at the
+# shapes the f32 paths launch: BERT-base f32 (4 partials of 128 keys, half
+# the 64-key tile's 8), the d 128 rows of chip_smoke, the f32 LLaMA parity
+# shape, ragged lengths
+@pytest.mark.parametrize("b,s,h,d,n_part", [
+    (32, 512, 12, 64, 4),
+    (2, 1024, 16, 128, 16),
+    (2, 300, 4, 128, 5),
+    (4, 256, 16, 64, 2),
+    (2, 200, 2, 64, 2),
+    (1, 130, 3, 128, 3),
+    (2, 129, 2, 64, 2),
+])
+def test_f32_backward_partials_by_key_tile(b, s, h, d, n_part):
+    """The f32 build takes 128-key tiles at d 64 (K, V, two stages of Q and
+    dO, P and dS in 193 KB of shared memory) and 64-key tiles at d 128
+    (225 KB), and never a tensor-core build."""
+    assert tf.bwd_key_tile(d) == (128 if d == 64 else 64)
+    build, shape = tf.flash_bwd_route(F32, b, s, h, d)
+    assert build == "f32"
+    assert shape == (n_part, b, s, h, d)
+    assert tf.flash_fwd_route(F32, b, s, h, d) == "f32"
+
+
+def test_f32_backward_entry_takes_the_partial_count():
+    """The C entry of the f32 backward takes n_part right after the
+    partial buffer, so a wrapper whose key tile disagreed with the
+    kernel's would be refused there, not write past the buffer."""
+    text = next(src for src in _build.sources()
+                if src.name == "flash_attention_bwd.cu").read_text()
+    m = re.search(r'extern "C" int ptt_flash_attention_bwd\(([^)]*)\)', text)
+    params = [x.split()[-1].lstrip("*") for x in m.group(1).split(",")]
+    assert params[6:8] == ["dq_part", "n_part"]
+    assert _build.SIGNATURES["ptt_flash_attention_bwd"][7] is ctypes.c_int
+    assert "n_part != (s + Tile<D>::kBK - 1) / Tile<D>::kBK" in text
 
 
 # (branch, dtype, b, s, h, d, build): every forward launch of the serving
@@ -381,3 +419,46 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing():
         ref = tp.paged_attention_reference(q, kp, kp, table, lens)
         assert torch.equal(out, ref)
         assert tp.paged_attention.launches == tp.paged_attention.staged_launches == 0
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+# (kind, elem bytes, dropout, bound ms, bound by) at BERT-base's mask rows
+# (b 32, s 512, h 12, d 64, non-causal, a [b, 1, 1, s] mask in the rows'
+# dtype): f32 on the CUDA cores' 67 TFLOP/s, bf16 on the tensor cores'
+# 989 TFLOP/s (those figures as before the f32 rows moved)
+@pytest.mark.parametrize("kind,elem,dropout,ms,by", [
+    ("fwd", 4, False, 0.3846, "operations"),
+    ("bwd", 4, False, 0.9616, "operations"),
+    ("fwd", 4, True, 0.4087, "operations"),
+    ("bwd", 4, True, 0.9856, "operations"),
+    ("fwd", 2, False, 0.0303, "bytes"),
+    ("bwd", 2, False, 0.0651, "operations"),
+])
+def test_chip_smoke_flash_bounds(chip_smoke, kind, elem, dropout, ms, by):
+    """`chip_smoke.flash_bound`, the bound of the flash rows: 4 d flops a
+    visible pair forward, 10 d backward, plus 16 hash operations with
+    dropout; an f32 row's flops go over the CUDA cores' f32 rate."""
+    b, s, h, d = 32, 512, 12, 64
+    got, got_by = chip_smoke.flash_bound(kind, b, s, h, d, elem, False,
+                                         b * s * elem, dropout)
+    assert got == pytest.approx(ms, abs=5e-5) and got_by == by
+
+
+def test_chip_smoke_bound_ms_by_dtype(chip_smoke):
+    """`bound_ms` divides tensor-core flops by the bf16 peak, and an f32
+    row's flops by the CUDA cores' rate; bytes bound either alike."""
+    bound_ms = chip_smoke.bound_ms
+    assert bound_ms(0, 989e9) == (pytest.approx(1.0), "operations")
+    assert bound_ms(0, 67e9, f32=True) == (pytest.approx(1.0), "operations")
+    assert bound_ms(0, 0, 67e9) == (pytest.approx(1.0), "operations")
+    assert bound_ms(3.35e9, 1e9, f32=True) == (pytest.approx(1.0), "bytes")

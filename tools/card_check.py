@@ -16,6 +16,9 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   at the llama350m, llama1p3b / gpt3_1p3b shapes and the small f32 rows,
   both dropout branches);
 - `mask`: the mask and non-causal rows and the mask bit gates;
+- `f32`: the f32 rows alone of `flash` and `mask` (the f32 builds of both
+  flash kernels: the causal rows, the dropout rows with their bit gates,
+  the mask rows with BERT-base's f32 rows timed) and the mask bit gates;
 - `gpt`: `train_llama.run_config("gpt3_1p3b")` for 1 warmup + 3 timed
   steps plus one profiled step with exact launch counts, then the GPT
   card-against-CPU parity phase;
@@ -69,6 +72,20 @@ def flash(dev):
                      ("bwd_dropout", C.check_flash_bwd_dropout)):
         for r in fn(torch, dev):
             yield dict(kernel=name, **r)
+
+
+def f32(dev):
+    # chip_smoke's case tables cut to their f32 rows for this run
+    cut = dict(FLASH_CASES=-1, FLASH_BWD_CASES=-1, FLASH_DROPOUT_CASES=-1, MASK_CASES=5)
+    saved = {name: getattr(C, name) for name in cut}
+    try:
+        for name, i in cut.items():
+            setattr(C, name, tuple(c for c in saved[name] if c[i] == "float32"))
+        yield from flash(dev)
+        yield from mask(dev)
+    finally:
+        for name, cases in saved.items():
+            setattr(C, name, cases)
 
 
 def mask(dev):
@@ -190,8 +207,8 @@ def width(dev):
     torch.cuda.empty_cache()
 
 
-PHASES = dict(ragged=ragged, flash=flash, mask=mask, gpt=gpt, bert=bert, tp=tp, tp_path=tp_path,
-              width=width)
+PHASES = dict(ragged=ragged, flash=flash, mask=mask, f32=f32, gpt=gpt, bert=bert, tp=tp,
+              tp_path=tp_path, width=width)
 
 
 def main(names):
@@ -214,6 +231,8 @@ def main(names):
     # (warnings such as wgmma serialization show here)
     log = (_build.build_log() or "").split("\n== ")
     print("\n".join(b for b in log if b.startswith(("flash_attention_tc.cu",
+                                                      "flash_attention.cu",
+                                                      "flash_attention_bwd.cu",
                                                       "paged_attention.cu",
                                                       "ragged_paged_attention.cu"))))
     sass = C.sass_mma_counts(_build.build_info()["path"])

@@ -25,6 +25,19 @@ difference between a tree's two rows. Probes:
   bit-equal outputs.
 - `mask`: the forward's mask rows: BERT-base's padding mask (bf16, with
   and without dropout, and f32) and a causal launch with the mask.
+- `f32`: the f32 builds of both flash kernels (`csrc/flash_attention.cu`,
+  `csrc/flash_attention_bwd.cu`), forward and backward each: BERT-base's
+  padding-mask rows (b 32, s 512, h 12, d 64, non-causal) with and
+  without dropout 0.1, d 128 causal (2 x 1024 x 16 x 128), the f32 LLaMA
+  parity shape (causal, 4 x 256 x 16 x 64) and chip_smoke's
+  `d128_mask_dropout` case (2 x 300 x 4 x 128, padding mask, dropout
+  0.1), on seeded inputs. Each row: ms by CUDA events around back-to-back
+  wrapper calls (the backward's delta and partial sum included), device
+  ms of one call from a replayed CUDA graph, and a digest of the outputs'
+  bytes; the BERT rows also the SM clock (`nvidia-smi`, sampled) while
+  they run back to back. With the build's ptxas lines (registers,
+  spills) and the static SASS mix (FFMA, LDS, all instructions) of every
+  f32 instantiation.
 - `ragged`: the ragged kernel's chunked-prefill entry at `chip_smoke.py`'s
   main and GQA rows (bf16, 8 and 4 slots of 128-token chunks, d 128, page
   64), with the build's ragged ptxas lines; each row's ms and a digest of
@@ -55,6 +68,7 @@ difference between a tree's two rows. Probes:
 
     python3 tools/tree_ab.py flash chipwork/parent .     # needs one CUDA card
     python3 tools/tree_ab.py mask chipwork/parent .
+    python3 tools/tree_ab.py f32 chipwork/parent .
     python3 tools/tree_ab.py ragged chipwork/parent .
     python3 tools/tree_ab.py paged chipwork/parent .
     python3 tools/tree_ab.py serving chipwork/parent .
@@ -248,6 +262,94 @@ for case, b, s, h, d, dt, causal, p in (
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
+F32 = TIMED + r'''
+import os, re, shutil, subprocess
+from paddle_tpu_torch.ops.pallas.flash_attention import (flash_attention_bwd,
+                                                         flash_attention_fwd)
+f32_names = ("flash_fwd_kernel", "flash_bwd_kernel")
+out["ptxas"] = [l for l in cs.ptxas_summary(_build.build_log() or "")
+                if l.startswith(f32_names)]
+tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+sass = subprocess.run([tool, "-sass", _build.build_info()["path"]], capture_output=True,
+                      text=True).stdout if os.path.exists(tool) else ""
+mix, cur = {}, None
+for ln in sass.splitlines():
+    m = re.search(r"Function : (\S+)", ln)
+    if m:
+        cur = m.group(1) if any(n in m.group(1) for n in f32_names) else None
+        if cur:
+            mix[cur] = dict(all=0, FFMA=0, LDS=0, STS=0, BAR=0, SHFL=0, MUFU=0)
+        continue
+    m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", ln)
+    if cur and m:
+        mix[cur]["all"] += 1
+        if m.group(1) in mix[cur]:
+            mix[cur][m.group(1)] += 1
+out["sass"] = mix
+f32 = torch.float32
+
+
+def sm_mhz(fn, seconds=0.6):
+    """The SM clock (nvidia-smi, sampled) while fn() runs back to back."""
+    import threading, time
+    clocks, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True).stdout.split()
+            if r:
+                clocks.append(float(r[0]))
+            stop.wait(0.1)
+
+    th = threading.Thread(target=sample)
+    th.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    stop.set()
+    th.join()
+    return sum(clocks) / len(clocks) if clocks else None
+
+
+# (name, kind, b, s, h, d, causal, mask, dropout_p)
+for name, kind, b, s, h, d, causal, masked, p in (
+        ("bert_base_f32", "fwd", 32, 512, 12, 64, False, True, 0.0),
+        ("bert_base_f32", "bwd", 32, 512, 12, 64, False, True, 0.0),
+        ("bert_base_f32_dropout", "fwd", 32, 512, 12, 64, False, True, 0.1),
+        ("bert_base_f32_dropout", "bwd", 32, 512, 12, 64, False, True, 0.1),
+        ("d128_causal", "fwd", 2, 1024, 16, 128, True, False, 0.0),
+        ("d128_causal", "bwd", 2, 1024, 16, 128, True, False, 0.0),
+        ("llama_parity", "fwd", 4, 256, 16, 64, True, False, 0.0),
+        ("llama_parity", "bwd", 4, 256, 16, 64, True, False, 0.0),
+        ("d128_mask_dropout", "fwd", 2, 300, 4, 128, False, True, 0.1),
+        ("d128_mask_dropout", "bwd", 2, 300, 4, 128, False, True, 0.1)):
+    g = torch.Generator(device=dev).manual_seed(22)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev) for _ in range(4))
+    mask = cs.make_mask(torch, dev, "key_padding", b, s, h, f32, g) if masked else None
+    seed = 2468 if p > 0 else None
+    scale = d ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, causal, scale, None, p, seed, mask)
+    if kind == "fwd":
+        fn = lambda: flash_attention_fwd(q, k, v, causal, scale, None, p, seed, mask)
+        res, iters = (o, lse), 20
+    else:
+        fn = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, scale, None, mask, p,
+                                         seed)
+        res, iters = fn(), 10
+    torch.cuda.synchronize()
+    row = dict(case=name, kind=kind, b=b, s=s, h=h, d=d, causal=causal, dropout_p=p,
+               ms=ms(fn, iters), device_ms=graph_ms(fn, 10, 5), digest=digest(res))
+    if name == "bert_base_f32":
+        row["sm_mhz"] = sm_mhz(fn)
+    out["rows"].append(row)
+    del q, k, v, do, o, lse, res, mask
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
 RAGGED = TIMED + r'''
 from paddle_tpu_torch.ops.pallas.paged_attention import ragged_paged_attention
 out["ptxas"] = [l for l in cs.ptxas_summary(_build.build_log() or "") if "ragged" in l]
@@ -382,8 +484,8 @@ for name, mk in (("op chain K=8 bf16", False), ("multi K=8 bf16", "multi")):
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 '''
-PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH, mask=MASK, ragged=RAGGED, paged=PAGED,
-              serving=SERVING)
+PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH, mask=MASK, f32=F32, ragged=RAGGED,
+              paged=PAGED, serving=SERVING)
 
 
 def main(argv):
