@@ -120,7 +120,8 @@ outputs equal to it, and the main paths' staged launches are gated equal
 to the wrappers' launches. The paged rows add `paged_attention_dense` (a
 dense [b, L, h, d] cache as identity-tabled pages) and report `device_ms`,
 one launch's time in a replayed CUDA graph, beside `ms` (back-to-back
-calls, which read the wrapper's host work where the kernel is shorter).
+calls, which read the wrapper's host work where the kernel is shorter);
+so do the megakernel's whole-step rows and its tensor-parallel layer rows.
 Every phase runs under a watchdog: one that does not finish in time ends
 the run with a non-zero exit.
 The line before the last holds {"kernels": [...]}, and the last line is
@@ -1414,6 +1415,7 @@ def check_megakernel(torch, dev):
             return decode_megakernel(h_t, pack, table, lens, act, **kw)
 
         row["ms"] = time_ms(torch, lambda: run(head=True))
+        row["device_ms"] = graph_ms(torch, lambda: run(head=True))
         row["layer_ms"] = time_ms(torch, lambda: run(layer=0))
         row["plain_ms"] = time_ms(torch, lambda: decode_megakernel_reference(
             h0.clone(), ref, table, lens, act, head=True), iters=3)
@@ -1981,6 +1983,7 @@ def check_megakernel_tp(torch, dev, ptxas):
                     decode_megakernel(h_1, one._mk_pack, table, lens, act, layer=0)
 
                 row["ms"] = time_ms(torch, layer_tp)
+                row["device_ms"] = graph_ms(torch, layer_tp)
                 row["seg_ms"] = {seg: time_ms(torch, lambda: layer_tp(seg))
                                  for seg in ("qkv", "tail", "down")}
                 row["tp1_layer_ms"] = time_ms(torch, layer_one)

@@ -80,6 +80,9 @@ SIGNATURES = {
     "ptt_decode_megakernel": [_P, _I, _I, _I, _P, _P],
     # (args struct, segment, weight kind, device, stream, grid out)
     "ptt_decode_megakernel_seg": [_P, _I, _I, _I, _P, _P],
+    # (spec [n, 3] int64 host, n, element kind, box rows, out host bytes):
+    # the megakernel's weight tensor maps
+    "ptt_decode_megakernel_maps": [_P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <string.h>
+
 #include <mutex>
 #include <type_traits>
 #include <vector>
@@ -577,6 +579,19 @@ struct SlabW<int8_t> {
   static __device__ __forceinline__ float at(const Pack& p, int j) {
     return static_cast<float>(p.e[j]);
   }
+  // all 16 values, exactly: byte b + 128 as the low mantissa bits of 2^23,
+  // less 2^23 + 128 (one byte permute and one add each, no conversion unit)
+  static __device__ __forceinline__ void unpack(const Pack& p, float (&w)[kCols]) {
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(&p.v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t u = q[k] ^ 0x80808080u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        w[4 * k + b] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b)),
+                                 8388736.f);
+    }
+  }
 };
 template <>
 struct SlabW<__nv_bfloat16> {
@@ -588,6 +603,14 @@ struct SlabW<__nv_bfloat16> {
   static __device__ __forceinline__ float at(const Pack& p, int j) {
     return __uint_as_float(static_cast<unsigned>(p.e[j]) << 16);  // exact
   }
+  static __device__ __forceinline__ void unpack(const Pack& p, float (&w)[kCols]) {
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(&p.v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[2 * k] = __uint_as_float(q[k] << 16);
+      w[2 * k + 1] = __uint_as_float(q[k] & 0xffff0000u);
+    }
+  }
 };
 template <>
 struct SlabW<float> {
@@ -597,6 +620,10 @@ struct SlabW<float> {
     float e[4];
   };
   static __device__ __forceinline__ float at(const Pack& p, int j) { return p.e[j]; }
+  static __device__ __forceinline__ void unpack(const Pack& p, float (&w)[kCols]) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) w[j] = p.e[j];
+  }
 };
 
 // 16 bytes of row `row` of a [k, n] weight from column `col`; columns past
@@ -623,6 +650,45 @@ __device__ __forceinline__ typename SlabW<WT>::Pack load_w(const WT* w, int row,
 template <typename WT>
 __host__ __device__ inline bool slab_vec_ok(const void* w, int n) {
   return ((size_t)n * sizeof(WT)) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+}
+
+// The slab's sums from every thread's chains: the xor butterfly over the
+// lanes that share a column group, then the warps' partials in warp order
+// through `red`; emit(i, col, sum) for every row i < mrows and column col <
+// n. Ends with a block barrier, so a block can run slab after slab.
+template <typename WT, int M, typename Emit>
+__device__ __forceinline__ void slab_reduce(float (&acc)[M][SlabW<WT>::kCols], int mrows, int n,
+                                            int slab, float* red, Emit emit) {
+  constexpr int kCols = SlabW<WT>::kCols;
+  constexpr int kColThreads = kSlabCols / kCols;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      float v = acc[i][j];
+      for (int o = kColThreads; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      acc[i][j] = v;
+    }
+  if (lane < kColThreads) {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        red[(warp * M + i) * kSlabCols + lane * kCols + j] = acc[i][j];
+  }
+  __syncthreads();
+  for (int e = tid; e < M * kSlabCols; e += kSlabThreads) {
+    const int i = e / kSlabCols, c = e % kSlabCols;
+    const int col = slab * kSlabCols + c;
+    if (i < mrows && col < n) {
+      float s = 0.f;
+#pragma unroll
+      for (int wv = 0; wv < kSlabThreads / 32; ++wv) s += red[(wv * M + i) * kSlabCols + c];
+      emit(i, col, s);
+    }
+  }
+  __syncthreads();  // red is rewritten by the next slab
 }
 
 // Block-cooperative: every thread of a kSlabThreads block calls it.
@@ -665,36 +731,193 @@ __device__ __forceinline__ void gemv_slab(XAt x_at, const WT* __restrict__ w, in
     for (int u = 0; u < kSlabUnroll; ++u) fma_row(p[u], row + u * kKRows);
   }
   for (; row < k; row += kKRows) fma_row(load_w<WT>(w, row, col0, n, vec), row);
+  slab_reduce<WT, M>(acc, mrows, n, slab, red, emit);
+}
 
-  // lanes with the same column group share a slab: sum them across the warp
-  const int lane = tid % 32, warp = tid / 32;
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      float v = acc[i][j];
-      for (int o = kColThreads; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      acc[i][j] = v;
-    }
-  if (lane < kColThreads) {
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        red[(warp * M + i) * kSlabCols + lane * kCols + j] = acc[i][j];
+// ---------------------------------------------------------------- slab ring
+// Weight tiles of the GEMV slabs in a shared-memory ring, filled by the copy
+// engine (TMA) ahead of the tiles a block works on (the decode megakernel's
+// weight stream). A tile is `rows` consecutive k rows of one 32-column slab
+// of a [k, n] row-major weight, read where it lies by a 2-D tensor copy
+// (`weight_maps`: boxes of kSlabCols x rows, no swizzle), so it lands as
+// [rows][kSlabCols] in its stage. Rows at or past k and columns at or past
+// n arrive as zeros. Tile m goes to stage m % stages as that stage's
+// (m / stages)-th fill: its `full` barrier phase has parity (m / stages) &
+// 1. The thread that issues a tile arms `full` with its bytes and issues the
+// copy, after waiting on the stage's `empty` barrier for the tile that held
+// it before; every warp of the block arrives on `empty` once it is done with
+// a tile. A barrier wait traps after ~2^26 polls rather than hanging the
+// card.
+//
+// The consumers compute `gemv_slab`'s sums: the chain of (kr, ct) runs over
+// rows kr + j * kKRows < k in order (a tile's first row is a multiple of
+// kKRows, so a chain's rows are those of `gemv_slab`, tile by tile), and
+// `slab_reduce` adds the chains in `gemv_slab`'s tree. Rows the TMA filled
+// with zeros are never summed. So every output has `gemv_slab`'s bits.
+template <typename WT>
+struct SlabRing {
+  using SW = SlabW<WT>;
+  static constexpr int kCols = SW::kCols;
+  static constexpr int kColThreads = kSlabCols / kCols;
+  static constexpr int kKRows = kSlabThreads / kColThreads;
+
+  const WT* buf;  // [stages][rows][kSlabCols], on 128 bytes
+  uint64_t* bar;  // full[stages], then empty[stages]
+  int stages, rows;
+  int used;       // tiles consumed (every thread keeps the count)
+
+  static __host__ __device__ size_t tile_bytes(int rows) {
+    return (size_t)rows * kSlabCols * sizeof(WT);
   }
-  __syncthreads();
-  for (int e = tid; e < M * kSlabCols; e += kSlabThreads) {
-    const int i = e / kSlabCols, c = e % kSlabCols;
-    const int col = slab * kSlabCols + c;
-    if (i < mrows && col < n) {
-      float s = 0.f;
-#pragma unroll
-      for (int wv = 0; wv < kSlabThreads / 32; ++wv) s += red[(wv * M + i) * kSlabCols + c];
-      emit(i, col, s);
+  // shared memory of the ring: the stages' tiles, then the barriers
+  static __host__ __device__ size_t bytes(int stages, int rows) {
+    return (size_t)stages * (tile_bytes(rows) + 2 * sizeof(uint64_t));
+  }
+  // a tile height the consumers walk whole (a multiple of kKRows) and one
+  // box of a tensor copy takes (at most 256 rows)
+  static __host__ __device__ bool rows_ok(int rows) {
+    return rows >= kKRows && rows <= 256 && rows % kKRows == 0;
+  }
+
+  // thread 0; the caller's block barrier follows before any issue or wait
+  __device__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < stages; ++s) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar + s)), "r"(1u)
+                     : "memory");
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar + stages + s)),
+                     "r"((unsigned)(kSlabThreads / 32))
+                     : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
   }
-  __syncthreads();  // red is rewritten by the next slab
+
+  static __device__ void wait_parity(uint32_t b, uint32_t parity) {
+    uint32_t done = 0;
+    for (uint32_t polls = 0; !done; ++polls) {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(b), "r"(parity)
+          : "memory");
+      if (polls > (1u << 26)) __trap();
+    }
+  }
+
+  // one thread: tile m of the stream from `map` at (column col, row row)
+  // into stage m % stages
+  __device__ void issue(int m, const void* map, int col, int row) const {
+    const int s = m % stages, f = m / stages;
+    if (f > 0) wait_parity(smem_u32(bar + stages + s), (uint32_t)(f - 1) & 1u);
+    const uint32_t b = smem_u32(bar + s);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                 "r"((uint32_t)tile_bytes(rows))
+                 : "memory");
+    // weights are read once a launch: first out of L2, so what the other
+    // phases read (h, the KV pages, the norms' weights) stays
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+            smem_u32(buf + (size_t)s * rows * kSlabCols)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(b), "l"(policy)
+        : "memory");
+  }
+
+  // every thread: the next tile's rows (their shared-memory address), once
+  // its copy landed
+  __device__ uint32_t wait_next() const {
+    const int s = used % stages;
+    wait_parity(smem_u32(bar + s), (uint32_t)(used / stages) & 1u);
+    return smem_u32(buf) + (uint32_t)(s * tile_bytes(rows));
+  }
+
+  // every thread, when it read the tile for the last time; one arrive
+  // per warp, after the warp's lanes are done
+  __device__ void release() {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                       smem_u32(bar + stages + used % stages))
+                   : "memory");
+    ++used;
+  }
+
+  // this thread's chain: column group ct, first row kr
+  static __device__ __forceinline__ int chain_ct() { return threadIdx.x % kColThreads; }
+  static __device__ __forceinline__ int chain_kr() { return threadIdx.x / kColThreads; }
+
+  // One k row into the sums of the first M of the MA rows of x: x_at(i,
+  // row) for i < mrows, zeros past it; each weight converted to f32 once
+  // for the M rows (the values `SlabW::at` gives).
+  template <int M, int MA, typename XAt>
+  static __device__ __forceinline__ void fma_row(float (&acc)[MA][kCols],
+                                                 const typename SW::Pack& p, int row, int mrows,
+                                                 XAt x_at) {
+    static_assert(M <= MA, "M rows of the MA a thread keeps");
+    float w[kCols];
+    SW::unpack(p, w);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const float xv = (i < mrows) ? x_at(i, row) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(xv, w[j], acc[i][j]);
+    }
+  }
+
+  // The chains of one tile: rows [r0, r0 + valid) of the slab, valid =
+  // min(rows, k - r0); chain (kr, ct) takes rows r0 + kr + j * kKRows
+  // (int8 keeps 128 sums a thread: one row at a time, no unroll).
+  template <int M, int MA, typename XAt>
+  __device__ __forceinline__ void fma_tile(float (&acc)[MA][kCols], uint32_t tile, int r0,
+                                           int valid, int mrows, XAt x_at) const {
+    const int ct = chain_ct(), kr = chain_kr();
+    const uint32_t at = tile + (uint32_t)((kr * kSlabCols + ct * kCols) * sizeof(WT));
+    constexpr uint32_t kStep = kKRows * kSlabCols * sizeof(WT);  // bytes between a chain's rows
+#pragma unroll(kCols > 8 ? 1 : 4)
+    for (int rr = kr, j = 0; rr < valid; rr += kKRows, ++j) {
+      typename SW::Pack p;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(p.v.x), "=r"(p.v.y), "=r"(p.v.z), "=r"(p.v.w)
+                   : "r"(at + j * kStep));
+      fma_row<M>(acc, p, r0 + rr, mrows, x_at);
+    }
+  }
+};
+
+// The 2-D tensor maps of weights [rows, cols] row-major (element kind: 0
+// f32, 1 bf16, 2 int8) with boxes of kSlabCols x box_rows, no swizzle, rows
+// and columns past the edges read as zeros: map i of `out` (128 bytes each)
+// from spec[3 i .. 3 i + 2] = (address, rows, cols); a zero address leaves a
+// zeroed map (a weight read without the ring). False if an encode fails
+// (a row not a multiple of 16 bytes, an address off 16 bytes).
+inline bool weight_maps(const long long* spec, int n, int elem, int box_rows, CUtensorMap* out) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  static const CUtensorMapDataType kType[3] = {CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                               CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                               CU_TENSOR_MAP_DATA_TYPE_UINT8};
+  static const size_t kSize[3] = {4, 2, 1};
+  if (elem < 0 || elem > 2) return false;
+  for (int i = 0; i < n; ++i) {
+    CUtensorMap* map = out + i;
+    memset(map, 0, sizeof(CUtensorMap));
+    const long long addr = spec[3 * i], rows = spec[3 * i + 1], cols = spec[3 * i + 2];
+    if (addr == 0) continue;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * kSize[elem]};
+    const cuuint32_t box[2] = {(cuuint32_t)kSlabCols, (cuuint32_t)box_rows};
+    const cuuint32_t estr[2] = {1, 1};
+    if (enc(map, kType[elem], 2, reinterpret_cast<void*>(addr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+  }
+  return true;
 }
 
 // The opt-in for one kernel, remembered per device: set again only when a

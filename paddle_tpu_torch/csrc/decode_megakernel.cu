@@ -26,3 +26,17 @@ extern "C" int ptt_decode_megakernel(const PttMkArgs* args, int dtype, int wkind
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+// The weight ring's tensor maps (decode_megakernel.cuh, "weight stream"),
+// encoded on the host once per pack: spec holds n (address, rows, cols)
+// int64 triples (address 0: a weight read without the ring), elem the
+// weights' kind (0 f32, 1 bf16, 2 int8), box_rows the tiles' k rows. out
+// receives n CUtensorMaps (128 bytes each) in host memory; the wrapper
+// copies them to the device.
+extern "C" int ptt_decode_megakernel_maps(const long long* spec, int n, int elem, int box_rows,
+                                          void* out) {
+  if (n < 0 || box_rows <= 0 || box_rows > 256) return (int)cudaErrorInvalidValue;
+  return ptt::weight_maps(spec, n, elem, box_rows, static_cast<CUtensorMap*>(out))
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}

@@ -13,7 +13,8 @@
 // A tp-way step so reads (3 + 2 tp) / 5 of the attention block's weight
 // bytes and (2 + tp) / 3 of the MLP's, and launches 3 kernels per layer and
 // shard. The design is the full build's, entered and left at the gather
-// boundaries (header of decode_megakernel.cuh); it aims at right and simple.
+// boundaries (header of decode_megakernel.cuh), its weights streamed through
+// the same ring of TMA-fed tiles.
 //
 // Built for bf16 activations (the engine's compute dtype on the card) with
 // bf16 or int8 weights.

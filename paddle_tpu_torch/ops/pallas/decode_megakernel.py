@@ -21,6 +21,17 @@ seven projections and their scales, and its K/V pools) and one row for the
 final norm and the lm_head. At 7B in bf16 the stacked copy would cost 13 GB;
 the table costs 33 rows of 18 addresses.
 
+The kernel streams each weight's tiles (k rows x one 32-column slab) into
+a ring of shared-memory stages by TMA tensor copies (`ptt::SlabRing`), so
+it needs a tensor map per weight: `MegakernelPack` encodes them once, with
+the pointer table (7 a layer, 1 for the lm_head), and a new pack (a pool
+rebuild) encodes them anew. `slab_ring_plan` sizes the ring beside the
+kernel's other shared memory; a geometry whose ring does not fit raises
+MegakernelShapeError. `slab_route` picks, by shape alone, the ring or (for
+rows that are not whole 16-byte pieces, which no tensor map takes) reading
+the rows from device memory; both sum in the order of the int8 matmul's
+GEMV, so both give the same bits.
+
 Semantics (both versions): h [R, H] (R <= 8 slot rows, the current tokens'
 embeddings) is updated in place; every layer writes the rope'd k row and
 the v row of each active slot into its pool at the slot's flat row
@@ -86,6 +97,82 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "wg", "wu", "wd")
 PTRS = 18               # addresses per row of the pointer table
 P_KP, P_VP = 16, 17     # the K/V pool columns of a layer row
+# the weight ring (csrc/decode_megakernel.cuh, "weight stream")
+RING_MIN_STAGES = 4     # fewer stages: too few bytes in flight per SM
+RING_MAX_STAGES = 6     # deeper rings stream no faster and slow every other
+                        # load behind their copies (PERF.md §6)
+RING_TILE_MAX_BYTES = 16384   # a tile: at most 256 k rows of one slab
+RING_RESERVE = 1024     # shared memory left free (the kernel's static
+                        # cursor; a timed copy's counters, tools/mk_phases.py)
+SLAB_COLS = 32          # columns of a slab (ptt::kSlabCols)
+MAPS_PER_ROW = 7        # tensor maps of a pointer-table row (the head: 1)
+MAP_BYTES = 128         # sizeof(CUtensorMap)
+_MAP_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")   # slots M_Q .. M_D
+_HEAD_BIT = 7           # ring_mask bit of the lm_head
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+_ELEM_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+class MegakernelShapeError(ValueError):
+    """A geometry whose weight ring does not fit one block's shared memory
+    (`slab_ring_plan`): the kernel refuses it, there is no other build."""
+
+
+def slab_route(wdtype, n):
+    """How the kernel reads a [k, n] weight of `wdtype`: "ring" (tiles by
+    TMA tensor copies, which need rows of a multiple of 16 bytes) or
+    "direct" (rows from device memory, one thread's row at a time, the same
+    sums). By shape alone."""
+    return "ring" if (n * _ELEM_BYTES[wdtype]) % 16 == 0 else "direct"
+
+
+def slab_ring_plan(dtype, wdtype, R, H, nh, nh_kv, hd, p, head_k=1,
+                   head=False, rows=None):
+    """The weight ring of one launch: (stages, rows, shared-memory bytes).
+
+    The kernel's other regions come first (`_AUX_SMEM`, the [R, H] rows of
+    `dtype` or the attention scratch, the fold's lists when head_k > 1),
+    then 128 bytes to align the ring, then `stages` tiles of `rows` k rows
+    x 32 columns of `wdtype` with two mbarriers each; RING_RESERVE bytes
+    stay free. xs also holds the chunk of O's and down's x staged at a
+    time (whole tiles: as many as fit R x H, at least one). `rows` (the
+    tensor maps' box height, fixed per pack) is a multiple of the rows a
+    thread's chains step by (128 / element bytes) and at most 256; None
+    picks the tallest tile of at most
+    RING_TILE_MAX_BYTES that leaves RING_MIN_STAGES stages. Stages: as many
+    as fit, at most RING_MAX_STAGES. Raises MegakernelShapeError when
+    RING_MIN_STAGES do not fit."""
+    plan = _ring_plan(dtype, wdtype, R, H, nh, nh_kv, hd, p, head_k, head, rows)
+    if plan is None:
+        raise MegakernelShapeError(
+            f"decode_megakernel: no weight ring of {RING_MIN_STAGES}+ stages "
+            f"fits one block's shared memory (R {R}, hidden {H}, {dtype} "
+            f"rows, {wdtype} weights, head_k {head_k}, tile rows {rows})")
+    return plan
+
+
+def _ring_plan(dtype, wdtype, R, H, nh, nh_kv, hd, p, head_k, head, rows):
+    t, w = _ELEM_BYTES[dtype], _ELEM_BYTES[wdtype]
+    rep = nh // nh_kv
+    attn = 4 * (rep * hd + rep * p + 3 * rep)
+    fold = 6 * MAX_ROWS * max(head_k, SLAB_COLS) * 4 if head and head_k > 1 \
+        else 0
+    step = 128 // w                      # ptt::SlabRing<WT>::kKRows
+    cands = [rows] if rows is not None else [
+        r for r in (256, 128, 64, 32)
+        if r >= step and r * SLAB_COLS * w <= RING_TILE_MAX_BYTES]
+    for r in cands:
+        if r % step or not step <= r <= 256:
+            break
+        chunk = max(r, H // r * r)       # the kernel's x_chunk
+        xs = -(-max(R * H * t, R * chunk * t, attn) // 16) * 16
+        base = _AUX_SMEM + xs + fold
+        stage = r * SLAB_COLS * w + 16
+        stages = min(RING_MAX_STAGES,
+                     (MAX_SMEM - RING_RESERVE - base - 128) // stage)
+        if stages >= RING_MIN_STAGES:
+            return stages, r, base + 128 + stages * stage
+    return None
 
 
 def megakernel_supported(nh, nh_kv, hd, hidden, ffn, tp=1):
@@ -94,12 +181,16 @@ def megakernel_supported(nh, nh_kv, hd, hidden, ffn, tp=1):
     a multiple of 16 up to 256 with rep * d <= 2048 (the paged-attention
     kernel's limits, whose per-page step it runs), the tp shards' heads
     covering the hidden width (nh * d * tp == hidden), and 8 bf16 rows of
-    the hidden width in one block's shared memory."""
+    the hidden width in one block's shared memory beside the fold's lists
+    and a weight ring of bf16 or int8 tiles (`slab_ring_plan`)."""
     if nh_kv <= 0 or nh % nh_kv or ffn <= 0:
         return False
-    return (hd % 16 == 0 and hd <= MAX_D and (nh // nh_kv) * hd <= MAX_REP_D
-            and nh * hd * tp == hidden
-            and MAX_ROWS * hidden * 2 + _AUX_SMEM + _FOLD_SMEM <= MAX_SMEM)
+    if not (hd % 16 == 0 and hd <= MAX_D and (nh // nh_kv) * hd <= MAX_REP_D
+            and nh * hd * tp == hidden):
+        return False
+    return all(_ring_plan(torch.bfloat16, wdtype, MAX_ROWS, hidden, nh, nh_kv,
+                          hd, 0, MAX_HEAD_K, True, None) is not None
+               for wdtype in (torch.bfloat16, torch.int8))
 
 
 def megakernel_weight_bytes(pack):
@@ -131,8 +222,19 @@ class MegakernelPack:
     the engine builds a new pack whenever it reallocates its pools. On CUDA
     the constructor checks what the kernel assumes: contiguous tensors on
     one device, norms and dense weights in the pools' dtype, every
-    projection either dense or int8. Per-bucket scratch (qkv, attn, act and
-    the per-block argmax partials) is allocated once per row count.
+    projection either dense or int8, weights on 16 bytes. Per-bucket
+    scratch (qkv, attn, act and the per-block argmax partials) is allocated
+    once per row count.
+
+    The weight ring's tensor maps are built with the table: `map_spec`
+    ([(L + 1) * 7, 3] int64, (address, k, n) of each ring-read projection
+    in the table's row order: wq .. wd, the head in slot 0 of the last row;
+    zeros for a weight read directly, `slab_route`), `ring_mask` (bits 0-6
+    a layer's seven projections, set together when every one takes the
+    ring, so each phase's jobs have one tile count; bit 7 the head),
+    `ring_rows` (the tiles' k
+    rows, the worst launch's plan: 8 rows and a fold of 128) and, on CUDA,
+    `maps` (the encoded CUtensorMaps, 128 bytes each, on the device).
 
     A tensor-parallel shard's pack takes the shard's local head counts
     (nh, nh_kv), its column slices and pools, the replicated wo / wd and
@@ -163,8 +265,18 @@ class MegakernelPack:
         self.V = 0 if head is None else \
             (head[0] if isinstance(head, tuple) else head).shape[1]
         self.quant = isinstance(self.layers[0]["wq"], tuple)
+        self.wdtype = torch.int8 if self.quant else self.dtype
         self.ptrs = self._pointer_table()
+        self.ring_mask, self.map_spec = self._map_spec()
+        self.ring_rows = None
+        self.maps = None
+        if self.device.type == "cuda" and self.dtype in _DTYPE_CODE:
+            self.ring_rows = slab_ring_plan(
+                self.dtype, self.wdtype, MAX_ROWS, self.H, self.nh, self.nh_kv,
+                self.hd, self.page_size, MAX_HEAD_K, head=True)[1]
+            self.maps = self._encode_maps()
         self._scratch = {}
+        self._memo = {}
 
     def pages(self, li):
         """Layer li's K and V pools as [n_pages, p, nh_kv, hd] views."""
@@ -193,6 +305,10 @@ class MegakernelPack:
             if isinstance(w, tuple) != self.quant:
                 raise ValueError("decode_megakernel: every projection must be "
                                  "dense, or every one int8")
+            wt = w[0] if isinstance(w, tuple) else w
+            if strict and wt.data_ptr() % 16:
+                raise ValueError("decode_megakernel: every weight must start "
+                                 "on 16 bytes (the ring's tensor copies)")
             if isinstance(w, tuple):
                 return [addr(w[0], torch.int8), addr(w[1], torch.float32)]
             return [addr(w, self.dtype), 0]
@@ -214,6 +330,63 @@ class MegakernelPack:
             for t in (self.cos, self.sin):
                 addr(t, torch.float32)
         return torch.tensor(rows, dtype=torch.int64, device=self.device)
+
+    def _map_spec(self):
+        def w_of(w):
+            return w[0] if isinstance(w, tuple) else w
+
+        # a layer's seven projections take the ring together, or not at all
+        mask, spec = 0, []
+        if all(slab_route(self.wdtype, w_of(self.layers[0][key]).shape[1])
+               == "ring" for key in _MAP_KEYS):
+            mask = (1 << len(_MAP_KEYS)) - 1
+        for ws in self.layers:
+            for j, key in enumerate(_MAP_KEYS):
+                w = w_of(ws[key])
+                spec.append((w.data_ptr(), *w.shape) if mask >> j & 1
+                            else (0, 0, 0))
+        row = [(0, 0, 0)] * MAPS_PER_ROW
+        if self.head is not None and slab_route(self.wdtype, self.V) == "ring":
+            mask |= 1 << _HEAD_BIT
+            w = w_of(self.head)
+            row[0] = (w.data_ptr(), *w.shape)
+        spec += row
+        return mask, torch.tensor(spec, dtype=torch.int64).reshape(-1, 3)
+
+    def _encode_maps(self):
+        """The CUtensorMaps of `map_spec`, encoded by the library on the
+        host and copied to a 64-byte-aligned device buffer."""
+        n = self.map_spec.shape[0]
+        host = torch.zeros(n * MAP_BYTES, dtype=torch.uint8)
+        code = _build.library().ptt_decode_megakernel_maps(
+            self.map_spec.data_ptr(), n, _ELEM_CODE[self.wdtype],
+            self.ring_rows, host.data_ptr())
+        _build.check(code, "decode_megakernel maps")
+        maps = host.to(self.device)
+        if maps.data_ptr() % 64:
+            raise RuntimeError("decode_megakernel: the tensor maps' buffer is "
+                               "not on 64 bytes")
+        return maps
+
+    def supported(self, tp):
+        """`megakernel_supported` for this pack's geometry, remembered (the
+        wrapper asks on every launch)."""
+        ok = self._memo.get(("supported", tp))
+        if ok is None:
+            ok = self._memo[("supported", tp)] = megakernel_supported(
+                self.nh, self.nh_kv, self.hd, self.H, self.F, tp)
+        return ok
+
+    def ring_stages(self, R, nh, nh_kv, head_k, head):
+        """The weight ring's stages for a launch of R rows (`slab_ring_plan`
+        at the pack's tile rows), remembered per launch shape."""
+        key = (R, nh, nh_kv, head_k, bool(head))
+        stages = self._memo.get(key)
+        if stages is None:
+            stages = self._memo[key] = slab_ring_plan(
+                self.dtype, self.wdtype, R, self.H, nh, nh_kv, self.hd,
+                self.page_size, head_k, head, rows=self.ring_rows)[0]
+        return stages
 
     def scratch(self, R):
         """Per-row-count scratch, allocated once: qkv, attn, act, and the
@@ -257,11 +430,12 @@ class _MkArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "ptrs", "h", "qkv", "attn", "act", "table", "lens", "active", "cos",
         "sin", "logits", "tok", "maxv", "part_v", "part_i", "topv", "topi",
-        "fold_v", "fold_i", "wmask")] + \
+        "fold_v", "fold_i", "wmask", "maps")] + \
         [(n, ctypes.c_int) for n in (
             "layer0", "n_layers", "head_row", "R", "H", "nh", "nh_kv", "hd",
             "F", "V", "p", "n_pages", "max_pages", "oob", "max_len",
-            "max_grid", "head_k", "tq")] + \
+            "max_grid", "head_k", "tq", "ring_stages", "ring_rows",
+            "ring_mask")] + \
         [("eps", ctypes.c_float), ("scale", ctypes.c_float)]
 
 
@@ -455,9 +629,9 @@ def decode_megakernel(h, pack, tables=None, lens=None, active=None,
     A CPU tensor takes the plain version. A CUDA tensor launches
     `csrc/decode_megakernel.cu` (seg "full") or
     `csrc/decode_megakernel_tp.cu` (the segments), cooperatively, one
-    block per SM times the occupancy, or raises; there is no fallback. At
-    tq > 1 a call is ceil(b / floor(MAX_ROWS / tq)) launches of whole
-    slots."""
+    block per SM times the occupancy, or raises (MegakernelShapeError when
+    the weight ring does not fit); there is no fallback. At tq > 1 a call
+    is ceil(b / floor(MAX_ROWS / tq)) launches of whole slots."""
     T = int(tq)
     head_k = int(head_k)
     R, b = _check_args(h, pack, tables, lens, active, layer, head, head_k,
@@ -484,8 +658,7 @@ def decode_megakernel(h, pack, tables=None, lens=None, active=None,
             f"decode_megakernel kernel takes 1 to {MAX_ROWS} rows per "
             f"launch and tq <= {MAX_ROWS}; got {R} rows at tq {T}")
     tp = pack.O_in // (pack.nh * pack.hd) if seg != "full" else 1
-    if not megakernel_supported(pack.nh, pack.nh_kv, pack.hd, pack.H, pack.F,
-                                tp):
+    if not pack.supported(tp):
         raise ValueError(
             f"decode_megakernel kernel does not take this geometry (nh "
             f"{pack.nh}, nh_kv {pack.nh_kv}, hd {pack.hd}, hidden {pack.H}, "
@@ -524,6 +697,7 @@ def decode_megakernel(h, pack, tables=None, lens=None, active=None,
     for s0 in range(0, b, per):
         s1 = min(b, s0 + per)
         r0, r1 = s0 * T, s1 * T
+        stages = pack.ring_stages(r1 - r0, nh, nh_kv, head_k, head)
         scr = dict(pack.scratch(r1 - r0))
         if head_k > 1:
             scr.update(pack.fold_scratch(r1 - r0, head_k))
@@ -545,7 +719,9 @@ def decode_megakernel(h, pack, tables=None, lens=None, active=None,
             p=pack.page_size, n_pages=pack.n_pages,
             max_pages=table.shape[1] if attends else 0,
             oob=pack.oob, max_len=pack.max_len, max_grid=pack.max_grid,
-            head_k=head_k, tq=T, eps=pack.eps,
+            head_k=head_k, tq=T, maps=pack.maps.data_ptr(),
+            ring_stages=stages, ring_rows=pack.ring_rows,
+            ring_mask=pack.ring_mask, eps=pack.eps,
             scale=1.0 / math.sqrt(pack.hd))
         grid = ctypes.c_int(0)
         if seg == "full":

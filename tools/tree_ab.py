@@ -15,7 +15,14 @@ difference between a tree's two rows. Probes:
   speculative verify rows (tq = 4); and a digest of the outputs' bytes of
   seg "full" launches on seeded inputs (bf16 and int8 weights, 8 slots:
   the greedy whole step, the top-8 fold, one layer), so equal digests
-  across trees mean bit-equal outputs.
+  across trees mean bit-equal outputs. Then the tensor-parallel segments
+  (#7t): tp 2 shards on the card, R 8, bf16 and int8, a 2-layer step with
+  the head through every shard's qkv / tail / down launches on the same
+  seeded inputs, with a digest of each segment's outputs and one of the
+  shards' h and pools after the step. Device times from a replayed CUDA
+  graph (`graph_ms`): #7's whole step at R 4 and #7t's layer at R 8 (every
+  shard's three segments and both gathers), beside the layer's time by
+  CUDA events around back-to-back calls.
 - `flash`: the flash kernels' launches: the causal forward and backward,
   with and without dropout, on seeded inputs at the training and serving
   shapes of `chip_smoke.py`'s rows (the forward also at llama350m's and
@@ -109,7 +116,16 @@ from paddle_tpu_torch.ops.pallas.decode_megakernel import decode_megakernel
 model = LlamaForCausalLM(LlamaConfig(hidden_size=4096, intermediate_size=11008,
                                      num_hidden_layers=2, num_attention_heads=32),
                          device=dev, seed=11)
-out["digests"] = {}
+out["digests"], out["graph_ms"] = {}, {}
+
+
+def digest(ts):
+    h = hashlib.sha256()
+    for x in ts:
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 for quant in (None, "int8"):
     eng = ContinuousBatchingEngine(model, megakernel="multi", max_len=512, page_size=64,
                                    max_batch=8, quant=quant, weight_dtype="bfloat16",
@@ -123,11 +139,63 @@ for quant in (None, "int8"):
            + (decode_megakernel(h0.clone(), cs.clone_pack(eng._mk_pack), table, lens, act,
                                 layer=0),))
     torch.cuda.synchronize()
-    h = hashlib.sha256()
-    for x in res:
-        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    out["digests"][quant or "bf16"] = h.hexdigest()[:16]
-    del eng
+    out["digests"][quant or "bf16"] = digest(res)
+    # #7's device time: the whole step at R 4 (check_megakernel's row) from
+    # a replayed CUDA graph
+    tok, table, lens, act = cs.topk_inputs(torch, dev, eng, 4, seed=12)
+    h0 = eng.weights["emb"][tok].to(torch.bfloat16)
+    h_t = h0.clone()
+
+    def step():
+        h_t.copy_(h0)
+        decode_megakernel(h_t, eng._mk_pack, table, lens, act, head=True)
+
+    out["graph_ms"]["full_" + (quant or "bf16") + "_R4"] = cs.graph_ms(torch, step)
+    # #7t: tp 2 shards on the card, R 8. The whole step through the
+    # segments (every layer's qkv / tail / down outputs, then the shards'
+    # h and pools, digested), and one layer's device time (every shard's
+    # three segments and both gathers) from a replayed CUDA graph
+    tpe = ContinuousBatchingEngine(model, megakernel="multi", max_len=512, page_size=64,
+                                   max_batch=8, quant=quant, weight_dtype="bfloat16", tp=2,
+                                   device=[dev] * 2)
+    tok, table, lens, act = cs.topk_inputs(torch, dev, eng, 8, seed=12)
+    cs.shard_pools(eng, tpe)
+    h0 = eng.weights["emb"][tok].to(torch.bfloat16)
+    packs = [cs.clone_pack(pk) for pk in tpe._mk_packs]
+    hs = [h0.clone() for _ in range(2)]
+    segs = {"qkv": [], "tail": [], "down": []}
+    for li in range(2):
+        at = [decode_megakernel(hs[s], packs[s], table, lens, act, layer=li, seg="qkv")
+              for s in range(2)]
+        segs["qkv"] += at
+        ac = [decode_megakernel(hs[s], packs[s], layer=li, seg="tail",
+                                attn_in=torch.cat(at, -1))[1] for s in range(2)]
+        segs["tail"] += ac + [h.clone() for h in hs]
+        dn = [decode_megakernel(hs[s], packs[s], layer=li, seg="down",
+                                act_in=torch.cat(ac, -1), head=li == 1) for s in range(2)]
+        segs["down"] += [x for o in dn for x in (o if isinstance(o, tuple) else (o,))]
+    torch.cuda.synchronize()
+    q = quant or "bf16"
+    for seg, ts in segs.items():
+        out["digests"][f"tp2_{seg}_{q}"] = digest(ts)
+    # every pool row but the scratch row (masked rows race there)
+    out["digests"][f"tp2_h_pools_{q}"] = digest(
+        hs + [f[:-1] for pk in packs for f in pk.k_flat + pk.v_flat])
+    pk_t, hs_t = tpe._mk_packs, [h0.clone() for _ in range(2)]
+
+    def layer_tp():
+        for h in hs_t:
+            h.copy_(h0)
+        at = torch.cat([decode_megakernel(hs_t[s], pk_t[s], table, lens, act, layer=0,
+                                          seg="qkv") for s in range(2)], -1)
+        ac = torch.cat([decode_megakernel(hs_t[s], pk_t[s], layer=0, seg="tail",
+                                          attn_in=at)[1] for s in range(2)], -1)
+        for s in range(2):
+            decode_megakernel(hs_t[s], pk_t[s], layer=0, seg="down", act_in=ac)
+
+    out["graph_ms"]["tp2_layer_" + q + "_R8"] = cs.graph_ms(torch, layer_tp)
+    out["tp2_layer_ms_" + q + "_R8"] = cs.time_ms(torch, layer_tp)
+    del eng, tpe, packs
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 '''
