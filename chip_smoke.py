@@ -5,9 +5,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device   the card's name and power limit; TF32 off
   2. build    nvcc builds every kernel under paddle_tpu_torch/csrc; the
               tensor-core builds' HMMA / HGMMA counts in cuobjdump's SASS
-              (HGMMA in every instantiation of the wgmma flash forward)
+              (HGMMA in every instantiation of the wgmma flash forward and
+              of the int8 matmul's tensor-core build)
   3. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes (bf16), with times, bounds and library times;
+              the int8 matmul on each of its routes (`qmm_route`): the
+              decode GEMV at m 4 and 8 on every 7B shape (also timed on
+              weights that are not in L2, and on both builds: the TMA-fed
+              ring, which `gemv_build` picks at k 11008, and the direct
+              one), the tensor-core build at m 32
+              and 1280, the tiled and direct builds off the main path; the
+              ring against the direct GEMV bit for bit at m 1-8 on every
+              7B shape, and the tensor-core rows of m 16, 32, 1024 and 1280
+              against the same rows of the 1280-row call, bit for bit;
               the causal flash forward on its wgmma build at the serving
               prefill's shape and at llama350m's and llama1p3b's training
               shapes, beside its f32 CUDA-core build;
@@ -52,7 +62,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
   6. cb_path  LLaMA-7B through ContinuousBatchingEngine (page 64, max_len
               1024, 8 slots, 128-token chunks, prefix cache): 12 ragged
               requests at decode_block 8 (bf16, int8) and 1 (bf16) on the
-              op chain (megakernel=False), then through the megakernel
+              op chain (megakernel=False; int8 launches gated exactly by
+              route: prefill projections on the tensor-core build, heads
+              and decode products on the GEMV, the down projections on
+              its ring build), then through the megakernel
               ("multi" bf16 and int8, "layer" bf16, K=8), each stream
               twice, every prefill launch on the ragged kernel's
               tensor-core build; a single request with exact launch counts;
@@ -164,6 +177,8 @@ REPLACES = {
     "flash_attention_fwd_f32": "paddle_tpu/ops/pallas/flash_attention.py:109",
     "paged_attention_staged": "paddle_tpu/ops/pallas/paged_attention.py:39",
     "spec_verify_attention_staged": "paddle_tpu/ops/pallas/paged_attention.py:354",
+    "quantized_matmul_tc": "paddle_tpu/ops/pallas/quantized_matmul.py:53",
+    "quantized_matmul_ring": "paddle_tpu/ops/pallas/quantized_matmul.py:53",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
@@ -194,6 +209,10 @@ SOURCES = {
     # staged in shared memory by bulk copies (`ptt::PageRing`, common.cuh)
     "paged_attention_staged": "paddle_tpu_torch/csrc/paged_attention.cu",
     "spec_verify_attention_staged": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+    # the int8 matmul's routes (`qmm_route`): prefill on wgmma, and the
+    # decode GEMV's ring build (weight tiles by TMA, `ptt::SlabRing`; k 11008)
+    "quantized_matmul_tc": "paddle_tpu_torch/csrc/quantized_matmul_tc.cu",
+    "quantized_matmul_ring": "paddle_tpu_torch/csrc/quantized_matmul.cu",
 }
 
 
@@ -317,9 +336,10 @@ def ptxas_summary(log):
     return out
 
 
-TC_KERNELS = ("ragged_tc_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "flash_fwd_tc_kernel")
+TC_KERNELS = ("ragged_tc_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel", "flash_fwd_tc_kernel",
+              "qmm_tc_kernel")
 # the kernels built on wgmma: HMMA alone (mma.sync) is not their design
-WGMMA_KERNELS = ("flash_fwd_tc_kernel",)
+WGMMA_KERNELS = ("flash_fwd_tc_kernel", "qmm_tc_kernel")
 
 
 def sass_mma_counts(lib_path, names=TC_KERNELS):
@@ -364,58 +384,205 @@ def max_err(a, b):
 
 
 # ---------------------------------------------------------------- phase 3
-def check_quantized_matmul(torch, dev):
+L2_BYTES = 50 * 2 ** 20       # the H100's L2: a weight set larger than this is read cold
+QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+
+
+def bits_equal(torch, a, b):
+    """The same bytes (`torch.equal` would take -0 for +0)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def qmm_ring_gemvs(cfg, tp=1):
+    """(per layer, head): how many of the int8 GEMVs of one op-chain decode
+    step take the ring build (`gemv_build`), on a shard of tp whose
+    column-parallel products (q, k, v, gate, up; the head when tp divides
+    the vocab) hold n / tp channels and whose row pair (o, down) is whole,
+    as `TensorParallel` splits them in "exact" mode."""
+    from paddle_tpu_torch.ops.pallas.quantized_matmul import gemv_build
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = H // cfg.num_attention_heads * cfg.num_key_value_heads
+    shapes = [(H, H // tp), (H, kv // tp), (H, kv // tp), (H, H),
+              (H, I // tp), (H, I // tp), (I, H)]
+    head = (H, V // tp if V % tp == 0 else V)
+    return (sum(gemv_build(k, n) == "ring" for k, n in shapes),
+            int(gemv_build(*head) == "ring"))
+
+
+def qmm_counted(qm, route, build, before):
+    """The launch went to the counters of its route: one launch, and one
+    tc (route "tc") or ring (the GEMV's ring build) launch, or neither."""
+    return (qm.launches - before[0] == 1
+            and qm.tc_launches - before[1] == (route == "tc")
+            and qm.ring_launches - before[2] == (build == "ring"))
+
+
+def qmm_cold_ms(torch, x, wq, sc, timer):
+    """The product timed on weights that are not in L2: launches rotate
+    over copies of the weight totalling more than twice the L2, so each
+    reads a copy last read several launches before."""
+    from paddle_tpu_torch.ops.pallas.quantized_matmul import quantized_matmul
+    copies = max(3, -(-2 * L2_BYTES // wq.numel()) + 1)
+    ws = [(wq.clone(), sc.clone()) for _ in range(copies)]
+    turn = [0]
+
+    def fn():
+        w, s = ws[turn[0] % copies]
+        turn[0] += 1
+        return quantized_matmul(x, w, s)
+
+    t = timer(torch, fn)
+    del ws
+    return t, copies
+
+
+def qmm_ring_gate(torch, dev, g):
+    """The GEMV's ring build against its direct build (`_gemv_launch`) on
+    the same inputs, bit for bit: every 7B shape at m 1-8 in bf16, and an
+    f32 case; the public call (route "gemv", the build `gemv_build` picks)
+    equals both."""
     from paddle_tpu_torch.ops.pallas.quantized_matmul import (
-        quantize_weights, quantized_matmul, quantized_matmul_reference)
+        _gemv_launch, quantize_weights, quantized_matmul)
+    cases = []
+    for k, n in QMM_SHAPES:
+        wq, sc = quantize_weights(torch.randn((k, n), generator=g, device=dev) / math.sqrt(k))
+        x = torch.randn((8, k), generator=g, device=dev).to(torch.bfloat16)
+        for m in range(1, 9):
+            ring = _gemv_launch(x[:m], wq, sc, "ring")
+            direct = _gemv_launch(x[:m], wq, sc, "direct")
+            public = quantized_matmul(x[:m], wq, sc)
+            cases.append(dict(k=k, n=n, m=m, dtype="bf16",
+                              ring_equals_direct=bits_equal(torch, ring, direct),
+                              public_equals_ring=bits_equal(torch, public, ring)))
+        del wq, sc, x
+    wq, sc = quantize_weights(torch.randn((4096, 4096), generator=g, device=dev))
+    x = torch.randn((20, 4096), generator=g, device=dev)
+    ring, direct = (_gemv_launch(x, wq, sc, b) for b in ("ring", "direct"))
+    cases.append(dict(k=4096, n=4096, m=20, dtype="f32",
+                      ring_equals_direct=bits_equal(torch, ring, direct),
+                      public_equals_ring=bits_equal(torch, quantized_matmul(x, wq, sc), ring)))
+    torch.cuda.synchronize()
+    return cases
+
+
+def qmm_tc_rows_gate(torch, dev, g):
+    """Route "tc": the rows of an m-row call equal the same rows of the
+    1280-row call, bit for bit, m in {16, 32, 1024, 1280}, at every 7B
+    shape (a row's bits do not depend on m)."""
+    from paddle_tpu_torch.ops.pallas.quantized_matmul import quantize_weights, quantized_matmul
+    cases = []
+    for k, n in QMM_SHAPES:
+        wq, sc = quantize_weights(torch.randn((k, n), generator=g, device=dev) / math.sqrt(k))
+        x = torch.randn((1280, k), generator=g, device=dev).to(torch.bfloat16)
+        full = quantized_matmul(x, wq, sc)
+        for m in (16, 32, 1024, 1280):
+            cases.append(dict(k=k, n=n, m=m,
+                              rows_equal=bits_equal(torch, quantized_matmul(x[:m], wq, sc),
+                                                    full[:m])))
+        del wq, sc, x, full
+    torch.cuda.synchronize()
+    return cases
+
+
+def check_quantized_matmul(torch, dev):
+    from paddle_tpu_torch.ops.pallas import quantized_matmul as qm
+    from paddle_tpu_torch.ops.pallas.quantized_matmul import (
+        _gemv_launch, gemv_build, qmm_route, quantize_weights, quantized_matmul,
+        quantized_matmul_reference, ring_fits)
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for m in (4, 4 * 320):
-        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
-            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-            w = torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
-            wq, sc = quantize_weights(w)
-            del w
-            got = quantized_matmul(x, wq, sc)
-            ref = quantized_matmul_reference(x, wq, sc)
-            torch.cuda.synchronize()
-            err = max_err(got, ref)
-            # bf16 keeps 8 significant bits: two roundings of nearly equal
-            # f32 sums differ by at most ~2^-8 of the output's magnitude
-            tol = 1e-2 * float(ref.float().abs().max())
-            ms = time_ms(torch, lambda: quantized_matmul(x, wq, sc))
-            plain = time_ms(torch, lambda: quantized_matmul_reference(x, wq, sc),
-                            iters=5)
-            lib = None
-            if hasattr(torch, "_weight_int8pack_mm"):
-                w_nk = wq.t().contiguous()
-                sc_b = sc.to(torch.bfloat16)
-                try:
-                    torch._weight_int8pack_mm(x, w_nk, sc_b)
-                    torch.cuda.synchronize()
-                except (RuntimeError, NotImplementedError):
-                    lib = None     # this build has no CUDA kernel for it
-                else:
-                    lib = time_ms(torch, lambda: torch._weight_int8pack_mm(x, w_nk, sc_b))
-                del w_nk
-            bms, by = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * n * k)
-            rows.append(dict(m=m, k=k, n=n, max_abs_err=err, tol=tol, ok=err <= tol,
-                             ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                             library_ms=lib))
-            del x, wq, sc, got, ref
-    # off the main path: ragged n and k (no 16-byte loads), the tiled path
-    # on ragged edges, and f32 x (the GEMV path in chunks of 8 rows)
+
+    def counters():
+        return qm.quantized_matmul.launches, qm.quantized_matmul.tc_launches, \
+            qm.quantized_matmul.ring_launches
+
+    # m 4 and 4 x 320 at every 7B shape (decode and the static prefill), m 8
+    # (a full-width decode step) at every 7B shape and m 32 (a verify pass of
+    # 8 x 4) at gate/up's
+    cases = [(m, k, n) for m in (4, 4 * 320) for k, n in QMM_SHAPES]
+    cases[4:4] = [(8, k, n) for k, n in QMM_SHAPES] + [(32, 4096, 11008)]
+    for m, k, n in cases:
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
+        wq, sc = quantize_weights(w)
+        del w
+        route = qmm_route(torch.bfloat16, m, k, n)
+        build = gemv_build(k, n) if route == "gemv" else None
+        before = counters()
+        got = quantized_matmul(x, wq, sc)
+        counted = qmm_counted(qm.quantized_matmul, route, build, before)
+        ref = quantized_matmul_reference(x, wq, sc)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        # bf16 keeps 8 significant bits: two roundings of nearly equal
+        # f32 sums differ by at most ~2^-8 of the output's magnitude
+        tol = 1e-2 * float(ref.float().abs().max())
+        ms = time_ms(torch, lambda: quantized_matmul(x, wq, sc))
+        plain = time_ms(torch, lambda: quantized_matmul_reference(x, wq, sc),
+                        iters=5)
+        lib = None
+        if hasattr(torch, "_weight_int8pack_mm"):
+            w_nk = wq.t().contiguous()
+            sc_b = sc.to(torch.bfloat16)
+            try:
+                torch._weight_int8pack_mm(x, w_nk, sc_b)
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError):
+                lib = None     # this build has no CUDA kernel for it
+            else:
+                lib = time_ms(torch, lambda: torch._weight_int8pack_mm(x, w_nk, sc_b))
+            del w_nk
+        bms, by = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * n * k)
+        row = dict(m=m, k=k, n=n, route=route, build=build, counted=counted,
+                   max_abs_err=err, tol=tol, ok=err <= tol and counted,
+                   ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                   device_ms=graph_ms(torch, lambda: quantized_matmul(x, wq, sc)))
+        if route == "gemv":
+            row["cold_ms"], row["cold_copies"] = qmm_cold_ms(torch, x, wq, sc, time_ms)
+            row["cold_device_ms"] = qmm_cold_ms(torch, x, wq, sc, graph_ms)[0]
+            if ring_fits(n):
+                # both builds in this run, whichever `gemv_build` picks: the
+                # ground for its choice by k
+                row["device_ms_by_build"] = {
+                    b: graph_ms(torch, lambda b=b: _gemv_launch(x, wq, sc, b))
+                    for b in ("ring", "direct")}
+        else:
+            # for information only: cuBLAS's bf16 product on a weight
+            # widened to bf16 beforehand (the port never calls it)
+            wb = wq.to(torch.bfloat16)
+            row["cublas_bf16_ms"] = time_ms(torch, lambda: x @ wb)
+            del wb
+        rows.append(row)
+        del x, wq, sc, got, ref
+    # off the main path: ragged n and k (the GEMV's direct build, the tiled
+    # WMMA build), and f32 x (the GEMV's direct build in chunks of 8 rows)
     for m, k, n, dt in ((3, 333, 100, torch.bfloat16), (40, 333, 100, torch.bfloat16),
                         (20, 4096, 4096, torch.float32)):
         x = torch.randn((m, k), generator=g, device=dev).to(dt)
         wq, sc = quantize_weights(torch.randn((k, n), generator=g, device=dev))
+        route = qmm_route(dt, m, k, n)
+        build = gemv_build(k, n) if route == "gemv" else None
+        before = counters()
         got = quantized_matmul(x, wq, sc)
+        counted = qmm_counted(qm.quantized_matmul, route, build, before)
         ref = quantized_matmul_reference(x, wq, sc)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         # f32: the same sums in another order
         tol = (1e-2 if dt == torch.bfloat16 else 1e-4) * float(ref.float().abs().max())
-        rows.append(dict(m=m, k=k, n=n, dtype=str(dt), max_abs_err=err, tol=tol,
-                         ok=err <= tol))
+        rows.append(dict(m=m, k=k, n=n, dtype=str(dt), route=route, build=build,
+                         counted=counted, max_abs_err=err, tol=tol,
+                         ok=err <= tol and counted))
+    ring = qmm_ring_gate(torch, dev, g)
+    tc_rows = qmm_tc_rows_gate(torch, dev, g)
+    rows.append(dict(case="gates", ring_cases=ring,
+                     ring_equals_direct=all(c["ring_equals_direct"] for c in ring),
+                     public_equals_ring=all(c["public_equals_ring"] for c in ring),
+                     tc_row_cases=tc_rows,
+                     tc_rows_independent_of_m=all(c["rows_equal"] for c in tc_rows),
+                     ok=all(c["ring_equals_direct"] and c["public_equals_ring"] for c in ring)
+                     and all(c["rows_equal"] for c in tc_rows)))
     return rows
 
 
@@ -2096,6 +2263,7 @@ def serve_7b(torch, dev):
     n_layer_params = L * (2 * H * H + 2 * H * hd * cfg.num_key_value_heads
                           + 3 * H * cfg.intermediate_size)
     n_head_params = H * cfg.vocab_size
+    ring_layer, ring_head = qmm_ring_gemvs(cfg)
     results, launches = [], {}
     for wname, eng in engines.items():
         w_bytes = weight_bytes_per_step(torch, eng)
@@ -2121,6 +2289,12 @@ def serve_7b(torch, dev):
                 "paged_attention": L * n_loop,
                 "paged_attention_staged": L * n_loop,
                 "quantized_matmul": (7 * L + 1) * (1 + n_loop) if wname == "int8" else 0,
+                # int8 by route: the prefill's projections on wgmma, the
+                # prefill's head and every decode step's products on the
+                # GEMV, its down projections (k 11008) on the ring build
+                "quantized_matmul_tc": 7 * L if wname == "int8" else 0,
+                "quantized_matmul_ring": ring_head * (1 + n_loop) + ring_layer * L * n_loop
+                if wname == "int8" else 0,
                 "flash_attention_fwd": L if t_pad >= eng.flash_prefill_min else 0,
                 "flash_attention_fwd_tc": L if t_pad >= eng.flash_prefill_min else 0,
             })
@@ -2312,6 +2486,7 @@ def serve_cb_7b(torch, dev):
 
     cfg = LlamaConfig.llama_7b()
     L, V = cfg.num_hidden_layers, cfg.vocab_size
+    ring_layer, ring_head = qmm_ring_gemvs(cfg)
     torch.cuda.reset_peak_memory_stats()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
     geom = dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
@@ -2337,6 +2512,12 @@ def serve_cb_7b(torch, dev):
         # step 7L+1 on the op chain, 1 (the head) in "layer" mode, 0 in "multi"
         per_dec = {False: 7 * L + 1, "layer": 1, "multi": 0}[mk]
         expect_qmm = (7 * L + 1) * pf_calls + per_dec * dec if quant else 0
+        # by route: a prefill's 7L projections on wgmma (8 x 128 or 1 x 128
+        # rows), its head (8 or 1 rows) and the decode steps' (8 rows) on
+        # the GEMV, of which the down projections (k 11008) take the ring
+        expect_tc = 7 * L * pf_calls if quant else 0
+        ring_dec = {False: ring_layer * L + ring_head, "layer": ring_head, "multi": 0}[mk]
+        expect_ring = ring_head * pf_calls + ring_dec * dec if quant else 0
         expect_mk = {False: 0, "layer": L * dec, "multi": dec}[mk]
         launch_ok = (counts["flash_attention_fwd"] == 0
                      and counts["paged_attention"] == (0 if mk else L * dec)
@@ -2344,6 +2525,8 @@ def serve_cb_7b(torch, dev):
                      and counts["decode_megakernel"] == expect_mk
                      and dec > 0
                      and counts["quantized_matmul"] == expect_qmm
+                     and counts["quantized_matmul_tc"] == expect_tc
+                     and counts["quantized_matmul_ring"] == expect_ring
                      and (counts["quantized_matmul"] > 0) == bool(quant)
                      and counts["ragged_paged_attention"] % L == 0
                      and ((counts["ragged_paged_attention"] > 0) if K > 1
@@ -2386,7 +2569,8 @@ def serve_cb_7b(torch, dev):
             prefill_blocks=n_blk_pf if K > 1 else None,
             prefix_hits=[h1["prefix_hits"], h2["prefix_hits"] - h1["prefix_hits"]],
             cow_copies=[h1["cow_copies"], h2["cow_copies"] - h1["cow_copies"]],
-            launches=counts, expected_qmm=expect_qmm, expected_megakernel=expect_mk,
+            launches=counts, expected_qmm=expect_qmm, expected_qmm_tc=expect_tc,
+            expected_qmm_ring=expect_ring, expected_megakernel=expect_mk,
             launches_ok=launch_ok, repeat_identical=repeat, ids_in_vocab=in_vocab,
             budgets_met=budget_ok, no_leak=no_leak, tail=outs[0][-4:].tolist(), ok=ok)
         if name in ("K=8 bf16", "multi K=8 bf16"):
@@ -2820,6 +3004,7 @@ def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
     import numpy as np
 
     L, V = model.config.num_hidden_layers, model.config.vocab_size
+    ring_layer, ring_head = qmm_ring_gemvs(model.config, TP)
     dev = geom["device"]
     tgeom = dict(geom, device=[dev] * TP)
     specs = sampled_specs(len(prompts))
@@ -2846,7 +3031,10 @@ def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
                       paged_attention=0 if mk else L * TP * dec,
                       paged_attention_staged=0 if mk else L * TP * dec,
                       quantized_matmul=(7 * L + 1) * TP * (n_pf + (0 if mk else dec))
-                      if quant else 0)
+                      if quant else 0,
+                      quantized_matmul_tc=7 * L * TP * n_pf if quant else 0,
+                      quantized_matmul_ring=TP * (ring_head * n_pf + (
+                          0 if mk else (ring_layer * L + ring_head) * dec)) if quant else 0)
         launch_ok = (all(counts[k] == v for k, v in expect.items())
                      and dec > 0 and n_pf > 0
                      and counts["ragged_paged_attention"] == L * TP * n_pf
@@ -3453,6 +3641,11 @@ def main():
             name != "decode_megakernel_tp" or (r["tp"] == 2 and r["R"] == 8
                                                and r["weights"] == "bf16")))
     main_rows["paged_attention_staged"] = main_rows["paged_attention"]
+    main_rows["quantized_matmul_ring"] = next(
+        r for r in all_rows["quantized_matmul"] if r.get("build") == "ring" and r["m"] == 4)
+    main_rows["quantized_matmul_tc"] = next(
+        r for r in all_rows["quantized_matmul"]
+        if r.get("route") == "tc" and r["m"] == 1280 and r["n"] == 11008)
     main_rows["spec_verify_attention_staged"] = main_rows["spec_verify_attention"]
     main_rows["ragged_paged_attention_tc"] = main_rows["ragged_paged_attention"]
     main_rows["flash_attention_bwd_tc"] = main_rows["flash_attention_bwd"]

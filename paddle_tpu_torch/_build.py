@@ -35,7 +35,14 @@ _L = ctypes.c_int64
 
 # argtypes of every kernel entry point; each returns cudaGetLastError()
 SIGNATURES = {
-    "ptt_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (x, w, scales, out, m, k, n, dtype, route, weight map or null,
+    # device, stream): the GEMV (ring or direct) and the tiled WMMA build
+    "ptt_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    # (x, w, scales, out, m, k, n, weight map, device, stream): the
+    # tensor-core build on wgmma
+    "ptt_quantized_matmul_tc": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # (w, k, n, route, out host bytes): an int8 weight's tensor map
+    "ptt_quantized_matmul_map": [_P, _I, _I, _I, _P],
     # (q, k, v, table, lens, active, out, b, h, h_kv, d, p, n_pages,
     # max_pages, scale, dtype, stages, device, stream)
     "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P,

@@ -828,13 +828,15 @@ struct SlabRing {
         : "memory");
   }
 
-  // every thread: the next tile's rows (their shared-memory address), once
-  // its copy landed
-  __device__ uint32_t wait_next() const {
-    const int s = used % stages;
-    wait_parity(smem_u32(bar + s), (uint32_t)(used / stages) & 1u);
+  // every thread: tile m's rows (their shared-memory address), once its
+  // copy landed
+  __device__ uint32_t wait_tile(int m) const {
+    const int s = m % stages;
+    wait_parity(smem_u32(bar + s), (uint32_t)(m / stages) & 1u);
     return smem_u32(buf) + (uint32_t)(s * tile_bytes(rows));
   }
+  // every thread: the next tile's rows
+  __device__ uint32_t wait_next() const { return wait_tile(used); }
 
   // every thread, when it read the tile for the last time; one arrive
   // per warp, after the warp's lanes are done

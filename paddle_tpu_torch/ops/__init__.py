@@ -19,9 +19,12 @@ The ragged kernel has two entries, each counted on its own:
 (the speculative verify pass). The launches of the tensor-core builds are
 counted on their own too, as "ragged_paged_attention_tc" (the chunked
 prefill in bf16, also in "ragged_paged_attention"),
-"flash_attention_fwd_tc" (the bf16 forward, also in "flash_attention_fwd")
-and "flash_attention_bwd_tc" (the bf16 backward, also in
-"flash_attention_bwd"). The launches of the decode kernel and of the ragged
+"flash_attention_fwd_tc" (the bf16 forward, also in "flash_attention_fwd"),
+"flash_attention_bwd_tc" (the bf16 backward, also in
+"flash_attention_bwd") and "quantized_matmul_tc" (the int8 matmul's
+tensor-core route, also in "quantized_matmul"); so are the int8 matmul's
+GEMV launches on its TMA-fed ring build, as "quantized_matmul_ring" (also in
+"quantized_matmul"). The launches of the decode kernel and of the ragged
 kernel's per-page build that take the staged walk (`paged_route`) are
 counted on their own as well: "paged_attention_staged",
 "ragged_paged_attention_staged" and "spec_verify_attention_staged" (each
@@ -55,6 +58,8 @@ def kernel_launches():
     out["ragged_paged_attention_tc"] = ragged_paged_attention.tc_launches
     out["flash_attention_fwd_tc"] = flash_attention_fwd.tc_launches
     out["flash_attention_bwd_tc"] = flash_attention_bwd.tc_launches
+    out["quantized_matmul_tc"] = quantized_matmul.tc_launches
+    out["quantized_matmul_ring"] = quantized_matmul.ring_launches
     for fn in (paged_attention, ragged_paged_attention, spec_verify_attention):
         out[fn.__name__ + "_staged"] = fn.staged_launches
     for fn in (flash_attention_fwd, flash_attention_bwd):
@@ -73,6 +78,8 @@ def reset_kernel_launches():
     ragged_paged_attention.tc_launches = 0
     flash_attention_fwd.tc_launches = 0
     flash_attention_bwd.tc_launches = 0
+    quantized_matmul.tc_launches = 0
+    quantized_matmul.ring_launches = 0
     for fn in (paged_attention, ragged_paged_attention, spec_verify_attention):
         fn.staged_launches = 0
     for fn in (flash_attention_fwd, flash_attention_bwd):

@@ -165,7 +165,9 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                  "flash_attention_bwd_noncausal": 0,
                                  "paged_attention_staged": 0,
                                  "ragged_paged_attention_staged": 0,
-                                 "spec_verify_attention_staged": 0}
+                                 "spec_verify_attention_staged": 0,
+                                 "quantized_matmul_tc": 0,
+                                 "quantized_matmul_ring": 0}
 
 
 def test_training_entry_points_refuse_cpu_without_being_asked():

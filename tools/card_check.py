@@ -30,6 +30,10 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
 - `tp_path`: LLaMA-7B at full width and depth, the cb_stream through
   `tp_cb_runs` (tp = 2, both shards on the card), after the tp = 1 runs
   it is held against; then the tp = 2 card-against-CPU parity row.
+- `qmm`: the int8 matmul's rows (every route: the decode GEMV on both
+  builds, the tensor-core build at the prefill and verify widths, the
+  tiled build off the main path), with the ring-equals-direct and
+  tc-rows-independent-of-m bit gates;
 - `width`: whether a row of the op chain's products depends on how many
   rows share the product (cuBLAS picks its kernel by the row count; the
   int8 matmul takes its GEMV at m <= 8). LLaMA-7B's products (q, k, v, o,
@@ -41,6 +45,7 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   one slot down the full product. Then the cost of running the op chain
   at the full width: the 7B cb_stream's wall with the padding on and off,
   in turns (op chain K=8 and K=1, and at speculate=4 in bf16 and int8).
+  `width_rows` runs the row checks alone.
 
     python3 tools/card_check.py ragged flash mask bert   # from the repository root; needs one CUDA card
 """
@@ -55,6 +60,10 @@ import torch  # noqa: E402
 
 import chip_smoke as C  # noqa: E402
 from paddle_tpu_torch import _build  # noqa: E402
+
+
+def qmm(dev):
+    yield from (dict(phase="qmm", **r) for r in C.check_quantized_matmul(torch, dev))
 
 
 def ragged(dev):
@@ -150,9 +159,7 @@ WIDTH_CASES = (("prefill", 1024, (128, 256, 512, 1024)),
                ("decode, head", 8, tuple(range(1, 9))))
 
 
-def width(dev):
-    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+def width_rows(dev):
     from paddle_tpu_torch.ops.pallas.quantized_matmul import quantize_weights, quantized_matmul
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(17)
@@ -175,6 +182,12 @@ def width(dev):
         del wq, sc, wb
         torch.cuda.empty_cache()
 
+
+
+def width(dev):
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    yield from width_rows(dev)
     # the cost of the full width on the 7B stream, padding on and off in turns
     cfg = LlamaConfig.llama_7b()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
@@ -207,8 +220,8 @@ def width(dev):
     torch.cuda.empty_cache()
 
 
-PHASES = dict(ragged=ragged, flash=flash, mask=mask, f32=f32, gpt=gpt, bert=bert, tp=tp,
-              tp_path=tp_path, width=width)
+PHASES = dict(qmm=qmm, ragged=ragged, flash=flash, mask=mask, f32=f32, gpt=gpt, bert=bert, tp=tp,
+              tp_path=tp_path, width=width, width_rows=width_rows)
 
 
 def main(names):
@@ -226,7 +239,7 @@ def main(names):
     print(json.dumps(dict(build_s=time.perf_counter() - t0)))
     print("\n".join(l for l in C.ptxas_summary(_build.build_log() or "")
                     if "flash" in l or "megakernel" in l or "bwd" in l or "ragged" in l
-                    or "paged" in l))
+                    or "paged" in l or "qmm" in l))
     # nvcc's own lines for the wgmma build and the staged page walks
     # (warnings such as wgmma serialization show here)
     log = (_build.build_log() or "").split("\n== ")
@@ -234,7 +247,9 @@ def main(names):
                                                       "flash_attention.cu",
                                                       "flash_attention_bwd.cu",
                                                       "paged_attention.cu",
-                                                      "ragged_paged_attention.cu"))))
+                                                      "ragged_paged_attention.cu",
+                                                      "quantized_matmul.cu",
+                                                      "quantized_matmul_tc.cu"))))
     sass = C.sass_mma_counts(_build.build_info()["path"])
     print(json.dumps(dict(tensor_core_sass=sass, ok=C.tc_sass_ok(sass))))
     ok = C.tc_sass_ok(sass)

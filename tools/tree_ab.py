@@ -63,6 +63,17 @@ difference between a tree's two rows. Probes:
   bytes: equal digests across trees mean bit-equal outputs. With the
   build's ptxas lines of both kernels.
 
+- `qmm`: the int8 matmul (#6) at every `chip_smoke.py` #6 shape (LLaMA-7B's
+  4096 x 4096, 4096 x 11008, 11008 x 4096 and 4096 x 32000) at m 4, 8
+  (decode), 32 (a verify pass) and 1280 (the static prefill), bf16 x on
+  seeded inputs, and the off-path rows (3 x 333 x 100, 40 x 333 x 100, f32
+  20 x 4096 x 4096). Only the int8 matmul's sources are built. Each row:
+  the route (`qmm_route`; "gemv" or "tiled" on a tree without it), ms by
+  CUDA events around back-to-back calls, device ms of one call from a
+  replayed CUDA graph (`graph_ms`), for m <= 8 the device ms on weights
+  that are not in L2 (calls rotating over copies totalling more than twice
+  the L2), the largest error against the plain version, and a digest of
+  the output's bytes: a GEMV row's digest must equal across trees.
 - `serving`: what the decode kernel's time does to the serving path: at
   LLaMA-7B's full width and depth (random weights, seed 0), the static
   engine's decode ms per step and prefill ms (bf16, 4 x 12 and 4 x 300
@@ -79,6 +90,7 @@ difference between a tree's two rows. Probes:
     python3 tools/tree_ab.py ragged chipwork/parent .
     python3 tools/tree_ab.py paged chipwork/parent .
     python3 tools/tree_ab.py serving chipwork/parent .
+    python3 tools/tree_ab.py qmm chipwork/parent .
 """
 import json
 import subprocess
@@ -552,7 +564,87 @@ for name, mk in (("op chain K=8 bf16", False), ("multi K=8 bf16", "multi")):
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 '''
-PROBES = dict(megakernel=MEGAKERNEL, flash=FLASH, mask=MASK, f32=F32, ragged=RAGGED,
+QMM = r"""
+import hashlib, json, subprocess, sys, time
+sys.path.insert(0, ".")
+import torch
+from paddle_tpu_torch import _build
+# build the int8 matmul's sources alone
+_all = _build.sources
+_build.sources = lambda: [s for s in _all()
+                          if s.name.startswith("quantized_matmul") or s.name == "runtime.cu"]
+_build.SIGNATURES = {k: v for k, v in _build.SIGNATURES.items()
+                     if k.startswith("ptt_quantized_matmul")}
+import chip_smoke as cs
+from paddle_tpu_torch.ops.pallas import quantized_matmul as qm
+t = time.perf_counter()
+_build.library()
+dev = torch.device("cuda", 0)
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True).stdout.strip()
+out = dict(build_s=time.perf_counter() - t, card=smi, rows=[],
+           ptxas=[l for l in cs.ptxas_summary(_build.build_log() or "") if "qmm" in l])
+
+
+def digest(x):
+    return hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def route(dt, m, k, n):
+    if hasattr(qm, "qmm_route"):
+        return qm.qmm_route(dt, m, k, n)
+    return "tiled" if dt == torch.bfloat16 and m > 8 else "gemv"
+
+
+def gemv_build(dt, m, k, n):
+    if route(dt, m, k, n) == "gemv" and hasattr(qm, "ring_fits"):
+        return qm.gemv_build(k, n)
+    return None
+
+
+def cold_graph_ms(x, wq, sc):
+    copies = max(3, -(-2 * 50 * 2 ** 20 // wq.numel()) + 1)
+    ws = [(wq.clone(), sc.clone()) for _ in range(copies)]
+    turn = [0]
+
+    def fn():
+        w, s = ws[turn[0] % copies]
+        turn[0] += 1
+        return qm.quantized_matmul(x, w, s)
+
+    return cs.graph_ms(torch, fn)
+
+
+g = torch.Generator(device=dev).manual_seed(21)
+cases = [(m, k, n, torch.bfloat16) for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
+                                               (4096, 32000)) for m in (4, 8, 32, 1280)]
+cases += [(3, 333, 100, torch.bfloat16), (40, 333, 100, torch.bfloat16),
+          (20, 4096, 4096, torch.float32)]
+weights = {}
+for m, k, n, dt in cases:
+    if (k, n) not in weights:
+        weights.clear()
+        torch.cuda.empty_cache()
+        w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+        weights[(k, n)] = qm.quantize_weights(w)
+        del w
+    wq, sc = weights[(k, n)]
+    x = torch.randn((m, k), generator=g, device=dev).to(dt)
+    fn = lambda: qm.quantized_matmul(x, wq, sc)
+    res = fn()
+    ref = qm.quantized_matmul_reference(x, wq, sc)
+    torch.cuda.synchronize()
+    row = dict(m=m, k=k, n=n, dtype=str(dt), route=route(dt, m, k, n),
+               build=gemv_build(dt, m, k, n),
+               ms=cs.time_ms(torch, fn, iters=50), device_ms=cs.graph_ms(torch, fn),
+               max_abs_err=float((res.float() - ref.float()).abs().max()),
+               ref_max=float(ref.float().abs().max()), digest=digest(res))
+    if m <= 8 and k >= 4096:
+        row["cold_device_ms"] = cold_graph_ms(x, wq, sc)
+    out["rows"].append(row)
+print("RESULT " + json.dumps(out), flush=True)
+"""
+PROBES = dict(qmm=QMM, megakernel=MEGAKERNEL, flash=FLASH, mask=MASK, f32=F32, ragged=RAGGED,
               paged=PAGED, serving=SERVING)
 
 
