@@ -62,10 +62,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
   6. cb_path  LLaMA-7B through ContinuousBatchingEngine (page 64, max_len
               1024, 8 slots, 128-token chunks, prefix cache): 12 ragged
               requests at decode_block 8 (bf16, int8) and 1 (bf16) on the
-              op chain (megakernel=False; int8 launches gated exactly by
-              route: prefill projections on the tensor-core build, heads
-              and decode products on the GEMV, the down projections on
-              its ring build), then through the megakernel
+              op chain (megakernel=False; every decode-step and verify-
+              pass product at R = 4 x max_batch = 32 rows; int8 launches
+              gated exactly by route: prefill projections and decode
+              products on the tensor-core build, prefill heads on the
+              GEMV), then through the megakernel
               ("multi" bf16 and int8, "layer" bf16, K=8), each stream
               twice, every prefill launch on the ragged kernel's
               tensor-core build; a single request with exact launch counts;
@@ -81,9 +82,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
               chain), each twice; proc: one request with a repetition
               penalty and a JSON-schema grammar over synthetic tokens;
               cb_spec: the stream at speculate=4 ("multi" with the n-gram
-              and an oracle drafter, the op chain, and the sampled stream
-              in "multi"), ids held against the unspeculated runs, tokens
-              per verify pass, exact launch counts;
+              and an oracle drafter, the op chain in bf16 and int8, and
+              the sampled stream in "multi"), ids equal to the
+              unspeculated runs', tokens per verify pass, exact launch
+              counts; item8: the op chain's decode micro-step and verify
+              pass ms beside the parent tree's, the int8 route of each;
+              cb_tenants: a gold tenant preempts a bulk one (op chain and
+              "multi"), the others equal the unpreempted run, the victim
+              by the margin rule, the re-prefill ms; cb_faults: cb.decode
+              and cb.verify faults on a speculative stream (op chain and
+              "multi"), two requests retired with stage "decode", the
+              survivors equal the fault-free run; ptq_serve: calibrate()
+              on the card, the int8 stream with quant_scales equal to the
+              absmax stream, scales bit for bit, #6's launches by route;
+              telemetry: the stream with telemetry on and off in turns
+              (op chain and "multi"), ids equal, the chrome trace parsed,
+              complete span chains;
               tp_path: the stream through ContinuousBatchingEngine(tp=2)
               with both shards on the card ("multi" bf16 and int8, "layer"
               bf16, the op chain bf16 and int8, the sampled stream on
@@ -2486,7 +2500,7 @@ def serve_cb_7b(torch, dev):
 
     cfg = LlamaConfig.llama_7b()
     L, V = cfg.num_hidden_layers, cfg.vocab_size
-    ring_layer, ring_head = qmm_ring_gemvs(cfg)
+    ring_head = qmm_ring_gemvs(cfg)[1]
     torch.cuda.reset_peak_memory_stats()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
     geom = dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
@@ -2513,11 +2527,11 @@ def serve_cb_7b(torch, dev):
         per_dec = {False: 7 * L + 1, "layer": 1, "multi": 0}[mk]
         expect_qmm = (7 * L + 1) * pf_calls + per_dec * dec if quant else 0
         # by route: a prefill's 7L projections on wgmma (8 x 128 or 1 x 128
-        # rows), its head (8 or 1 rows) and the decode steps' (8 rows) on
-        # the GEMV, of which the down projections (k 11008) take the ring
-        expect_tc = 7 * L * pf_calls if quant else 0
-        ring_dec = {False: ring_layer * L + ring_head, "layer": ring_head, "multi": 0}[mk]
-        expect_ring = ring_head * pf_calls + ring_dec * dec if quant else 0
+        # rows) and its head (8 or 1 rows) on the GEMV (the ring's only for
+        # a head of k >= 8192); every decode product runs at R = 4 x
+        # max_batch = 32 rows (the verify pass's row count), on wgmma
+        expect_tc = 7 * L * pf_calls + per_dec * dec if quant else 0
+        expect_ring = ring_head * pf_calls if quant else 0
         expect_mk = {False: 0, "layer": L * dec, "multi": dec}[mk]
         launch_ok = (counts["flash_attention_fwd"] == 0
                      and counts["paged_attention"] == (0 if mk else L * dec)
@@ -2606,11 +2620,17 @@ def serve_cb_7b(torch, dev):
     del eng
     torch.cuda.empty_cache()
     width = width_runs(torch, model, geom)
+    item8 = item8_report(torch, results, spec, width)
+    tenants = cb_tenants(torch, model, geom, launches)
+    faults = cb_faults(torch, model, geom, prompts, budgets, streams, launches)
+    ptq = ptq_serve(torch, model, geom, prompts, budgets, streams, launches)
+    tel = telemetry_runs(torch, model, geom, prompts, budgets, streams, launches)
     tp = tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches)
     del model
     torch.cuda.empty_cache()
     return dict(runs=results, single=single, sampled=sampled, proc=proc, spec=spec,
-                width=width, tp=tp, peak_gb=peak_gb, busy=busy), launches
+                width=width, item8=item8, tenants=tenants, faults=faults, ptq=ptq,
+                telemetry=tel, tp=tp, peak_gb=peak_gb, busy=busy), launches
 
 
 # The block-width gate: 5 requests submitted one engine step apart, so that
@@ -2657,11 +2677,13 @@ def drive_staggered(torch, eng, prompts, budgets):
 def width_runs(torch, model, geom):
     """The staggered stream on the op chain (bf16) at decode_block 8 and 4,
     each cold and then warm (prefix hits), unspeculated and at speculate=4
-    (n-gram drafts): within each, the four id streams equal bit for bit,
-    and the cold runs prefilled at several widths below max_batch (the op
-    chain runs a fused block's prefill, its decode steps and its verify
-    passes at max_batch slots, so a row's bits do not depend on the
-    schedule)."""
+    (n-gram drafts): all eight id streams equal bit for bit (the gate
+    `spec_equals_unspeculated` holds the speculative ones to the
+    unspeculated ones), and the cold runs prefilled at several widths below
+    max_batch (the op chain runs a fused block's prefill at max_batch
+    slots and every decode-step and verify-pass product at R = 4 x
+    max_batch rows, so a row's bits depend neither on the schedule nor on
+    speculation)."""
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     import numpy as np
     prompts, budgets = width_stream(model.config)
@@ -2683,15 +2705,14 @@ def width_runs(torch, model, geom):
                                     for o, p, n in zip(outs, prompts, budgets))))
             del eng
             torch.cuda.empty_cache()
+    spec_same = all(np.array_equal(a, b) for a, b in zip(refs[None], refs[4]))
     ok = (all(r["ids_equal"] and r["budgets_met"] for r in runs)
           and all(len(r["prefill_widths"]) >= 2 for r in runs if r["cache"] == "cold")
-          and all(r["prefix_hits"] > 0 for r in runs if r["cache"] == "warm"))
+          and all(r["prefix_hits"] > 0 for r in runs if r["cache"] == "warm")
+          and spec_same)
     return dict(run="staggered stream, op chain bf16, K 8 and 4, cold and warm, speculate "
                 "off and 4", requests=len(prompts), prompt_lens=list(WIDTH_LENS),
-                prefix=WIDTH_PREFIX, runs=runs,
-                spec_equals_unspeculated=all(np.array_equal(a, b) for a, b
-                                             in zip(refs[None], refs[4])),
-                ok=ok)
+                prefix=WIDTH_PREFIX, runs=runs, spec_equals_unspeculated=spec_same, ok=ok)
 
 
 # the sampled stream: the cb_stream prompts and budgets; every third request
@@ -2810,6 +2831,7 @@ def sampled_cb_runs(torch, model, geom, prompts, budgets, greedy_rows, launches,
 SPEC_RUNS = (("spec multi K=8 bf16 ngram", "multi", "ngram", False, "multi K=8 bf16"),
              ("spec multi K=8 bf16 oracle", "multi", "oracle", False, "multi K=8 bf16"),
              ("spec K=8 bf16 ngram", False, "ngram", False, "K=8 bf16"),
+             ("spec K=8 int8 ngram", False, "ngram", False, "K=8 int8"),
              ("spec sampled multi K=8 bf16 ngram", "multi", "ngram", True,
               "sampled multi K=8 bf16"))
 
@@ -2880,28 +2902,33 @@ def first_divergence_margins(torch, model, geom, prompts, ref, outs, tol):
 def spec_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
     """The cb_stream at speculate=4, K=8, 7B at full width and depth (the
     slice's own path): greedy "multi" with the n-gram and the oracle
-    drafter, the greedy op chain with the n-gram drafter, and the sampled
-    stream of cb_sampled in "multi" with the n-gram drafter. Gates: "multi"
-    ids (greedy and sampled) equal the unspeculated run's exactly; the op
-    chain is held by the margin rule (tokens equal up to each request's
-    first divergence, which must sit on a top-2 margin <= 0.1); the oracle
-    accepts (nearly) every draft; exact launch counts (ceil(w / 2)
-    megakernel launches per pass in "multi", 32 spec_verify_attention
-    launches per pass on the op chain, no paged attention); every request
-    finishes its budget; no page leaks. Reports ms per verify pass,
-    generated tok/s, tokens per pass and the acceptance rate."""
+    drafter, the greedy op chain (bf16 and int8) with the n-gram drafter,
+    and the sampled stream of cb_sampled in "multi" with the n-gram
+    drafter. Gates: every run's ids equal the unspeculated run's exactly
+    (the op chain runs every decode-step and verify-pass product at R = 4 x
+    max_batch rows, so a row's bits do not depend on whether it was decoded
+    or verified); the oracle accepts (nearly) every draft; exact launch
+    counts (ceil(w / 2) megakernel launches per pass in "multi", 32
+    spec_verify_attention launches per pass on the op chain, no paged
+    attention; int8: (7 L + 1) wgmma matmuls per pass and per prefill
+    block's projections); every request finishes its budget; no page
+    leaks. The margin rule (first divergence on a top-2 margin <= 0.1) is
+    reported beside the exact gate. Reports ms per verify pass, generated
+    tok/s, tokens per pass and the acceptance rate."""
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
     import numpy as np
 
     L, V = model.config.num_hidden_layers, model.config.vocab_size
+    ring_head = qmm_ring_gemvs(model.config)[1]
     T, tol = SPEC_T, 0.1
     rows = []
     for name, mk, dname, sampled, refname in SPEC_RUNS:
         ref = streams[refname]
+        quant = "int8" if "int8" in name else None
         drafter = oracle_drafter(ref) if dname == "oracle" else dname
         eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=mk, speculate=T,
-                                       drafter=drafter, sample_k=8, **geom)
+                                       drafter=drafter, sample_k=8, quant=quant, **geom)
         count = count_verify_passes(eng)
         specs = sampled_specs(len(prompts)) if sampled else None
         torch.cuda.synchronize()
@@ -2919,7 +2946,13 @@ def spec_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
         else:
             launch_ok = (counts["spec_verify_attention"] == L * n
                          and counts["decode_megakernel"] == 0)
-        launch_ok = (launch_ok and n > 0 and counts["paged_attention"] == 0
+        n_pf = counts["ragged_paged_attention"] // L
+        expect_qmm = dict(quantized_matmul=(7 * L + 1) * (n_pf + n),
+                          quantized_matmul_tc=7 * L * n_pf + (7 * L + 1) * n,
+                          quantized_matmul_ring=ring_head * n_pf) if quant else dict(
+                              quantized_matmul=0)
+        launch_ok = (launch_ok and all(counts[k] == v for k, v in expect_qmm.items())
+                     and n > 0 and counts["paged_attention"] == 0
                      and counts["spec_verify_attention_staged"]
                      == counts["spec_verify_attention"]
                      and counts["ragged_paged_attention"] % L == 0
@@ -2938,8 +2971,10 @@ def spec_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
                    spec_accept_rate=h["spec_accept_rate"],
                    spec_sampled_accept_rate=h["spec_sampled_accept_rate"],
                    draft_errors=h["draft_errors"], launches=counts,
+                   weights=quant or "bf16",
                    expected=dict(passes=n, megakernel=count["mk"], fold=count["fold"],
-                                 spec_verify_attention=L * n if not mk else 0),
+                                 spec_verify_attention=L * n if not mk else 0,
+                                 **expect_qmm),
                    launches_ok=launch_ok, unspeculated_run=refname,
                    tokens_equal_to_unspeculated=same / gen, ids_equal_unspeculated=exact,
                    budgets_met=all(o.size == p.size + b for o, p, b in zip(outs, prompts,
@@ -2949,10 +2984,9 @@ def spec_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
                    tail=outs[0][-4:].tolist())
         del eng._spec_scan, eng
         torch.cuda.empty_cache()
-        if mk == "multi":
-            held = exact
-        else:
-            row["divergences"], held = first_divergence_margins(
+        held = exact
+        if not mk:
+            row["divergences"], row["margin_rule_held"] = first_divergence_margins(
                 torch, model, geom, prompts, ref, outs, tol)
             row["margin_tol"] = tol
         row["held"] = held
@@ -3004,7 +3038,7 @@ def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
     import numpy as np
 
     L, V = model.config.num_hidden_layers, model.config.vocab_size
-    ring_layer, ring_head = qmm_ring_gemvs(model.config, TP)
+    ring_head = qmm_ring_gemvs(model.config, TP)[1]
     dev = geom["device"]
     tgeom = dict(geom, device=[dev] * TP)
     specs = sampled_specs(len(prompts))
@@ -3032,9 +3066,9 @@ def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
                       paged_attention_staged=0 if mk else L * TP * dec,
                       quantized_matmul=(7 * L + 1) * TP * (n_pf + (0 if mk else dec))
                       if quant else 0,
-                      quantized_matmul_tc=7 * L * TP * n_pf if quant else 0,
-                      quantized_matmul_ring=TP * (ring_head * n_pf + (
-                          0 if mk else (ring_layer * L + ring_head) * dec)) if quant else 0)
+                      quantized_matmul_tc=TP * (7 * L * n_pf + (0 if mk else (7 * L + 1) * dec))
+                      if quant else 0,
+                      quantized_matmul_ring=TP * ring_head * n_pf if quant else 0)
         launch_ok = (all(counts[k] == v for k, v in expect.items())
                      and dec > 0 and n_pf > 0
                      and counts["ragged_paged_attention"] == L * TP * n_pf
@@ -3112,6 +3146,358 @@ def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
         launches[kname] = launches.get(kname, 0) + c
     return dict(runs=rows, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 seconds=time.perf_counter() - t_phase)
+
+
+# the op chain's decode micro-step and verify pass before the single product
+# row count: chip_smoke on the parent tree, "NVIDIA H100 80GB HBM3, 700.00 W"
+# (its cb_path rows "K=8 bf16" / "K=8 int8", ms per decode micro-step, and
+# its cb_spec row "spec K=8 bf16 ngram", ms per verify pass)
+PARENT_MS = {"K=8 bf16": 30.667417374999673, "K=8 int8": 44.80580554166617,
+             "spec K=8 bf16 ngram": 29.655621166658836}
+
+
+def item8_report(torch, cb_rows, spec_rows, width):
+    """Queue C item 8: the op chain's greedy speculation equals plain
+    decode. Gates: the op-chain spec rows' ids equal the unspeculated
+    runs' (bf16 and int8) and the staggered stream's spec ids equal its
+    unspeculated ids. Reports the op chain's ms per decode micro-step and
+    per verify pass beside the parent tree's (PARENT_MS), and the int8
+    route of a decode-step and a verify-pass product."""
+    from paddle_tpu_torch.ops.pallas.quantized_matmul import qmm_route
+    rows = {r["run"]: r for r in cb_rows + spec_rows}
+    R, bf16 = 4 * 8, torch.bfloat16
+    out = dict(product_rows=R, parent_source="PARENT_MS: the parent tree's chip_smoke, another "
+               "call (compare in one call: tools/card_check.py width_price)",
+               int8_route_decode=qmm_route(bf16, R, 4096, 4096),
+               int8_route_verify=qmm_route(bf16, 8 * SPEC_T, 4096, 4096),
+               int8_route_parent_decode=qmm_route(bf16, 8, 4096, 4096))
+    for name, key in (("K=8 bf16", "ms_per_decode_microstep"),
+                      ("K=8 int8", "ms_per_decode_microstep"),
+                      ("spec K=8 bf16 ngram", "ms_per_verify_pass"),
+                      ("spec K=8 int8 ngram", "ms_per_verify_pass")):
+        out[name] = dict(unit=key, ms=rows[name][key], parent_ms=PARENT_MS.get(name))
+    out["ids_equal_unspeculated"] = {n: rows[n]["ids_equal_unspeculated"]
+                                     for n in ("spec K=8 bf16 ngram", "spec K=8 int8 ngram")}
+    out["width_spec_equals_unspeculated"] = width["spec_equals_unspeculated"]
+    out["ok"] = all(out["ids_equal_unspeculated"].values()) and \
+        width["spec_equals_unspeculated"]
+    return out
+
+
+def run_outcome(torch, eng, prompts, budgets):
+    """Submit the requests and step to idle. Returns ({index: (state,
+    failure stage, output or None)}, wall seconds)."""
+    uids = [eng.add_request(p, n) for p, n in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    fails = eng.failures()
+    out = {}
+    for i, u in enumerate(uids):
+        st = eng.status(u)
+        out[i] = (st, fails[u].stage if u in fails else None,
+                  eng.result(u) if st == "done" else None)
+    return out, wall
+
+
+def divergence_held(torch, model, geom, prompts, ref, outs, tol=0.1):
+    """first_divergence_margins for the requests whose outputs differ (no
+    engine is built when they are all equal)."""
+    import numpy as np
+    idx = [i for i, (r, o) in enumerate(zip(ref, outs)) if not np.array_equal(r, o)]
+    if not idx:
+        return [], True
+    return first_divergence_margins(torch, model, geom, [prompts[i] for i in idx],
+                                    [ref[i] for i in idx], [outs[i] for i in idx], tol)
+
+
+# cb_tenants: 8 bulk requests fill every slot; once every one is decoding,
+# and two more engine steps later, a gold request (priority 5) arrives
+TENANT_LENS, TENANT_BUDGET, GOLD_LEN, GOLD_BUDGET = (
+    (96, 160, 64, 220, 130, 180, 75, 250), 40, 120, 16)
+
+
+def tenant_stream(cfg):
+    import numpy as np
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int64)
+               for n in TENANT_LENS + (GOLD_LEN,)]
+    return prompts, [TENANT_BUDGET] * len(TENANT_LENS) + [GOLD_BUDGET]
+
+
+def tenants_run(torch, model, geom, mk, preempt):
+    """The tenant stream on one engine (telemetry on): the gold request is
+    submitted once every bulk request decodes and two steps have passed.
+    preempt=False builds the engine without tenants, so the gold request
+    waits for a slot: the unpreempted run. Returns (outputs, engine)."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.telemetry import Telemetry
+    prompts, budgets = tenant_stream(model.config)
+    tenants = {"gold": {"priority": 5}, "bulk": {"share": 1.0}} if preempt else None
+    eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=mk, tenants=tenants,
+                                   telemetry=Telemetry(capture_faults=False), **geom)
+    n_bulk = len(TENANT_LENS)
+    uids = [eng.add_request(p, n, tenant="bulk")
+            for p, n in zip(prompts[:n_bulk], budgets[:n_bulk])]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    while not all(s is not None and s.state == "decode" for s in eng._slots):
+        eng.step()
+    eng.step()
+    eng.step()
+    uids.append(eng.add_request(prompts[-1], budgets[-1], tenant="gold"))
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return [eng.result(u) for u in uids], eng, uids, wall
+
+
+def cb_tenants(torch, model, geom, launches):
+    """Priority preemption at 7B full width and depth, on the op chain
+    (bf16, K=8) and on "multi": the tenant stream with tenants (a gold
+    request preempts a bulk one) and without (it waits). Gates: at least
+    one preemption in the first run and none in the second, every request
+    finishes its budget, no page leaks, every request but the victims
+    equals its output in the unpreempted run exactly; a victim resumes
+    through a re-prefill of its folded context, so its next token comes
+    from prefill logits where the uninterrupted run took it from a decode
+    step, and it is held by the first-divergence margin rule (0.1).
+    Reports victim_equals_uninterrupted and the re-prefill ms (the
+    victim's re-seat to its last prefill chunk, host clock)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    prompts, budgets = tenant_stream(model.config)
+    rows = []
+    for mk in (False, "multi"):
+        reset_kernel_launches()
+        outs, eng, uids, wall = tenants_run(torch, model, geom, mk, True)
+        counts = kernel_launches()
+        h, tel = eng.health(), eng.telemetry
+        victims, reprefill = [], []
+        for i, u in enumerate(uids):
+            ev = tel.trace("engine", u).events
+            pre = [k for k, (_, n, _) in enumerate(ev) if n == "preempt"]
+            if not pre:
+                continue
+            victims.append(i)
+            after = ev[pre[-1]:]
+            seat = next(t for t, n, _ in after if n == "seat")
+            last = max(t for t, n, _ in after if n == "prefill_chunk")
+            reprefill.append(dict(request=i, folded=ev[pre[-1]][2]["folded"],
+                                  reprefill_ms=1e3 * (last - seat)))
+        del eng
+        torch.cuda.empty_cache()
+        ref, eng2, _, wall_ref = tenants_run(torch, model, geom, mk, False)
+        h2 = eng2.health()
+        del eng2
+        torch.cuda.empty_cache()
+        others = [i for i in range(len(prompts)) if i not in victims]
+        divs, held = divergence_held(torch, model, geom, [prompts[i] for i in victims],
+                                     [ref[i] for i in victims], [outs[i] for i in victims])
+        row = dict(run=f"tenants {'multi' if mk else 'op chain'} K=8 bf16",
+                   megakernel=h["megakernel"], requests=len(prompts),
+                   preemptions=h["preemptions"], preemptions_unpreempted_run=h2["preemptions"],
+                   victims=victims, reprefill=reprefill, tenants=h["tenants"],
+                   others_equal_unpreempted=all(np.array_equal(outs[i], ref[i])
+                                                for i in others),
+                   victim_equals_uninterrupted=all(np.array_equal(outs[i], ref[i])
+                                                   for i in victims),
+                   victim_divergences=divs, margin_tol=0.1, victims_held=held,
+                   budgets_met=all(o.size == p.size + b
+                                   for o, p, b in zip(outs, prompts, budgets)),
+                   all_finished=h["done"] == len(prompts) and h2["done"] == len(prompts),
+                   no_leak=all(x["pages_free"] + x["prefix_pages"] == x["pages_total"]
+                               for x in (h, h2)),
+                   wall_s=wall, wall_s_unpreempted=wall_ref, launches=counts)
+        row["ok"] = (row["preemptions"] >= 1 and row["preemptions_unpreempted_run"] == 0
+                     and row["others_equal_unpreempted"] and held and row["budgets_met"]
+                     and row["all_finished"] and row["no_leak"] and len(reprefill) >= 1)
+        rows.append(row)
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+    return rows
+
+
+FAULT_NTH = 5      # cb_faults: the 5th cb.decode and the 5th cb.verify boundary
+
+
+def cb_faults(torch, model, geom, prompts, budgets, streams, launches):
+    """Per-request fault isolation at 7B full width and depth: the cb_stream
+    at speculate=4, K=8, on the op chain (bf16) and on "multi", with
+    inject("cb.decode", nth=5) and inject("cb.verify", nth=5). Gates:
+    exactly the reference's outcome, two requests failed, both with stage
+    "decode" (the verify boundary retires with the decode stage) and an
+    InjectedFault; every survivor equals the fault-free unspeculated run
+    of cb_path exactly (the op chain's rows do not depend on the schedule
+    or on speculation); no page leaks."""
+    import numpy as np
+    from paddle_tpu_torch import failsafe
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    rows = []
+    for mk, refname in ((False, "K=8 bf16"), ("multi", "multi K=8 bf16")):
+        eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=mk,
+                                       speculate=SPEC_T, **geom)
+        failsafe.reset()
+        reset_kernel_launches()
+        with failsafe.inject("cb.decode", nth=FAULT_NTH) as fd, \
+                failsafe.inject("cb.verify", nth=FAULT_NTH) as fv:
+            out, wall = run_outcome(torch, eng, prompts, budgets)
+        counts = kernel_launches()
+        h = eng.health()
+        del eng
+        torch.cuda.empty_cache()
+        ref = streams[refname]
+        failed = {i: o[1] for i, o in out.items() if o[0] != "done"}
+        survivors = [i for i, o in out.items() if o[0] == "done"]
+        row = dict(run=f"faults {'multi' if mk else 'op chain'} spec=4 K=8 bf16",
+                   megakernel=h["megakernel"], requests=len(prompts),
+                   injected=dict(point_nth=FAULT_NTH, decode_fired=fd.fired,
+                                 verify_fired=fv.fired),
+                   failed=failed, failures=h["failures"], survivors=len(survivors),
+                   survivors_equal_fault_free=all(np.array_equal(out[i][2], ref[i])
+                                                  for i in survivors),
+                   survivor_budgets_met=all(out[i][2].size == prompts[i].size + budgets[i]
+                                            for i in survivors),
+                   no_leak=h["pages_free"] + h["prefix_pages"] == h["pages_total"],
+                   wall_s=wall, launches=counts)
+        row["ok"] = (fd.fired == 1 and fv.fired == 1 and sorted(failed.values()) ==
+                     ["decode", "decode"] and h["failures"] == 2
+                     and row["survivors_equal_fault_free"] and row["survivor_budgets_met"]
+                     and row["no_leak"] and len(survivors) == len(prompts) - 2)
+        rows.append(row)
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+    failsafe.reset()
+    return rows
+
+
+def ptq_serve(torch, model, geom, prompts, budgets, streams, launches):
+    """PTQ at 7B full width and depth: calibrate the model on the card
+    (two seeded [2, 64] batches through the port's LLaMA forward, then the
+    weight observers), then serve the cb_stream in int8 (op chain, K=8)
+    with quant_scales. Gates: every calibrated weight scale equals
+    quantize_weights' absmax scale of the same weight on the card bit for
+    bit, and the engine installed them; the greedy ids equal the absmax
+    int8 run of cb_path exactly; #6's launches by route exactly as cb_path
+    counts them (prefill projections on wgmma, prefill heads on the GEMV,
+    every decode product at R = 32 rows on wgmma); the model is left
+    unwrapped. Reports the calibration's seconds and PTQ serving tok/s."""
+    import numpy as np
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.ops.pallas.quantized_matmul import quantize_weights
+    from paddle_tpu_torch.quantization import _ObservedLinear
+    from paddle_tpu_torch.quantization.ptq import _llama_linears, calibrate
+    cfg = model.config
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    rng = np.random.RandomState(31)
+    batches = [rng.randint(0, V, (2, 64)) for _ in range(2)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cal = calibrate(model, batches)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t
+    sites = _llama_linears(model)
+    scales_equal = all(np.array_equal(
+        cal.weight_scale(li, proj), quantize_weights(lin.weight.detach().float())[1]
+        .cpu().numpy()) for li, proj, lin in sites)
+    unwrapped = not any(isinstance(lin, _ObservedLinear) for _, _, lin in sites)
+    eng = ContinuousBatchingEngine(model, decode_block=8, quant="int8", quant_scales=cal,
+                                   megakernel=False, **geom)
+    W = eng.weights
+    installed = all(np.array_equal(
+        (W["head"] if li is None else W["layers"][li][proj])[1].cpu().numpy(),
+        cal.weight_scale(li, proj)) for li, proj, _ in sites)
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    outs, wall, dec_ms = drive_cb(torch, eng, prompts, budgets)
+    counts = kernel_launches()
+    h = eng.health()
+    del eng, W
+    torch.cuda.empty_cache()
+    dec = h["decode_steps"]
+    pf = counts["ragged_paged_attention"] // L
+    ring_head = qmm_ring_gemvs(cfg)[1]
+    expect = dict(quantized_matmul=(7 * L + 1) * (pf + dec),
+                  quantized_matmul_tc=7 * L * pf + (7 * L + 1) * dec,
+                  quantized_matmul_ring=ring_head * pf)
+    gen = int(sum(o.size - p.size for o, p in zip(outs, prompts)))
+    row = dict(run="ptq int8 K=8 op chain", calibration_batches=[list(b.shape) for b in batches],
+               calibrate_s=cal_s, scales_equal_absmax=scales_equal, scales_installed=installed,
+               model_unwrapped=unwrapped,
+               act_scale_head=cal.act["head"], generated_tokens=gen, wall_s=wall,
+               generated_tokens_per_s=gen / wall, ms_per_decode_microstep=dec_ms,
+               decode_steps=dec, prefill_blocks=pf, launches=counts, expected=expect,
+               launches_ok=all(counts[k] == v for k, v in expect.items()) and dec > 0,
+               ids_equal_absmax=all(np.array_equal(o, r)
+                                    for o, r in zip(outs, streams["K=8 int8"])),
+               no_leak=h["pages_free"] + h["prefix_pages"] == h["pages_total"])
+    row["ok"] = (scales_equal and installed and unwrapped and row["launches_ok"]
+                 and row["ids_equal_absmax"] and row["no_leak"]
+                 and h["done"] == len(prompts))
+    for kname, c in counts.items():
+        launches[kname] = launches.get(kname, 0) + c
+    return row
+
+
+def telemetry_runs(torch, model, geom, prompts, budgets, streams, launches):
+    """The serving telemetry plane at 7B full width and depth: the
+    cb_stream (K=8) on the op chain (bf16) and on "multi", telemetry off
+    and on in turns (three pairs). Gates: the greedy ids with telemetry on
+    equal those with it off and cb_path's exactly; the exported chrome
+    trace parses; every retired request has a complete span chain
+    (submit, seat, first token, retire) and each latency histogram counts
+    every request. Reports ms per decode micro-step with it on and off,
+    each turn's and the medians' overhead (the reference aims for an
+    overhead under 2%; the op chain's host-bound micro-step moves more
+    than that between turns)."""
+    import numpy as np
+    import os
+    import json
+    import tempfile
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.telemetry import Telemetry
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    rows = []
+    for mk, refname in ((False, "K=8 bf16"), ("multi", "multi K=8 bf16")):
+        ms = {"off": [], "on": []}
+        same, tel = True, None
+        for turn in ("off", "on") * 3:
+            tel = Telemetry(capture_faults=False) if turn == "on" else None
+            eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=mk,
+                                           telemetry=tel, **geom)
+            reset_kernel_launches()
+            outs, wall, dec_ms = drive_cb(torch, eng, prompts, budgets)
+            for kname, c in kernel_launches().items():
+                launches[kname] = launches.get(kname, 0) + c
+            ms[turn].append(dec_ms)
+            same &= all(np.array_equal(o, r) for o, r in zip(outs, streams[refname]))
+            del eng
+            torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as d:
+            with open(tel.export_chrome_trace(os.path.join(d, "trace.json"))) as f:
+                evs = json.load(f)["traceEvents"]
+        done = tel.done_traces()
+        reg = tel.registry
+        on, off = (sorted(ms[k])[len(ms[k]) // 2] for k in ("on", "off"))
+        row = dict(run=f"telemetry {'multi' if mk else 'op chain'} K=8 bf16",
+                   requests=len(prompts), ms_per_decode_microstep_on=ms["on"],
+                   ms_per_decode_microstep_off=ms["off"], overhead_of_medians=on / off - 1,
+                   overhead_by_turn=[a / b - 1 for a, b in zip(ms["on"], ms["off"])],
+                   ids_equal_off=same, trace_events=len(evs),
+                   complete_chains=sum(tr.complete_chain() for tr in done),
+                   retired=len(done),
+                   hist_counts={n: reg.hist[n].count for n in ("ttft_ms", "tpot_ms",
+                                                                "queue_wait_ms", "e2e_ms")},
+                   block_ms_p50=reg.hist["block_ms"].percentile(50))
+        row["ok"] = (same and len(evs) > 0 and len(done) == len(prompts)
+                     and row["complete_chains"] == len(prompts)
+                     and all(c == len(prompts) for c in row["hist_counts"].values()))
+        rows.append(row)
+    return rows
 
 
 def proc_vocab(V):
@@ -3702,6 +4088,13 @@ def main():
     for r in cb["spec"]:
         emit(dict(phase="cb_spec", **r))
         ok &= r["ok"]
+    emit(dict(phase="item8", **cb["item8"]))
+    ok &= cb["item8"]["ok"]
+    for phase, rows in (("cb_tenants", cb["tenants"]), ("cb_faults", cb["faults"]),
+                        ("ptq_serve", [cb["ptq"]]), ("telemetry", cb["telemetry"])):
+        for r in rows:
+            emit(dict(phase=phase, **r))
+            ok &= r["ok"]
     for r in cb["tp"]["runs"]:
         emit(dict(phase="tp_path", **r))
         ok &= r["ok"]

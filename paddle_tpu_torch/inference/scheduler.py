@@ -56,6 +56,22 @@ Scheduling model (as in the reference):
     the megakernel (exact mode only) each layer is three segment launches
     per shard (qkv, tail, down) with the head gather and the column gather
     between them, the head riding the last layer's down launch in "multi".
+  - tenants={name: {"share", "priority"}}: admission orders the queue by
+    (priority desc, fair-share virtual time asc, arrival); a strictly
+    higher-priority head that cannot be seated preempts the lowest-priority
+    running request whose pages can make room (its generated tokens fold
+    into its prompt and it re-queues; it resumes through a re-prefill).
+  - faults (failsafe.py): the reference's fault points (`cb.admit`,
+    `cb.prefill`, `cb.decode`, `cb.draft`, `cb.verify`, `page.alloc` in the
+    allocator) retire the one request they name with a RequestFailure of
+    the reference's stage; the engine keeps stepping the others.
+  - telemetry= (inference/telemetry.py): request lifecycle events and
+    latency histograms at host points the engine already visits; no
+    device sync, outputs unchanged.
+  - on CUDA the op chain runs every product of a decode step and of a
+    verify pass at one row count R = 4 * max_batch (`_product_rows`), so
+    a row's bits do not depend on whether it was decoded or verified, nor
+    on the schedule.
 
 Where the reference compiles a program per shape and donates the KV pools
 to it, this port runs the same math eagerly and updates the pools in place
@@ -64,11 +80,9 @@ masked KV writes (`.at[slots].set(..., mode="drop")` with out-of-range
 slots); torch has no drop mode, so masked rows are redirected to one
 scratch row past the end of the pool, which no page table can name.
 
-Not ported yet (each raises, naming its ROADMAP item): tenants and
-preemption, KV tiering, adapters, telemetry, PTQ scales, the fleet prefix index, and KV and request export/import (with the
-sampling state they carry). The reference's fault points (the speculative
-`cb.draft` and `cb.verify` among them) wait for the port of `failsafe.py`
-(ROADMAP A7.0).
+Not ported yet (each raises, naming its ROADMAP item): KV tiering and the
+demote/restore it carries, adapters, the fleet prefix index, and KV and
+request export/import (with the sampling state they carry).
 """
 import collections
 import math
@@ -78,8 +92,9 @@ import warnings
 import numpy as np
 import torch
 
+from ..failsafe import InjectedFault, fault_point
 from .serving import EngineFullError, LLMEngine, PageAllocator, _as_numpy, \
-    _mm, _rms
+    _rms
 from ..ops.pallas.decode_megakernel import (MAX_ROWS, MegakernelPack,
                                             decode_megakernel,
                                             megakernel_supported)
@@ -166,11 +181,11 @@ class Request:
                  "filled", "tok", "out", "result", "pages_shared",
                  "deadline", "ttl_steps", "born_step", "error", "sampling",
                  "counts", "gstate", "draft_k", "spec_drafted",
-                 "spec_accepted")
+                 "spec_accepted", "tenant", "priority")
 
     def __init__(self, uid, ids, max_new_tokens, eos_token_id,
                  deadline=None, ttl_steps=None, born_step=0, sampling=None,
-                 draft_k=0):
+                 draft_k=0, tenant="default", priority=0):
         self.uid = uid
         self.ids = ids                  # np.int64 [t0]
         self.t0 = int(ids.size)
@@ -199,6 +214,9 @@ class Request:
         self.draft_k = int(draft_k)     # drafts per verify pass (adaptive)
         self.spec_drafted = 0           # drafts offered to verification
         self.spec_accepted = 0          # drafts the target accepted
+        self.tenant = tenant            # admission-policy tenant name
+        self.priority = int(priority)   # higher admits (and preempts)
+        #                                 first; strict across tenants
 
 
 class PrefixCache:
@@ -434,12 +452,23 @@ class ContinuousBatchingEngine(LLMEngine):
         chains), or a speculative.Drafter instance (e.g. ModelDrafter).
       spec_adaptive: per-request draft length halves on a pass that
         accepts nothing and doubles on a clean sweep, within [1, T - 1].
+      tenants: {name: {"share": s, "priority": p}} admission policy:
+        priority strict-orders admission and lets a queued request preempt
+        a running request of strictly lower priority (the victim's work
+        re-queues, never lost); share weighs fair-share virtual time (1 /
+        share per emitted token) among equal priorities.
+      telemetry: a telemetry.Telemetry (or True to build one) fed at every
+        lifecycle transition: per-request traces, latency histograms,
+        chrome-trace, Prometheus and JSONL exports. None (default) costs
+        one branch per site.
 
     Failure posture: a request that fails at a per-request boundary
-    (admission, deadline, cancel) retires alone with a RequestFailure
-    record, its pages and prefix references reclaimed. An exception inside
-    a step rebuilds the pools (every in-flight request fails with stage
-    "engine"); queued requests survive.
+    (admission, a prefill chunk, its slice of a decode step or verify
+    pass, a draft, a deadline, cancel) retires alone with a RequestFailure
+    record, its pages and prefix references reclaimed; the engine keeps
+    stepping everyone else. Any other exception inside a step rebuilds the
+    pools (every in-flight request fails with stage "engine"); queued
+    requests survive.
     """
 
     def __init__(self, model, max_len=1024, page_size=128, max_batch=8,
@@ -466,9 +495,6 @@ class ContinuousBatchingEngine(LLMEngine):
             raise ValueError(
                 f"speculate={self._spec} exceeds max_len={max_len}")
         self.spec_adaptive = bool(spec_adaptive)
-        if tenants:
-            raise _not_ported("tenants (priority admission, preemption)",
-                              "A5(e), tenants and preemption")
         if kv_tier is not None or oversubscribe or \
                 tier_idle_steps is not None or tier_dir is not None or \
                 tier_host_cap_mb is not None:
@@ -477,10 +503,19 @@ class ContinuousBatchingEngine(LLMEngine):
                               "tier_idle_steps)", "A7.4, tiering.py")
         if adapters not in (None, False):
             raise _not_ported("adapters", "A7.2, adapters.py")
-        if telemetry not in (None, False):
-            raise _not_ported("telemetry", "A7.3, telemetry.py")
         super().__init__(model, max_len=max_len, page_size=page_size,
                          max_batch=max_batch, **kw)
+        # telemetry=: request lifecycle traces and latency histograms fed
+        # at host points the engine already visits (no device sync); None
+        # keeps one branch per site
+        self._tel = None
+        self._tel_src = "engine"
+        self.telemetry = None
+        if telemetry is True:
+            from .telemetry import Telemetry
+            telemetry = Telemetry()
+        if telemetry is not None and telemetry is not False:
+            self.attach_telemetry(telemetry)
         self.prefill_chunk = int(prefill_chunk or page_size)
         self.decode_block = max(1, int(decode_block))
         # deprecated engine-level sampling: only the source of the default
@@ -519,6 +554,22 @@ class ContinuousBatchingEngine(LLMEngine):
         self._prefix = PrefixCache(page_size) if prefix_cache else None
         self._drafter = (resolve_drafter(drafter, self._prefix)
                          if self._spec else None)
+        # multi-tenant admission: the queue orders by (priority desc,
+        # fair-share virtual time asc, arrival); virtual time charges 1 /
+        # share per emitted token, so speculation's variable yield is
+        # charged like plain decode
+        self._tenant_cfg = {}
+        for name, cfg in (tenants or {}).items():
+            share = float(cfg.get("share", 1.0))
+            if share <= 0:
+                raise ValueError(
+                    f"tenant {name!r} share must be > 0, got {share}")
+            self._tenant_cfg[name] = {
+                "share": share, "priority": int(cfg.get("priority", 0))}
+        self._tenant_vt = {}            # tenant -> tokens / share (a
+        #                                 tenant first seen starts at the
+        #                                 minimum recorded vt)
+        self._tenant_tokens = collections.Counter()
         self.queue_limit = (None if queue_limit is None
                             else int(queue_limit))
         self.default_deadline_ms = default_deadline_ms
@@ -544,6 +595,8 @@ class ContinuousBatchingEngine(LLMEngine):
         self.cow_copies = 0
         self.failure_count = 0
         self.deadline_expiries = 0
+        self.preemptions = 0            # decode-slot preemptions (work
+        #                                 re-queued, not failed)
         self.fused_blocks = 0
         self.chained_blocks = 0         # blocks queued before the previous
         #                                 block's read-back
@@ -579,13 +632,16 @@ class ContinuousBatchingEngine(LLMEngine):
           engine-level do_sample was set). Penalties and grammars need the
           materialized processor path and do not compose with speculate=
           (a typed ValueError).
-        tenant / priority / adapter: not ported (each raises, naming its
-          ROADMAP item).
+        tenant: admission-policy tenant name (fair-share virtual time is
+          tracked per tenant; unregistered tenants get share 1.0).
+        priority: admission priority (higher first, strict); defaults to
+          the tenant's registered priority, else 0. A queued request of
+          strictly higher priority may preempt a running lower-priority one
+          when the engine is full: the victim re-queues with its generated
+          tokens folded into its prompt, nothing is lost.
+        adapter: not ported (raises, naming its ROADMAP item).
         Raises EngineBusyError (nothing enqueued) when the admission queue
         is at queue_limit."""
-        if tenant is not None or priority is not None:
-            raise _not_ported("tenant/priority admission",
-                              "A5(e), tenants and preemption")
         if adapter is not None:
             raise _not_ported("adapters", "A7.2, adapters.py")
         ids = np.asarray(_as_numpy(ids), np.int64).ravel()
@@ -629,16 +685,23 @@ class ContinuousBatchingEngine(LLMEngine):
             deadline_ms = self.default_deadline_ms
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms is not None else None)
+        tenant = tenant or "default"
+        if priority is None:
+            priority = self._tenant_cfg.get(tenant, {}).get("priority", 0)
         r = Request(self._next_uid, ids, max_new_tokens, eos_token_id,
                     deadline=deadline,
                     ttl_steps=None if ttl_steps is None else int(ttl_steps),
                     born_step=self.steps, sampling=sp,
-                    draft_k=max(1, self._spec - 1) if self._spec else 0)
+                    draft_k=max(1, self._spec - 1) if self._spec else 0,
+                    tenant=tenant, priority=priority)
         if sp.do_sample:
             self.sampled_requests += 1
         self._next_uid += 1
         self._requests[r.uid] = r
         self._queue.append(r)
+        if self._tel is not None:
+            self._tel.req_start(self._tel_src, r.uid, prompt_len=r.t0,
+                                max_new=r.max_new_tokens)
         return r.uid
 
     def cancel(self, uid):
@@ -659,6 +722,18 @@ class ContinuousBatchingEngine(LLMEngine):
         return True
 
     def step(self):
+        """One engine iteration (see _step_impl). With telemetry attached
+        the iteration's wall time lands in the `block_ms` histogram: two
+        monotonic reads, and one branch on the telemetry=None path."""
+        if self._tel is None:
+            return self._step_impl()
+        t0 = time.monotonic()
+        moved = self._step_impl()
+        if moved:
+            self._tel.block((time.monotonic() - t0) * 1e3)
+        return moved
+
+    def _step_impl(self):
         """One engine iteration. Returns False when there is nothing to
         do.
 
@@ -669,7 +744,12 @@ class ContinuousBatchingEngine(LLMEngine):
         decode_block == K > 1: one block — a ragged prefill phase plus K
         decode steps, read back once (see _fused_step). speculate=T takes
         the fused path at every decode_block (a block of K verify
-        passes)."""
+        passes).
+
+        A fault raised at a request boundary (its prefill chunk, its slice
+        of the decode step) retires that request with a RequestFailure and
+        the step carries on; in fused mode the boundaries are checked once
+        per request per block."""
         if self.decode_block > 1 or self._spec:
             return self._fused_step()
         self._expire_deadlines()
@@ -681,11 +761,24 @@ class ContinuousBatchingEngine(LLMEngine):
         self.steps += 1
         try:
             if prefills and (not decodes or not self._prefer_decode):
-                self._prefill_step(prefills[0])
+                r = prefills[0]
+                try:
+                    fault_point("cb.prefill", detail=f"uid={r.uid}")
+                    self._prefill_step(r)
+                except InjectedFault as e:
+                    self._fail_request(r, "prefill", e)
                 self.prefill_steps += 1
                 self._prefer_decode = True
             else:
-                self._decode_step(decodes)
+                live = []
+                for r in decodes:
+                    try:
+                        fault_point("cb.decode", detail=f"uid={r.uid}")
+                        live.append(r)
+                    except InjectedFault as e:
+                        self._fail_request(r, "decode", e)
+                if live:
+                    self._decode_step(live)
                 self.decode_steps += 1
                 self._prefer_decode = False
         except Exception:
@@ -809,6 +902,20 @@ class ContinuousBatchingEngine(LLMEngine):
             "spec_sampled_accept_rate": (
                 self._spec_sampled_accepted / self._spec_sampled_offered
                 if self._spec_sampled_offered else 0.0),
+            # multi-tenant admission: preemptions and per-tenant service
+            "preemptions": self.preemptions,
+            "tenants": {
+                t: {"tokens": self._tenant_tokens[t],
+                    "vt": round(self._tenant_vt.get(t, 0.0), 3),
+                    "share": self._tenant_cfg.get(t, {}).get("share", 1.0),
+                    "queued": sum(1 for q in self._queue if q.tenant == t),
+                    "running": sum(1 for s in self._slots
+                                   if s is not None and s.tenant == t)}
+                for t in sorted(set(self._tenant_tokens)
+                                | set(self._tenant_cfg)
+                                | {q.tenant for q in self._queue}
+                                | {s.tenant for s in self._slots
+                                   if s is not None})},
         }
 
     def generate_many(self, prompts, max_new_tokens=32, eos_token_id=None):
@@ -838,20 +945,94 @@ class ContinuousBatchingEngine(LLMEngine):
         raise _not_ported("the fleet prefix index",
                           "A7.5, prefix_index.py")
 
+    def attach_telemetry(self, tel, src=None):
+        """Wire this engine into a Telemetry object under source name `src`
+        (default: the telemetry's own name). Request traces are keyed (src,
+        uid); attaching drops the live traces under `src` (an engine
+        rebuilt under the same name restarts its uid space). Detach with
+        attach_telemetry(None)."""
+        if tel is None:
+            self._tel = None
+            self.telemetry = None
+            return self
+        self._tel = tel
+        self.telemetry = tel
+        self._tel_src = src or getattr(tel, "name", None) or "engine"
+        tel.reset_live(self._tel_src)
+        return self
+
     # -- admission ---------------------------------------------------------
     def _pages_needed(self, t0, max_new_tokens):
         # cache high-water: positions 0..t0+mnt-2 written, attention at
         # the last step reads lens+1 = t0+mnt-1 positions
         return -(-max(t0, t0 + max_new_tokens - 1) // self.page_size)
 
+    def _vt(self, tenant):
+        """Fair-share virtual time of a tenant; a tenant first seen now
+        starts at the minimum recorded vt (the stride-scheduling entry
+        rule), so a newcomer competes from the current service floor."""
+        vt = self._tenant_vt.get(tenant)
+        if vt is None:
+            vt = min(self._tenant_vt.values(), default=0.0)
+            self._tenant_vt[tenant] = vt
+        return vt
+
     def _pick_next(self):
-        """Admission queue head: FIFO (the reference's order when no
-        tenants or priorities are configured)."""
-        return self._queue[0]
+        """Admission queue head: priority (desc, strict), then fair-share
+        virtual time (asc), then arrival. FIFO when no tenants or
+        priorities are configured (every key ties)."""
+        return min(self._queue,
+                   key=lambda r: (-r.priority, self._vt(r.tenant), r.uid))
+
+    def _preemption_victim(self, cand):
+        """A running request the candidate may evict: strictly lower
+        priority only (the victim re-queues at its own priority and can
+        never preempt back, so there are no cycles), and only when evicting
+        lower-priority work could seat the candidate: its page need plus
+        the worst-case CoW reserve must fit in the free pages plus the
+        victims' exclusively held pages (a refcount-shared page does not
+        return to the free list when one holder releases it). Among the
+        victims, the most-served tenant's newest request loses the least
+        work."""
+        lower = [s for s in self._slots
+                 if s is not None and s.priority < cand.priority]
+        if not lower:
+            return None
+        need = self._pages_needed(cand.t0, cand.max_new_tokens) + 1
+        reclaimable = self.allocator.available + sum(
+            sum(1 for p in s.pages if self.allocator.refcount(p) == 1)
+            + (1 if s.cow_reserve is not None else 0)
+            for s in lower)
+        if need > reclaimable:
+            return None
+        return min(lower,
+                   key=lambda r: (r.priority, -self._vt(r.tenant), -r.uid))
+
+    def _preempt(self, r):
+        """Decode-slot preemption: reclaim the victim's slot, pages and CoW
+        reserve, fold its generated tokens into its prompt and re-queue it.
+        On re-admission it re-prefills the folded context (usually through
+        its own published prefix pages) and continues; `result()` still
+        returns [original prompt + every generated token]."""
+        if self._tel is not None:
+            self._tel.req_event(self._tel_src, r.uid, "preempt",
+                                folded=len(r.out))
+        self._release_slot(r)
+        if r.out:
+            r.ids = np.concatenate([r.ids, np.asarray(r.out, np.int64)])
+            r.t0 = r.ids.size
+            r.max_new_tokens -= len(r.out)
+            r.out = []
+        r.tok = None
+        r.filled = 0
+        r.state = QUEUED
+        self._queue.append(r)
+        self.preemptions += 1
 
     def _release_slot(self, r):
-        """Reclaim a request's slot, pages and CoW reserve (shared pages
-        drop only this request's reference)."""
+        """Reclaim a request's slot, pages and CoW reserve: the one release
+        sequence of retirement, failure and preemption (shared pages drop
+        only this request's reference)."""
         if r.slot is not None:
             self._slots[r.slot] = None
             r.slot = None
@@ -882,6 +1063,10 @@ class ContinuousBatchingEngine(LLMEngine):
             slot = next((i for i, s in enumerate(self._slots) if s is None),
                         None)
             if slot is None:
+                victim = self._preemption_victim(r)
+                if victim is not None:
+                    self._preempt(victim)
+                    continue           # re-evaluate with the freed slot
                 return
             shared, resume, need, cow, fresh = self._price_admission(r)
             n_shared = len(shared)
@@ -899,10 +1084,21 @@ class ContinuousBatchingEngine(LLMEngine):
                     self._prefix.evict(fresh - self.allocator.available,
                                        self.allocator)
             if fresh > self.allocator.available:
-                return              # wait for retirements (FIFO order)
-            self._queue.popleft()
+                # page pressure: a strictly higher-priority candidate may
+                # preempt a lower-priority running request to free its
+                # pages, one victim per attempt, then re-evaluate
+                victim = self._preemption_victim(r)
+                if victim is not None:
+                    self._preempt(victim)
+                    continue
+                return              # wait for retirements (policy order)
+            self._queue.remove(r)
+            # claim pages under a guard: an allocation failure (an injected
+            # page.alloc fault, or a real one) releases every page this
+            # request claimed and retires only this request
             pages = []
             try:
+                fault_point("cb.admit", detail=f"uid={r.uid}")
                 for pg in shared:
                     pages.append(self.allocator.share(pg))
                 for _ in range(need - n_shared):
@@ -929,6 +1125,9 @@ class ContinuousBatchingEngine(LLMEngine):
             self._tables_np[slot, :len(pages)] = pages
             self._lens_np[slot] = 0
             self.admissions += 1
+            if self._tel is not None:
+                self._tel.req_event(self._tel_src, r.uid, "seat",
+                                    slot=slot, shared_pages=n_shared)
             if self._slot_used[slot]:
                 self.slot_reuses += 1
             self._slot_used[slot] = True
@@ -947,6 +1146,7 @@ class ContinuousBatchingEngine(LLMEngine):
         d] buffer; the last row is the scratch row masked writes land on.
         A rebuild invalidates every in-flight sequence's KV and the prefix
         cache (the fresh allocator re-issues cached page ids)."""
+        tel = getattr(self, "_tel", None)
         for i, r in enumerate(getattr(self, "_slots", [])):
             if r is not None:
                 r.state = FAILED
@@ -957,6 +1157,9 @@ class ContinuousBatchingEngine(LLMEngine):
                         getattr(self, "steps", 0),
                         tokens_generated=len(r.out))
                 self.failure_count += 1
+                if tel is not None:
+                    tel.req_done(self._tel_src, r.uid, FAILED,
+                                 n_tokens=len(r.out), stage="engine")
                 r.pages = []          # the pool is rebuilt: page ids are
                 r.cow_reserve = None  # meaningless, nothing to free
                 r.shared_idx = set()
@@ -1211,9 +1414,21 @@ class ContinuousBatchingEngine(LLMEngine):
         return self._gather_logits(locs), self._tp_greedy_token(locs)
 
     def _at_full_width(self):
-        """Whether the op chain runs its decode, prefill and verify rows at
-        the full slot width (on CUDA; see _decode_math)."""
+        """Whether the op chain runs at schedule-independent widths (on
+        CUDA): a fused block's prefill at max_batch x chunk rows, and every
+        product of a decode step and of a verify pass at `_product_rows`
+        rows (see _decode_math)."""
         return self.device.type == "cuda"
+
+    def _product_rows(self):
+        """R, the one row count of every product of an op-chain decode
+        step and verify pass under `_at_full_width` (else None: the
+        natural widths). A function of max_batch alone, never of
+        speculate=, so two engines that differ only in speculation give a
+        row the same bits: R = 4 * max_batch rows, the verify pass's at
+        T = 4. The decode step pads its slots to R; the verify pass runs
+        its max_batch x T rows in pieces of R (`_mm`)."""
+        return 4 * self.max_batch if self._at_full_width() else None
 
     def _decode_math(self, tok, tables, lens, active, topk=None):
         """One decode step at slot width w = tok.shape[0]: tok [w] is the
@@ -1225,21 +1440,24 @@ class ContinuousBatchingEngine(LLMEngine):
         "multi" mode from the kernel's in-kernel fold (no logits), else
         the top K of the materialized logits (the same bits). Under tp
         every shard runs its share of each layer (`_layer_tail` gathers or
-        reduces between them). On CUDA the op chain runs at the full slot
-        width, the extra rows inactive: cuBLAS picks its product kernel by
-        the row count, so a row's bits would otherwise depend on how many
-        slots share its step, and a greedy near-tie would decode
-        differently when the schedule changes (a warm prefix cache). A
-        fused block's prefill and the verify pass pad the same way
-        (max_batch x chunk and max_batch x T rows). The megakernel sums
-        each row in an order that does not depend on its row count."""
+        reduces between them). On CUDA the op chain pads the step to R =
+        `_product_rows()` slots, the extra ones inactive, so every product
+        (and every norm) of the step runs at R rows, as those of a verify
+        pass do: cuBLAS picks its product kernel by the row count and the
+        int8 matmul takes its GEMV at m <= 8, so a row's bits would
+        otherwise depend on how many slots share its step and on whether
+        it was decoded or verified, and a greedy near-tie would decode
+        differently when the schedule or speculate= changes. A fused
+        block's prefill pads to max_batch x chunk rows. The megakernel
+        sums each row in an order that does not depend on its row
+        count."""
         if self.megakernel:
             return self._decode_math_mk(tok, tables, lens, active, topk)
         w = tok.shape[0]
-        if self._at_full_width() and w < self.max_batch:
+        R = self._product_rows()
+        if R is not None and w < R:
             out = self._decode_math(
-                *_pad_slots(self.max_batch - w, tok, tables, lens, active),
-                topk)
+                *_pad_slots(R - w, tok, tables, lens, active), topk)
             return tuple(x[:w] for x in out)
         p = self.page_size
         hs = self._embed(tok[:, None])
@@ -1254,14 +1472,14 @@ class ContinuousBatchingEngine(LLMEngine):
             attns = []
             for s, W in enumerate(self._W):
                 q, k, v = self._layer_qkv(W, W["layers"][li], hs[s],
-                                          pos[s][:, None])
+                                          pos[s][:, None], R)
                 self._write_kv(s, li, slots[s], k[:, 0], v[:, 0])
                 attns.append(paged_attention(
                     q[:, 0], self._kp[s][li], self._vp[s][li], tables[s],
                     ctx[s], active=act[s])[:, None])
-            hs = self._layer_tail(li, hs, attns)
-        return self._select_head([x[:, 0] for x in self._head_logits(hs)],
-                                 topk)
+            hs = self._layer_tail(li, hs, attns, R)
+        return self._select_head(
+            [x[:, 0] for x in self._head_logits(hs, R)], topk)
 
     # -- megakernel ----------------------------------------------------------
     def _resolve_megakernel(self, val):
@@ -1419,7 +1637,8 @@ class ContinuousBatchingEngine(LLMEngine):
         if a is not None:
             return b, a                 # (logits, the kernel's token)
         return self._select_head(
-            [x[:, 0] for x in self._head_logits([h[:, None] for h in hs])],
+            [x[:, 0] for x in self._head_logits([h[:, None] for h in hs],
+                                                self._product_rows())],
             topk)
 
     # -- speculative verify ----------------------------------------------
@@ -1444,13 +1663,17 @@ class ContinuousBatchingEngine(LLMEngine):
         Returns (logits [w, T, V], greedy tokens [w, T]); topk=K returns
         (topv [w, T, K] f32, topi [w, T, K]) per feed position. With the
         megakernel on, the pass runs its tq > 1 schedule
-        (_spec_verify_math_mk)."""
+        (_spec_verify_math_mk). On CUDA the op chain pads the pass to
+        max_batch slots and runs its products in pieces of R =
+        `_product_rows()` rows, the decode step's row count
+        (_decode_math)."""
         if self.megakernel:
             return self._spec_verify_math_mk(feed, tables, lens, active, rem,
                                              dlen, topk)
         w, T = feed.shape
-        if self._at_full_width() and w < self.max_batch:
-            # max_batch x T rows, the extra slots inactive (_decode_math)
+        R = self._product_rows()
+        if R is not None and w < self.max_batch:
+            # max_batch x T rows, the extra slots inactive
             out = self._spec_verify_math(
                 *_pad_slots(self.max_batch - w, feed, tables, lens, active,
                             rem, dlen), topk)
@@ -1467,13 +1690,14 @@ class ContinuousBatchingEngine(LLMEngine):
         for li in range(self.cfg.num_hidden_layers):
             attns = []
             for s, W in enumerate(self._W):
-                q, k, v = self._layer_qkv(W, W["layers"][li], hs[s], pos[s])
+                q, k, v = self._layer_qkv(W, W["layers"][li], hs[s], pos[s],
+                                          R)
                 self._write_kv(s, li, slots[s], k, v)
                 attns.append(spec_verify_attention(
                     q, self._kp[s][li], self._vp[s][li], tables[s], lens[s],
                     active=act[s]))
-            hs = self._layer_tail(li, hs, attns)
-        return self._select_head(self._head_logits(hs), topk)
+            hs = self._layer_tail(li, hs, attns, R)
+        return self._select_head(self._head_logits(hs, R), topk)
 
     def _spec_verify_math_mk(self, feed, tables, lens, active, rem, dlen,
                              topk=None):
@@ -1496,7 +1720,8 @@ class ContinuousBatchingEngine(LLMEngine):
             return b.reshape(w, T, -1), a.reshape(w, T).long()
         return self._select_head(
             [x[:, 0].reshape(w, T, -1)
-             for x in self._head_logits([h[:, None] for h in hs])], topk)
+             for x in self._head_logits([h[:, None] for h in hs],
+                                        self._product_rows())], topk)
 
     def _spec_scan(self, tables, tok, lens, act, rem, eos, drafts, dlen,
                    mode="greedy", ex=None):
@@ -1684,7 +1909,12 @@ class ContinuousBatchingEngine(LLMEngine):
             self._to_dev(self._tables_np[r.slot:r.slot + 1]),
             self._to_dev(np.asarray([start])), self._to_dev(np.asarray([r.t0])),
             self._to_dev(np.ones(1, bool)), dense=True)
-        self.dispatch_seconds += time.perf_counter() - t_dev
+        dt = time.perf_counter() - t_dev
+        self.dispatch_seconds += dt
+        if self._tel is not None:
+            self._tel.observe("prefill_chunk_ms", dt * 1e3)
+            self._tel.req_event(self._tel_src, r.uid, "prefill_chunk",
+                                filled=end)
         r.filled = end
         if end < r.t0:
             return
@@ -1776,9 +2006,13 @@ class ContinuousBatchingEngine(LLMEngine):
                 blk = self._dispatch_block()
                 if blk is None:
                     return False
+                if blk is True:        # every participant faulted at the
+                    return True        # sync point; still a step
             if self._can_chain(blk):
                 self._pending = self._chain_block(blk)
             self._process_block(blk)
+        except InjectedFault:
+            raise                      # faults fire at dispatch only
         except Exception:
             self._pending = None
             self._abort_in_flight()
@@ -1787,8 +2021,10 @@ class ContinuousBatchingEngine(LLMEngine):
 
     @torch.no_grad()
     def _dispatch_block(self):
-        """Host sync point: shed deadlines, admit, then queue one block.
-        Returns a _FusedBlock, or None when idle."""
+        """Host sync point: shed deadlines, admit, check the fault points
+        (once per request per block), then queue one block. Returns a
+        _FusedBlock, True when every participant faulted, or None when
+        idle."""
         self._expire_deadlines()
         self._admit()
         prefills = [r for r in self._slots if r and r.state == PREFILL]
@@ -1796,6 +2032,23 @@ class ContinuousBatchingEngine(LLMEngine):
         if not prefills and not decodes:
             self._idle_or_raise()      # raises on a stuck queue head
             return None
+        live_pf, live_dec = [], []
+        for r in prefills:
+            try:
+                fault_point("cb.prefill", detail=f"uid={r.uid}")
+                live_pf.append(r)
+            except InjectedFault as e:
+                self._fail_request(r, "prefill", e)
+        for r in decodes:
+            try:
+                fault_point("cb.decode", detail=f"uid={r.uid}")
+                live_dec.append(r)
+            except InjectedFault as e:
+                self._fail_request(r, "decode", e)
+        if not live_pf and not live_dec:
+            self.steps += 1
+            return True
+        prefills, decodes = live_pf, live_dec
         K = self.decode_block
         chunk = self.prefill_chunk
         w = self._bucket(max(r.slot for r in prefills + decodes))
@@ -1829,11 +2082,16 @@ class ContinuousBatchingEngine(LLMEngine):
             dlen = np.zeros((K, w), np.int64)
         for r in decodes:
             if T:
-                # (the reference's fault points cb.draft and cb.verify sit
-                # here; they wait for failsafe.py, ROADMAP A7.0)
+                try:
+                    fault_point("cb.draft", detail=f"uid={r.uid}")
+                except InjectedFault as e:
+                    self._fail_request(r, "draft", e)
+                    continue
                 want = min(r.draft_k, T - 1)
                 cont = np.empty((0,), np.int64)
                 if want > 0:
+                    t_draft = (time.monotonic()
+                               if self._tel is not None else None)
                     try:
                         cont = np.asarray(self._drafter.timed_propose(
                             np.concatenate([r.ids,
@@ -1845,11 +2103,22 @@ class ContinuousBatchingEngine(LLMEngine):
                         # speculation, never its correctness
                         self.draft_errors += 1
                         cont = np.empty((0,), np.int64)
+                    if t_draft is not None:
+                        self._tel.observe(
+                            "draft_ms", (time.monotonic() - t_draft) * 1e3)
                 stride = want + 1
                 for s in range(K):
                     seg = cont[s * stride:s * stride + want]
                     drafts[s, r.slot, :seg.size] = seg
                     dlen[s, r.slot] = seg.size
+                try:
+                    # the verify boundary: after this request's drafter
+                    # ran, before it joins the verify dispatch; it retires
+                    # with the plain decode boundary's stage
+                    fault_point("cb.verify", detail=f"uid={r.uid}")
+                except InjectedFault as e:
+                    self._fail_request(r, "decode", e)
+                    continue
             pos = int(self._lens_np[r.slot])
             # the block writes KV at positions [pos, pos + K) while the
             # slot stays active (K verify passes of up to T tokens each
@@ -1862,9 +2131,12 @@ class ContinuousBatchingEngine(LLMEngine):
             if r.eos_token_id is not None:
                 eos[r.slot] = r.eos_token_id
             blk.dec_items.append(r)
+        if T and not blk.dec_items and not prefills:
+            self.steps += 1            # every decoder faulted at draft
+            return True
         blk.has_prefill = bool(prefills)
-        blk.has_decode = bool(decodes)
-        blk.mode = self._block_mode(prefills + decodes)
+        blk.has_decode = bool(blk.dec_items)
+        blk.mode = self._block_mode(prefills + blk.dec_items)
         blk.extras = self._block_extras(blk)
         blk.tables = self._to_dev(self._tables_np[:w])
         blk.eos_dev = self._to_dev(eos)
@@ -1981,6 +2253,9 @@ class ContinuousBatchingEngine(LLMEngine):
             if r.state != PREFILL or r.slot is None:
                 continue               # cancelled while in flight
             r.filled = end
+            if self._tel is not None:
+                self._tel.req_event(self._tel_src, r.uid, "prefill_chunk",
+                                    filled=end)
             if end >= r.t0:
                 # prompt complete: publish pages, then its first token
                 self._publish_prefix(r)
@@ -2030,6 +2305,10 @@ class ContinuousBatchingEngine(LLMEngine):
                 if r.sampling.do_sample:
                     self._spec_sampled_offered += offered
                     self._spec_sampled_accepted += accepted
+                if self._tel is not None:
+                    self._tel.req_event(self._tel_src, r.uid, "spec_pass",
+                                        offered=offered, accepted=accepted,
+                                        emitted=n)
                 if self.spec_adaptive and offered:
                     if accepted >= offered and n > offered:
                         r.draft_k = min(T - 1, max(1, r.draft_k * 2))
@@ -2055,6 +2334,16 @@ class ContinuousBatchingEngine(LLMEngine):
             g = r.sampling.grammar
             if g is not None:
                 r.gstate = int(g.advance(r.gstate, tok))
+        if self._tel is not None and len(r.out) == 1:
+            # the TTFT host point: the first generated token reached the
+            # host
+            self._tel.req_first_token(self._tel_src, r.uid)
+        # fair share: 1 / share virtual time per emitted token, so a
+        # speculating tenant's higher per-pass yield is charged like plain
+        # decode
+        share = self._tenant_cfg.get(r.tenant, {}).get("share", 1.0)
+        self._tenant_vt[r.tenant] = self._vt(r.tenant) + 1.0 / share
+        self._tenant_tokens[r.tenant] += 1
         if (r.eos_token_id is not None and tok == r.eos_token_id) or \
                 len(r.out) >= r.max_new_tokens:
             self._retire(r)
@@ -2099,11 +2388,18 @@ class ContinuousBatchingEngine(LLMEngine):
         r.state = state
         self._release_slot(r)
         self.failure_count += 1
+        if self._tel is not None:
+            self._tel.req_done(self._tel_src, r.uid, state,
+                               n_tokens=len(r.out), stage=stage,
+                               error=type(exc).__name__)
 
     def _retire(self, r):
         r.result = np.concatenate([r.ids, np.asarray(r.out, np.int64)])
         r.state = DONE
         self._release_slot(r)
+        if self._tel is not None:
+            self._tel.req_done(self._tel_src, r.uid, DONE,
+                               n_tokens=len(r.out))
 
     def _abort_in_flight(self):
         """A step died mid-flight: the pools may hold half-written pages.

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..failsafe import fault_point
 from . import sampling
 from .tp import TPContext
 from ..models.generation import _sample
@@ -157,6 +158,7 @@ class PageAllocator:
             self.free(pages)
 
     def alloc(self):
+        fault_point("page.alloc")
         if not self._free:
             raise EngineFullError(
                 f"KV page pool exhausted: 1 page needed, 0 of "
@@ -198,11 +200,15 @@ class PageAllocator:
         return len(self._free)
 
 
-def _snapshot_llama(model, quant, weight_dtype, device):
+def _snapshot_llama(model, quant, weight_dtype, device, quant_scales=None):
     """Per-layer weights as plain tensors on `device`. quant='int8'
     replaces the seven projection weights of every layer and the lm_head
     with (int8, scales) pairs, quantized from the model's own values (not
-    from a weight_dtype-rounded copy)."""
+    from a weight_dtype-rounded copy). quant_scales (a
+    quantization.ptq.CalibrationResult) swaps the absmax scales for
+    calibrated ones leaf by leaf: a leaf the calibration lacks keeps the
+    absmax scales, and a scale vector of the wrong width raises
+    CalibrationError before anything installs."""
 
     def take(param):
         w = param.detach().to(device)
@@ -210,39 +216,63 @@ def _snapshot_llama(model, quant, weight_dtype, device):
             w = w.to(weight_dtype)
         return w
 
-    def maybe_q(param):
-        if quant == "int8":
-            return quantize_weights(param.detach().to(device, torch.float32))
-        return take(param)
+    def maybe_q(param, li=None, proj=None):
+        if quant != "int8":
+            return take(param)
+        w = param.detach().to(device, torch.float32)
+        sc = (quant_scales.weight_scale(li, proj)
+              if quant_scales is not None else None)
+        if sc is not None:
+            from ..quantization.ptq import quantize_with_scales
+            return quantize_with_scales(w, sc)
+        return quantize_weights(w)
 
     layers = []
-    for layer in model.llama.layers:
+    for li, layer in enumerate(model.llama.layers):
         a = layer.self_attn
         layers.append(dict(
             ln1=take(layer.input_layernorm.weight),
             ln2=take(layer.post_attention_layernorm.weight),
-            wq=maybe_q(a.q_proj.weight),
-            wk=maybe_q(a.k_proj.weight),
-            wv=maybe_q(a.v_proj.weight),
-            wo=maybe_q(a.o_proj.weight),
-            wg=maybe_q(layer.mlp.gate_proj.weight),
-            wu=maybe_q(layer.mlp.up_proj.weight),
-            wd=maybe_q(layer.mlp.down_proj.weight),
+            wq=maybe_q(a.q_proj.weight, li, "wq"),
+            wk=maybe_q(a.k_proj.weight, li, "wk"),
+            wv=maybe_q(a.v_proj.weight, li, "wv"),
+            wo=maybe_q(a.o_proj.weight, li, "wo"),
+            wg=maybe_q(layer.mlp.gate_proj.weight, li, "wg"),
+            wu=maybe_q(layer.mlp.up_proj.weight, li, "wu"),
+            wd=maybe_q(layer.mlp.down_proj.weight, li, "wd"),
         ))
     return dict(emb=take(model.llama.embed_tokens.weight),
                 norm=take(model.llama.norm.weight),
-                head=maybe_q(model.lm_head.weight),
+                head=maybe_q(model.lm_head.weight, None, "head"),
                 layers=layers, eps=model.config.rms_norm_eps)
 
 
-def _mm(x, w):
-    """x @ w where w is either a dense tensor or an (int8, scales) pair."""
+def _product(x, w):
+    """x [m, k] @ w for a dense weight or an (int8, scales) pair: the one
+    place the serving math calls a product kernel."""
     if isinstance(w, tuple):
         wq, sc = w
-        flat = x.reshape(-1, x.shape[-1])
-        out = quantized_matmul(flat, wq, sc, out_dtype=x.dtype)
-        return out.reshape(*x.shape[:-1], -1)
+        return quantized_matmul(x, wq, sc, out_dtype=x.dtype)
     return x @ w.to(x.dtype)
+
+
+def _mm(x, w, rows=None):
+    """x [..., k] @ w where w is either a dense tensor or an (int8, scales)
+    pair. rows=R runs the product in pieces of exactly R rows (the last
+    one padded with zero rows): a product kernel may pick its summation
+    order by the row count (cuBLAS picks its kernel by it, the int8 matmul
+    takes its GEMV at m <= 8), so a row's bits then do not depend on how
+    many rows share the call."""
+    flat = x.reshape(-1, x.shape[-1])
+    m = flat.shape[0]
+    if rows is None or m == rows:
+        out = _product(flat, w)
+    else:
+        pad = -m % rows
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros((pad, flat.shape[1]))])
+        out = torch.cat([_product(p, w) for p in flat.split(rows)])[:m]
+    return out.reshape(*x.shape[:-1], -1)
 
 
 _WEIGHT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -271,9 +301,10 @@ class LLMEngine:
                 f"use_pallas={use_pallas!r}: the port has no kernel switch "
                 "(a CUDA tensor launches the kernels, a CPU tensor runs the "
                 "plain versions); leave it None")
-        if quant_scales is not None:
-            raise ValueError("quant_scales (PTQ calibration) is not ported "
-                             "yet; quant='int8' uses absmax scales")
+        if quant_scales is not None and quant != "int8":
+            raise ValueError(
+                "quant_scales (PTQ calibration) only applies with "
+                "quant='int8': the scales feed the int8 snapshot")
         if weight_dtype is not None:
             key = str(weight_dtype).replace("torch.", "")
             if key not in _WEIGHT_DTYPES:
@@ -329,7 +360,9 @@ class LLMEngine:
         # read-backs (host time included: a dispatch-side number, not
         # device busyness); the continuous-batching engine accrues it
         self.dispatch_seconds = 0.0
-        weights = _snapshot_llama(model, quant, weight_dtype, self.device)
+        self.quant_scales = quant_scales
+        weights = _snapshot_llama(model, quant, weight_dtype, self.device,
+                                  quant_scales)
         weights["cos"], weights["sin"] = _rope_cache(
             max_len, self.hd, cfg.rope_theta, device=self.device)
         # one weight dict per shard; `weights` is shard 0's (at tp = 1 the
@@ -410,10 +443,10 @@ class LLMEngine:
             [v.float() for v, _ in pairs], [i for _, i in pairs],
             locs[0].shape[-1], k)
 
-    def _head_logits(self, hs):
+    def _head_logits(self, hs, rows=None):
         """Each shard's final norm and lm_head of its rows hs [b, t, H]:
-        the local logits [b, t, V_l]."""
-        return [_mm(_rms(h, W["norm"], W["eps"]), W["head"])
+        the local logits [b, t, V_l]. rows: `_mm`'s product row count."""
+        return [_mm(_rms(h, W["norm"], W["eps"]), W["head"], rows)
                 for h, W in zip(hs, self._W)]
 
     # -- math ---------------------------------------------------------------
@@ -445,13 +478,13 @@ class LLMEngine:
             return o
         return self._attn_dense(q, k, v)
 
-    def _layer_qkv(self, W, wset, h, pos_ids):
+    def _layer_qkv(self, W, wset, h, pos_ids, rows=None):
         cos, sin = W["cos"], W["sin"]
         b, t, _ = h.shape
         x = _rms(h, wset["ln1"], W["eps"])
-        q = _mm(x, wset["wq"]).reshape(b, t, -1, self.hd)
-        k = _mm(x, wset["wk"]).reshape(b, t, -1, self.hd)
-        v = _mm(x, wset["wv"]).reshape(b, t, -1, self.hd)
+        q = _mm(x, wset["wq"], rows).reshape(b, t, -1, self.hd)
+        k = _mm(x, wset["wk"], rows).reshape(b, t, -1, self.hd)
+        v = _mm(x, wset["wv"], rows).reshape(b, t, -1, self.hd)
         # GQA: k/v stay at nh_kv heads; the decode kernel maps q head i to
         # kv head i // rep itself
         c = cos[pos_ids][..., None, :].to(q.dtype)
@@ -464,26 +497,28 @@ class LLMEngine:
 
         return rope(q), rope(k), v
 
-    def _layer_tail(self, li, hs, attns):
+    def _layer_tail(self, li, hs, attns, rows=None):
         """Layer li's tail on every shard: O (exact: on the gathered heads
         against the replicated wo; psum: the local rows, reduced), the
         residual, norm2, the local gate / up columns with SwiGLU, then down
         (exact: on the gathered activation row; psum: reduced). hs and
-        attns [b, t, nh_l, hd] are per shard; returns the shards' h."""
+        attns [b, t, nh_l, hd] are per shard; returns the shards' h.
+        rows: `_mm`'s product row count."""
         b, t = attns[0].shape[:2]
         attns = self._tp_gather_heads(attns)
-        os_ = self._tp_reduce([_mm(a.reshape(b, t, -1), W["layers"][li]["wo"])
+        os_ = self._tp_reduce([_mm(a.reshape(b, t, -1), W["layers"][li]["wo"],
+                                   rows)
                                for a, W in zip(attns, self._W)])
         hs = [h + o for h, o in zip(hs, os_)]
         acts = []
         for h, W in zip(hs, self._W):
             wset = W["layers"][li]
             x = _rms(h, wset["ln2"], W["eps"])
-            g = _mm(x, wset["wg"])
-            u = _mm(x, wset["wu"])
+            g = _mm(x, wset["wg"], rows)
+            u = _mm(x, wset["wu"], rows)
             acts.append(torch.nn.functional.silu(g.float()).to(g.dtype) * u)
         acts = self._tp_gather_cols(acts)
-        ds = self._tp_reduce([_mm(a, W["layers"][li]["wd"])
+        ds = self._tp_reduce([_mm(a, W["layers"][li]["wd"], rows)
                               for a, W in zip(acts, self._W)])
         return [h + d for h, d in zip(hs, ds)]
 

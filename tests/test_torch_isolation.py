@@ -30,6 +30,10 @@ assert "paddle_tpu_torch.models.gpt" in sys.modules
 assert "paddle_tpu_torch.models.bert" in sys.modules
 assert "paddle_tpu_torch.nn.transformer" in sys.modules
 assert "paddle_tpu_torch.optimizer.optimizers" in sys.modules
+assert "paddle_tpu_torch.failsafe" in sys.modules
+assert "paddle_tpu_torch.inference.telemetry" in sys.modules
+assert "paddle_tpu_torch.quantization.ptq" in sys.modules
+assert "paddle_tpu_torch.quantization.observers" in sys.modules
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))

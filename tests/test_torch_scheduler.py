@@ -192,12 +192,13 @@ def test_chained_blocks_same_ids():
 
 @pytest.mark.parametrize("K", [1, 4])
 def test_full_width_decode_same_ids(K, monkeypatch):
-    """On CUDA the op chain decodes at the full slot width, the extra rows
-    inactive (cuBLAS picks its product kernel by the row count, so a row's
-    bits must not depend on how many slots share its step). Forced on the
-    CPU with max_batch 4 and two requests, so that every step is narrower
-    than the slots: the padded steps give the bucketed engine's ids and
-    leak no page."""
+    """On CUDA the op chain pads every decode step to R = 4 x max_batch
+    slots, the extra rows inactive (cuBLAS picks its product kernel by the
+    row count, so a row's bits must not depend on how many slots share its
+    step, nor on whether it was decoded or verified: R is a verify pass's
+    row count at T = 4). Forced on the CPU with max_batch 4 and two
+    requests, so that every step is narrower than the slots: the padded
+    steps (16 rows) give the bucketed engine's ids and leak no page."""
     _, tm = _pair()
     prompts, budgets = _stream(2, seed=6, max_budget=14)
     geom = dict(GEOM, max_batch=4)
@@ -219,7 +220,7 @@ def test_full_width_decode_same_ids(K, monkeypatch):
     got = eng.generate_many(prompts, max_new_tokens=budgets)
     for a, b in zip(ref, got):
         np.testing.assert_array_equal(b, a)
-    assert min(widths) < 4 and 4 in widths
+    assert min(widths) < 4 and 16 in widths and 4 not in widths
     _assert_no_leak(eng)
 
 
@@ -341,19 +342,24 @@ def test_health_keys_and_unported_options():
         "megakernel_whole_step", "sampled_requests", "sample_k",
         "sample_fold", "speculate", "drafter", "spec_passes", "spec_emitted",
         "spec_accept_rate", "spec_tokens_per_pass", "draft_errors",
-        "spec_sampled_accept_rate", "tp", "tp_mode", "tp_compress"}
+        "spec_sampled_accept_rate", "tp", "tp_mode", "tp_compress",
+        "preemptions", "tenants"}
     assert (eng.health()["tp"], eng.health()["tp_mode"]) == (1, None)
     _, tm = _pair()
-    # speculation is ported (A5(d)); tiering's directory knobs are taken
-    # and refused with the other tiering knobs
+    # speculation is ported (A5(d)), and so are tenants (A5(e)) and
+    # telemetry (A7.3); tiering's directory knobs are taken and refused
+    # with the other tiering knobs
     assert tsched.ContinuousBatchingEngine(
         tm, device="cpu", speculate=4).health()["speculate"] == 4
-    for kw, item in ((dict(tenants={"a": {}}), "A5\\(e\\)"),
-                     (dict(kv_tier="host"), "A7.4"),
+    assert tsched.ContinuousBatchingEngine(
+        tm, device="cpu", tenants={"a": {}}).health()["tenants"]["a"][
+            "share"] == 1.0
+    assert tsched.ContinuousBatchingEngine(
+        tm, device="cpu", telemetry=True).telemetry is not None
+    for kw, item in ((dict(kv_tier="host"), "A7.4"),
                      (dict(tier_dir="kv_tier"), "A7.4"),
                      (dict(tier_host_cap_mb=64), "A7.4"),
-                     (dict(adapters=True), "A7.2"),
-                     (dict(telemetry=True), "A7.3")):
+                     (dict(adapters=True), "A7.2")):
         with pytest.raises(NotImplementedError, match=item):
             tsched.ContinuousBatchingEngine(tm, device="cpu", **kw)
     # tensor parallelism is ported (A7.10): the reference's refusals stay

@@ -262,7 +262,9 @@ def test_sampled_ids_equal_jax(kw, device_loop):
 def test_unported_options_raise():
     """tp is ported (inference/tp.py): the reference's refusals stay —
     tp must divide the heads, and compression rides psum only; a single
-    CUDA device for tp shards is refused (pass one per shard)."""
+    CUDA device for tp shards is refused (pass one per shard). PTQ scales
+    are ported (quantization/ptq.py): without quant="int8" they are
+    refused, as in the reference."""
     _, tm = _pair(None)
     with pytest.raises(ValueError, match="must divide"):
         tserving.LLMEngine(tm, tp=3, device="cpu")
@@ -273,5 +275,4 @@ def test_unported_options_raise():
     eng = tserving.LLMEngine(tm, tp=2, device="cpu")
     assert eng.tp == 2 and eng.nh_l == eng.nh // 2
     with pytest.raises(ValueError, match="quant_scales"):
-        tserving.LLMEngine(tm, quant="int8", quant_scales=object(),
-                           device="cpu")
+        tserving.LLMEngine(tm, quant_scales=object(), device="cpu")

@@ -431,6 +431,67 @@ def test_full_width_verify_same_ids(db, monkeypatch):
     assert_no_leak(eng)
 
 
+def _product_rows_of(monkeypatch, **kw):
+    """Run the spec prompts on a forced full-width engine and record the
+    row count of every product call ({"decode": set, "verify": set}) and
+    the outputs."""
+    from paddle_tpu_torch.inference import serving as tserving
+    seen = {"decode": set(), "verify": set()}
+    phase = [None]
+    product = tserving._product
+
+    def rec(x, w):
+        if phase[0] is not None:
+            seen[phase[0]].add(x.shape[0])
+        return product(x, w)
+
+    def wrap(name, fn):
+        def inner(self, *a, **k):
+            phase[0] = name
+            try:
+                return fn(self, *a, **k)
+            finally:
+                phase[0] = None
+        return inner
+
+    monkeypatch.setattr(ContinuousBatchingEngine, "_at_full_width",
+                        lambda self: True)
+    monkeypatch.setattr(tserving, "_product", rec)
+    monkeypatch.setattr(ContinuousBatchingEngine, "_decode_math",
+                        wrap("decode", ContinuousBatchingEngine._decode_math))
+    monkeypatch.setattr(ContinuousBatchingEngine, "_spec_verify_math",
+                        wrap("verify",
+                             ContinuousBatchingEngine._spec_verify_math))
+    eng = mk(**kw)
+    outs = eng.generate_many(spec_prompts(), max_new_tokens=NEW)
+    assert_no_leak(eng)
+    return seen, outs
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("max_batch", [2, 4])
+def test_one_product_row_count_for_decode_and_verify(quant, max_batch,
+                                                     monkeypatch):
+    """On CUDA every product of an op-chain decode step and of a verify
+    pass runs at one row count R = 4 x max_batch, so a row's bits do not
+    depend on whether it was decoded or verified (cuBLAS picks its kernel
+    by the row count; the int8 matmul takes its GEMV at m <= 8). Forced on
+    the CPU: the decode steps of an unspeculated engine and the verify
+    passes of engines at speculate 3, 4 and 8 (rows max_batch x T padded
+    or split into pieces of R) call every product at exactly R rows, R
+    depends on max_batch alone, and every engine's ids equal the
+    unspeculated ones (exact)."""
+    R = 4 * max_batch
+    geom = dict(max_batch=max_batch, slot_buckets=(max_batch,), quant=quant)
+    seen, ref = _product_rows_of(monkeypatch, **geom)
+    assert seen == {"decode": {R}, "verify": set()}
+    for T in (3, 4, 8):
+        monkeypatch.undo()
+        seen, outs = _product_rows_of(monkeypatch, speculate=T, **geom)
+        assert seen == {"decode": set(), "verify": {R}}, (T, seen)
+        _same(ref, outs, f"speculate={T} {quant}")
+
+
 def test_eos_mid_pass_matches(jax_runs):
     """Exact: an EOS met inside a verify pass retires the request where
     the unspeculated engine does (decode_block 1 and 4)."""

@@ -45,7 +45,15 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   one slot down the full product. Then the cost of running the op chain
   at the full width: the 7B cb_stream's wall with the padding on and off,
   in turns (op chain K=8 and K=1, and at speculate=4 in bf16 and int8).
-  `width_rows` runs the row checks alone.
+  `width_rows` runs the row checks alone; they include the premise of the
+  op chain's single product row count R = 32: each row of an R-row
+  product (bf16 and int8) and of RMSNorm against the same row moved to
+  other positions of the call, and RMSNorm at 1, 8, 16 and 32 rows and in
+  a verify pass's [8, 4, H] shape against the 32-row call.
+- `width_price`: the op chain's ms per decode micro-step and per verify
+  pass on the 7B cb_stream (K=8, bf16 and int8, speculate off and 4); run
+  from another tree's root to price that tree (parent and change in
+  turns, separate processes).
 
     python3 tools/card_check.py ragged flash mask bert   # from the repository root; needs one CUDA card
 """
@@ -157,6 +165,20 @@ WIDTH_PRODUCTS = (("q", 4096, 4096), ("k", 4096, 4096), ("v", 4096, 4096),
 WIDTH_CASES = (("prefill", 1024, (128, 256, 512, 1024)),
                ("verify", 32, tuple(4 * w for w in range(1, 9))),
                ("decode, head", 8, tuple(range(1, 9))))
+# R = 4 x max_batch = 32, the op chain's one row count of every decode-step
+# and verify-pass product: the rows rolled by these counts (a row moved to
+# every kind of position in the call), and reversed
+R_ROWS, R_SHIFTS = 32, (1, 3, 4, 5, 13, 16, 31)
+
+
+def position_rows(prod, x):
+    """{shift: rows of prod(rolled x) that differ from prod(x) at the same
+    row}, and "reversed"."""
+    ref = prod(x)
+    out = {str(s): int((prod(torch.roll(x, s, 0)).roll(-s, 0) != ref).any(-1).sum())
+           for s in R_SHIFTS}
+    out["reversed"] = int((prod(x.flip(0)).flip(0) != ref).any(-1).sum())
+    return out
 
 
 def width_rows(dev):
@@ -179,8 +201,67 @@ def width_rows(dev):
                 yield dict(probe="width", product=name, k=k, n=n, weights=weights, phase=phase,
                            full_rows=full, rows_differing=differ,
                            moved_rows_differing=int((moved != ref).any(-1).sum()), ok=True)
+            # the R rule's premise: a row's bits in an R-row call do not
+            # depend on where the row sits in it
+            x = torch.randn((R_ROWS, k), generator=g, device=dev).to(bf16)
+            moved = position_rows(prod, x)
+            yield dict(probe="width_position", product=name, k=k, n=n, weights=weights,
+                       rows=R_ROWS, rows_differing_by_shift=moved,
+                       ok=not any(moved.values()))
         del wq, sc, wb
         torch.cuda.empty_cache()
+    # the norms of a decode step (R slots x 1 row) and of a verify pass
+    # (8 slots x T 4 rows): RMSNorm's row reduction at 1, 8 and 32 rows and
+    # under the same shifts
+    from paddle_tpu_torch.ops.pallas.rms_norm import rms_rows
+    w = torch.randn(4096, generator=g, device=dev).to(bf16)
+    x = torch.randn((R_ROWS, 4096), generator=g, device=dev).to(bf16)
+    ref = rms_rows(x, w, 1e-6)
+    differ = {str(m): int((rms_rows(x[:m], w, 1e-6) != ref[:m]).any(-1).sum())
+              for m in (1, 8, 16, 32)}
+    shaped = int((rms_rows(x.reshape(8, 4, 4096), w, 1e-6).reshape(R_ROWS, -1) != ref)
+                 .any(-1).sum())
+    moved = position_rows(lambda t: rms_rows(t, w, 1e-6), x)
+    yield dict(probe="width_rms", rows=R_ROWS, rows_differing=differ,
+               verify_shape_rows_differing=shaped, rows_differing_by_shift=moved,
+               ok=not any(differ.values()) and not shaped and not any(moved.values()))
+
+
+def width_price(dev):
+    """The op chain's cost per decode micro-step and per verify pass on the
+    7B cb_stream (K=8, bf16 and int8, unspeculated and at speculate=4,
+    n-gram drafts), each stream once after one warm-up stream. Run it
+    from a tree's root (`cd chipwork/parent && python3
+    ../../tools/card_check.py width_price`) to price that tree: parent,
+    change, change, parent in turns."""
+    import os
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama_7b()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    geom = dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
+                prefix_cache=True, weight_dtype="bfloat16", device=dev)
+    prompts, budgets = C.cb_stream(cfg)
+    streams = {}
+    for run, spec, quant in (("K=8 bf16", None, None), ("K=8 int8", None, "int8"),
+                             ("spec K=8 bf16", 4, None), ("spec K=8 int8", 4, "int8")):
+        eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=False,
+                                       speculate=spec, quant=quant, **geom)
+        C.drive_cb(torch, eng, prompts[:8], budgets[:8])          # warm-up
+        eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=False,
+                                       speculate=spec, quant=quant, **geom)
+        outs, wall, ms = C.drive_cb(torch, eng, prompts, budgets)
+        streams[run] = outs
+        del eng
+        torch.cuda.empty_cache()
+        ref = streams.get(run.replace("spec ", ""))
+        yield dict(probe="width_price", tree=os.getcwd(), run=run, wall_s=wall,
+                   ms_per_step=ms, unit="ms per verify pass" if spec else
+                   "ms per decode micro-step",
+                   ids_equal_unspeculated=None if spec is None else all(
+                       (a == b).all() for a, b in zip(outs, ref)), ok=True)
+    del model
+    torch.cuda.empty_cache()
 
 
 
@@ -221,7 +302,7 @@ def width(dev):
 
 
 PHASES = dict(qmm=qmm, ragged=ragged, flash=flash, mask=mask, f32=f32, gpt=gpt, bert=bert, tp=tp,
-              tp_path=tp_path, width=width, width_rows=width_rows)
+              tp_path=tp_path, width=width, width_rows=width_rows, width_price=width_price)
 
 
 def main(names):
