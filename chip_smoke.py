@@ -48,6 +48,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               hiding a row, causal plus a mask, a mask with dropout, d 128)
               against the plain versions; a causal launch with a zero
               mask bit-equal to the causal launch, forward and backward;
+              the LoRA delta's shrink / expand pair (`csrc/lora_bgmv.cu`, no
+              pallas_call behind it) at 7B's target shapes, 32 rows of
+              three rank-16 adapters and base, against the einsum pair,
+              aid-0 rows bit-equal to y, rows moved within a launch and
+              1-row, 8-row and verify-layout launches bit-equal to the
+              32-row launch;
               the megakernel's tensor-parallel segments (qkv / tail /
               down, tp 2 and 4 shards on the card, R 8 and 4, bf16 and
               int8, the greedy head, the top-8 fold, a tq = 4 verify
@@ -136,6 +142,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
  13. bert_train_parity  2 layers at the base width, batch 4 x 128 with
               padding, 3 AdamW steps, dropout on: the card (f32, bf16)
               against the CPU (f32), the global generator seeded alike
+ 14. cb_adapters  multi-LoRA serving at 7B (full width and depth, the cb_path
+              geometry, K = 8): a 12-request stream over three rank-16
+              adapters and base, on the op chain (bf16, int8), at
+              speculate = 4, on "multi" and at tp = 2; adapter requests
+              equal dedicated single-adapter runs, base requests the
+              no-pool engine's, speculate = 4 the unspeculated run and
+              "multi" the op chain (adapter dispatches fall back) exactly;
+              base rows on "multi" and tp = 2 by the margin rule; LoRA
+              launches, fallbacks, ms per micro-step with and without
+ 15. cb_handoff  two 7B engines on the card: mid-decode exports over the
+              "device", "host" and "store" transports, continuations equal
+              the uninterrupted run, a flipped payload byte refused with
+              the importer untouched; ms and GB/s by transport
+ 16. cb_tiering  demote / restore round trips on the "host" and "disk"
+              tiers, an oversubscribed engine (admission demotions), and
+              demote-on-idle; outputs equal the never-demoted runs; ms and
+              GB/s by tier
 
 Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
 bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row:
@@ -193,6 +216,9 @@ REPLACES = {
     "spec_verify_attention_staged": "paddle_tpu/ops/pallas/paged_attention.py:354",
     "quantized_matmul_tc": "paddle_tpu/ops/pallas/quantized_matmul.py:53",
     "quantized_matmul_ring": "paddle_tpu/ops/pallas/quantized_matmul.py:53",
+    # not a pallas_call site: the reference's grouped LoRA delta, two
+    # jnp.einsum calls (adapters.py `lora_delta`)
+    "lora": "paddle_tpu/inference/adapters.py:201",
 }
 SOURCES = {
     "quantized_matmul": "paddle_tpu_torch/csrc/quantized_matmul.cu",
@@ -227,6 +253,8 @@ SOURCES = {
     # decode GEMV's ring build (weight tiles by TMA, `ptt::SlabRing`; k 11008)
     "quantized_matmul_tc": "paddle_tpu_torch/csrc/quantized_matmul_tc.cu",
     "quantized_matmul_ring": "paddle_tpu_torch/csrc/quantized_matmul.cu",
+    # the LoRA delta's shrink / expand pair (multi-adapter serving)
+    "lora": "paddle_tpu_torch/csrc/lora_bgmv.cu",
 }
 
 
@@ -1386,6 +1414,89 @@ def flash_mask_gates(torch, dev):
 
 # ---------------------------------------------------------------- phase 3 (B6)
 MK_LENS, MK_ACTIVE = [300, 257, 311, 290], [1, 1, 1, 0]
+# the LoRA delta (`ops/lora.py`, `csrc/lora_bgmv.cu`; not a pallas_call
+# site): LLaMA-7B's target shapes (wq / wk / wv 4096 -> 4096, wg / wu 4096 ->
+# 11008, wd 11008 -> 4096), R = 4 x max_batch = 32 decode rows, pool rank 16,
+# three adapters and base rows mixed (slot ids per verify slot of 4 rows)
+LORA_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+LORA_RANK = 16
+LORA_AID8 = (1, 0, 2, 3, 1, 2, 0, 3)     # 8 slots, 4 rows each: 32 rows
+
+
+def lora_bound(rows, din, dout, rank, n_adapters, elem=2):
+    """The LoRA pair's least time: x, y and out once per row (`elem` bytes)
+    plus each distinct adapter's A and B once (f32), over the memory rate;
+    2 (in + out) r f32 flops per adapter row over the CUDA cores' rate."""
+    n_bytes = rows * (din + 2 * dout) * elem + n_adapters * (din + dout) * rank * 4
+    return bound_ms(n_bytes, 2 * rows * (din + dout) * rank, f32=True)
+
+
+def check_lora(torch, dev):
+    """`lora_bgmv` at 7B shapes against `lora_apply_reference` (the einsum
+    pair): bf16 y within two bf16 ulps of the output's magnitude (both sum
+    in f32 in other orders, then round the delta and the sum once each);
+    aid-0 rows equal y bit for bit; rows rolled and reversed within a
+    launch, one row in a 1-row launch, the first 8 rows in an 8-row launch
+    and the verify layout (8 slots x 4 rows) equal the 32-row launch's rows
+    bit for bit; the f32 delta alone (y absent) within 1e-4 relative."""
+    from paddle_tpu_torch.ops.lora import lora_apply_reference, lora_bgmv, \
+        lora_delta_reference
+    bf16, f32 = torch.bfloat16, torch.float32
+    aid8 = torch.tensor(LORA_AID8, dtype=torch.int32, device=dev)
+    aid = aid8.repeat_interleave(4)
+    base = aid == 0
+    rows = []
+    for din, dout in LORA_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(din + dout)
+        x = torch.randn((32, 1, din), generator=g, device=dev).to(bf16)
+        y = torch.randn((32, 1, dout), generator=g, device=dev).to(bf16)
+        y[base, 0, :3] = -0.0                       # signed zeros kept
+        a = 0.02 * torch.randn((4, din, LORA_RANK), generator=g, device=dev)
+        b = 0.02 * torch.randn((4, LORA_RANK, dout), generator=g, device=dev)
+        a[0] = 0
+        b[0] = 0
+        scale = torch.tensor([0.0, 2.0, 1.0, 0.5], device=dev)[aid.long()]
+        out = lora_bgmv(x, a, b, aid, scale, y=y)
+        ref = lora_apply_reference(y, x, a, b, aid, scale)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        tol = 2 ** -7 * float(ref.float().abs().max())
+        d = lora_bgmv(x, a, b, aid, scale)
+        d_ref = torch.where(base[:, None, None], 0.0,
+                            lora_delta_reference(x, a, b, aid, scale))
+        d_err = max_err(d, d_ref)
+        d_tol = 1e-4 * float(d_ref.abs().max())
+        idx = torch.arange(32, device=dev)
+        perm = {"rolled": (idx + 5) % 32, "reversed": idx.flip(0)}
+        moved = {k: bits_equal(torch, lora_bgmv(x[p].contiguous(), a, b, aid[p].contiguous(),
+                                                 scale[p].contiguous(), y=y[p].contiguous()),
+                               out[p]) for k, p in perm.items()}
+        one = bits_equal(torch, lora_bgmv(x[9:10], a, b, aid[9:10], scale[9:10], y=y[9:10]),
+                         out[9:10])
+        eight = bits_equal(torch, lora_bgmv(x[:8], a, b, aid[:8], scale[:8], y=y[:8]), out[:8])
+        sc8 = torch.tensor([0.0, 2.0, 1.0, 0.5], device=dev)[aid8.long()]
+        verify = bits_equal(torch, lora_bgmv(x.reshape(8, 4, din), a, b, aid8, sc8,
+                                             y=y.reshape(8, 4, dout)).reshape(32, 1, dout), out)
+        base_bits = bits_equal(torch, out[base], y[base])
+        row = dict(rows=32, din=din, dout=dout, rank=LORA_RANK, adapters=3, base_rows=int(base.sum()),
+                   dtype="bfloat16", max_abs_err=err, tol=tol, delta_max_abs_err=d_err,
+                   delta_tol=d_tol, aid0_rows_equal_y=base_bits, rows_moved_equal=moved,
+                   one_row_equal=one, eight_rows_equal=eight, verify_layout_equal=verify)
+        row["ok"] = (err <= tol and d_err <= d_tol and base_bits and all(moved.values())
+                     and one and eight and verify)
+        row["ms"] = time_ms(torch, lambda: lora_bgmv(x, a, b, aid, scale, y=y))
+        row["device_ms"] = graph_ms(torch, lambda: lora_bgmv(x, a, b, aid, scale, y=y))
+        row["plain_ms"] = time_ms(torch, lambda: lora_apply_reference(y, x, a, b, aid, scale),
+                                  iters=5)
+        a_sel, b_sel, xf = a[aid.long()], b[aid.long()], x.float()
+        s3 = scale[:, None, None]
+        row["library_ms"] = time_ms(torch, lambda: torch.bmm(torch.bmm(xf, a_sel) * s3, b_sel))
+        row["library_call"] = "torch.bmm pair on gathered factors (f32)"
+        row["bound_ms"], row["bound_by"] = lora_bound(32, din, dout, LORA_RANK, 3)
+        rows.append(row)
+    return rows
+
+
 MK_TIE = (5, 20, 31000)   # one 32-column slab, then another slab and block
 
 
@@ -2738,10 +2849,10 @@ def count_sampled_steps(eng):
     counter = {"sampled": 0}
     scan = eng._decode_scan
 
-    def counted(tables, tok, lens, act, rem, eos, mode="greedy", ex=None):
+    def counted(tables, tok, lens, act, rem, eos, mode="greedy", ex=None, ad=None):
         if mode == "sampled":
             counter["sampled"] += eng.decode_block
-        return scan(tables, tok, lens, act, rem, eos, mode, ex)
+        return scan(tables, tok, lens, act, rem, eos, mode, ex, ad)
 
     eng._decode_scan = counted
     return counter
@@ -2866,13 +2977,14 @@ def count_verify_passes(eng):
     counter = dict(passes=0, mk=0, fold=0)
     scan = eng._spec_scan
 
-    def counted(tables, tok, lens, act, rem, eos, drafts, dlen, mode="greedy", ex=None):
+    def counted(tables, tok, lens, act, rem, eos, drafts, dlen, mode="greedy", ex=None,
+                ad=None):
         n = drafts.shape[0]
         per = -(-tok.shape[0] // (MAX_ROWS // eng._spec))
         counter["passes"] += n
         counter["mk"] += n * per
         counter["fold"] += n * per if mode == "sampled" else 0
-        return scan(tables, tok, lens, act, rem, eos, drafts, dlen, mode, ex)
+        return scan(tables, tok, lens, act, rem, eos, drafts, dlen, mode, ex, ad)
 
     eng._spec_scan = counted
     return counter
@@ -3575,6 +3687,453 @@ def proc_run(torch, model, geom, launches):
 
 
 # ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phases 14-16
+# cb_adapters / cb_handoff / cb_tiering: LLaMA-7B at full width and depth
+# (random weights, seed 0), page 64, max_len 1024, 8 slots, 128-token
+# chunks, K = 8, as phase 6's engines
+LORA_STREAM_SEED = 3
+ADAPTER_NAMES = ("a1", "a2", "a3")
+LORA_DELTA_RATIO = 0.1      # the delta's RMS over the projection's at layer 0
+
+
+def lora_stream(cfg):
+    """12 requests (prompts uniform in 16-400 tokens, budgets in 12-32, from
+    RandomState(3)); request i runs under adapter i % 4 (the fourth: base)."""
+    import numpy as np
+    rng = np.random.RandomState(LORA_STREAM_SEED)
+    lens = rng.randint(16, 401, 12)
+    budgets = [int(x) for x in rng.randint(12, 33, 12)]
+    prompts = [rng.randint(0, cfg.vocab_size, int(t)).astype(np.int64) for t in lens]
+    names = [ADAPTER_NAMES[i % 4] if i % 4 < 3 else None for i in range(12)]
+    return prompts, budgets, names
+
+
+def lora_init_std(torch, model, rank):
+    """make_lora_adapter's init_std that puts the delta's RMS at about
+    LORA_DELTA_RATIO of wq's output RMS at layer 0 for unit-RMS rows: the
+    projection's RMS is sqrt(in) std(W), the delta's (alpha / r) sqrt(in r)
+    init_std^2 with alpha = 2 r (make_lora_adapter's default 0.5 would put
+    it near 1e3 times the projection's at width 4096, and overflow bf16)."""
+    w = model.llama.layers[0].self_attn.q_proj.weight     # [in, out]
+    din = w.shape[0]
+    proj_rms = math.sqrt(din) * float(w.detach().float().std())
+    return math.sqrt(LORA_DELTA_RATIO * proj_rms / (2.0 * math.sqrt(din * rank)))
+
+
+def drive_adapters(torch, eng, prompts, budgets, names, only=None):
+    """Submit the stream (only=: the requests of one adapter name, None for
+    base; else every request), step to idle; returns ({index: output}, ms per
+    decode micro-step over the decode-only steps)."""
+    sel = [i for i, n in enumerate(names) if only == "all" or n == only]
+    uids = {i: eng.add_request(prompts[i], budgets[i], adapter=names[i]) for i in sel}
+    torch.cuda.synchronize()
+    dec_s, dec_n = 0.0, 0
+    while True:
+        pf0, d0 = eng.prefill_steps, eng.decode_steps
+        t = time.perf_counter()
+        if not eng.step():
+            break
+        torch.cuda.synchronize()
+        if eng.prefill_steps == pf0 and eng.decode_steps > d0:
+            dec_s += time.perf_counter() - t
+            dec_n += eng.decode_steps - d0
+    return {i: eng.result(u) for i, u in uids.items()}, (1e3 * dec_s / dec_n if dec_n else None)
+
+
+def adapter_margins(torch, model, geom, ads, prompts, names, ref, outs, tol=0.1):
+    """The margin rule for streams with adapter requests: at each request's
+    first divergence between `ref` and `outs`, the top-2 margin of the bf16
+    logits of the prefix under the request's adapter (a decode_block=1 pool
+    engine's chunked prefill; its first token's logits). The rule holds when
+    every first divergence sits on a margin <= tol."""
+    import numpy as np
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    idx = [i for i in ref if not np.array_equal(ref[i], outs[i])]
+    if not idx:
+        return [], True
+    eng = ContinuousBatchingEngine(model, decode_block=1, adapters={"rank": LORA_RANK},
+                                   megakernel=False, **geom)
+    for n, ad in ads.items():
+        eng.load_adapter(n, ad)
+    seen = {}
+    orig = eng._select_tokens
+
+    def spy(rows, positions, mode, logits=None, **kw):
+        seen["logits"] = logits
+        return orig(rows, positions, mode, logits=logits, **kw)
+
+    eng._select_tokens = spy
+    parts = []
+    for i in idx:
+        r, o, p = ref[i], outs[i], prompts[i]
+        t = next(t for t in range(p.size, min(r.size, o.size)) if r[t] != o[t])
+        eng.add_request(r[:t], 1, adapter=names[i])
+        eng.drain()
+        top2 = torch.topk(seen["logits"][0].float(), 2).values
+        parts.append(dict(request=i, adapter=names[i], pos=t - p.size,
+                          margin=float(top2[0] - top2[1])))
+    del eng
+    torch.cuda.empty_cache()
+    return parts, all(d["margin"] <= tol for d in parts)
+
+
+def cb_adapters(torch, model, geom):
+    """Multi-LoRA serving at 7B: the lora stream (three rank-16 adapters and
+    base) at K = 8 on the op chain in bf16 and int8, at speculate = 4, on
+    "multi", and at tp = 2 (both shards on the card). Exact gates: every
+    adapter's requests equal a dedicated run of that adapter alone, base
+    requests on the op chain equal the no-pool engine's, each adapter
+    changes at least one request's ids against base weights, speculate = 4
+    equals the unspeculated run, adapter requests on "multi" equal the op
+    chain's (each of their dispatches falls back, counted); margin-rule
+    gates: base requests on "multi" against the op chain, tp = 2 against
+    tp = 1. Returns (rows, launches)."""
+    import numpy as np
+    from paddle_tpu_torch.inference.adapters import make_lora_adapter
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    prompts, budgets, names = lora_stream(cfg)
+    std = lora_init_std(torch, model, LORA_RANK)
+    t = time.perf_counter()
+    ads = {n: make_lora_adapter(cfg, rank=LORA_RANK, seed=s + 1, init_std=std)
+           for s, n in enumerate(ADAPTER_NAMES)}
+    make_s = time.perf_counter() - t
+    pool = {"rank": LORA_RANK, "max_adapters": 3}
+    ad_idx = [i for i, n in enumerate(names) if n is not None]
+    base_idx = [i for i, n in enumerate(names) if n is None]
+    launches, rows, runs = {}, [], {}
+
+    def eq(a, b, idx):
+        return all(np.array_equal(a[i], b[i]) for i in idx)
+
+    def run(name, stream_names, only, adapters=True, dedicated=False, **kw):
+        """One engine at K = 8; with dedicated=True each adapter's requests
+        run alone, the engine holding only that adapter."""
+        eng = ContinuousBatchingEngine(model, decode_block=8,
+                                       adapters=pool if adapters else None,
+                                       **dict(geom, **kw))
+        load_ms = None
+        reset_kernel_launches()
+        if dedicated:
+            outs, dec_ms = {}, None
+            for n, ad in ads.items():
+                eng.load_adapter(n, ad)
+                got, _ = drive_adapters(torch, eng, prompts, budgets, stream_names, only=n)
+                outs.update(got)
+                eng.evict_adapter(n)
+        else:
+            if adapters:
+                t0 = time.perf_counter()
+                for n, ad in ads.items():
+                    eng.load_adapter(n, ad)
+                torch.cuda.synchronize()
+                load_ms = 1e3 * (time.perf_counter() - t0) / len(ads)
+            outs, dec_ms = drive_adapters(torch, eng, prompts, budgets, stream_names, only=only)
+        counts = kernel_launches()
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        h = eng.health()
+        ah = h["adapters"] or {}
+        runs[name] = outs
+        row = dict(run=name, megakernel=h["megakernel"], speculate=h["speculate"], tp=h["tp"],
+                   ms_per_decode_microstep=dec_ms, adapter_load_ms=load_ms,
+                   lora_launches=counts["lora"],
+                   adapter_mk_fallbacks=ah.get("mk_fallbacks"),
+                   adapter_tokens=ah.get("tokens"),
+                   launches_ok=counts["lora"] % (6 * L) == 0
+                   and (counts["lora"] > 0) == bool(adapters),
+                   no_leak=h["pages_free"] + h["prefix_pages"] == h["pages_total"]
+                   and not ah.get("active"))
+        del eng
+        torch.cuda.empty_cache()
+        return row
+
+    for quant in (None, "int8"):
+        w = quant or "bf16"
+        base = run(f"no pool {w}", [None] * 12, None, adapters=False, quant=quant,
+                   megakernel=False)
+        mixed = run(f"mixed {w}", names, "all", quant=quant, megakernel=False)
+        ded = run(f"dedicated {w}", names, None, dedicated=True, quant=quant,
+                  megakernel=False)
+        out, ref = runs[f"mixed {w}"], runs[f"no pool {w}"]
+        changes = {n: any(not np.array_equal(out[i], ref[i]) for i in ad_idx if names[i] == n)
+                   for n in ADAPTER_NAMES}
+        mixed.update(dedicated_equal=eq(out, runs[f"dedicated {w}"], ad_idx),
+                     base_equal_no_pool=eq(out, ref, base_idx), adapters_change_ids=changes,
+                     ms_per_decode_microstep_no_pool=base["ms_per_decode_microstep"])
+        mixed["ok"] = (mixed["launches_ok"] and mixed["no_leak"] and base["no_leak"]
+                       and ded["no_leak"] and mixed["dedicated_equal"]
+                       and mixed["base_equal_no_pool"] and all(changes.values()))
+        rows.append(mixed)
+    ref = runs["mixed bf16"]
+    spec = run("mixed bf16 speculate=4", names, "all", megakernel=False, speculate=4)
+    spec["equal_unspeculated"] = eq(runs["mixed bf16 speculate=4"], ref, range(12))
+    spec["ok"] = spec["launches_ok"] and spec["no_leak"] and spec["equal_unspeculated"]
+    rows.append(spec)
+    multi = run("mixed bf16 multi", names, "all", megakernel="multi")
+    out = runs["mixed bf16 multi"]
+    multi["adapter_requests_equal_op_chain"] = eq(out, ref, ad_idx)
+    parts, held = divergence_held(torch, model, geom, [prompts[i] for i in base_idx],
+                                  [ref[i] for i in base_idx], [out[i] for i in base_idx])
+    multi.update(base_divergences=parts, base_margin_rule=held)
+    multi["ok"] = (multi["launches_ok"] and multi["no_leak"] and multi["adapter_mk_fallbacks"] > 0
+                   and multi["adapter_requests_equal_op_chain"] and held)
+    rows.append(multi)
+    tp2 = run("mixed bf16 tp=2", names, "all", megakernel=False, tp=2, device=[geom["device"]] * 2)
+    out = runs["mixed bf16 tp=2"]
+    parts, held = adapter_margins(torch, model, geom, ads, prompts, names, ref, out)
+    tp2.update(equal_tp1=eq(out, ref, range(12)), divergences=parts, margin_rule=held)
+    tp2["ok"] = tp2["launches_ok"] and tp2["no_leak"] and held
+    rows.append(tp2)
+    for r in rows:
+        r.update(init_std=std, adapters=len(ads), rank=LORA_RANK)
+    rows[0]["make_adapters_s"] = make_s
+    return rows, launches
+
+
+HANDOFF_LENS = (300, 180, 420)      # one request per transport
+HANDOFF_BUDGET = 64
+HANDOFF_STEPS = 1                   # decode blocks before the export
+
+
+def handoff_stream(cfg):
+    import numpy as np
+    rng = np.random.RandomState(7)
+    return [rng.randint(0, cfg.vocab_size, n).astype(np.int64) for n in HANDOFF_LENS]
+
+
+def cb_handoff(torch, model, geom):
+    """KV-page handoff at 7B between two engines on the card (op chain
+    bf16, K = 8): three requests decode one block on engine A, then each
+    migrates to engine B mid-decode over one transport ("device": CUDA
+    tensors; "host": CRC-stamped numpy payload; "store": that payload through
+    StoreKVTransport on a HashStore). Exact gates: every continuation equals
+    the uninterrupted run's ids; a byte flipped in a host payload raises
+    KVHandoffError and leaves B's free pages unchanged; no page leaks.
+    Reports export / import ms and GB/s by transport. Returns (rows,
+    launches)."""
+    import numpy as np
+    import torch.distributed as dist
+    from paddle_tpu_torch.inference.handoff import (KVHandoffError, StoreKVTransport,
+                                                    payload_bytes)
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    prompts = handoff_stream(model.config)
+
+    def engine():
+        return ContinuousBatchingEngine(model, decode_block=8, megakernel=False, **geom)
+
+    ref_eng = engine()
+    reset_kernel_launches()
+    ref = ref_eng.generate_many(prompts, max_new_tokens=HANDOFF_BUDGET)
+    launches = dict(kernel_launches())
+    del ref_eng
+    torch.cuda.empty_cache()
+    A, B = engine(), engine()
+    uids = [A.add_request(p, HANDOFF_BUDGET) for p in prompts]
+    while any(A.status(u) != "decode" for u in uids):
+        A.step()
+    for _ in range(HANDOFF_STEPS):
+        A.step()
+    store = StoreKVTransport(dist.HashStore())
+    rows, got = [], {}
+    for i, (u, kind) in enumerate(zip(uids, ("device", "host", "store"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = A.export_kv_pages(u, device=kind == "device",
+                                    transport="store" if kind == "store" else None)
+        torch.cuda.synchronize()
+        export_ms = 1e3 * (time.perf_counter() - t0)
+        n_bytes = payload_bytes(payload)
+        wire_ms = None
+        if kind == "store":
+            t0 = time.perf_counter()
+            payload = store.recv(store.send(payload))
+            wire_ms = 1e3 * (time.perf_counter() - t0)
+        corrupt_ok = None
+        if kind == "host":
+            bad = dict(payload, v=list(payload["v"]))
+            bad["v"][0] = payload["v"][0].copy()
+            bad["v"][0].view(np.uint8).flat[5] ^= 0xFF
+            free, live = B.allocator.available, len(B)
+            try:
+                B.import_kv_pages(bad)
+                corrupt_ok = False
+            except KVHandoffError:
+                corrupt_ok = B.allocator.available == free and len(B) == live
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ub = B.import_kv_pages(payload)
+        torch.cuda.synchronize()
+        import_ms = 1e3 * (time.perf_counter() - t0)
+        A.release_handoff(u)
+        got[i] = ub
+        rows.append(dict(run=f"handoff {kind}", transport=kind, lens=int(payload["lens"]),
+                         bytes=n_bytes, export_ms=export_ms, import_ms=import_ms,
+                         store_send_recv_ms=wire_ms,
+                         store_gb_per_s=n_bytes / wire_ms / 1e6 if wire_ms else None,
+                         export_gb_per_s=n_bytes / export_ms / 1e6,
+                         import_gb_per_s=n_bytes / import_ms / 1e6,
+                         corrupt_byte_refused=corrupt_ok))
+    reset_kernel_launches()
+    B.drain()
+    for k, c in kernel_launches().items():
+        launches[k] = launches.get(k, 0) + c
+    hA, hB = A.health(), B.health()
+    leak_ok = all(h["pages_free"] + h["prefix_pages"] == h["pages_total"] for h in (hA, hB))
+    for i, row in enumerate(rows):
+        row["equal_uninterrupted"] = bool(np.array_equal(B.result(got[i]), ref[i]))
+        row["ok"] = (row["equal_uninterrupted"] and leak_ok
+                     and row["corrupt_byte_refused"] is not False
+                     and hA["handoffs_out"] == 3 and hB["handoffs_in"] == 3)
+    del A, B
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+TIER_LENS = (300, 200, 260)
+TIER_BUDGET = 40
+
+
+def cb_tiering(torch, model, geom):
+    """KV tiering at 7B (op chain bf16, K = 8 unless stated): demote /
+    restore round trips of three decoding requests on the "host" tier and
+    on the "disk" tier (a temporary tier_dir, a 1 kB host budget so every
+    entry but the newest spills); the lora stream's prompts, as base
+    requests, on an oversubscribed engine (4 slots, 12 requests:
+    admission demotes); demote-on-idle (2 slots, decode_block 1, a long
+    prompt's prefill keeping a decode request waiting). Exact gates: every
+    output equals the never-demoted run's; demotions > 0 where they are the
+    point; no page leaks and an empty tier. Reports demote / restore ms and
+    GB/s by tier. Returns (rows, launches)."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    cfg = model.config
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int64) for n in TIER_LENS]
+    launches, rows = {}, []
+
+    def add():
+        for k, c in kernel_launches().items():
+            launches[k] = launches.get(k, 0) + c
+
+    def engine(**kw):
+        return ContinuousBatchingEngine(model, **dict(dict(geom, decode_block=8,
+                                                           megakernel=False), **kw))
+
+    def leak_ok(eng):
+        h = eng.health()
+        return (h["pages_free"] + h["prefix_pages"] == h["pages_total"]
+                and h["pages_demoted"] == 0 and h["demoted"] == 0
+                and (h["tier"] is None or h["tier"]["entries"] == 0))
+
+    ref = engine().generate_many(prompts, max_new_tokens=TIER_BUDGET)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="kvtier-")
+    try:
+        for kind in ("host", "disk"):
+            eng = engine(kv_tier=kind, tier_dir=tmp if kind == "disk" else None,
+                         tier_host_cap_mb=0.001)
+            uids = [eng.add_request(p, TIER_BUDGET) for p in prompts]
+            while any(eng.status(u) != "decode" for u in uids):
+                eng.step()
+            dem, res = [], []
+            for u in uids:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.demote_request(u)
+                dem.append(1e3 * (time.perf_counter() - t0))
+            n_pages = eng.pages_demoted
+            # the bytes the tier holds (packed page images; a request's
+            # prefix-cache pages stay resident and its unused tail pages
+            # are freed, not moved)
+            n_bytes = (sum(len(b) for _, b in eng._tier._host.values())
+                       + sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)
+                             if f.endswith(".blob")))
+            for u in uids:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.restore_request(u)
+                torch.cuda.synchronize()
+                res.append(1e3 * (time.perf_counter() - t0))
+            reset_kernel_launches()
+            eng.drain()
+            add()
+            st = eng.health()["tier"]
+            equal = all(np.array_equal(eng.result(u), r) for u, r in zip(uids, ref))
+            rows.append(dict(run=f"round trip {kind}", tier=kind, requests=len(uids),
+                             pages_demoted=n_pages, bytes=n_bytes, demote_ms=dem,
+                             restore_ms=res,
+                             demote_gb_per_s=n_bytes / sum(dem) / 1e6,
+                             restore_gb_per_s=n_bytes / sum(res) / 1e6,
+                             spills=st["spills"], disk_reads=st["disk_reads"],
+                             put_ms=st["put_ms"], get_ms=st["get_ms"],
+                             equal_never_demoted=equal, no_leak=leak_ok(eng),
+                             ok=equal and leak_ok(eng) and eng.restores == len(uids)
+                             and (kind == "host" or st["disk_reads"] >= 1)))
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # oversubscription: 12 requests over 4 slots
+    lp, lb, _ = lora_stream(cfg)
+    over_geom = dict(max_batch=4)
+    want = engine(**over_geom).generate_many(lp, max_new_tokens=lb)
+    torch.cuda.empty_cache()
+    eng = engine(kv_tier="host", **over_geom)
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate_many(lp, max_new_tokens=lb)
+    wall = time.perf_counter() - t0
+    add()
+    h = eng.health()
+    equal = all(np.array_equal(a, b) for a, b in zip(outs, want))
+    rows.append(dict(run="oversubscribed", requests=len(lp), slots=4, wall_s=wall,
+                     demotions=h["demotions"], restores=h["restores"],
+                     put_ms=h["tier"]["put_ms"], get_ms=h["tier"]["get_ms"],
+                     equal_never_demoted=equal, no_leak=leak_ok(eng),
+                     ok=equal and leak_ok(eng) and h["demotions"] > 0
+                     and h["restores"] == h["demotions"]))
+    del eng
+    torch.cuda.empty_cache()
+    # demote-on-idle: a decode request waits behind a 640-token prefill
+    pa, pb, pc = (rng.randint(0, cfg.vocab_size, n).astype(np.int64) for n in (40, 640, 30))
+    idle_geom = dict(max_batch=2, decode_block=1)
+    want = engine(**idle_geom).generate_many([pa, pb, pc], max_new_tokens=12)
+    torch.cuda.empty_cache()
+    eng = engine(kv_tier="host", oversubscribe=False, tier_idle_steps=1, **idle_geom)
+    reset_kernel_launches()
+    ua = eng.add_request(pa, 12)
+    for _ in range(3):
+        eng.step()
+    ub, uc = eng.add_request(pb, 12), eng.add_request(pc, 12)
+    eng.drain()
+    add()
+    equal = all(np.array_equal(eng.result(u), w) for u, w in zip((ua, ub, uc), want))
+    rows.append(dict(run="demote on idle", idle_demotions=eng.idle_demotions,
+                     restores=eng.restores, equal_never_demoted=equal, no_leak=leak_ok(eng),
+                     ok=equal and leak_ok(eng) and eng.idle_demotions >= 1
+                     and eng.restores == eng.demotions))
+    del eng
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def lora_handoff_tier_model(torch, dev):
+    """The 7B model and engine geometry of phases 14-16 (phase 6's)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM(LlamaConfig.llama_7b(), device=dev, seed=0)
+    geom = dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
+                prefix_cache=True, weight_dtype="bfloat16", device=dev)
+    return model, geom
+
+
 def parity_cb_2layer(torch, dev):
     """The CB engine on the card (bf16, K=8, kernels; the op chain and the
     "multi" megakernel) against the same weights in the CPU CB engine (f32,
@@ -4010,7 +4569,8 @@ def main():
               ("flash_attention_fwd_dropout", check_flash_dropout),
               ("flash_attention_bwd_dropout", check_flash_bwd_dropout),
               ("flash_attention_fwd_masked", check_flash_masked),
-              ("flash_attention_bwd_masked", check_flash_bwd_masked))
+              ("flash_attention_bwd_masked", check_flash_bwd_masked),
+              ("lora", check_lora))
     all_rows = {}
     for name, check in checks:
         with watchdog(f"kernels {name}", KERNEL_PHASE_S):
@@ -4025,7 +4585,8 @@ def main():
             name != "quantized_matmul" or (r["m"] == 4 and r["n"] == 11008)) and (
             name != "decode_megakernel_topk" or (r["R"] == 8 and r["head_k"] == 8)) and (
             name != "decode_megakernel_tp" or (r["tp"] == 2 and r["R"] == 8
-                                               and r["weights"] == "bf16")))
+                                               and r["weights"] == "bf16")) and (
+            name != "lora" or r["dout"] == 11008))
     main_rows["paged_attention_staged"] = main_rows["paged_attention"]
     main_rows["quantized_matmul_ring"] = next(
         r for r in all_rows["quantized_matmul"] if r.get("build") == "ring" and r["m"] == 4)
@@ -4172,6 +4733,22 @@ def main():
         ok &= r["ok"]
     emit(dict(phase="bert_train_parity", launches=launches,
               elapsed_s=time.perf_counter() - t_start))
+    # 14-16. multi-LoRA adapters, KV-page handoff and KV tiering at 7B;
+    # counts are zeroed just before each run inside the phases and read
+    # just after it
+    model, geom = lora_handoff_tier_model(torch, dev)
+    for phase, fn in (("cb_adapters", cb_adapters), ("cb_handoff", cb_handoff),
+                      ("cb_tiering", cb_tiering)):
+        with watchdog(phase, PATH_PHASE_S):
+            rows, counts = fn(torch, model, geom)
+        add(counts)
+        for r in rows:
+            emit(dict(phase=phase, **r))
+            ok &= r["ok"]
+        emit(dict(phase=phase, elapsed_s=time.perf_counter() - t_start))
+    del model
+    torch.cuda.empty_cache()
+    emit(dict(phase="cb_tiering", launches=launches))
     # the f32 builds' launches: each kernel's less its bf16 ones
     for kind in ("fwd", "bwd"):
         launches[f"flash_attention_{kind}_f32"] = (

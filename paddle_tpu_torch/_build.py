@@ -90,6 +90,12 @@ SIGNATURES = {
     # (spec [n, 3] int64 host, n, element kind, box rows, out host bytes):
     # the megakernel's weight tensor maps
     "ptt_decode_megakernel_maps": [_P, _I, _I, _I, _P],
+    # (x, a stack, aid, scale, xa out, m, t, in, r, dtype, device, stream):
+    # the LoRA shrink, one block per row
+    "ptt_lora_shrink": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (xa, b stack, aid, y or null, out, m, t, r, n, dtype, device, stream):
+    # the LoRA expand, one thread per (row, output column)
+    "ptt_lora_expand": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

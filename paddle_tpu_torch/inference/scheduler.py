@@ -80,9 +80,18 @@ masked KV writes (`.at[slots].set(..., mode="drop")` with out-of-range
 slots); torch has no drop mode, so masked rows are redirected to one
 scratch row past the end of the pool, which no page table can name.
 
-Not ported yet (each raises, naming its ROADMAP item): KV tiering and the
-demote/restore it carries, adapters, the fleet prefix index, and KV and
-request export/import (with the sampling state they carry).
+  - adapters= (inference/adapters.py): a LoRA adapter pool; the delta of
+    each adapter request's rows rides every dispatch that carries one
+    (`ops/lora.py`, the CUDA shrink / expand pair on the card), and an
+    adapter-free dispatch runs the code it ran before.
+  - KV handoff (inference/handoff.py): export_kv_pages / import_kv_pages
+    move a decode-state request's pages to another engine, CRC-stamped;
+    export_request / submit_resume move its spec for a re-prefill.
+  - kv_tier= (inference/tiering.py): demote_request parks a request's
+    pages in host RAM or on disk, restore_request re-seats them; admission
+    may demote under pressure (oversubscribe) or on idle.
+
+Not ported yet (raises, naming its ROADMAP item): the fleet prefix index.
 """
 import collections
 import math
@@ -93,6 +102,7 @@ import numpy as np
 import torch
 
 from ..failsafe import InjectedFault, fault_point
+from .adapters import AdapterError, UnknownAdapterError
 from .serving import EngineFullError, LLMEngine, PageAllocator, _as_numpy, \
     _rms
 from ..ops.pallas.decode_megakernel import (MAX_ROWS, MegakernelPack,
@@ -108,6 +118,8 @@ from .speculative import resolve_drafter
 
 QUEUED, PREFILL, DECODE, DONE, FAILED, CANCELLED = \
     "queued", "prefill", "decode", "done", "failed", "cancelled"
+MIGRATED = "migrated"   # handed off to another engine (KV handoff)
+DEMOTED = "demoted"     # KV pages parked in the tier (tiering)
 
 
 class SchedulerError(RuntimeError):
@@ -181,7 +193,9 @@ class Request:
                  "filled", "tok", "out", "result", "pages_shared",
                  "deadline", "ttl_steps", "born_step", "error", "sampling",
                  "counts", "gstate", "draft_k", "spec_drafted",
-                 "spec_accepted", "tenant", "priority")
+                 "spec_accepted", "tenant", "priority", "resume", "demote",
+                 "seated_step", "idle_steps", "adapter",
+                 "adapter_released")
 
     def __init__(self, uid, ids, max_new_tokens, eos_token_id,
                  deadline=None, ttl_steps=None, born_step=0, sampling=None,
@@ -217,6 +231,16 @@ class Request:
         self.tenant = tenant            # admission-policy tenant name
         self.priority = int(priority)   # higher admits (and preempts)
         #                                 first; strict across tenants
+        self.resume = 0                 # first position prefill processes
+        self.demote = None              # tier-restore record while DEMOTED
+        self.seated_step = born_step    # engine step of the last seat (the
+        #                                 demotion victim's LRU key)
+        self.idle_steps = 0             # consecutive steps this seated
+        #                                 decode request waited without
+        #                                 emitting (demote-on-idle)
+        self.adapter = None             # LoRA adapter name (None = base)
+        self.adapter_released = False   # pool reference dropped (the name
+        #                                 stays for export)
 
 
 class PrefixCache:
@@ -375,7 +399,7 @@ class _FusedBlock:
     __slots__ = ("w", "K", "pf_items", "dec_items", "tables", "eos_dev",
                  "first", "toks", "emitted", "tok_fin", "lens_fin",
                  "act_fin", "rem_fin", "has_prefill", "has_decode", "mode",
-                 "extras", "dlens")
+                 "extras", "dlens", "aid")
 
     def __init__(self, w, K):
         self.w = w
@@ -395,6 +419,8 @@ class _FusedBlock:
         self.dlens = None           # np [K, w] drafts offered per pass
         #                             (speculative blocks; toks / emitted
         #                             are then [K, w, T])
+        self.aid = None             # device [w] int32 adapter slots of an
+        #                             adapter-carrying block (else None)
 
 
 def _not_ported(name, item):
@@ -461,6 +487,13 @@ class ContinuousBatchingEngine(LLMEngine):
         lifecycle transition: per-request traces, latency histograms,
         chrome-trace, Prometheus and JSONL exports. None (default) costs
         one branch per site.
+      kv_tier: "host" / "disk" (or a tiering.KVTierStore) enables KV
+        tiering (demote_request / restore_request); tier_dir and
+        tier_host_cap_mb configure the disk spill; oversubscribe (default
+        on with a tier) lets admission demote to seat the queue head;
+        tier_idle_steps=N demotes a decode request idle for N steps.
+      adapters: {"rank", "max_adapters", "pool_pages", "page_elems"} (True
+        = defaults) builds the LoRA adapter pool (tp_mode="exact" only).
 
     Failure posture: a request that fails at a per-request boundary
     (admission, a prefill chunk, its slice of a decode step or verify
@@ -495,16 +528,61 @@ class ContinuousBatchingEngine(LLMEngine):
             raise ValueError(
                 f"speculate={self._spec} exceeds max_len={max_len}")
         self.spec_adaptive = bool(spec_adaptive)
-        if kv_tier is not None or oversubscribe or \
-                tier_idle_steps is not None or tier_dir is not None or \
-                tier_host_cap_mb is not None:
-            raise _not_ported("KV tiering (kv_tier, tier_dir, "
-                              "tier_host_cap_mb, oversubscribe, "
-                              "tier_idle_steps)", "A7.4, tiering.py")
-        if adapters not in (None, False):
-            raise _not_ported("adapters", "A7.2, adapters.py")
+        # KV tiering (inference/tiering.py): demote_request parks a decode
+        # request's exclusive pages in host RAM (spilling to disk under
+        # tier_dir past tier_host_cap_mb) in the CRC-stamped page-export
+        # format; restore_request / the restore sweep re-seats it with the
+        # same bytes. oversubscribe (default: on with a tier) lets admission
+        # demote the longest-resident request at or below the queue head's
+        # priority when the head cannot fit. tier_idle_steps=N demotes a
+        # seated decode request that waited N steps without emitting, when
+        # queued work cannot seat (a decode_block=1 policy: fused blocks
+        # advance every decode slot every block)
+        from .tiering import resolve_tier
+        self._demoted = collections.OrderedDict()   # uid -> Request
+        self._tier = resolve_tier(kv_tier, tier_dir, tier_host_cap_mb)
+        self.oversubscribe = (self._tier is not None if oversubscribe is None
+                              else bool(oversubscribe))
+        self.tier_idle_steps = (None if tier_idle_steps is None
+                                else int(tier_idle_steps))
+        if self.tier_idle_steps is not None:
+            if self.tier_idle_steps < 1:
+                raise ValueError(
+                    f"tier_idle_steps must be >= 1, got {tier_idle_steps}")
+            if self._tier is None:
+                raise ValueError(
+                    "tier_idle_steps needs a KV tier (kv_tier=) to demote "
+                    "into")
         super().__init__(model, max_len=max_len, page_size=page_size,
                          max_batch=max_batch, **kw)
+        # multi-LoRA adapters (inference/adapters.py): adapters={"rank": R,
+        # "max_adapters": N, "pool_pages": P, "page_elems": E} (True =
+        # defaults) builds the adapter pool beside the KV pool;
+        # add_request(adapter=name) serves a request under its adapter, the
+        # delta applied after q/k/v/gate/up/down in every dispatch that
+        # carries one (an adapter-free dispatch runs the code it ran
+        # before). Adapter requests neither share nor publish prefix-cache
+        # pages (their KV carries the adapter's deltas), and with
+        # megakernel= their dispatches run the op chain (counted in
+        # adapter_mk_fallbacks)
+        self._apool = None
+        self._adapter_registry = {}     # name -> path (lazy hot-load)
+        self.adapter_requests = collections.Counter()   # name -> requests
+        self.adapter_tokens = collections.Counter()     # name -> tokens
+        self.adapter_mk_fallbacks = 0   # adapter dispatches that left the
+        #                                 megakernel for the op chain
+        if adapters is not None and adapters is not False:
+            from .adapters import AdapterPool, engine_target_dims
+            if self.tp > 1 and self.tp_mode != "exact":
+                raise ValueError(
+                    "adapters with tp > 1 require tp_mode='exact': the "
+                    "down-projection delta needs the full activation row, "
+                    "which psum mode never materializes")
+            acfg = {} if adapters is True else dict(adapters)
+            self._apool = AdapterPool(
+                self.cfg.num_hidden_layers, engine_target_dims(self.cfg),
+                rank=acfg.pop("rank", 4), device=self.device, **acfg)
+            self._apool.place(self._tpc)
         # telemetry=: request lifecycle traces and latency histograms fed
         # at host points the engine already visits (no device sync); None
         # keeps one branch per site
@@ -601,6 +679,16 @@ class ContinuousBatchingEngine(LLMEngine):
         self.chained_blocks = 0         # blocks queued before the previous
         #                                 block's read-back
         self.sampled_requests = 0       # admitted with do_sample=True
+        self.handoffs_out = 0           # KV-page exports committed away
+        self.handoffs_in = 0            # KV-page imports seated here
+        self._handoffs_out = {}         # uid -> pending export token
+        self.idle_demotions = 0         # demote-on-idle firings
+        self.demotions = 0
+        self.restores = 0
+        self.restore_failures = 0       # restore-stage retirements
+        self.demote_errors = 0          # failed demote attempts (the victim
+        #                                 kept serving)
+        self.pages_demoted = 0          # device pages parked in the tier
         self.spec_passes = 0            # verify passes that emitted
         self.spec_emitted = 0           # decode tokens emitted by them
         self.spec_drafted_total = 0     # drafts offered
@@ -639,11 +727,15 @@ class ContinuousBatchingEngine(LLMEngine):
           strictly higher priority may preempt a running lower-priority one
           when the engine is full: the victim re-queues with its generated
           tokens folded into its prompt, nothing is lost.
-        adapter: not ported (raises, naming its ROADMAP item).
+        adapter: name of a loaded LoRA adapter (inference/adapters.py) the
+          request decodes under: its delta rides every prefill chunk, decode
+          step and verify pass of the request, and a mixed batch gives each
+          adapter's requests the ids of a dedicated engine. A name not in
+          the pool hot-loads from the registry (register_adapter); an
+          unknown one raises UnknownAdapterError. The adapter is refcounted
+          for the request's life (never LRU-evicted under it).
         Raises EngineBusyError (nothing enqueued) when the admission queue
         is at queue_limit."""
-        if adapter is not None:
-            raise _not_ported("adapters", "A7.2, adapters.py")
         ids = np.asarray(_as_numpy(ids), np.int64).ravel()
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -662,6 +754,8 @@ class ContinuousBatchingEngine(LLMEngine):
                 f"requests at queue_limit={self.queue_limit} "
                 f"({sum(1 for s in self._slots if s)} running); retry "
                 "later or raise queue_limit")
+        if adapter is not None:
+            self._resolve_adapter(adapter)   # raises typed; may hot-load
         sp = (SamplingParams.from_spec(sampling) if sampling is not None
               else self._default_sampling(self._next_uid))
         if sp.do_sample and sp.top_k > self.sample_k:
@@ -696,6 +790,10 @@ class ContinuousBatchingEngine(LLMEngine):
                     tenant=tenant, priority=priority)
         if sp.do_sample:
             self.sampled_requests += 1
+        if adapter is not None:
+            self._apool.acquire(adapter)
+            r.adapter = adapter
+            self.adapter_requests[adapter] += 1
         self._next_uid += 1
         self._requests[r.uid] = r
         self._queue.append(r)
@@ -712,7 +810,7 @@ class ContinuousBatchingEngine(LLMEngine):
         r = self._requests.get(uid)
         if r is None:
             raise UnknownRequestError(f"unknown request uid {uid}")
-        if r.state in (DONE, FAILED, CANCELLED):
+        if r.state in (DONE, FAILED, CANCELLED, MIGRATED):
             return False
         if r.state == QUEUED:
             self._queue.remove(r)
@@ -753,6 +851,8 @@ class ContinuousBatchingEngine(LLMEngine):
         if self.decode_block > 1 or self._spec:
             return self._fused_step()
         self._expire_deadlines()
+        self._restore_sweep()
+        self._idle_demote_sweep()
         self._admit()
         prefills = [r for r in self._slots if r and r.state == PREFILL]
         decodes = [r for r in self._slots if r and r.state == DECODE]
@@ -769,6 +869,12 @@ class ContinuousBatchingEngine(LLMEngine):
                     self._fail_request(r, "prefill", e)
                 self.prefill_steps += 1
                 self._prefer_decode = True
+                for rd in decodes:
+                    # a prefill-priority step is a waited step for every
+                    # seated decode request (the demote-on-idle clock;
+                    # _push_token resets it)
+                    if rd.state == DECODE:
+                        rd.idle_steps += 1
             else:
                 live = []
                 for r in decodes:
@@ -809,6 +915,10 @@ class ContinuousBatchingEngine(LLMEngine):
             raise RequestCancelledError(r.error)
         if r.state == FAILED:
             raise RequestFailedError(r.error)
+        if r.state == MIGRATED:
+            raise RequestNotFinishedError(
+                f"request {uid} migrated to another engine via KV handoff: "
+                "read its result there")
         if r.state != DONE:
             raise RequestNotFinishedError(
                 f"request {uid} is {r.state}, not done")
@@ -829,18 +939,22 @@ class ContinuousBatchingEngine(LLMEngine):
                 if r.error is not None}
 
     def pending(self):
-        """uids still queued or in flight, in submission order."""
+        """uids still queued or in flight (demoted ones included: a parked
+        request restores and finishes), in submission order."""
         return [u for u, r in self._requests.items()
-                if r.state in (QUEUED, PREFILL, DECODE)]
+                if r.state in (QUEUED, PREFILL, DECODE, DEMOTED)]
 
     def __len__(self):
         """Number of requests still queued or in flight."""
         return sum(1 for r in self._requests.values()
-                   if r.state in (QUEUED, PREFILL, DECODE))
+                   if r.state in (QUEUED, PREFILL, DECODE, DEMOTED))
 
     def queue_head_uid(self):
-        """The uid next to be admitted (None with an empty queue)."""
-        return self._pick_next().uid if self._queue else None
+        """The uid next to be admitted, else the demoted request next to
+        restore (None when neither exists)."""
+        if self._queue:
+            return self._pick_next().uid
+        return next(iter(self._demoted)) if self._demoted else None
 
     def headroom(self):
         """O(1) routing snapshot: the subset of health() a router polls
@@ -849,7 +963,9 @@ class ContinuousBatchingEngine(LLMEngine):
                 "running": sum(1 for s in self._slots if s is not None),
                 "slots_total": self.max_batch,
                 "pages_free": self.allocator.available,
-                "pages_total": self.allocator.n_pages}
+                "pages_total": self.allocator.n_pages,
+                "pages_demoted": self.pages_demoted,
+                "demoted": len(self._demoted)}
 
     def health(self):
         """One serving-health snapshot: queue and slot occupancy, page-pool
@@ -902,6 +1018,26 @@ class ContinuousBatchingEngine(LLMEngine):
             "spec_sampled_accept_rate": (
                 self._spec_sampled_accepted / self._spec_sampled_offered
                 if self._spec_sampled_offered else 0.0),
+            # KV-page handoffs through this engine
+            "handoffs_out": self.handoffs_out,
+            "handoffs_in": self.handoffs_in,
+            # KV tiering: demote / restore traffic, the oversubscription
+            # gauge and the tier store's own accounting
+            "kv_tier": self._tier.kind if self._tier is not None else None,
+            "demoted": len(self._demoted),
+            "pages_demoted": self.pages_demoted,
+            "demotions": self.demotions,
+            "restores": self.restores,
+            "restore_failures": self.restore_failures,
+            "demote_errors": self.demote_errors,
+            "tier": self._tier.stats() if self._tier is not None else None,
+            # multi-LoRA adapters: pool occupancy and per-adapter request
+            # and token counters (None without a pool)
+            "adapters": (dict(self._apool.stats(),
+                              mk_fallbacks=self.adapter_mk_fallbacks,
+                              requests=dict(self.adapter_requests),
+                              tokens=dict(self.adapter_tokens))
+                         if self._apool is not None else None),
             # multi-tenant admission: preemptions and per-tenant service
             "preemptions": self.preemptions,
             "tenants": {
@@ -932,18 +1068,734 @@ class ContinuousBatchingEngine(LLMEngine):
         self.drain()
         return [self.result(u) for u in uids]
 
+    # -- request export / resume (replica boundary) ------------------------
     def export_request(self, uid):
-        raise _not_ported("export_request", "A7.6, handoff.py")
+        """Resume spec of one request: everything another engine needs to
+        continue it from its last committed token (the folded prompt, the
+        remaining budget, the admission identity, the adapter name and the
+        sampling state). Only live requests and engine-stage failures are
+        meant to be resumed; `state` rides along so callers can tell."""
+        r = self._requests.get(uid)
+        if r is None:
+            raise UnknownRequestError(f"unknown request uid {uid}")
+        prompt = (np.concatenate([r.ids, np.asarray(r.out, np.int64)])
+                  if r.out else r.ids.copy())
+        ttl = r.ttl_steps
+        if ttl is not None:
+            ttl = max(0, ttl - (self.steps - r.born_step))
+        return {
+            "uid": uid,
+            "state": r.state,
+            "prompt": prompt,
+            "generated": len(r.out),
+            "max_new_tokens": r.max_new_tokens - len(r.out),
+            "eos_token_id": r.eos_token_id,
+            "tenant": r.tenant,
+            "priority": r.priority,
+            "ttl_steps": ttl,
+            "deadline": r.deadline,        # absolute monotonic cutoff
+            "adapter": r.adapter,          # resolved in the importer's pool
+            # the key counters are implicit (keys fold from absolute
+            # positions, which the folded prompt keeps); counts / gstate
+            # ride explicitly
+            "sampling": (None if r.sampling is GREEDY
+                         else r.sampling.to_spec()),
+            "counts": dict(r.counts),
+            "gstate": r.gstate,
+        }
 
-    def export_kv_pages(self, uid):
-        raise _not_ported("export_kv_pages", "A7.6, handoff.py")
+    def export_inflight(self):
+        """Resume specs of every request still queued, in flight or demoted
+        (submission order): what a router salvages from a dead replica."""
+        return [self.export_request(u) for u, r in self._requests.items()
+                if r.state in (QUEUED, PREFILL, DECODE, DEMOTED)]
+
+    def submit_resume(self, spec):
+        """Admit an export_request spec into this engine: the folded prompt
+        re-prefills and the continuation proceeds under the remaining
+        budget (greedy ids equal the uninterrupted run's). Returns this
+        engine's uid for it."""
+        deadline_ms = None
+        if spec.get("deadline") is not None:
+            # absolute -> relative; an expired one is shed by the next sweep
+            deadline_ms = max(0.0,
+                              (spec["deadline"] - time.monotonic()) * 1e3)
+        uid = self.add_request(
+            spec["prompt"], max_new_tokens=spec["max_new_tokens"],
+            eos_token_id=spec["eos_token_id"], deadline_ms=deadline_ms,
+            ttl_steps=spec["ttl_steps"], tenant=spec["tenant"],
+            priority=spec["priority"], adapter=spec.get("adapter"),
+            sampling=spec.get("sampling"))
+        if spec.get("counts") or spec.get("gstate"):
+            r = self._requests[uid]
+            r.counts = {int(t): int(c)
+                        for t, c in (spec.get("counts") or {}).items()}
+            r.gstate = int(spec.get("gstate") or 0)
+        gen = int(spec.get("generated") or 0)
+        if gen and self._tel is not None:
+            # the first token this engine emits is not the request's TTFT
+            self._tel.req_event(self._tel_src, uid, "resume", committed=gen)
+        return uid
+
+    # -- KV-page handoff (inference/handoff.py) ------------------------------
+    def _kv_geometry(self):
+        """The cache geometry every page-image payload carries and every
+        import verifies (the reference's keys; kv_dtype by its numpy name:
+        a bf16 page travels as the uint16 view of its bytes)."""
+        return {"page_size": self.page_size, "nh_kv": self.nh_kv,
+                "hd": self.hd, "layers": self.cfg.num_hidden_layers,
+                "kv_dtype": str(self.kv_dtype).replace("torch.", "")}
+
+    def _page_image(self, pools, li, pages):
+        """Layer li's full [n, page, nh_kv, hd] image of `pages` on the
+        engine's device: the shards' kv heads joined back in shard order
+        (one shard: its pool rows)."""
+        from .handoff import DeviceTransport
+        parts = [DeviceTransport.gather(pools[s][li], idx) for s, idx in
+                 enumerate(self._rep(self._to_dev(np.asarray(pages,
+                                                             np.int64))))]
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device) for p in parts], dim=2)
+
+    def _package_pages(self, token, spec, lens, pages, device=False):
+        """CRC-stamped page-image payload shared by the handoff and the tier
+        demotion: per-layer K / V blobs of `pages`, the cache geometry and
+        the checksums. device=True keeps the blobs as CUDA tensors (the
+        device transport: no host copy, no page CRC walk; the metadata CRC
+        still stamps); otherwise they are host numpy arrays, bf16 pages as
+        uint16 views of their bytes."""
+        from .handoff import checksum_payload, to_host
+        k_blobs, v_blobs = [], []
+        for li in range(self.cfg.num_hidden_layers):
+            k = self._page_image(self._kp, li, pages)
+            v = self._page_image(self._vp, li, pages)
+            k_blobs.append(k if device else to_host(k))
+            v_blobs.append(v if device else to_host(v))
+        payload = {"token": token, "spec": spec, "lens": lens,
+                   "geometry": self._kv_geometry(), "k": k_blobs,
+                   "v": v_blobs}
+        if device:
+            payload["transport"] = "device"
+        return checksum_payload(payload)
+
+    def _write_pages(self, payload, pages):
+        """Write a payload's K / V blobs into `pages` of every shard's
+        pools (each shard its kv heads), in place: the megakernel's pointer
+        tables stay valid."""
+        from .handoff import DeviceTransport, from_host
+        h = self.nh_kv_l
+        idx = self._rep(self._to_dev(np.asarray(pages, np.int64)))
+        for li in range(self.cfg.num_hidden_layers):
+            for name, pools in (("k", self._kp), ("v", self._vp)):
+                blob = payload[name][li]
+                blob = (blob if torch.is_tensor(blob)
+                        else from_host(blob, self.kv_dtype))
+                for s, dev in enumerate(self.devices):
+                    part = blob if self.tp == 1 else blob[:, :, s * h:(s + 1) * h]
+                    pools[s][li].index_copy_(
+                        0, idx[s], DeviceTransport.place(
+                            part.to(self.kv_dtype), dev).contiguous())
+
+    def _sync_pending(self):
+        """Apply a chained block still in flight, so host state (lens,
+        generated tokens) is current before an export or demotion reads it
+        (the block may retire the request)."""
+        while self._pending is not None:
+            blk = self._pending
+            self._pending = None
+            self._process_block(blk)
+
+    def export_kv_pages(self, uid, device=False, transport=None):
+        """Package a decode-state request for migration to another engine
+        with zero recompute: its resume spec, cache length and the raw K / V
+        bytes of every page holding committed context, CRC-stamped. The
+        source keeps serving it until release_handoff(); abort_handoff()
+        cancels. Other states raise ValueError (use export_request).
+        `kv.export` is the fault point, and `transport.device` too with
+        device=True (the device transport: blobs stay CUDA tensors).
+        transport= labels a host-format payload with the transport that
+        carries it (e.g. "store"), for the payload and both telemetry legs.
+        """
+        r = self._requests.get(uid)
+        if r is None:
+            raise UnknownRequestError(f"unknown request uid {uid}")
+        self._sync_pending()
+        if r.state != DECODE or r.slot is None:
+            raise ValueError(
+                f"export_kv_pages: request {uid} is {r.state!r} — only a "
+                "decode-state request carries a complete KV image (use "
+                "export_request for the spec-requeue path)")
+        fault_point("kv.export", detail=f"uid={uid}")
+        if device:
+            fault_point("transport.device", detail=f"uid={uid}")
+        lens = int(self._lens_np[r.slot])
+        n_used = -(-lens // self.page_size)
+        used = [int(pg) for pg in r.pages[:n_used]]
+        token = self.allocator.export_begin(used)
+        spec = self.export_request(uid)
+        # absolute monotonic deadlines do not survive a host boundary: ship
+        # the remaining budget, the importer rebases it on its own clock
+        if spec.get("deadline") is not None:
+            spec["deadline_remaining_ms"] = max(
+                0.0, (spec["deadline"] - time.monotonic()) * 1e3)
+            spec["deadline"] = None
+        self._handoffs_out[uid] = token
+        label = transport or ("device" if device else "host")
+        if self._tel is not None:
+            self._tel.req_event(self._tel_src, uid, "kv_export",
+                                pages=len(used), transport=label)
+        try:
+            payload = self._package_pages(token, spec, lens, used,
+                                          device=device)
+        except Exception:
+            self.abort_handoff(uid)
+            raise
+        if not device:
+            payload["transport"] = label
+        return payload
+
+    def abort_handoff(self, uid):
+        """Cancel a pending export: the request keeps serving here."""
+        token = self._handoffs_out.pop(uid, None)
+        if token is not None:
+            self.allocator.export_abort(token)
+
+    def release_handoff(self, uid):
+        """Source-side commit of a completed handoff: the exported pages'
+        references drop through the allocator ticket, the rest (unused
+        budget tail, CoW reserve) through the slot release; the request
+        retires MIGRATED (read its result from the importer)."""
+        r = self._requests.get(uid)
+        if r is None:
+            raise UnknownRequestError(f"unknown request uid {uid}")
+        token = self._handoffs_out.pop(uid, None)
+        if token is None:
+            raise ValueError(
+                f"release_handoff: no pending export for request {uid}")
+        if r.state != DECODE:
+            # retired since the export: its pages are already released
+            self.allocator.export_abort(token)
+            raise ValueError(
+                f"release_handoff: request {uid} is {r.state!r} (it retired "
+                "after the export) — handoff aborted, read the result from "
+                "this engine")
+        used = set(self.allocator.export_pages(token))
+        self.allocator.export_commit(token)
+        r.pages = [pg for pg in r.pages if pg not in used]
+        r.state = MIGRATED
+        self._release_slot(r)
+        self._release_adapter(r)
+        self.handoffs_out += 1
+        if self._tel is not None:
+            self._tel.req_event(self._tel_src, uid, "migrated")
+            self._tel.req_done(self._tel_src, uid, MIGRATED,
+                               n_tokens=len(r.out))
 
     def import_kv_pages(self, payload):
-        raise _not_ported("import_kv_pages", "A7.6, handoff.py")
+        """Admit an export_kv_pages payload: geometry and CRC verify, claim
+        pages under the transfer token (a token already imported here
+        raises), write the K / V bytes into the pools, and seat the request
+        in DECODE state; greedy continuation equals the uninterrupted
+        single-engine run. EngineBusyError (no free slot) and
+        EngineFullError (pages) are checked before the CRC walk and claim
+        nothing; KVHandoffError on integrity failures; any failure after
+        the claim rolls the import back (token not burned). `kv.import` is
+        the fault point."""
+        from .handoff import KVHandoffError, verify_payload
+        fault_point("kv.import", detail=f"token={payload.get('token')}")
+        g = payload["geometry"]
+        mine = self._kv_geometry()
+        if {k: g.get(k) for k in mine} != mine:
+            raise KVHandoffError(
+                f"handoff geometry mismatch: payload {g} vs engine {mine} "
+                "(disaggregated pools must share model + cache geometry)")
+        spec = payload["spec"]
+        remaining = int(spec["max_new_tokens"])
+        if remaining <= 0:
+            raise ValueError(
+                "import_kv_pages: spent generation budget (the source should "
+                "deliver the finished result, not migrate it)")
+        gen = int(spec["generated"])
+        prompt = np.asarray(spec["prompt"], np.int64).ravel()
+        ids = prompt[:prompt.size - gen]
+        out = [int(t) for t in prompt[prompt.size - gen:]]
+        if not out:
+            raise ValueError(
+                "import_kv_pages: no committed first token — migrate at "
+                "first-token or later (that is the handoff point)")
+        t0 = int(ids.size)
+        mnt_total = remaining + gen
+        if t0 + mnt_total > self.max_len:
+            raise ValueError(
+                f"prompt {t0} + total budget {mnt_total} exceeds "
+                f"max_len={self.max_len}")
+        ad_name = spec.get("adapter")
+        if ad_name is not None:
+            # before the CRC walk and the claim: a cheap typed refusal
+            self._resolve_adapter(ad_name)
+        sp_spec = spec.get("sampling")
+        sp = (SamplingParams.from_spec(sp_spec) if sp_spec is not None
+              else GREEDY)
+        if sp.do_sample and sp.top_k > self.sample_k:
+            raise ValueError(
+                f"import_kv_pages: top_k={sp.top_k} exceeds this engine's "
+                f"sample_k={self.sample_k} candidate fold")
+        if self._spec and sp.needs_processors:
+            raise ValueError(
+                "import_kv_pages: logit processors cannot ride speculative "
+                "decoding (engine has speculate= on)")
+        if sp.grammar is not None and \
+                sp.grammar.vocab != self.cfg.vocab_size:
+            raise ValueError(
+                f"import_kv_pages: grammar vocab {sp.grammar.vocab} != "
+                f"model vocab {self.cfg.vocab_size}")
+        lens = int(payload["lens"])
+        n_used = -(-lens // self.page_size)
+        slot = next((i for i, s in enumerate(self._slots) if s is None),
+                    None)
+        need = self._pages_needed(t0, mnt_total)
+        if slot is None:
+            raise EngineBusyError(
+                f"import_kv_pages: no free slot ({self.max_batch} running); "
+                "retry after a retirement")
+        if need > self.allocator.available:
+            raise EngineFullError(
+                f"import_kv_pages: needs {need} KV pages but only "
+                f"{self.allocator.available} of {self.allocator.n_pages} "
+                "are free; retry after a retirement")
+        verify_payload(payload)
+        pages = self.allocator.import_begin(payload["token"], need)
+        r = None
+        try:
+            self._write_pages(payload, pages[:n_used])
+            deadline = spec.get("deadline")     # same-host payloads
+            if spec.get("deadline_remaining_ms") is not None:
+                deadline = (time.monotonic()
+                            + spec["deadline_remaining_ms"] / 1e3)
+            r = Request(self._next_uid, ids, mnt_total, spec["eos_token_id"],
+                        deadline=deadline, ttl_steps=spec.get("ttl_steps"),
+                        born_step=self.steps, sampling=sp,
+                        draft_k=max(1, self._spec - 1) if self._spec else 0,
+                        tenant=spec.get("tenant") or "default",
+                        priority=int(spec.get("priority") or 0))
+            r.out = out
+            r.tok = out[-1]
+            r.pages = pages
+            r.slot = slot
+            r.filled = r.resume = t0
+            r.state = DECODE
+            if sp.do_sample:
+                self.sampled_requests += 1
+            if sp.needs_processors:
+                cts = spec.get("counts")
+                if cts:
+                    r.counts = {int(t): int(c) for t, c in cts.items()}
+                else:
+                    for t in out:
+                        r.counts[t] = r.counts.get(t, 0) + 1
+                if sp.grammar is not None:
+                    gs = spec.get("gstate")
+                    if gs is None:
+                        gs = 0
+                        for t in out:
+                            gs = int(sp.grammar.advance(gs, t))
+                    r.gstate = int(gs)
+            self._next_uid += 1
+            self._requests[r.uid] = r
+            self._slots[slot] = r
+            self._tables_np[slot] = 0
+            self._tables_np[slot, :len(pages)] = pages
+            self._lens_np[slot] = lens
+            if ad_name is not None:
+                r.adapter = ad_name
+                self._apool.acquire(ad_name)
+                self.adapter_requests[ad_name] += 1
+            self._publish_prefix(r)
+            self.allocator.import_commit(payload["token"])
+        except Exception:
+            if r is not None:
+                self._release_adapter(r)
+                if self._requests.get(r.uid) is r:
+                    del self._requests[r.uid]
+                if self._slots[slot] is r:
+                    self._slots[slot] = None
+            self.allocator.import_abort(payload["token"])
+            raise
+        self.admissions += 1
+        self.handoffs_in += 1
+        if self._tel is not None:
+            self._tel.req_start(self._tel_src, r.uid, prompt_len=t0,
+                                max_new=remaining)
+            self._tel.req_event(self._tel_src, r.uid, "import_seat",
+                                slot=slot, lens=lens, committed_tokens=gen,
+                                transport=payload.get("transport", "host"))
+        if self._slot_used[slot]:
+            self.slot_reuses += 1
+        self._slot_used[slot] = True
+        return r.uid
+
+    # -- KV tiering (HBM -> host RAM -> disk; inference/tiering.py) ----------
+    def demote_request(self, uid):
+        """Move a decode-state request's exclusive device pages into the KV
+        tier (`kv_tier=`) in the CRC-stamped handoff format and free them;
+        pages shared with the prefix cache stay resident (the request keeps
+        its references). The slot frees and the request parks DEMOTED until
+        restore_request / the restore sweep re-seats it. `kv.demote` is the
+        fault point (before the ticket opens: a failed demote leaves the
+        request serving). Returns the tier token."""
+        r = self._requests.get(uid)
+        if r is None:
+            raise UnknownRequestError(f"unknown request uid {uid}")
+        if self._tier is None:
+            raise ValueError(
+                "demote_request: no KV tier configured (kv_tier=)")
+        self._sync_pending()
+        if r.state != DECODE or r.slot is None:
+            raise ValueError(
+                f"demote_request: request {uid} is {r.state!r} — only a "
+                "decode-state request carries a complete KV image")
+        if uid in self._handoffs_out:
+            raise ValueError(
+                f"demote_request: request {uid} has a pending KV-page "
+                "handoff export (settle it first)")
+        fault_point("kv.demote", detail=f"uid={uid}")
+        lens = int(self._lens_np[r.slot])
+        n_used = -(-lens // self.page_size)
+        # kept resident: prefix-cache-shared pages and the request's own
+        # published prompt pages (the cache pins both in device memory)
+        kept = {}
+        for i in range(n_used):
+            pg = r.pages[i]
+            if i in r.shared_idx or (self._prefix is not None
+                                     and pg in self._prefix._by_page):
+                kept[i] = pg
+        excl_idx = [i for i in range(n_used) if i not in kept]
+        excl_pages = [r.pages[i] for i in excl_idx]
+        token = self.allocator.export_begin(excl_pages)
+        try:
+            self._tier.put(token, self._package_pages(
+                token, self.export_request(uid), lens, excl_pages))
+        except Exception:
+            self.allocator.export_abort(token)
+            raise
+        n_total = len(r.pages)
+        tail = r.pages[n_used:]
+        self.allocator.export_commit(token)      # drops the exported refs
+        if tail:
+            self.allocator.free(tail)
+        if r.cow_reserve is not None:
+            self.allocator.free([r.cow_reserve])
+            r.cow_reserve = None
+        self._slots[r.slot] = None
+        r.slot = None
+        r.demote = {"token": token, "lens": lens, "n_pages": n_total,
+                    "excl_idx": excl_idx, "shared": kept,
+                    "shared_idx": sorted(r.shared_idx)}
+        r.pages = [kept[i] for i in sorted(kept)]
+        r.shared_idx = set()
+        r.state = DEMOTED
+        self._demoted[uid] = r
+        self.demotions += 1
+        self.pages_demoted += n_total - len(kept)
+        if self._tel is not None:
+            self._tel.req_event(self._tel_src, uid, "demote",
+                                pages=n_total - len(kept))
+        return token
+
+    def restore_request(self, uid):
+        """Re-seat a DEMOTED request: claim fresh pages under the tier token
+        (burned on commit), write the tier bytes back, re-link the kept
+        shared pages and continue in DECODE state; greedy ids equal a
+        never-demoted run's. EngineBusyError / EngineFullError are plain
+        backpressure (nothing claimed). A corrupt tier entry or an injected
+        `kv.restore` fault retires this request alone (stage "restore") and
+        returns False."""
+        r = self._requests.get(uid)
+        if r is None:
+            raise UnknownRequestError(f"unknown request uid {uid}")
+        if r.state != DEMOTED or r.demote is None:
+            raise ValueError(
+                f"restore_request: request {uid} is {r.state!r}, not "
+                "demoted")
+        d = r.demote
+        slot = next((i for i, s in enumerate(self._slots) if s is None),
+                    None)
+        if slot is None:
+            raise EngineBusyError(
+                f"restore_request: no free slot ({self.max_batch} running); "
+                "retry after a retirement")
+        shared = d["shared"]
+        n_fresh = d["n_pages"] - len(shared)
+        if n_fresh > self.allocator.available and self._prefix:
+            self._prefix.evict(n_fresh - self.allocator.available,
+                               self.allocator, protect=set(shared.values()))
+        if n_fresh > self.allocator.available:
+            raise EngineFullError(
+                f"restore_request: needs {n_fresh} KV pages but only "
+                f"{self.allocator.available} of {self.allocator.n_pages} "
+                "are free; retry after a retirement")
+        try:
+            fault_point("kv.restore", detail=f"uid={uid}")
+            payload = self._tier.get(d["token"])
+        except Exception as e:
+            self.restore_failures += 1
+            self._fail_request(r, "restore", e)
+            return False
+        pages = self.allocator.import_begin(d["token"], n_fresh)
+        try:
+            excl_idx = d["excl_idx"]
+            if excl_idx:
+                self._write_pages(payload, pages[:len(excl_idx)])
+            table = [None] * d["n_pages"]
+            for i, pg in shared.items():
+                table[i] = pg
+            fi = 0
+            for i in excl_idx:
+                table[i] = pages[fi]
+                fi += 1
+            for i in range(d["n_pages"]):
+                if table[i] is None:
+                    table[i] = pages[fi]
+                    fi += 1
+            r.pages = table
+            r.shared_idx = set(d["shared_idx"])
+            r.slot = slot
+            r.state = DECODE
+            r.seated_step = self.steps
+            r.idle_steps = 0
+            self._slots[slot] = r
+            self._tables_np[slot] = 0
+            self._tables_np[slot, :len(table)] = table
+            self._lens_np[slot] = d["lens"]
+            self.allocator.import_commit(d["token"])
+        except Exception:
+            if self._slots[slot] is r:
+                self._slots[slot] = None
+            r.slot = None
+            r.state = DEMOTED
+            r.pages = [shared[i] for i in sorted(shared)]
+            r.shared_idx = set()
+            self.allocator.import_abort(d["token"])
+            raise
+        self._tier.delete(d["token"])
+        self._demoted.pop(uid, None)
+        self.pages_demoted -= n_fresh
+        r.demote = None
+        self.restores += 1
+        if self._tel is not None:
+            self._tel.req_event(self._tel_src, uid, "restore", pages=n_fresh)
+        return True
+
+    def _drop_demoted(self, r):
+        """Forget a retiring DEMOTED request's tier entry and bookkeeping;
+        its kept shared-page references free through the release path."""
+        d = r.demote
+        if d is None:
+            return
+        try:
+            self._tier.delete(d["token"])
+        except Exception:
+            pass
+        self._demoted.pop(r.uid, None)
+        self.pages_demoted -= d["n_pages"] - len(d["shared"])
+        r.demote = None
+
+    def _restore_sweep(self):
+        """Re-seat demoted requests (oldest first) while slots are free;
+        they outrank fresh admissions, but under queue pressure only one
+        restores per step. Returns True when any restore ran."""
+        did = False
+        while self._demoted:
+            if not any(s is None for s in self._slots):
+                break
+            uid = next(iter(self._demoted))
+            try:
+                self.restore_request(uid)
+            except (EngineBusyError, EngineFullError):
+                break               # capacity backpressure: next step
+            did = True
+            if self._queue:
+                break               # one per step under queue pressure
+        return did
+
+    def _idle_demote_sweep(self):
+        """Demote-on-idle (tier_idle_steps=N): park one seated decode
+        request that waited N consecutive steps without emitting, when the
+        queue head cannot seat (priced as _admit prices it). A failed
+        demote leaves the victim serving and counts demote_errors."""
+        if self._tier is None or not self.tier_idle_steps or \
+                not self._queue:
+            return
+        head = self._pick_next()
+        if any(s is None for s in self._slots):
+            if self._pages_needed(head.t0, head.max_new_tokens) \
+                    <= self.allocator.available:
+                return
+            _, _, _, _, fresh = self._price_admission(head)
+            if fresh <= self.allocator.available:
+                return
+        victims = [r for r in self._slots
+                   if r is not None and r.state == DECODE
+                   and r.idle_steps >= self.tier_idle_steps
+                   and r.uid not in self._handoffs_out]
+        if not victims:
+            return
+        victim = max(victims, key=lambda r: r.idle_steps)
+        try:
+            self.demote_request(victim.uid)
+            self.idle_demotions += 1
+        except Exception:
+            self.demote_errors += 1
+
+    def _demote_for(self, cand):
+        """Oversubscription: demote the longest-resident running request at
+        or below the candidate's priority so it can seat (its pages move to
+        the tier instead of being recomputed). One victim per attempt;
+        requests with a pending handoff export are never victims."""
+        if self._tier is None or not self.oversubscribe:
+            return False
+        victims = [s for s in self._slots
+                   if s is not None and s.state == DECODE
+                   and s.priority <= cand.priority
+                   and s.uid not in self._handoffs_out]
+        if not victims:
+            return False
+        victim = min(victims,
+                     key=lambda s: (s.priority, s.seated_step, s.uid))
+        try:
+            self.demote_request(victim.uid)
+            return True
+        except Exception:
+            self.demote_errors += 1
+            return False
 
     def attach_prefix_index(self, index, replica):
         raise _not_ported("the fleet prefix index",
                           "A7.5, prefix_index.py")
+
+    # -- multi-LoRA adapters (inference/adapters.py) -------------------------
+    def _need_pool(self, what):
+        if self._apool is None:
+            raise AdapterError(
+                f"{what} needs an engine built with an adapter pool "
+                "(adapters=)")
+
+    def register_adapter(self, name, path):
+        """Registry write without loading: the adapter hot-loads from
+        `path` on the first add_request(adapter=name)."""
+        self._need_pool("register_adapter")
+        self._adapter_registry[name] = str(path)
+        return name
+
+    def load_adapter(self, name, source):
+        """Hot-load a LoRA adapter into the pool under `name` (source: a
+        directory written by save_adapter, or an adapter dict). The
+        `adapter.load` fault point fires before the install: a failed or
+        corrupt load raises typed, leaves the pool untouched (counted in
+        load_errors) and the engine serves on. Returns the pool slot."""
+        from .adapters import load_adapter_file
+        self._need_pool("load_adapter")
+        t0 = time.monotonic()
+        try:
+            fault_point("adapter.load", detail=f"name={name}")
+            if isinstance(source, dict):
+                ad = source
+            else:
+                ad = load_adapter_file(source,
+                                       expect_dims=self._apool.dims,
+                                       expect_layers=self._apool.n_layers)
+            slot = self._apool.install(name, ad)
+        except Exception:
+            self._apool.load_errors += 1
+            raise
+        if not isinstance(source, dict):
+            self._adapter_registry[name] = str(source)
+        dt_ms = (time.monotonic() - t0) * 1e3
+        self._apool.last_load_ms = dt_ms
+        if self._tel is not None:
+            self._tel.observe("adapter_load_ms", dt_ms)
+            self._tel.registry.count("adapter_loads")
+        return slot
+
+    def evict_adapter(self, name):
+        """Explicit pool eviction (refused typed while live requests hold
+        the adapter); the registry entry goes with it."""
+        self._need_pool("evict_adapter")
+        slot = self._apool.evict(name)
+        self._adapter_registry.pop(name, None)
+        if self._tel is not None:
+            self._tel.registry.count("adapter_evict")
+        return slot
+
+    def pin_adapter(self, name, pinned=True):
+        """Pin (or unpin) a loaded adapter against LRU eviction."""
+        self._need_pool("pin_adapter")
+        if pinned:
+            self._apool.pin(name)
+        else:
+            self._apool.unpin(name)
+        return pinned
+
+    def _resolve_adapter(self, name):
+        """Pool slot of `name`, hot-loading from the registry when it is
+        not resident; UnknownAdapterError otherwise."""
+        self._need_pool("add_request(adapter=...)")
+        if not self._apool.has(name):
+            path = self._adapter_registry.get(name)
+            if path is None:
+                raise UnknownAdapterError(
+                    f"adapter {name!r} is neither loaded nor registered "
+                    f"(loaded: {sorted(self._apool.names())}, registered: "
+                    f"{sorted(self._adapter_registry)})")
+            self.load_adapter(name, path)
+        return self._apool.slot(name)
+
+    def _release_adapter(self, r):
+        """Drop a retiring request's pool reference once; the name stays on
+        the request (export_request after a failure must resume it under
+        its adapter)."""
+        if r.adapter is not None and self._apool is not None \
+                and not r.adapter_released:
+            self._apool.release(r.adapter)
+            r.adapter_released = True
+
+    def _ad_sel(self, AD, aid, li):
+        """The per-layer LoRA selection tuple `lora_apply` takes: layer
+        li's factor stacks of one shard's pool AD, the rows' pool-slot ids,
+        their alpha / r scales and the aid > 0 gate."""
+        return (AD["a"][li], AD["b"][li], aid, AD["scale"][aid.long()],
+                aid > 0)
+
+    def _ad_shards(self, ad):
+        """Per shard (pool, aid, scale, gate) of a dispatch's adapter ids
+        [w] (None for an adapter-free dispatch), built once per dispatch."""
+        if ad is None:
+            return None
+        return [(AD,) + self._ad_sel(AD, a, 0)[2:]
+                for AD, a in zip(self._apool.shards, self._rep(ad))]
+
+    @staticmethod
+    def _layer_sels(ads, li):
+        """The shards' selection tuples of layer li (None without
+        adapters)."""
+        if ads is None:
+            return None
+        return [(AD["a"][li], AD["b"][li], a, sc, g) for AD, a, sc, g in ads]
+
+    def _slot_aid(self, requests, w):
+        """Per-slot adapter pool-slot ids (int32 [w], 0 = base weights) of a
+        dispatch over `requests`; None when none carries an adapter (the
+        dispatch then runs the adapter-free code)."""
+        if self._apool is None:
+            return None
+        aid = np.zeros(w, np.int32)
+        any_ad = False
+        for r in requests:
+            if r.adapter is not None and r.slot is not None and r.slot < w:
+                aid[r.slot] = self._apool.slot(r.adapter)
+                any_ad = True
+        return aid if any_ad else None
 
     def attach_telemetry(self, tel, src=None):
         """Wire this engine into a Telemetry object under source name `src`
@@ -1024,7 +1876,7 @@ class ContinuousBatchingEngine(LLMEngine):
             r.max_new_tokens -= len(r.out)
             r.out = []
         r.tok = None
-        r.filled = 0
+        r.filled = r.resume = 0
         r.state = QUEUED
         self._queue.append(r)
         self.preemptions += 1
@@ -1048,8 +1900,11 @@ class ContinuousBatchingEngine(LLMEngine):
         """(shared, resume, need, cow, fresh): the cached chain, the first
         position prefill must process, the raw page need, whether a CoW
         reserve is needed (the divergence point falls inside a shared
-        page), and the pages a seat actually claims."""
-        shared, covered = ([], 0) if self._prefix is None else \
+        page), and the pages a seat actually claims. Adapter requests never
+        share prefix-cache pages: the cache is addressed by tokens alone,
+        and their KV carries the adapter's k / v deltas."""
+        shared, covered = ([], 0) \
+            if self._prefix is None or r.adapter is not None else \
             self._prefix.match(r.ids)
         resume = min(covered, r.t0 - 1)
         need = self._pages_needed(r.t0, r.max_new_tokens)
@@ -1067,6 +1922,8 @@ class ContinuousBatchingEngine(LLMEngine):
                 if victim is not None:
                     self._preempt(victim)
                     continue           # re-evaluate with the freed slot
+                if self._demote_for(r):
+                    continue           # oversubscription freed a slot
                 return
             shared, resume, need, cow, fresh = self._price_admission(r)
             n_shared = len(shared)
@@ -1091,6 +1948,8 @@ class ContinuousBatchingEngine(LLMEngine):
                 if victim is not None:
                     self._preempt(victim)
                     continue
+                if self._demote_for(r):
+                    continue        # oversubscription freed pages
                 return              # wait for retirements (policy order)
             self._queue.remove(r)
             # claim pages under a guard: an allocation failure (an injected
@@ -1118,8 +1977,9 @@ class ContinuousBatchingEngine(LLMEngine):
             r.shared_idx = set(range(n_shared))
             r.pages_shared = n_shared
             r.slot = slot
-            r.filled = resume
+            r.resume = r.filled = resume
             r.state = PREFILL
+            r.seated_step = self.steps
             self._slots[slot] = r
             self._tables_np[slot] = 0
             self._tables_np[slot, :len(pages)] = pages
@@ -1147,8 +2007,27 @@ class ContinuousBatchingEngine(LLMEngine):
         A rebuild invalidates every in-flight sequence's KV and the prefix
         cache (the fresh allocator re-issues cached page ids)."""
         tel = getattr(self, "_tel", None)
+        for uid, r in list(getattr(self, "_demoted", {}).items()):
+            # the rebuild killed the kept shared pages too: the tier bytes
+            # alone cannot re-seat, so the request fails like an in-flight
+            # one
+            self._drop_demoted(r)
+            self._release_adapter(r)
+            r.pages = []
+            r.shared_idx = set()
+            r.state = FAILED
+            if r.error is None:
+                r.error = RequestFailure(
+                    r.uid, "engine",
+                    SchedulerError("KV pools rebuilt mid-flight"),
+                    getattr(self, "steps", 0), tokens_generated=len(r.out))
+            self.failure_count += 1
+            if tel is not None:
+                tel.req_done(self._tel_src, r.uid, FAILED,
+                             n_tokens=len(r.out), stage="engine")
         for i, r in enumerate(getattr(self, "_slots", [])):
             if r is not None:
+                self._release_adapter(r)
                 r.state = FAILED
                 if r.error is None:
                     r.error = RequestFailure(
@@ -1430,7 +2309,7 @@ class ContinuousBatchingEngine(LLMEngine):
         its max_batch x T rows in pieces of R (`_mm`)."""
         return 4 * self.max_batch if self._at_full_width() else None
 
-    def _decode_math(self, tok, tables, lens, active, topk=None):
+    def _decode_math(self, tok, tables, lens, active, topk=None, ad=None):
         """One decode step at slot width w = tok.shape[0]: tok [w] is the
         token at position lens [w]; inactive slots write nothing and
         attend nothing (the paged kernel's active mask). Returns (logits
@@ -1450,14 +2329,17 @@ class ContinuousBatchingEngine(LLMEngine):
         differently when the schedule or speculate= changes. A fused
         block's prefill pads to max_batch x chunk rows. The megakernel
         sums each row in an order that does not depend on its row
-        count."""
-        if self.megakernel:
+        count. ad: the slots' adapter ids [w] int32 of an adapter-carrying
+        step (None = no adapter); such a step runs the op chain whatever
+        megakernel= says, the LoRA delta on every target."""
+        if self.megakernel and ad is None:
             return self._decode_math_mk(tok, tables, lens, active, topk)
         w = tok.shape[0]
         R = self._product_rows()
         if R is not None and w < R:
             out = self._decode_math(
-                *_pad_slots(R - w, tok, tables, lens, active), topk)
+                *_pad_slots(R - w, tok, tables, lens, active), topk,
+                None if ad is None else _pad_slots(R - w, ad)[0])
             return tuple(x[:w] for x in out)
         p = self.page_size
         hs = self._embed(tok[:, None])
@@ -1468,16 +2350,19 @@ class ContinuousBatchingEngine(LLMEngine):
         act = active.to(torch.int32)
         pos, slots, tables, ctx, act = (self._rep(x) for x in (
             pos, slots, tables, ctx, act))
+        ads = self._ad_shards(ad)
         for li in range(self.cfg.num_hidden_layers):
             attns = []
+            sels = self._layer_sels(ads, li)
             for s, W in enumerate(self._W):
                 q, k, v = self._layer_qkv(W, W["layers"][li], hs[s],
-                                          pos[s][:, None], R)
+                                          pos[s][:, None], R,
+                                          None if sels is None else sels[s])
                 self._write_kv(s, li, slots[s], k[:, 0], v[:, 0])
                 attns.append(paged_attention(
                     q[:, 0], self._kp[s][li], self._vp[s][li], tables[s],
                     ctx[s], active=act[s])[:, None])
-            hs = self._layer_tail(li, hs, attns, R)
+            hs = self._layer_tail(li, hs, attns, R, sels)
         return self._select_head(
             [x[:, 0] for x in self._head_logits(hs, R)], topk)
 
@@ -1652,7 +2537,7 @@ class ContinuousBatchingEngine(LLMEngine):
         return active[:, None] & (j < cap) & (j <= dlen[:, None])
 
     def _spec_verify_math(self, feed, tables, lens, active, rem, dlen,
-                          topk=None):
+                          topk=None, ad=None):
         """One speculative verify pass at slot width w: slot b feeds T
         tokens (feed [w, T]: its pending token and up to T - 1 drafts) at
         positions lens[b] + [0, T), writes their KV gated by `_write_ok`
@@ -1666,17 +2551,18 @@ class ContinuousBatchingEngine(LLMEngine):
         (_spec_verify_math_mk). On CUDA the op chain pads the pass to
         max_batch slots and runs its products in pieces of R =
         `_product_rows()` rows, the decode step's row count
-        (_decode_math)."""
-        if self.megakernel:
+        (_decode_math). ad: the slots' adapter ids (_decode_math)."""
+        if self.megakernel and ad is None:
             return self._spec_verify_math_mk(feed, tables, lens, active, rem,
                                              dlen, topk)
         w, T = feed.shape
         R = self._product_rows()
         if R is not None and w < self.max_batch:
             # max_batch x T rows, the extra slots inactive
+            n = self.max_batch - w
             out = self._spec_verify_math(
-                *_pad_slots(self.max_batch - w, feed, tables, lens, active,
-                            rem, dlen), topk)
+                *_pad_slots(n, feed, tables, lens, active, rem, dlen), topk,
+                None if ad is None else _pad_slots(n, ad)[0])
             return tuple(x[:w] for x in out)
         p = self.page_size
         hs = self._embed(feed)
@@ -1687,16 +2573,18 @@ class ContinuousBatchingEngine(LLMEngine):
         act = active.to(torch.int32)
         pos, slots, tables, lens, act = (self._rep(x) for x in (
             pos, slots, tables, lens, act))
+        ads = self._ad_shards(ad)
         for li in range(self.cfg.num_hidden_layers):
             attns = []
+            sels = self._layer_sels(ads, li)
             for s, W in enumerate(self._W):
                 q, k, v = self._layer_qkv(W, W["layers"][li], hs[s], pos[s],
-                                          R)
+                                          R, None if sels is None else sels[s])
                 self._write_kv(s, li, slots[s], k, v)
                 attns.append(spec_verify_attention(
                     q, self._kp[s][li], self._vp[s][li], tables[s], lens[s],
                     active=act[s]))
-            hs = self._layer_tail(li, hs, attns, R)
+            hs = self._layer_tail(li, hs, attns, R, sels)
         return self._select_head(self._head_logits(hs, R), topk)
 
     def _spec_verify_math_mk(self, feed, tables, lens, active, rem, dlen,
@@ -1724,7 +2612,7 @@ class ContinuousBatchingEngine(LLMEngine):
                                         self._product_rows())], topk)
 
     def _spec_scan(self, tables, tok, lens, act, rem, eos, drafts, dlen,
-                   mode="greedy", ex=None):
+                   mode="greedy", ex=None, ad=None):
         """K verify passes (K = drafts.shape[0]) with every carry on the
         device: pass s feeds [tok, drafts[s]], takes the target's token at
         every feed position, and commits the longest draft prefix the
@@ -1753,15 +2641,15 @@ class ContinuousBatchingEngine(LLMEngine):
             feed = torch.cat([tok[:, None], d_s], dim=1)
             if mode == "greedy":
                 _, g = self._spec_verify_math(feed, tables, lens, act, rem,
-                                              n_s)
+                                              n_s, ad=ad)
             else:
                 if fold:
                     topv, topi = self._spec_verify_math(
                         feed, tables, lens, act, rem, n_s,
-                        topk=self.sample_k)
+                        topk=self.sample_k, ad=ad)
                 else:
                     logits, _ = self._spec_verify_math(feed, tables, lens,
-                                                       act, rem, n_s)
+                                                       act, rem, n_s, ad=ad)
                     topv, topi = self._topk(logits)
                 keys = fold_keys(bt(ex["seeds"]),
                                  (lens[:, None] + 1 + iT).reshape(-1))
@@ -1790,7 +2678,8 @@ class ContinuousBatchingEngine(LLMEngine):
             emitted.append(emit)
         return torch.stack(toks), torch.stack(emitted), tok, lens, act, rem
 
-    def _prefill_phase(self, ids, tables, starts, ends, pf_act, dense=False):
+    def _prefill_phase(self, ids, tables, starts, ends, pf_act, dense=False,
+                       ad=None):
         """Prefill: every active slot advances one chunk at its own offset
         (ids [w, chunk], starts [w], ends [w] = the prompt's end, pf_act [w]
         bool); positions >= the end write nothing. Returns each slot's
@@ -1800,11 +2689,14 @@ class ContinuousBatchingEngine(LLMEngine):
         ragged_kernel (or the CPU default) picks the dense form. On CUDA a
         fused block's prefill runs at max_batch x chunk rows, the extra
         slots inactive (_decode_math): its width w is the schedule's. The
-        per-step path always prefills one request, a fixed width."""
+        per-step path always prefills one request, a fixed width. ad: the
+        slots' adapter ids (_decode_math)."""
         w, chunk = ids.shape
         if self._at_full_width() and w < self.max_batch and not dense:
-            return self._prefill_phase(*_pad_slots(
-                self.max_batch - w, ids, tables, starts, ends, pf_act))[:w]
+            n = self.max_batch - w
+            return self._prefill_phase(
+                *_pad_slots(n, ids, tables, starts, ends, pf_act),
+                ad=None if ad is None else _pad_slots(n, ad)[0])[:w]
         p = self.page_size
         hs = self._embed(ids)
         pos = starts[:, None] + self._ar(chunk)[None, :]
@@ -1820,11 +2712,14 @@ class ContinuousBatchingEngine(LLMEngine):
         pos, pos_c, slots, tables, ctx, starts, act, last = (
             self._rep(x) for x in (pos, pos_c, slots, tables, ctx, starts,
                                    act, last))
+        ads = self._ad_shards(ad)
         for li in range(self.cfg.num_hidden_layers):
             attns = []
+            sels = self._layer_sels(ads, li)
             for s, W in enumerate(self._W):
                 q, k, v = self._layer_qkv(W, W["layers"][li], hs[s],
-                                          pos_c[s])
+                                          pos_c[s], None,
+                                          None if sels is None else sels[s])
                 self._write_kv(s, li, slots[s], k, v)
                 if use_kernel:
                     attns.append(ragged_paged_attention(
@@ -1833,14 +2728,14 @@ class ContinuousBatchingEngine(LLMEngine):
                 else:
                     attns.append(self._gathered_attention(q, s, li,
                                                           tables[s], pos[s]))
-            hs = self._layer_tail(li, hs, attns)
+            hs = self._layer_tail(li, hs, attns, None, sels)
         h_last = [h.gather(1, x[:, None, None].expand(-1, 1, h.shape[-1]))
                   for h, x in zip(hs, last)]
         return self._gather_logits(
             [x[:, 0] for x in self._head_logits(h_last)])
 
     def _decode_scan(self, tables, tok, lens, act, rem, eos, mode="greedy",
-                     ex=None):
+                     ex=None, ad=None):
         """K decode steps with every carry on the device (the reference's
         lax.scan as a loop with no host read): a slot retires on the
         device at its own EOS or budget and stops writing and attending
@@ -1865,14 +2760,14 @@ class ContinuousBatchingEngine(LLMEngine):
             rows = self._ar(tok.shape[0])
         for k in range(K):
             if mode == "greedy":
-                _, nxt = self._decode_math(tok, tables, lens, act)
+                _, nxt = self._decode_math(tok, tables, lens, act, ad=ad)
             elif fold:
                 topv, topi = self._decode_math(tok, tables, lens, act,
-                                               topk=self.sample_k)
+                                               topk=self.sample_k, ad=ad)
                 nxt = self._sample_rows(ex, None, mode, topv=topv, topi=topi,
                                         noise=noise[k])
             else:
-                logits, _ = self._decode_math(tok, tables, lens, act)
+                logits, _ = self._decode_math(tok, tables, lens, act, ad=ad)
                 nxt = self._sample_rows(ex, None, mode, logits=logits,
                                         counts=counts, gstate=gstate,
                                         noise=noise[k])
@@ -1903,12 +2798,16 @@ class ContinuousBatchingEngine(LLMEngine):
         self._make_writable(r, start, end)
         ids_chunk = np.zeros((1, chunk), np.int64)
         ids_chunk[0, :end - start] = r.ids[start:end]
+        # (not an adapter_mk_fallbacks site: chunked prefill is always the
+        # op chain)
+        ad = (None if r.adapter is None else self._to_dev(
+            np.asarray([self._apool.slot(r.adapter)], np.int32)))
         t_dev = time.perf_counter()
         logits = self._prefill_phase(
             self._to_dev(ids_chunk),
             self._to_dev(self._tables_np[r.slot:r.slot + 1]),
             self._to_dev(np.asarray([start])), self._to_dev(np.asarray([r.t0])),
-            self._to_dev(np.ones(1, bool)), dense=True)
+            self._to_dev(np.ones(1, bool)), dense=True, ad=ad)
         dt = time.perf_counter() - t_dev
         self.dispatch_seconds += dt
         if self._tel is not None:
@@ -1932,8 +2831,9 @@ class ContinuousBatchingEngine(LLMEngine):
 
     def _publish_prefix(self, r):
         """Make a completed prompt's full pages shareable (the partial tail
-        page stays private: decode writes land there)."""
-        if self._prefix is None:
+        page stays private: decode writes land there). Adapter requests
+        publish nothing (see _price_admission)."""
+        if self._prefix is None or r.adapter is not None:
             return
         key = ()
         p = self.page_size
@@ -1959,6 +2859,10 @@ class ContinuousBatchingEngine(LLMEngine):
             rows[r.slot] = r
         mode = self._block_mode(decodes)
         fold = mode == "sampled" and self.sample_fold
+        aid = self._slot_aid(decodes, w)
+        if aid is not None and self.megakernel:
+            # an adapter-carrying step runs the op chain
+            self.adapter_mk_fallbacks += 1
         # the token fed at position lens enters position lens + 1: its key
         # counter
         positions = self._lens_np[:w] + 1
@@ -1966,7 +2870,8 @@ class ContinuousBatchingEngine(LLMEngine):
         a, b = self._decode_math(
             self._to_dev(self._tok_np[:w]), self._to_dev(self._tables_np[:w]),
             self._to_dev(self._lens_np[:w]), self._to_dev(active),
-            topk=self.sample_k if fold else None)
+            topk=self.sample_k if fold else None,
+            ad=None if aid is None else self._to_dev(aid))
         if fold:
             toks = self._select_tokens(rows, positions, mode, topv=a, topi=b)
         else:
@@ -1979,8 +2884,8 @@ class ContinuousBatchingEngine(LLMEngine):
 
     def _idle_or_raise(self):
         """Nothing running and nothing admitted: either truly idle (False)
-        or the queue head cannot fit an idle engine — a capacity bug, not
-        back-pressure."""
+        or the queue head (or the demoted head) cannot fit an idle engine —
+        a capacity bug, not back-pressure."""
         if self._queue:
             head = self._pick_next()
             need = self._pages_needed(head.t0, head.max_new_tokens)
@@ -1989,6 +2894,14 @@ class ContinuousBatchingEngine(LLMEngine):
                 f"engine: needs {need} KV pages but only "
                 f"{self.allocator.available} of "
                 f"{self.allocator.n_pages} are free (page pool pinned?)")
+        if self._demoted:
+            uid = next(iter(self._demoted))
+            d = self._requests[uid].demote
+            need = d["n_pages"] - len(d["shared"])
+            raise EngineFullError(
+                f"demoted request {uid} cannot restore into an idle engine: "
+                f"needs {need} KV pages but only {self.allocator.available} "
+                f"of {self.allocator.n_pages} are free (page pool pinned?)")
         return False
 
     # -- fused blocks (decode_block > 1) -----------------------------------
@@ -2026,6 +2939,7 @@ class ContinuousBatchingEngine(LLMEngine):
         _FusedBlock, True when every participant faulted, or None when
         idle."""
         self._expire_deadlines()
+        self._restore_sweep()
         self._admit()
         prefills = [r for r in self._slots if r and r.state == PREFILL]
         decodes = [r for r in self._slots if r and r.state == DECODE]
@@ -2138,6 +3052,12 @@ class ContinuousBatchingEngine(LLMEngine):
         blk.has_decode = bool(blk.dec_items)
         blk.mode = self._block_mode(prefills + blk.dec_items)
         blk.extras = self._block_extras(blk)
+        aid = self._slot_aid(prefills + blk.dec_items, w)
+        if aid is not None:
+            if self.megakernel and blk.has_decode:
+                # only decode / verify dispatches ever run the megakernel
+                self.adapter_mk_fallbacks += 1
+            blk.aid = self._to_dev(aid)
         blk.tables = self._to_dev(self._tables_np[:w])
         blk.eos_dev = self._to_dev(eos)
         t_dev = time.perf_counter()
@@ -2145,7 +3065,7 @@ class ContinuousBatchingEngine(LLMEngine):
             pf_end_dev = self._to_dev(pf_end)
             logits = self._prefill_phase(
                 self._to_dev(pf_ids), blk.tables, self._to_dev(pf_start),
-                pf_end_dev, self._to_dev(pf_act))
+                pf_end_dev, self._to_dev(pf_act), ad=blk.aid)
             if blk.mode == "greedy":
                 blk.first = logits.argmax(-1)
             else:
@@ -2162,11 +3082,11 @@ class ContinuousBatchingEngine(LLMEngine):
                 (blk.toks, blk.emitted, blk.tok_fin, blk.lens_fin,
                  blk.act_fin, blk.rem_fin) = self._spec_scan(
                     *carries, self._to_dev(drafts), self._to_dev(dlen),
-                    blk.mode, blk.extras)
+                    blk.mode, blk.extras, blk.aid)
             else:
                 (blk.toks, blk.emitted, blk.tok_fin, blk.lens_fin,
                  blk.act_fin, blk.rem_fin) = self._decode_scan(
-                    *carries, blk.mode, blk.extras)
+                    *carries, blk.mode, blk.extras, blk.aid)
         self.dispatch_seconds += time.perf_counter() - t_dev
         self.fused_blocks += 1
         # steps advance by the block's device micro-steps, so TTLs stay
@@ -2227,11 +3147,15 @@ class ContinuousBatchingEngine(LLMEngine):
         nxt.has_decode = True
         nxt.mode = blk.mode             # sampling inputs are static across
         nxt.extras = blk.extras         # a chain; the key counters ride the
-        t_dev = time.perf_counter()     # device lens
+        #                                 device lens
+        nxt.aid = blk.aid               # adapter ids are static too
+        if blk.aid is not None and self.megakernel:
+            self.adapter_mk_fallbacks += 1
+        t_dev = time.perf_counter()
         (nxt.toks, nxt.emitted, nxt.tok_fin, nxt.lens_fin, nxt.act_fin,
          nxt.rem_fin) = self._decode_scan(
             blk.tables, blk.tok_fin, blk.lens_fin, blk.act_fin, blk.rem_fin,
-            blk.eos_dev, nxt.mode, nxt.extras)
+            blk.eos_dev, nxt.mode, nxt.extras, nxt.aid)
         self.dispatch_seconds += time.perf_counter() - t_dev
         self.fused_blocks += 1
         self.chained_blocks += 1
@@ -2341,9 +3265,13 @@ class ContinuousBatchingEngine(LLMEngine):
         # fair share: 1 / share virtual time per emitted token, so a
         # speculating tenant's higher per-pass yield is charged like plain
         # decode
+        r.idle_steps = 0                # progress: the demote-on-idle
+        #                                 clock restarts
         share = self._tenant_cfg.get(r.tenant, {}).get("share", 1.0)
         self._tenant_vt[r.tenant] = self._vt(r.tenant) + 1.0 / share
         self._tenant_tokens[r.tenant] += 1
+        if r.adapter is not None:
+            self.adapter_tokens[r.adapter] += 1
         if (r.eos_token_id is not None and tok == r.eos_token_id) or \
                 len(r.out) >= r.max_new_tokens:
             self._retire(r)
@@ -2358,7 +3286,8 @@ class ContinuousBatchingEngine(LLMEngine):
         has passed: queued ones before they run, in-flight ones with their
         slot and pages reclaimed."""
         now = None
-        live = list(self._queue) + [s for s in self._slots if s is not None]
+        live = list(self._queue) + [s for s in self._slots if s is not None] \
+            + list(self._demoted.values())
         for r in live:
             expired = False
             if r.ttl_steps is not None and \
@@ -2382,11 +3311,15 @@ class ContinuousBatchingEngine(LLMEngine):
 
     def _fail_request(self, r, stage, exc, state=FAILED):
         """Retire one request with a typed error record and reclaim its
-        slot, pages, CoW reserve and prefix-cache references."""
+        slot, pages, CoW reserve, prefix-cache references, adapter
+        reference and (for a demoted request) its tier entry."""
+        if r.demote is not None:
+            self._drop_demoted(r)
         r.error = RequestFailure(r.uid, stage, exc, self.steps,
                                  tokens_generated=len(r.out))
         r.state = state
         self._release_slot(r)
+        self._release_adapter(r)
         self.failure_count += 1
         if self._tel is not None:
             self._tel.req_done(self._tel_src, r.uid, state,
@@ -2397,6 +3330,7 @@ class ContinuousBatchingEngine(LLMEngine):
         r.result = np.concatenate([r.ids, np.asarray(r.out, np.int64)])
         r.state = DONE
         self._release_slot(r)
+        self._release_adapter(r)
         if self._tel is not None:
             self._tel.req_done(self._tel_src, r.uid, DONE,
                                n_tokens=len(r.out))

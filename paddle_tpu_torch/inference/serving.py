@@ -38,6 +38,7 @@ from ..ops.pallas.flash_attention import flash_attention_fwd
 from ..ops.pallas.paged_attention import expand_kv_heads, paged_attention
 from ..ops.pallas.quantized_matmul import quantize_weights, quantized_matmul
 from ..ops.pallas.rms_norm import rms_rows as _rms
+from ..ops.lora import lora_apply
 
 LOOP_BUCKET = 32   # device-loop step counts round up to a multiple of this
 
@@ -478,13 +479,24 @@ class LLMEngine:
             return o
         return self._attn_dense(q, k, v)
 
-    def _layer_qkv(self, W, wset, h, pos_ids, rows=None):
+    def _layer_qkv(self, W, wset, h, pos_ids, rows=None, ad=None):
+        """One shard's q / k / v of a layer (roped). ad: the shard's LoRA
+        selection for this layer (`ContinuousBatchingEngine._ad_sel`); its
+        delta lands on the projection outputs before the reshape and rope,
+        where-gated so adapter-free rows keep their bits."""
         cos, sin = W["cos"], W["sin"]
         b, t, _ = h.shape
         x = _rms(h, wset["ln1"], W["eps"])
-        q = _mm(x, wset["wq"], rows).reshape(b, t, -1, self.hd)
-        k = _mm(x, wset["wk"], rows).reshape(b, t, -1, self.hd)
-        v = _mm(x, wset["wv"], rows).reshape(b, t, -1, self.hd)
+        q = _mm(x, wset["wq"], rows)
+        k = _mm(x, wset["wk"], rows)
+        v = _mm(x, wset["wv"], rows)
+        if ad is not None:
+            q = lora_apply(q, x, "wq", ad)
+            k = lora_apply(k, x, "wk", ad)
+            v = lora_apply(v, x, "wv", ad)
+        q = q.reshape(b, t, -1, self.hd)
+        k = k.reshape(b, t, -1, self.hd)
+        v = v.reshape(b, t, -1, self.hd)
         # GQA: k/v stay at nh_kv heads; the decode kernel maps q head i to
         # kv head i // rep itself
         c = cos[pos_ids][..., None, :].to(q.dtype)
@@ -497,13 +509,15 @@ class LLMEngine:
 
         return rope(q), rope(k), v
 
-    def _layer_tail(self, li, hs, attns, rows=None):
+    def _layer_tail(self, li, hs, attns, rows=None, ad=None):
         """Layer li's tail on every shard: O (exact: on the gathered heads
         against the replicated wo; psum: the local rows, reduced), the
         residual, norm2, the local gate / up columns with SwiGLU, then down
         (exact: on the gathered activation row; psum: reduced). hs and
         attns [b, t, nh_l, hd] are per shard; returns the shards' h.
-        rows: `_mm`'s product row count."""
+        rows: `_mm`'s product row count. ad: the shards' LoRA selections
+        for this layer (deltas on gate / up at the local columns and on
+        down after the exact-mode gather), or None."""
         b, t = attns[0].shape[:2]
         attns = self._tp_gather_heads(attns)
         os_ = self._tp_reduce([_mm(a.reshape(b, t, -1), W["layers"][li]["wo"],
@@ -511,15 +525,22 @@ class LLMEngine:
                                for a, W in zip(attns, self._W)])
         hs = [h + o for h, o in zip(hs, os_)]
         acts = []
-        for h, W in zip(hs, self._W):
+        for s, (h, W) in enumerate(zip(hs, self._W)):
             wset = W["layers"][li]
             x = _rms(h, wset["ln2"], W["eps"])
             g = _mm(x, wset["wg"], rows)
             u = _mm(x, wset["wu"], rows)
+            if ad is not None:
+                g = lora_apply(g, x, "wg", ad[s])
+                u = lora_apply(u, x, "wu", ad[s])
             acts.append(torch.nn.functional.silu(g.float()).to(g.dtype) * u)
         acts = self._tp_gather_cols(acts)
-        ds = self._tp_reduce([_mm(a, W["layers"][li]["wd"], rows)
-                              for a, W in zip(acts, self._W)])
+        ds = [_mm(a, W["layers"][li]["wd"], rows)
+              for a, W in zip(acts, self._W)]
+        if ad is not None:
+            ds = [lora_apply(d, a, "wd", sel)
+                  for d, a, sel in zip(ds, acts, ad)]
+        ds = self._tp_reduce(ds)
         return [h + d for h, d in zip(hs, ds)]
 
     def _scatter_kv(self, s, li, slots, k, v):

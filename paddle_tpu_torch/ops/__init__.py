@@ -28,7 +28,8 @@ GEMV launches on its TMA-fed ring build, as "quantized_matmul_ring" (also in
 kernel's per-page build that take the staged walk (`paged_route`) are
 counted on their own as well: "paged_attention_staged",
 "ragged_paged_attention_staged" and "spec_verify_attention_staged" (each
-also in its wrapper's count).
+also in its wrapper's count). "lora" counts the LoRA delta's shrink /
+expand pair (`lora.lora_bgmv`), one per pair.
 """
 from .pallas.decode_megakernel import decode_megakernel
 from .pallas.flash_attention import flash_attention_bwd, flash_attention_fwd
@@ -36,6 +37,7 @@ from .pallas.paged_attention import (paged_attention, ragged_paged_attention,
                                      spec_verify_attention)
 from .pallas.quantized_matmul import quantized_matmul
 from .pallas.rms_norm import rms_norm_fwd
+from .lora import lora_bgmv
 
 _WRAPPERS = {
     "quantized_matmul": quantized_matmul,
@@ -46,6 +48,7 @@ _WRAPPERS = {
     "rms_norm": rms_norm_fwd,
     "flash_attention_bwd": flash_attention_bwd,
     "decode_megakernel": decode_megakernel,
+    "lora": lora_bgmv,
 }
 
 

@@ -34,6 +34,10 @@ assert "paddle_tpu_torch.failsafe" in sys.modules
 assert "paddle_tpu_torch.inference.telemetry" in sys.modules
 assert "paddle_tpu_torch.quantization.ptq" in sys.modules
 assert "paddle_tpu_torch.quantization.observers" in sys.modules
+assert "paddle_tpu_torch.inference.adapters" in sys.modules
+assert "paddle_tpu_torch.inference.handoff" in sys.modules
+assert "paddle_tpu_torch.inference.tiering" in sys.modules
+assert "paddle_tpu_torch.ops.lora" in sys.modules
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))
@@ -103,7 +107,8 @@ def test_kernel_wrappers_count_only_kernel_launches():
     megakernel decode steps on the CPU, greedy and sampled through the
     top-K fold, speculative verify passes (the op chain's verify entry and
     the megakernel's tq > 1 schedule) and tensor-parallel megakernel steps
-    (the segments, tp = 2) launch nothing either."""
+    (the segments, tp = 2) launch nothing either, nor does an adapter
+    request's LoRA delta (`ops/lora.py`'s plain version)."""
     from paddle_tpu_torch.inference.sampling import SamplingParams
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
     from paddle_tpu_torch.models import SpmdTrainer
@@ -136,6 +141,13 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                    max_batch=2, megakernel="multi", tp=2,
                                    device="cpu")
     tp2.generate_many([np.arange(5), np.arange(3)], max_new_tokens=3)
+    from paddle_tpu_torch.inference.adapters import make_lora_adapter
+    lora = ContinuousBatchingEngine(tr.model, max_len=32, page_size=8,
+                                    max_batch=2, adapters={"rank": 2},
+                                    device="cpu")
+    lora.load_adapter("a", make_lora_adapter(tr.model.config, rank=2))
+    lora.add_request(np.arange(5), 3, adapter="a")
+    assert lora.drain()
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
     gpt = SpmdTrainer(GPTForCausalLM(GPTConfig.tiny(num_hidden_layers=1),
                                      device="cpu"), recompute=True)
@@ -171,7 +183,8 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                  "ragged_paged_attention_staged": 0,
                                  "spec_verify_attention_staged": 0,
                                  "quantized_matmul_tc": 0,
-                                 "quantized_matmul_ring": 0}
+                                 "quantized_matmul_ring": 0,
+                                 "lora": 0}
 
 
 def test_training_entry_points_refuse_cpu_without_being_asked():

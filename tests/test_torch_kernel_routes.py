@@ -462,3 +462,85 @@ def test_chip_smoke_bound_ms_by_dtype(chip_smoke):
     assert bound_ms(0, 67e9, f32=True) == (pytest.approx(1.0), "operations")
     assert bound_ms(0, 0, 67e9) == (pytest.approx(1.0), "operations")
     assert bound_ms(3.35e9, 1e9, f32=True) == (pytest.approx(1.0), "bytes")
+
+
+# -- the LoRA delta (ops/lora.py, csrc/lora_bgmv.cu) ---------------------------------
+def _lora_operands(device, m=3, t=2, din=16, dout=24, r=4, dtype=F32):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(m, t, din, generator=g).to(dtype).to(device)
+    y = torch.randn(m, t, dout, generator=g).to(dtype).to(device)
+    a = torch.randn(3, din, r, generator=g).to(device)
+    b = torch.randn(3, r, dout, generator=g).to(device)
+    aid = torch.tensor([1, 0, 2][:m], dtype=torch.int32).to(device)
+    scale = torch.tensor([0.5, 0.0, 2.0][:m]).to(device)
+    return x, y, a, b, aid, scale
+
+
+def test_lora_cpu_takes_the_plain_version_and_counts_nothing():
+    """A CPU tensor takes the einsum pair; aid-0 rows keep y's bits (a -0.0
+    included) and nothing is counted."""
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.ops.lora import (lora_apply, lora_apply_reference,
+                                           lora_delta, lora_delta_reference)
+    reset_kernel_launches()
+    x, y, a, b, aid, scale = _lora_operands("cpu")
+    y[1, 0, 0] = -0.0
+    sel = ({"wq": a}, {"wq": b}, aid, scale, aid > 0)
+    out = lora_apply(y, x, "wq", sel)
+    assert torch.equal(out, lora_apply_reference(y, x, a, b, aid, scale))
+    assert torch.equal(out[1].view(torch.int32), y[1].view(torch.int32))
+    assert lora_apply(y, x, "wo", sel) is y          # not a target
+    assert torch.equal(lora_delta(x, a, b, aid, scale),
+                       lora_delta_reference(x, a, b, aid, scale))
+    assert kernel_launches()["lora"] == 0
+
+
+def test_lora_non_cpu_call_without_a_build_raises(monkeypatch):
+    """A tensor off the CPU never takes the plain version: an unsupported
+    device raises before any build, a refused operand raises before any
+    build, and a launch with no build raises rather than falling back."""
+    from paddle_tpu_torch.ops import lora
+    _no_library(monkeypatch)
+    x, y, a, b, aid, scale = _lora_operands("meta")
+    sel = ({"wq": a}, {"wq": b}, aid, scale, aid > 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lora.lora_apply(y, x, "wq", sel)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lora.lora_delta(x, a, b, aid, scale)
+    with pytest.raises(ValueError, match="int32"):
+        lora._check(x, a, b, aid.long(), scale, y)
+    big = torch.empty(3, 16, 65, device="meta")
+    with pytest.raises(ValueError, match="rank"):
+        lora._check(x, big, torch.empty(3, 65, 24, device="meta"), aid, scale, y)
+    with pytest.raises(ValueError, match="contiguous"):
+        lora._check(x.transpose(0, 1).contiguous().transpose(0, 1), a, b, aid,
+                    scale, y)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(_build, "library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lora._launch(x, a, b, aid, scale, y)
+    assert lora.lora_bgmv.launches == 0
+
+
+def test_lora_source_states_why_it_exists():
+    """The kernel replaces no pallas_call: its source says so and why, and
+    what bounds it."""
+    text = (_build.sources()[0].parent / "lora_bgmv.cu").read_text()
+    assert "Replaces: no pl.pallas_call" in text
+    assert "What bounds it" in text
+    assert "lora_bgmv.cu" in {s.name for s in _build.sources()}
+
+
+@pytest.mark.parametrize("din,dout,ms,by", [
+    (4096, 4096, 0.0007043, "bytes"),
+    (4096, 11008, 0.0013645, "bytes"),
+    (11008, 4096, 0.0012325, "bytes"),
+])
+def test_chip_smoke_lora_bound(chip_smoke, din, dout, ms, by):
+    """`chip_smoke.lora_bound`: x, y and out in bf16 once per row plus each
+    distinct adapter's f32 factors once, over 3.35 TB/s; 2 (in + out) r
+    flops a row over the CUDA cores' 67 TFLOP/s."""
+    got, got_by = chip_smoke.lora_bound(32, din, dout, 16, 3)
+    assert got == pytest.approx(ms, rel=1e-3) and got_by == by

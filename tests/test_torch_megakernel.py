@@ -394,15 +394,16 @@ def test_knob_resolution_health_and_refusals():
     with pytest.raises(ValueError, match="megakernel must be"):
         ContinuousBatchingEngine(tm, device="cpu", megakernel="whole",
                                  **ENGINE_KW)
-    # the features a forced megakernel would compose with: sampling and
-    # speculation are ported (the engine-level sampling knob is
-    # deprecated), adapters are not
+    # the features a forced megakernel would compose with: sampling,
+    # speculation (the engine-level sampling knob is deprecated) and
+    # adapters (their dispatches run the op chain) are ported
     eng = ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
                                    speculate=4, **ENGINE_KW)
     assert eng.megakernel == "multi" and eng.health()["speculate"] == 4
-    with pytest.raises(NotImplementedError, match="A7.2"):
-        ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
-                                 adapters=True, **ENGINE_KW)
+    eng = ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
+                                   adapters=True, **ENGINE_KW)
+    assert eng.megakernel == "multi"
+    assert eng.health()["adapters"]["mk_fallbacks"] == 0
     with pytest.warns(DeprecationWarning):
         eng = ContinuousBatchingEngine(tm, device="cpu", megakernel="multi",
                                        do_sample=True, **ENGINE_KW)

@@ -246,7 +246,8 @@ def test_default_sampling_folds_uid_and_deprecates():
 def test_rejections():
     """Exact (no numerics): the typed refusals of the reference; an
     engine at speculate=4 takes sampled requests (speculation is
-    ported)."""
+    ported), and a queued sampled request's export spec carries its
+    sampling parameters (the export is ported)."""
     _, tm = _pair()
     eng = tsched.ContinuousBatchingEngine(tm, device="cpu", **GEOM)
     p = _prompts()[0]
@@ -267,10 +268,10 @@ def test_rejections():
     spec = tsched.ContinuousBatchingEngine(tm, device="cpu", speculate=4,
                                            **GEOM)
     assert spec.health()["speculate"] == 4
-    spec.add_request(p, 3, sampling=SamplingParams(**_kw(0)))
+    us = spec.add_request(p, 3, sampling=SamplingParams(**_kw(0)))
     assert spec.health()["sampled_requests"] == 1
-    with pytest.raises(NotImplementedError, match="A7.6"):
-        eng.export_request(0)
+    assert spec.export_request(us)["sampling"] == \
+        SamplingParams(**_kw(0)).to_spec()
     # a to_spec() dict is accepted in place of SamplingParams
     u = eng.add_request(p, 3, sampling=SamplingParams(**_kw(0)).to_spec())
     eng.drain()

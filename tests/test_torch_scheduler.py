@@ -343,12 +343,14 @@ def test_health_keys_and_unported_options():
         "sample_fold", "speculate", "drafter", "spec_passes", "spec_emitted",
         "spec_accept_rate", "spec_tokens_per_pass", "draft_errors",
         "spec_sampled_accept_rate", "tp", "tp_mode", "tp_compress",
-        "preemptions", "tenants"}
+        "preemptions", "tenants", "handoffs_out", "handoffs_in", "kv_tier",
+        "demoted", "pages_demoted", "demotions", "restores",
+        "restore_failures", "demote_errors", "tier", "adapters"}
     assert (eng.health()["tp"], eng.health()["tp_mode"]) == (1, None)
     _, tm = _pair()
-    # speculation is ported (A5(d)), and so are tenants (A5(e)) and
-    # telemetry (A7.3); tiering's directory knobs are taken and refused
-    # with the other tiering knobs
+    # speculation is ported (A5(d)), and so are tenants (A5(e)), telemetry
+    # (A7.3), adapters (A7.2), KV tiering (A7.4) and the request export
+    # (A7.6); the fleet prefix index (A7.5) is refused
     assert tsched.ContinuousBatchingEngine(
         tm, device="cpu", speculate=4).health()["speculate"] == 4
     assert tsched.ContinuousBatchingEngine(
@@ -356,12 +358,15 @@ def test_health_keys_and_unported_options():
             "share"] == 1.0
     assert tsched.ContinuousBatchingEngine(
         tm, device="cpu", telemetry=True).telemetry is not None
-    for kw, item in ((dict(kv_tier="host"), "A7.4"),
-                     (dict(tier_dir="kv_tier"), "A7.4"),
-                     (dict(tier_host_cap_mb=64), "A7.4"),
-                     (dict(adapters=True), "A7.2")):
-        with pytest.raises(NotImplementedError, match=item):
-            tsched.ContinuousBatchingEngine(tm, device="cpu", **kw)
+    for kw, key, want in ((dict(kv_tier="host"), "kv_tier", "host"),
+                          (dict(tier_dir="kv_tier"), "kv_tier", None),
+                          (dict(tier_host_cap_mb=64), "kv_tier", None)):
+        assert tsched.ContinuousBatchingEngine(
+            tm, device="cpu", **kw).health()[key] == want
+    assert tsched.ContinuousBatchingEngine(
+        tm, device="cpu", adapters=True).health()["adapters"]["rank"] == 4
+    with pytest.raises(NotImplementedError, match="A7.5"):
+        eng.attach_prefix_index(None, "r0")
     # tensor parallelism is ported (A7.10): the reference's refusals stay
     with pytest.raises(ValueError, match="tp_mode"):
         tsched.ContinuousBatchingEngine(tm, device="cpu", tp=2,
@@ -369,10 +374,10 @@ def test_health_keys_and_unported_options():
     assert tsched.ContinuousBatchingEngine(
         tm, device="cpu", tp=2, tp_mode="psum").health()["tp_mode"] == "psum"
     # sampling is ported (A5(c)): a spec dict is taken and counted
-    eng.add_request(np.arange(4), 2, sampling={"do_sample": True})
+    u = eng.add_request(np.arange(4), 2, sampling={"do_sample": True})
     assert eng.health()["sampled_requests"] == 1
-    with pytest.raises(NotImplementedError, match="A7.6"):
-        eng.export_request(0)
+    spec = eng.export_request(u)
+    assert spec["sampling"]["do_sample"] and spec["state"] == "queued"
 
 
 def test_static_generate_reclaims_prefix_pages():

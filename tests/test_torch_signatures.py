@@ -36,6 +36,13 @@ import paddle_tpu.optimizer as jopt
 import paddle_tpu_torch.models.bert as tbert
 import paddle_tpu_torch.nn.transformer as ttr
 import paddle_tpu_torch.optimizer as topt
+import paddle_tpu.inference.adapters as jad
+import paddle_tpu.inference.handoff as jho
+import paddle_tpu.inference.tiering as jti
+import paddle_tpu_torch.inference.adapters as tad
+import paddle_tpu_torch.inference.handoff as tho
+import paddle_tpu_torch.inference.tiering as tti
+import paddle_tpu_torch.ops.lora as tlora
 
 JAX_ONLY = {"interpret"}
 
@@ -139,6 +146,43 @@ PAIRS = {
     "AdamW.__init__": (jopt.AdamW.__init__, topt.AdamW.__init__),
 }
 
+# multi-LoRA adapters, KV-page handoff and KV tiering (ROADMAP A7.2, A7.6,
+# A7.4): the modules' functions and classes, and the engine's methods
+_CB = "ContinuousBatchingEngine."
+for _name in ("export_request", "export_inflight", "submit_resume",
+              "export_kv_pages", "abort_handoff", "release_handoff",
+              "import_kv_pages", "demote_request", "restore_request",
+              "register_adapter", "load_adapter", "evict_adapter",
+              "pin_adapter", "attach_prefix_index"):
+    PAIRS[_CB + _name] = (getattr(jsched.ContinuousBatchingEngine, _name),
+                          getattr(tsched.ContinuousBatchingEngine, _name))
+for _mods, _names in (
+        ((jad, tad), ("target_dims", "engine_target_dims",
+                      "make_lora_adapter", "save_adapter",
+                      "load_adapter_file", "AdapterPool.__init__",
+                      "AdapterPool.install", "AdapterPool.evict",
+                      "AdapterPool.slot", "AdapterPool.pin",
+                      "AdapterPool.acquire", "AdapterPool.release",
+                      "AdapterPool.stats")),
+        ((jho, tho), ("checksum_payload", "verify_payload", "payload_bytes",
+                      "negotiate", "DeviceTransport.gather",
+                      "DeviceTransport.place", "StoreKVTransport.__init__",
+                      "StoreKVTransport.send", "StoreKVTransport.recv",
+                      "StoreKVTransport.delete")),
+        ((jti, tti), ("resolve_tier", "KVTierStore.__init__",
+                      "KVTierStore.put", "KVTierStore.get",
+                      "KVTierStore.delete", "KVTierStore.stats"))):
+    for _name in _names:
+        _pair = []
+        for _m in _mods:
+            _obj = _m
+            for _part in _name.split("."):
+                _obj = getattr(_obj, _part)
+            _pair.append(_obj)
+        PAIRS[_name] = tuple(_pair)
+PAIRS["lora_delta"] = (jad.lora_delta, tlora.lora_delta)
+PAIRS["lora_apply"] = (jad.lora_apply, tlora.lora_apply)
+
 
 def _params(fn):
     return [(p.name, p.kind, p.default)
@@ -159,11 +203,14 @@ def test_reference_parameters_lead_in_order(name):
 
 
 def test_unported_reference_parameters_are_taken():
-    """The reference's parameters the port refuses (use_pallas, tier_dir,
-    tier_host_cap_mb) are in its signatures, so a reference call gets a
-    typed refusal, never a TypeError. tp_mode and tp_compress are taken
-    (tensor parallelism is ported): ignored at tp = 1, as the reference
-    ignores them, and checked at tp > 1."""
+    """The reference's parameters the port refuses (use_pallas) are in its
+    signatures, so a reference call gets a typed refusal, never a
+    TypeError; so is the fleet prefix index's engine hook
+    (attach_prefix_index, A7.5). tp_mode and tp_compress are taken (tensor
+    parallelism is ported): ignored at tp = 1, as the reference ignores
+    them, and checked at tp > 1. tier_dir and tier_host_cap_mb are taken
+    (KV tiering is ported): without kv_tier they configure nothing, as in
+    the reference."""
     llm = inspect.signature(tserving.LLMEngine.__init__).parameters
     cb = inspect.signature(tsched.ContinuousBatchingEngine.__init__).parameters
     for p in ("use_pallas", "tp_mode", "tp_compress"):
@@ -183,8 +230,10 @@ def test_unported_reference_parameters_are_taken():
     with pytest.raises(ValueError, match="psum"):
         tserving.LLMEngine(model, tp=2, tp_compress="int8", **kw)
     for tkw in (dict(tier_dir="kv_tier"), dict(tier_host_cap_mb=8)):
-        with pytest.raises(NotImplementedError, match="A7.4"):
-            tsched.ContinuousBatchingEngine(model, **tkw, **kw)
+        eng = tsched.ContinuousBatchingEngine(model, **tkw, **kw)
+        assert eng.health()["kv_tier"] is None
+    with pytest.raises(NotImplementedError, match="A7.5"):
+        eng.attach_prefix_index(None, "r0")
     # a positional call in the reference's order binds the same way
     eng = tserving.LLMEngine(model, 32, 8, 1, None, None, None, "float32",
                              16, device="cpu")
