@@ -159,6 +159,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
               tiers, an oversubscribed engine (admission demotions), and
               demote-on-idle; outputs equal the never-demoted runs; ms and
               GB/s by tier
+ 17. router   multi-replica serving (`inference/router.py`) over op-chain
+              engines of one shared 7B model: routing over 2 replicas (ids
+              equal a single engine's; the router's own host cost, the
+              wall less the time inside the engines),
+              failover with a breaker that opens, half-opens and closes
+              (every uid once, no leak, the margin rule for salvaged
+              requests), cache-aware routing with a prefix ship over the
+              "device" transport, disaggregated prefill / decode with
+              handoffs over "device", a fleet adapter deploy with affinity,
+              and a rolling weight hot-swap of a 4-layer 7B-width model
+              with its rollback on a flipped snapshot byte; save / load
+              GB/s
 
 Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
 bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row:
@@ -4272,6 +4284,489 @@ def parity_cb_sampled(torch, dev):
     return [row]
 
 
+# ---------------------------------------------------------------- phase 17
+# cb_router: EngineRouter over op-chain engines (bf16, K = 8) of one shared
+# LLaMA-7B at full width and depth (the model cast to bf16 in place, so the
+# replicas' weight snapshots alias its tensors: 13.5 GB once, ~4.3 GB of KV
+# pool per engine), the geometry of phases 14-16. The route stream: 12
+# prompts of 2-4 pages (random tokens: no two share a full page), budgets
+# 32-64, from RandomState(17)
+ROUTER_STREAM_SEED = 17
+ROUTER_PREFIX_PAGES = 4
+SWAP_LAYERS = 4             # the hot-swap leg's model: 7B width, 4 layers
+
+
+def router_model(torch, dev):
+    """Phase 17's shared 7B model in bf16 (seed 0, as phases 14-16's) and
+    its engine geometry."""
+    model, geom = lora_handoff_tier_model(torch, dev)
+    return model.to(torch.bfloat16), geom
+
+
+def router_stream(cfg, page):
+    import numpy as np
+    rng = np.random.RandomState(ROUTER_STREAM_SEED)
+    lens = rng.randint(2 * page, 4 * page + 1, 12)
+    budgets = [int(x) for x in rng.randint(32, 65, 12)]
+    return [rng.randint(0, cfg.vocab_size, int(t)).astype(np.int64) for t in lens], budgets
+
+
+def _no_leak(eng):
+    h = eng.health()
+    return h["pages_free"] + h["prefix_pages"] == h["pages_total"]
+
+
+def cb_router(torch, model, geom):
+    """Multi-replica serving at 7B (`inference/router.py`): six legs, each
+    row with its gates and "ok".
+
+      route     2 replicas, the route stream: ids equal a single engine's
+                exactly, both replicas served; the router's own host cost:
+                the run's wall less the time inside the engines' step and
+                submit_resume calls, ms a router step and a share of the wall
+      failover  replica.step armed on r0 mid-decode, then again as r0
+                steps its next requests (two failures with no clean step
+                between: its breaker opens), a probe re-admits it: every
+                uid delivered once, no page leak, the breaker passed open ->
+                half_open -> closed;
+                salvaged requests re-prefill their folded context, so their
+                ids are held by the first-divergence margin rule (0.1)
+      prefix    a 4-page prefix published by one replica, that replica kept
+                loaded (every slot busy) so the pages ship: requests land
+                on the replica the index names, every ship over "device"
+                and none falls back to the host, ids equal a single engine
+                warmed with the same prefix; ship ms and GB/s
+      disagg    topology 1 prefill : 1 decode, six requests: every request
+                hands off over "device", ids equal the single engine's;
+                handoff ms and GB/s
+      adapters  router.load_adapter with affinity (a1 on both replicas, a2
+                on r1 only): ids equal a single pool engine's, a2 requests
+                on r1, LoRA launches > 0
+      hot_swap  a 4-layer 7B-width model: a second seed's snapshot rolled
+                through 2 serving replicas (zero rejects, post-swap ids
+                equal a fresh engine on the new weights); then a byte of
+                one leaf flipped: HotSwapError, the fleet serves the old
+                weights' ids, no temp directory left; save / load GB/s
+
+    Returns (rows, launches)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch import failsafe
+    from paddle_tpu_torch.inference.adapters import make_lora_adapter, save_adapter
+    from paddle_tpu_torch.inference.handoff import payload_bytes
+    from paddle_tpu_torch.inference.prefix_index import prompt_digests
+    from paddle_tpu_torch.inference.router import EngineRouter, HotSwapError
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    cfg = model.config
+    dev = geom["device"]
+    page = geom["page_size"]
+    launches, rows = {}, []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def add():
+        for k, c in kernel_launches().items():
+            launches[k] = launches.get(k, 0) + c
+
+    def factory(m=model, **kw):
+        return lambda: ContinuousBatchingEngine(
+            m, **dict(dict(geom, decode_block=8, megakernel=False), **kw))
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def serve(target, prompts, budgets):
+        """Submit and drain through an engine or a router; (outputs,
+        wall s)."""
+        sync()
+        t = time.perf_counter()
+        uids = [target.add_request(p, b) for p, b in zip(prompts, budgets)]
+        target.drain()
+        sync()
+        return [np.asarray(target.result(u)) for u in uids], time.perf_counter() - t
+
+    prompts, budgets = router_stream(cfg, page)
+
+    # -- route ---------------------------------------------------------------
+    eng = factory()()
+    ref, bare_s = serve(eng, prompts, budgets)
+    bare_steps = (eng.steps, eng.decode_steps)
+    del eng
+    free()
+    router = EngineRouter(factory(), replicas=2)
+    # the router's own host cost, read directly: the route run's wall less
+    # the time spent inside the replicas' engine calls (step, and
+    # submit_resume, through which every admission enters an engine)
+    inside = [0.0]
+    calls = {"step": 0, "submit_resume": 0}
+    for rep in router._replicas:
+        for name in calls:
+            def timed(*a, _fn=getattr(rep.engine, name), _name=name, **k):
+                calls[_name] += 1
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    inside[0] += time.perf_counter() - t0
+            setattr(rep.engine, name, timed)
+    reset_kernel_launches()
+    outs, route_s = serve(router, prompts, budgets)
+    add()
+    served = {rep.name: rep.engine.health()["done"] for rep in router._replicas}
+    host_s = route_s - inside[0]
+    leak = all(_no_leak(rep.engine) for rep in router._replicas)
+    row = dict(run="route", replicas=2, requests=len(prompts), equal_single=same(ref, outs),
+               served=served, wall_s=route_s, single_wall_s=bare_s,
+               single_steps=bare_steps, no_leak=leak,
+               router_steps=router.steps, engine_calls=calls,
+               engine_s=inside[0], router_host_s=host_s,
+               router_host_ms_per_step=1e3 * host_s / router.steps,
+               router_host_ms_per_engine_step=1e3 * host_s / calls["step"],
+               router_host_share=host_s / route_s)
+    row["ok"] = row["equal_single"] and all(v > 0 for v in served.values()) and leak
+    rows.append(row)
+    del router
+    free()
+
+    # -- failover --------------------------------------------------------------
+    router = EngineRouter(factory(), replicas=2, quarantine_threshold=2, probe_backoff=2,
+                          probe_sleep=lambda d: None)
+    r0 = router._replicas[0]
+    trail = []
+
+    def step():
+        router.step()
+        if not trail or trail[-1] != r0.breaker.state:
+            trail.append(r0.breaker.state)
+
+    def r0_decoding():
+        for ruid in router._assigned[r0.name]:
+            rr = router._reqs[ruid]
+            if r0.status(rr.engine_uid) == "decode":
+                return True
+        return False
+
+    reset_kernel_launches()
+    sync()
+    t = time.perf_counter()
+    uids = [router.add_request(p, b) for p, b in zip(prompts[:8], budgets[:8])]
+    while not r0_decoding():
+        step()
+    with failsafe.inject("replica.step", nth=1):
+        step()                  # r0 is stepped first: it dies mid-decode
+    # the rest of the stream arrives; r0, idle since its salvage (no clean
+    # step in between), takes some of it and dies again as it steps them:
+    # two consecutive failures open its breaker
+    uids += [router.add_request(p, b) for p, b in zip(prompts[8:], budgets[8:])]
+    late_on_r0 = len(router._assigned[r0.name])
+    with failsafe.inject("replica.step", nth=1):
+        step()
+    while router.step():
+        if trail[-1] != r0.breaker.state:
+            trail.append(r0.breaker.state)
+    router.drain()
+    sync()
+    fail_s = time.perf_counter() - t
+    add()
+    outs = [np.asarray(router.result(u)) for u in uids]
+    h = router.health()
+    divs, held = divergence_held(torch, model, geom, prompts, ref, outs)
+    order = [s for s in ("open", "half_open", "closed") if s in trail]
+    opened = trail.index("open") if "open" in trail else -1
+    row = dict(run="failover", late_on_r0=late_on_r0, failovers=h["failovers"],
+               requeued=h["requeued"],
+               probes=h["probes"], breaker_trail=trail,
+               delivered=h["done"], failed=h["failed"],
+               duplicates_dropped=h["duplicates_dropped"],
+               no_leak=all(_no_leak(rep.engine) for rep in router._replicas),
+               equal_uninterrupted=sum(np.array_equal(o, r) for o, r in zip(outs, ref)),
+               divergences=divs, margin_tol=0.1, held=held, wall_s=fail_s)
+    row["ok"] = (h["done"] == len(prompts) and h["failed"] == 0
+                 and len(set(uids)) == len(prompts) and h["pending"] == 0
+                 and row["no_leak"] and held and h["failovers"] == 2 and late_on_r0 > 0
+                 and opened >= 0 and order == ["open", "half_open", "closed"]
+                 and trail.index("half_open") > opened and trail[-1] == "closed")
+    rows.append(row)
+    del router
+    free()
+
+    # -- prefix ---------------------------------------------------------------
+    rng = np.random.RandomState(ROUTER_STREAM_SEED + 1)
+    pre = rng.randint(0, cfg.vocab_size, ROUTER_PREFIX_PAGES * page).astype(np.int64)
+    tails = [rng.randint(0, cfg.vocab_size, int(n)).astype(np.int64) for n in (40, 25, 60, 33)]
+    p_prompts = [np.concatenate([pre, t]) for t in tails]
+    p_budgets = [32, 40, 24, 48]
+    warm = factory()()
+    want, _ = serve(warm, p_prompts[:1], p_budgets[:1])
+    rest, _ = serve(warm, p_prompts[1:], p_budgets[1:])
+    want += rest
+    warm_hits = warm._prefix.hits
+    del warm
+    free()
+    router = EngineRouter(factory(), replicas=2, prefix_routing=True)
+    reset_kernel_launches()
+    first, _ = serve(router, p_prompts[:1], p_budgets[:1])
+    home = next(rep for rep in router._replicas if rep.engine.index_publishes)
+    other = next(rep for rep in router._replicas if rep is not home)
+    # keep the best-prefix replica loaded: every slot busy with short
+    # direct requests (outside the router's ledger) that outlast the
+    # admissions below
+    for _ in range(geom["max_batch"]):
+        home.engine.add_request(rng.randint(0, cfg.vocab_size, 16).astype(np.int64), 64)
+    while any(s is None for s in home.engine._slots):
+        home.engine.step()
+    ships = []
+    orig_export = home.export_prefix
+
+    def export_prefix(ids, device=False):
+        sync()
+        t0 = time.perf_counter()
+        payload = orig_export(ids, device=device)
+        sync()
+        ships.append(dict(device=device, transport=payload and payload.get("transport"),
+                          bytes=payload_bytes(payload) if payload else 0,
+                          export_ms=1e3 * (time.perf_counter() - t0)))
+        return payload
+
+    home.export_prefix = export_prefix
+    orig_import = other.import_prefix
+
+    def import_prefix(payload):
+        sync()
+        t0 = time.perf_counter()
+        n = orig_import(payload)
+        sync()
+        ships[-1]["import_ms"] = 1e3 * (time.perf_counter() - t0)
+        return n
+
+    other.import_prefix = import_prefix
+    cov, placed, uids = [], [], []
+    for p, b in zip(p_prompts[1:], p_budgets[1:]):
+        # the index's claims at admission: the first request finds only the
+        # loaded home replica's (its pages ship), the later ones the copy
+        cov.append(router.prefix_index.lookup(prompt_digests(p, page)))
+        uids.append(router.add_request(p, b))
+        placed.append(router._reqs[uids[-1]].replica)
+        router.step()           # the request seats before the next arrives
+    router.drain()
+    home.engine.drain()
+    sync()
+    add()
+    got = first + [np.asarray(router.result(u)) for u in uids]
+    ship_ms = [s["export_ms"] + s.get("import_ms", 0.0) for s in ships]
+    ship_bytes = sum(s["bytes"] for s in ships)
+    row = dict(run="prefix", prefix_pages=ROUTER_PREFIX_PAGES, home=home.name,
+               placed=placed, index_cover=cov, prefix_routed=router.prefix_routed,
+               prefix_ships=router.prefix_ships, ship_failures=router.prefix_ship_failures,
+               host_fallbacks=router.prefix_ship_fallbacks,
+               ship_transports=dict(router.prefix_ship_transports),
+               ships=ships, ship_ms=ship_ms,
+               ship_gb_per_s=(ship_bytes / sum(ship_ms) / 1e6) if ship_ms else None,
+               hits=other.engine._prefix.hits, warm_single_hits=warm_hits,
+               equal_warm_single=same(want, got),
+               no_leak=all(_no_leak(rep.engine) for rep in router._replicas))
+    row["ok"] = (row["equal_warm_single"] and row["no_leak"] and row["prefix_ships"] >= 1
+                 and row["ship_failures"] == 0 and row["host_fallbacks"] == 0
+                 and row["ship_transports"] == {"device": row["prefix_ships"]}
+                 and all(s["device"] and s["transport"] == "device" for s in ships)
+                 and len(ships) == row["prefix_ships"]
+                 and placed == [other.name] * len(uids)
+                 and cov[0] == {home.name: ROUTER_PREFIX_PAGES}
+                 and all(c.get(other.name, 0) == ROUTER_PREFIX_PAGES for c in cov[1:])
+                 and row["hits"] >= ROUTER_PREFIX_PAGES * len(uids))
+    rows.append(row)
+    del router, home, other
+    free()
+
+    # -- disagg ----------------------------------------------------------------
+    n_dis = 6
+    router = EngineRouter(factory(), topology={"prefill": 1, "decode": 1})
+    moves = []
+    src, dst = router._replicas
+    orig_export_kv, orig_import_kv = src.export_kv, dst.import_kv
+
+    def export_kv(uid, transport="host"):
+        sync()
+        t0 = time.perf_counter()
+        payload = orig_export_kv(uid, transport)
+        sync()
+        moves.append(dict(transport=transport, bytes=payload_bytes(payload),
+                          export_ms=1e3 * (time.perf_counter() - t0)))
+        return payload
+
+    def import_kv(payload):
+        sync()
+        t0 = time.perf_counter()
+        euid = orig_import_kv(payload)
+        sync()
+        moves[-1]["import_ms"] = 1e3 * (time.perf_counter() - t0)
+        return euid
+
+    src.export_kv, dst.import_kv = export_kv, import_kv
+    reset_kernel_launches()
+    outs, dis_s = serve(router, prompts[:n_dis], budgets[:n_dis])
+    add()
+    h = router.health()
+    hand_ms = [m["export_ms"] + m.get("import_ms", 0.0) for m in moves]
+    row = dict(run="disagg", topology=h["topology"], requests=n_dis,
+               kv_handoffs=h["kv_handoffs"], handoff_failures=h["handoff_failures"],
+               transports=dict(router.handoff_transports), handoff_ms=hand_ms,
+               handoff_bytes=[m["bytes"] for m in moves],
+               handoff_gb_per_s=(sum(m["bytes"] for m in moves) / sum(hand_ms) / 1e6
+                                 if hand_ms else None),
+               equal_single=same(ref[:n_dis], outs), wall_s=dis_s,
+               no_leak=all(_no_leak(rep.engine) for rep in router._replicas))
+    row["ok"] = (row["equal_single"] and row["no_leak"] and h["kv_handoffs"] == n_dis
+                 and row["transports"] == {"device": n_dis}
+                 and all(m["transport"] == "device" for m in moves)
+                 and h["handoff_failures"] == 0)
+    rows.append(row)
+    del router, src, dst
+    free()
+
+    # -- adapters -----------------------------------------------------------------
+    std = lora_init_std(torch, model, LORA_RANK)
+    ad_dir = tempfile.mkdtemp(prefix="adapters-")
+    ads = {}
+    for s, n in enumerate(ADAPTER_NAMES[:2]):
+        ads[n] = os.path.join(ad_dir, n)
+        save_adapter(ads[n], make_lora_adapter(cfg, rank=LORA_RANK, seed=s + 1, init_std=std))
+    names = ["a1", "a2", None, "a1", "a2", None]
+    pool = {"rank": LORA_RANK, "max_adapters": 2}
+    single = factory(adapters=pool)()
+    for n, ad in ads.items():
+        single.load_adapter(n, ad)
+    su = [single.add_request(p, b, adapter=n) for p, b, n in zip(prompts, budgets, names)]
+    single.drain()
+    want = [np.asarray(single.result(u)) for u in su]
+    del single
+    free()
+    router = EngineRouter(factory(adapters=pool), replicas=2)
+    summary = {"a1": router.load_adapter("a1", ads["a1"], replicas=["r0", "r1"]),
+               "a2": router.load_adapter("a2", ads["a2"], replicas=["r1"])}
+    reset_kernel_launches()
+    uids = [router.add_request(p, b, adapter=n) for p, b, n in zip(prompts, budgets, names)]
+    placed = [router._reqs[u].replica for u in uids]
+    router.drain()
+    add()
+    lora = kernel_launches().get("lora", 0)
+    got = [np.asarray(router.result(u)) for u in uids]
+    shutil.rmtree(ad_dir, ignore_errors=True)
+    row = dict(run="adapters", deploy=summary, affinity=router.adapter_affinity(),
+               names=names, placed=placed, lora_launches=lora,
+               equal_single=same(want, got),
+               no_leak=all(_no_leak(rep.engine) for rep in router._replicas))
+    row["ok"] = (row["equal_single"] and row["no_leak"] and lora > 0
+                 and all(p == "r1" for p, n in zip(placed, names) if n == "a2")
+                 and all(v == "loaded" for s in summary.values() for v in s.values()))
+    rows.append(row)
+    del router
+    free()
+
+    # -- hot_swap ------------------------------------------------------------------
+    scfg = LlamaConfig.llama_7b()
+    scfg.num_hidden_layers = SWAP_LAYERS
+    m_old = LlamaForCausalLM(scfg, device=dev, seed=0).to(torch.bfloat16)
+    m_new = LlamaForCausalLM(scfg, device=dev, seed=1).to(torch.bfloat16)
+    s_prompts, s_budgets = prompts[:6], budgets[:6]
+    tmp = tempfile.mkdtemp(prefix="hotswap-")
+    path = os.path.join(tmp, "snap")
+    try:
+        eng = factory(m_new)()
+        ids_new, _ = serve(eng, s_prompts, s_budgets)
+        sync()
+        t = time.perf_counter()
+        eng.save_weights_snapshot(path, step=1)
+        save_s = time.perf_counter() - t
+        n_bytes = sum(os.path.getsize(f) for f in glob.glob(os.path.join(path, "leaf_*.npy")))
+        del eng
+        eng = factory(m_old)()
+        ids_old, _ = serve(eng, s_prompts, s_budgets)
+        del eng
+        free()
+        router = EngineRouter(factory(m_old), replicas=2)
+        reset_kernel_launches()
+        pre = [router.add_request(p, b) for p, b in zip(s_prompts, s_budgets)]
+        for _ in range(2):
+            router.step()       # both replicas mid-flight
+        loads = []
+        first = router._replicas[0]
+        orig_load = first.load_weights_snapshot
+
+        def timed_load(p):
+            sync()
+            t0 = time.perf_counter()
+            new = orig_load(p)
+            sync()
+            loads.append(time.perf_counter() - t0)
+            return new
+
+        first.load_weights_snapshot = timed_load   # its load inside the swap
+        t = time.perf_counter()
+        summary = router.hot_swap(path)
+        swap_s = time.perf_counter() - t
+        load_s = loads[0]
+        post = [router.add_request(p, b) for p, b in zip(s_prompts, s_budgets)]
+        router.drain()
+        add()
+        h = router.health()
+        post_ids = [np.asarray(router.result(u)) for u in post]
+        swap_ok = (summary == {"r0": "swapped", "r1": "swapped"} and h["failed"] == 0
+                   and all(router.status(u) == "done" for u in pre)
+                   and same(ids_new, post_ids) and h["hot_swaps"] == 1)
+        leak = all(_no_leak(rep.engine) for rep in router._replicas)
+        del router
+        free()
+        # a byte of one leaf flipped in place: the fleet on the old weights
+        # refuses the snapshot and keeps serving them
+        leaf = sorted(glob.glob(os.path.join(path, "leaf_*.npy")))[3]
+        at = os.path.getsize(leaf) // 2
+        with open(leaf, "r+b") as f:
+            f.seek(at)
+            b = f.read(1)
+            f.seek(at)
+            f.write(bytes([b[0] ^ 0xFF]))
+        router = EngineRouter(factory(m_old), replicas=2)
+        reset_kernel_launches()
+        try:
+            router.hot_swap(path)
+            refused = None
+        except HotSwapError as e:
+            refused = f"{type(e.__cause__).__name__}"
+        back, _ = serve(router, s_prompts, s_budgets)
+        add()
+        rollback_ok = (refused == "CheckpointCorruptError" and router.swap_rollbacks == 1
+                       and router.hot_swaps == 0 and same(ids_old, back)
+                       and all(rep.state == "active" for rep in router._replicas))
+        leak = leak and all(_no_leak(rep.engine) for rep in router._replicas)
+        del router
+        leftovers = sorted(os.path.basename(p) for p in glob.glob(os.path.join(tmp, "*.tmp-*")))
+        row = dict(run="hot_swap", layers=SWAP_LAYERS, snapshot_bytes=n_bytes,
+                   save_s=save_s, save_gb_per_s=n_bytes / save_s / 1e9,
+                   load_s=load_s, load_gb_per_s=n_bytes / load_s / 1e9,
+                   hot_swap_s=swap_s, summary=summary, swapped_equal_fresh=swap_ok,
+                   corrupt_refused=refused, rollback_serves_old=rollback_ok,
+                   temp_dirs_left=leftovers, no_leak=leak)
+        row["ok"] = swap_ok and rollback_ok and not leftovers and leak
+        rows.append(row)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del m_old, m_new
+        free()
+    return rows, launches
+
+
 # ---------------------------------------------------------------- phase 8
 TRAIN_RUNS = (
     # config, warmup, timed steps, exact kernel launches per step
@@ -4749,6 +5244,20 @@ def main():
     del model
     torch.cuda.empty_cache()
     emit(dict(phase="cb_tiering", launches=launches))
+    # 17. multi-replica serving at 7B; counts are zeroed just before each
+    # leg's router run and read just after it
+    t = time.perf_counter()
+    model, geom = router_model(torch, dev)
+    with watchdog("router", PATH_PHASE_S):
+        rows, counts = cb_router(torch, model, geom)
+    add(counts)
+    for r in rows:
+        emit(dict(phase="router", **r))
+        ok &= r["ok"]
+    del model
+    torch.cuda.empty_cache()
+    emit(dict(phase="router", seconds=time.perf_counter() - t, launches=launches,
+              elapsed_s=time.perf_counter() - t_start))
     # the f32 builds' launches: each kernel's less its bf16 ones
     for kind in ("fwd", "bwd"):
         launches[f"flash_attention_{kind}_f32"] = (

@@ -1,2 +1,3 @@
-"""Collectives of paddle_tpu_torch: so far only what tensor-parallel
-serving's int8-compressed reduce needs (`comm_compress`)."""
+"""Distributed pieces of paddle_tpu_torch: the collectives tensor-parallel
+serving's int8-compressed reduce needs (`comm_compress`) and the atomic
+CRC-checked checkpoints (`checkpoint`)."""

@@ -262,6 +262,9 @@ class PrefixCache:
         self._by_page = {}       # page -> chain_key
         self.hits = 0            # pages served from cache (counted by
         self.misses = 0          # the scheduler at admission)
+        self.on_evict = None     # callback(chain_key) when an entry leaves
+        #                          the cache (the engine retracts it from
+        #                          the fleet prefix index)
 
     def __len__(self):
         return len(self._entries)
@@ -372,6 +375,9 @@ class PrefixCache:
         return freed
 
     def clear(self, allocator=None):
+        if self.on_evict is not None:
+            for key in list(self._entries):
+                self.on_evict(key)
         if allocator is not None:
             for key, page in list(self._entries.items()):
                 if allocator.refcount(page) > 0:
@@ -388,6 +394,8 @@ class PrefixCache:
             kids.pop(page, None)
             if not kids:
                 del self._children[key[0]]
+        if self.on_evict is not None:
+            self.on_evict(key)
 
 
 class _FusedBlock:
@@ -421,11 +429,6 @@ class _FusedBlock:
         #                             are then [K, w, T])
         self.aid = None             # device [w] int32 adapter slots of an
         #                             adapter-carrying block (else None)
-
-
-def _not_ported(name, item):
-    return NotImplementedError(
-        f"{name} is not ported to paddle_tpu_torch yet (ROADMAP {item})")
 
 
 def _pad_slots(n, *xs):
@@ -689,6 +692,15 @@ class ContinuousBatchingEngine(LLMEngine):
         self.demote_errors = 0          # failed demote attempts (the victim
         #                                 kept serving)
         self.pages_demoted = 0          # device pages parked in the tier
+        # fleet prefix index (prefix_index.py), attached by the router:
+        # publish / retract are advisory — an index failure is counted and
+        # never fails a request
+        self._prefix_index = None
+        self._replica = None
+        self.index_publishes = 0
+        self.index_publish_errors = 0
+        self.prefix_exports = 0         # prefix-page chains shipped out
+        self.prefix_imports = 0         # chains seated from a ship
         self.spec_passes = 0            # verify passes that emitted
         self.spec_emitted = 0           # decode tokens emitted by them
         self.spec_drafted_total = 0     # drafts offered
@@ -1031,6 +1043,11 @@ class ContinuousBatchingEngine(LLMEngine):
             "restore_failures": self.restore_failures,
             "demote_errors": self.demote_errors,
             "tier": self._tier.stats() if self._tier is not None else None,
+            # fleet prefix index: publish traffic and prefix-page ships
+            "index_publishes": self.index_publishes,
+            "index_publish_errors": self.index_publish_errors,
+            "prefix_exports": self.prefix_exports,
+            "prefix_imports": self.prefix_imports,
             # multi-LoRA adapters: pool occupancy and per-adapter request
             # and token counters (None without a pool)
             "adapters": (dict(self._apool.stats(),
@@ -1435,6 +1452,147 @@ class ContinuousBatchingEngine(LLMEngine):
         self._slot_used[slot] = True
         return r.uid
 
+    # -- prefix-page shipping (cache-aware routing's transfer path) ----------
+    def export_prefix_pages(self, ids, device=False):
+        """Package this engine's cached full-page chain covering a prefix of
+        `ids` for import into another engine's prefix cache — the router's
+        alternative to re-prefilling when the best-prefix replica lacks
+        headroom. Returns None when no full page of `ids` is cached (a
+        stale index hint). The chain's pages ride under an export ticket
+        holding its own references (the cache keeps serving them here, and
+        PrefixCache.evict skips ticketed pages); the caller settles the
+        ticket: finish_prefix_export after a landed import,
+        abort_prefix_export otherwise. device=True keeps the page blobs as
+        tensors on the engine's device (the negotiated same-process ship:
+        no host copy)."""
+        if self._prefix is None:
+            raise ValueError("export_prefix_pages: prefix cache disabled")
+        ids = np.asarray(ids, np.int64).ravel()
+        p = self.page_size
+        key = ()
+        pages = []
+        for j in range(ids.size // p):
+            k2 = self._prefix.chain_key(key, ids[j * p:(j + 1) * p])
+            page = self._prefix._entries.get(k2)
+            if page is None:
+                break
+            pages.append(page)
+            key = k2
+        if not pages:
+            return None
+        fault_point("kv.export", detail=f"prefix:{len(pages)}")
+        if device:
+            fault_point("transport.device", detail="prefix")
+        for pg in pages:
+            self.allocator.share(pg)         # the ticket's own references
+        try:
+            token = self.allocator.export_begin(pages)
+        except Exception:
+            self.allocator.free(pages)
+            raise
+        covered = len(pages) * p
+        try:
+            payload = self._package_pages(
+                token, {"state": "prefix", "prompt": ids[:covered].copy()},
+                covered, pages, device=device)
+        except Exception:
+            # the caller never receives the token: settle it here, or the
+            # ticket's references never drop
+            self.abort_prefix_export(token)
+            raise
+        self.prefix_exports += 1
+        return payload
+
+    def finish_prefix_export(self, token):
+        """Settle a landed prefix ship: the ticket's references drop (the
+        cache keeps its own)."""
+        self.allocator.export_commit(token)
+
+    def abort_prefix_export(self, token):
+        """Cancel a failed prefix ship: close the ticket and drop its
+        references; the cache is untouched."""
+        pages = list(self.allocator.export_pages(token))
+        self.allocator.export_abort(token)
+        self.allocator.free(pages)
+
+    def import_prefix_pages(self, payload):
+        """Seat a shipped prefix-page chain into this engine's prefix cache:
+        CRC and geometry verify, claim fresh pages under the transfer token
+        (burned on commit — a replayed ship raises), write the K / V bytes,
+        register the chain content-addressed and publish it to the fleet
+        index. A request admitted next shares these pages as if this engine
+        had prefilled them. Returns the number of pages seated."""
+        from .handoff import KVHandoffError, verify_payload
+        from .prefix_index import EMPTY_DIGEST, chain_digest
+        if self._prefix is None:
+            raise ValueError("import_prefix_pages: prefix cache disabled")
+        fault_point("kv.import", detail="prefix")
+        g = payload["geometry"]
+        mine = self._kv_geometry()
+        if {k: g.get(k) for k in mine} != mine:
+            raise KVHandoffError(
+                f"prefix-ship geometry mismatch: payload {g} vs engine "
+                f"{mine}")
+        verify_payload(payload)
+        prompt = np.asarray(payload["spec"]["prompt"], np.int64).ravel()
+        p = self.page_size
+        n = int(payload["lens"]) // p
+        if n * p != int(payload["lens"]) or prompt.size < n * p:
+            raise KVHandoffError(
+                f"prefix payload lens {payload['lens']} is not {n} full "
+                f"pages of the shipped prompt ({prompt.size} tokens)")
+        if n > self.allocator.available and self._prefix:
+            self._prefix.evict(n - self.allocator.available, self.allocator)
+        pages = self.allocator.import_begin(payload["token"], n)
+        try:
+            self._write_pages(payload, pages)
+        except Exception:
+            self.allocator.import_abort(payload["token"])
+            raise
+        self.allocator.import_commit(payload["token"])
+        # register the chain; a link already cached here keeps the local
+        # page (the imported copy's reference just drops below)
+        key = ()
+        dig = EMPTY_DIGEST
+        for j in range(n):
+            chunk = prompt[j * p:(j + 1) * p]
+            k2 = self._prefix.chain_key(key, chunk)
+            if k2 not in self._prefix._entries:
+                self._prefix.insert(key, chunk, pages[j], self.allocator)
+            key = k2
+            if self._prefix_index is not None:
+                dig = chain_digest(dig, chunk)
+                self._index_publish(dig, j + 1)
+        self.allocator.free(pages)      # the import's references; the
+        self.prefix_imports += 1        # cache keeps its own
+        return n
+
+    # -- weight hot-swap ------------------------------------------------------
+    def install_weights(self, new):
+        """Flip the weights at a block boundary: no slot may hold in-flight
+        KV (cache computed under the old weights would corrupt
+        continuations), so callers drain or migrate running requests first
+        — EngineBusyError is the backpressure signal. Demoted requests count
+        as busy too (their tier bytes are old-weight KV). Queued requests
+        hold through the flip and run under the new weights. The prefix
+        cache is dropped with the old weights (retracting its index
+        claims); the megakernel's pointer tables are rebuilt over the new
+        tensors."""
+        busy = [r.uid for r in self._slots if r is not None]
+        busy += list(self._demoted)
+        if busy:
+            raise EngineBusyError(
+                f"install_weights with {len(busy)} request(s) in flight "
+                f"(uids {busy}): their KV was computed under the old "
+                "weights — drain or migrate them first (the router's "
+                "hot_swap does)")
+        super().install_weights(new)
+        if self._prefix is not None:
+            self._prefix.clear(self.allocator)
+        if self.megakernel:
+            self._build_mk_pack()
+        return self
+
     # -- KV tiering (HBM -> host RAM -> disk; inference/tiering.py) ----------
     def demote_request(self, uid):
         """Move a decode-state request's exclusive device pages into the KV
@@ -1670,9 +1828,37 @@ class ContinuousBatchingEngine(LLMEngine):
             self.demote_errors += 1
             return False
 
+    # -- fleet prefix index (inference/prefix_index.py) ----------------------
     def attach_prefix_index(self, index, replica):
-        raise _not_ported("the fleet prefix index",
-                          "A7.5, prefix_index.py")
+        """Wire this engine into a fleet prefix index under the name
+        `replica`: prefill / import publishes full-page prefix digests,
+        cache eviction retracts them, and a weight flip or pool rebuild
+        drops every claim (the cache dies with it). The router calls this
+        once per replica."""
+        self._prefix_index = index
+        self._replica = replica
+        if self._prefix is not None:
+            self._prefix.on_evict = self._on_prefix_evict
+        return self
+
+    def _on_prefix_evict(self, chain_key):
+        if self._prefix_index is None:
+            return
+        from .prefix_index import chain_key_digest
+        try:
+            self._prefix_index.retract(self._replica,
+                                       chain_key_digest(chain_key))
+        except Exception:
+            self.index_publish_errors += 1
+
+    def _index_publish(self, dig, n_pages):
+        """One advisory publish (index.publish fault or a store hiccup is
+        counted, never raised: serving never depends on the index)."""
+        try:
+            self._prefix_index.publish(self._replica, dig, n_pages)
+            self.index_publishes += 1
+        except Exception:
+            self.index_publish_errors += 1
 
     # -- multi-LoRA adapters (inference/adapters.py) -------------------------
     def _need_pool(self, what):
@@ -2831,15 +3017,22 @@ class ContinuousBatchingEngine(LLMEngine):
 
     def _publish_prefix(self, r):
         """Make a completed prompt's full pages shareable (the partial tail
-        page stays private: decode writes land there). Adapter requests
-        publish nothing (see _price_admission)."""
+        page stays private: decode writes land there). With a fleet prefix
+        index attached, every full-page prefix digest is published
+        alongside. Adapter requests publish nothing (see
+        _price_admission)."""
         if self._prefix is None or r.adapter is not None:
             return
+        from .prefix_index import EMPTY_DIGEST, chain_digest
         key = ()
+        dig = EMPTY_DIGEST
         p = self.page_size
         for j in range(r.t0 // p):
-            key = self._prefix.insert(key, r.ids[j * p:(j + 1) * p],
-                                      r.pages[j], self.allocator)
+            chunk = r.ids[j * p:(j + 1) * p]
+            key = self._prefix.insert(key, chunk, r.pages[j], self.allocator)
+            if self._prefix_index is not None:
+                dig = chain_digest(dig, chunk)
+                self._index_publish(dig, j + 1)
 
     def _bucket(self, top):
         return next(b for b in self._slot_buckets if b > top)

@@ -635,6 +635,67 @@ class LLMEngine:
         self.k_pages, self.v_pages = self._kp[0], self._vp[0]
         self.allocator = PageAllocator(self.n_pages)
 
+    # -- weight snapshots (the hot-swap substrate) ------------------------------
+    # Derived entries are rebuilt at install, never serialized: the rope
+    # tables and eps come from the config, "mk" is the reference's
+    # megakernel repack (the port keeps its pack outside the dict)
+    _DERIVED_WEIGHT_KEYS = ("cos", "sin", "eps", "mk")
+
+    def export_weights(self):
+        """The engine's serializable weight tree: the snapshot without its
+        derived entries, in the reference's layout (`emb`, `head`, `layers`
+        of per-layer dicts, `norm`; an int8 projection is an (int8, scales)
+        pair). Under tp the shards join back into the full tensors. The
+        tensors are the engine's own (no copy): install_weights rebinds,
+        never writes them, so an export stays the old weights across a
+        flip."""
+        if self._tpc is not None:
+            return self._tpc.join_weights(self._W, self._DERIVED_WEIGHT_KEYS)
+        return {k: v for k, v in self.weights.items()
+                if k not in self._DERIVED_WEIGHT_KEYS}
+
+    def save_weights_snapshot(self, path, step=None):
+        """Atomic CRC32-manifest save of the current weights (the artifact a
+        later hot-swap loads and verifies)."""
+        from ..distributed import checkpoint as ckpt
+        ckpt.save_snapshot(self.export_weights(), path, step=step)
+        return path
+
+    def load_weights_snapshot(self, path):
+        """Load + verify (CRC32, tree structure, per-leaf shapes) a snapshot
+        against this engine's weight tree without installing it: fresh
+        tensors of the engine's dtypes on its device. Raises
+        CheckpointCorruptError before the engine is touched; the flip itself
+        is install_weights."""
+        from ..distributed import checkpoint as ckpt
+        return ckpt.load_snapshot_for(self.export_weights(), path)
+
+    def install_weights(self, new):
+        """Flip the serving weights to `new` (an export_weights-shaped tree,
+        e.g. from load_weights_snapshot). The engine's weight dicts are
+        rebuilt around new's tensors (rebound, never copied into): engines
+        built from one model share its parameter tensors, and an in-place
+        write would flip all of them and the export a rollback returns to.
+        The rope tables and eps stay; under tp the new tree is split over
+        the shards again."""
+        from ..distributed.checkpoint import tree_structure
+        cur = {k: v for k, v in self.weights.items()
+               if k not in self._DERIVED_WEIGHT_KEYS}  # shard 0's: the
+        if tree_structure(cur) != tree_structure(new):  # same structure
+            raise ValueError(
+                "install_weights: snapshot tree structure does not match "
+                "this engine's weights (different quant/layer layout?)")
+        kept = {k: self.weights[k] for k in ("cos", "sin", "eps")}
+        full = dict(new, **kept)
+        if self._tpc is None:
+            self._W = [full]
+        else:
+            # split_weights consumes its layer list: hand it a copy
+            self._W = self._tpc.split_weights(
+                dict(full, layers=list(full["layers"])))
+        self.weights = self._W[0]
+        return self
+
     # -- page claims ----------------------------------------------------------
     def _reclaim_pages(self, n):
         """Hook: free up to n idle pages (none here; the continuous-

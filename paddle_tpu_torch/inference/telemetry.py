@@ -2,7 +2,7 @@
 
 Counterpart of `paddle_tpu/inference/telemetry.py` (the engine-level
 plane; it imports no JAX, so the port keeps its own copy). The router-side
-`ReplicaTelemetryMirror` waits for the process fleet (ROADMAP A7.7).
+`ReplicaTelemetryMirror` waits for the process fleet (ROADMAP A7.8).
 
 Design constraints, as in the reference:
 

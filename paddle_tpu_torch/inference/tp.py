@@ -159,6 +159,40 @@ class TPContext:
                     for key, w in ws.items()})
         return shards
 
+    def join_weights(self, shards, skip=()):
+        """The full weight dict split_weights made `shards` from (entries
+        named in `skip` left out), on shard 0's device: column slices (and
+        an int8 pair's scales) concatenated in shard order, a psum-mode row
+        pair concatenated over its rows, a vocab-parallel head over its
+        columns, replicated entries as shard 0 holds them."""
+        dev = self.devices[0]
+
+        def cat(parts, dim):
+            return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+        def join(parts, dim):
+            if isinstance(parts[0], tuple):
+                # scales follow the columns; a row split keeps them whole
+                return (cat([p[0] for p in parts], dim),
+                        cat([p[1] for p in parts], 0) if dim == 1
+                        else parts[0][1])
+            return cat(parts, dim)
+
+        out = {}
+        for key, val in shards[0].items():
+            if key in skip or key == "layers":
+                continue
+            out[key] = (join([sh[key] for sh in shards], 1)
+                        if key == "head" and self.head_sharded else val)
+        out["layers"] = [
+            {key: (join([sh["layers"][li][key] for sh in shards], 1)
+                   if key in _COL else
+                   join([sh["layers"][li][key] for sh in shards], 0)
+                   if key in _ROW and self.mode == "psum" else w)
+             for key, w in ws.items()}
+            for li, ws in enumerate(shards[0]["layers"])]
+        return out
+
     # -- collectives over the shard list ---------------------------------------
     def _per_device(self, make):
         """[make(dev) for each shard's device], made once per distinct

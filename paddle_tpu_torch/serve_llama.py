@@ -13,6 +13,17 @@ comma-separated list, one per shard; the same card may repeat), exact by
 default, or `--tp-mode psum` with `--tp-compress int8`. Weights are random,
 drawn from a seed.
 
+Router modes (in-process replicas behind `inference/router.py`'s
+EngineRouter, each a continuous-batching engine over the one model):
+`--replicas N` health-balances four requests over N replicas;
+`--prefix-routing` lets three of them share request 0's prompt pages and
+routes them by the fleet prefix index; `--hot-swap DIR` rolls the weight
+snapshot in DIR through the fleet mid-stream (saved first from the live
+weights when DIR does not exist; needs N >= 2); `--disagg P:D` serves
+through P prefill and D decode workers with a KV-page handoff at the first
+token. The process fleet (`--fleet`, `--fleet-worker`) and `--autoscale`
+are not ported yet.
+
     python -m paddle_tpu_torch.serve_llama --model 7b --quant int8
     python -m paddle_tpu_torch.serve_llama --scheduler --decode-block 8
     python -m paddle_tpu_torch.serve_llama --model 7b --scheduler \
@@ -25,7 +36,12 @@ drawn from a seed.
     python -m paddle_tpu_torch.serve_llama --model 7b --tp 2 \
         --device cuda:0,cuda:0 --scheduler --decode-block 8 --megakernel multi
     python -m paddle_tpu_torch.serve_llama --tp 2 --device cpu --scheduler
+    python -m paddle_tpu_torch.serve_llama --replicas 2 --prefix-routing
+    python -m paddle_tpu_torch.serve_llama --replicas 2 --hot-swap snap_dir
+    python -m paddle_tpu_torch.serve_llama --disagg 1:1
 """
+import os
+
 import argparse
 import warnings
 
@@ -116,7 +132,56 @@ def main(argv=None):
     ap.add_argument("--sample-rotate", action="store_true",
                     help="--scheduler: alternate sampled and greedy "
                          "requests (a mixed batch; needs --temperature)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="N > 1: serve through the fault-tolerant "
+                         "EngineRouter — N engine replicas, health-balanced "
+                         "routing, failover with in-flight re-queue, "
+                         "circuit-breaker quarantine")
+    ap.add_argument("--hot-swap", metavar="DIR", default=None,
+                    help="mid-stream zero-downtime rolling weight swap from "
+                         "this CRC32-manifest snapshot directory (saved "
+                         "first from the live weights when it does not "
+                         "exist); needs --replicas >= 2")
+    ap.add_argument("--prefix-routing", action="store_true",
+                    help="cache-aware routing: replicas publish their prefix "
+                         "chains into a fleet index and each admission lands "
+                         "on the replica with the longest cached prefix "
+                         "(a loaded one ships its pages to a free replica)")
+    ap.add_argument("--disagg", metavar="P:D", default=None,
+                    help="disaggregated serving: P prefill workers + D "
+                         "decode workers behind the router; requests move "
+                         "at first token via the CRC-checked KV-page handoff")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="process-backed fleet of N workers (not ported "
+                         "yet: ROADMAP A7.8)")
+    ap.add_argument("--fleet-worker", action="store_true",
+                    help="run as one fleet worker (not ported yet: ROADMAP "
+                         "A7.8)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="SLO-driven fleet controller (not ported yet: "
+                         "ROADMAP A7.9)")
     args = ap.parse_args(argv)
+    if args.fleet or args.fleet_worker:
+        raise NotImplementedError(
+            "--fleet / --fleet-worker: the process-backed fleet is not "
+            "ported to paddle_tpu_torch yet (ROADMAP A7.8)")
+    if args.autoscale:
+        raise NotImplementedError(
+            "--autoscale: the fleet controller is not ported to "
+            "paddle_tpu_torch yet (ROADMAP A7.9)")
+    if args.hot_swap and args.replicas < 2:
+        ap.error("--hot-swap needs --replicas >= 2 (the router keeps "
+                 "serving from the other replicas while one flips)")
+    if args.prefix_routing and args.replicas < 2 and not args.disagg:
+        ap.error("--prefix-routing needs --replicas >= 2 (a fleet to "
+                 "route across)")
+    if args.disagg:
+        try:
+            args.disagg = tuple(int(x) for x in args.disagg.split(":"))
+            if len(args.disagg) != 2:
+                raise ValueError
+        except ValueError:
+            ap.error("--disagg expects P:D (e.g. --disagg 1:2)")
     if args.temperature is None and (args.top_k or args.top_p != 1.0
                                      or args.seed or args.sample_rotate):
         warnings.warn(
@@ -142,6 +207,8 @@ def main(argv=None):
     weight_dtype = "bfloat16" if args.model == "7b" else None
     model = LlamaForCausalLM(g["cfg"], device=device, seed=0)
     quant = None if args.quant == "none" else args.quant
+    if args.disagg or args.replicas > 1:
+        return serve_router(args, g, model, quant, weight_dtype, device)
     if args.scheduler:
         return serve_scheduler(args, g, model, quant, weight_dtype, device)
     engine = LLMEngine(model, max_len=g["max_len"], page_size=g["page"],
@@ -172,6 +239,72 @@ def sampling_for(args, i):
         return None
     return {"do_sample": True, "temperature": args.temperature,
             "top_k": args.top_k, "top_p": args.top_p, "seed": args.seed + i}
+
+
+def serve_router(args, g, model, quant, weight_dtype, device):
+    """Four requests through an EngineRouter over in-process replicas of
+    one model (--replicas N, or --disagg P:D); with --prefix-routing the
+    first three share request 0's prompt, which finishes (and publishes its
+    pages) before they arrive; with --hot-swap a snapshot rolls through the
+    fleet two router steps into the stream."""
+    from .inference.router import EngineRouter
+
+    def factory():
+        return ContinuousBatchingEngine(
+            model, max_len=g["max_len"], page_size=g["page"],
+            max_batch=max(2, g["bs"]), quant=quant, weight_dtype=weight_dtype,
+            decode_block=args.decode_block,
+            megakernel=MEGAKERNEL[args.megakernel],
+            device=args.engine_device, **args.tp_kw)
+
+    if args.disagg:
+        p_n, d_n = args.disagg
+        router = EngineRouter(factory, topology={"prefill": p_n,
+                                                 "decode": d_n},
+                              prefix_routing=args.prefix_routing)
+        mode = f"disagg {p_n}:{d_n}"
+    else:
+        router = EngineRouter(factory, replicas=args.replicas,
+                              prefix_routing=args.prefix_routing)
+        mode = f"replicas={args.replicas}"
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, g["cfg"].vocab_size, (t,)).astype(np.int64)
+               for t in (16, 9, 5, 12)]
+    uids = []
+    if args.prefix_routing:
+        # a shared system prompt: requests 1-3 reuse request 0's published
+        # pages, and the index steers them to its replica
+        prompts = [np.concatenate([prompts[0], p[:4]])
+                   for p in prompts[:3]] + [prompts[3]]
+        uids.append(router.add_request(prompts[0], args.max_new_tokens,
+                                       sampling=sampling_for(args, 0)))
+        router.drain()
+    uids += [router.add_request(p, args.max_new_tokens,
+                                sampling=sampling_for(args, i))
+             for i, p in enumerate(prompts) if i >= len(uids)]
+    for _ in range(2):
+        router.step()                       # replicas mid-flight
+    if args.hot_swap:
+        if not os.path.isdir(args.hot_swap):
+            # round-trip demo: snapshot the live weights first
+            router.save_weights_snapshot(args.hot_swap, step=0)
+        print(f"  hot-swap: {router.hot_swap(args.hot_swap)}")
+    router.drain()
+    h = router.health()
+    print(f"model={args.model} quant={args.quant} router {mode}: "
+          f"{h['done']} done / {h['failed']} failed, {h['failovers']} "
+          f"failovers, {h['kv_handoffs']} KV handoffs "
+          f"({dict(router.handoff_transports)}), {h['prefix_routed']} "
+          f"prefix-routed, {h['prefix_ships']} prefix ships, "
+          f"{h['hot_swaps']} hot swaps")
+    for name, rh in h["replicas"].items():
+        print(f"  {name} [{rh['role']}]: breaker={rh['breaker']} "
+              f"swaps={rh['swaps']} pages_free={rh.get('pages_free')}")
+    for i, u in enumerate(uids):
+        o = router.result(u)
+        print(f"  request {i}: {prompts[i].size} -> {o.size} tokens, "
+              f"tail {o[-4:].tolist()}")
+    return router
 
 
 def serve_scheduler(args, g, model, quant, weight_dtype, device):

@@ -38,6 +38,10 @@ assert "paddle_tpu_torch.inference.adapters" in sys.modules
 assert "paddle_tpu_torch.inference.handoff" in sys.modules
 assert "paddle_tpu_torch.inference.tiering" in sys.modules
 assert "paddle_tpu_torch.ops.lora" in sys.modules
+assert "paddle_tpu_torch.inference.router" in sys.modules
+assert "paddle_tpu_torch.inference.prefix_index" in sys.modules
+assert "paddle_tpu_torch.inference.fleet" in sys.modules
+assert "paddle_tpu_torch.distributed.checkpoint" in sys.modules
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))

@@ -345,12 +345,14 @@ def test_health_keys_and_unported_options():
         "spec_sampled_accept_rate", "tp", "tp_mode", "tp_compress",
         "preemptions", "tenants", "handoffs_out", "handoffs_in", "kv_tier",
         "demoted", "pages_demoted", "demotions", "restores",
-        "restore_failures", "demote_errors", "tier", "adapters"}
+        "restore_failures", "demote_errors", "tier", "adapters",
+        "index_publishes", "index_publish_errors", "prefix_exports",
+        "prefix_imports"}
     assert (eng.health()["tp"], eng.health()["tp_mode"]) == (1, None)
     _, tm = _pair()
     # speculation is ported (A5(d)), and so are tenants (A5(e)), telemetry
     # (A7.3), adapters (A7.2), KV tiering (A7.4) and the request export
-    # (A7.6); the fleet prefix index (A7.5) is refused
+    # (A7.6), and the fleet prefix index (A7.5) attaches
     assert tsched.ContinuousBatchingEngine(
         tm, device="cpu", speculate=4).health()["speculate"] == 4
     assert tsched.ContinuousBatchingEngine(
@@ -365,8 +367,9 @@ def test_health_keys_and_unported_options():
             tm, device="cpu", **kw).health()[key] == want
     assert tsched.ContinuousBatchingEngine(
         tm, device="cpu", adapters=True).health()["adapters"]["rank"] == 4
-    with pytest.raises(NotImplementedError, match="A7.5"):
-        eng.attach_prefix_index(None, "r0")
+    from paddle_tpu_torch.inference.prefix_index import PrefixIndex
+    assert eng.attach_prefix_index(PrefixIndex(), "r0") is eng
+    assert eng._replica == "r0" and eng._prefix.on_evict is not None
     # tensor parallelism is ported (A7.10): the reference's refusals stay
     with pytest.raises(ValueError, match="tp_mode"):
         tsched.ContinuousBatchingEngine(tm, device="cpu", tp=2,

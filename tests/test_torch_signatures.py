@@ -43,6 +43,12 @@ import paddle_tpu_torch.inference.adapters as tad
 import paddle_tpu_torch.inference.handoff as tho
 import paddle_tpu_torch.inference.tiering as tti
 import paddle_tpu_torch.ops.lora as tlora
+import paddle_tpu.distributed.checkpoint as jckpt
+import paddle_tpu.inference.prefix_index as jpx
+import paddle_tpu.inference.router as jrouter
+import paddle_tpu_torch.distributed.checkpoint as tckpt
+import paddle_tpu_torch.inference.prefix_index as tpx
+import paddle_tpu_torch.inference.router as trouter
 
 JAX_ONLY = {"interpret"}
 
@@ -153,7 +159,10 @@ for _name in ("export_request", "export_inflight", "submit_resume",
               "export_kv_pages", "abort_handoff", "release_handoff",
               "import_kv_pages", "demote_request", "restore_request",
               "register_adapter", "load_adapter", "evict_adapter",
-              "pin_adapter", "attach_prefix_index"):
+              "pin_adapter", "attach_prefix_index", "export_prefix_pages",
+              "finish_prefix_export", "abort_prefix_export",
+              "import_prefix_pages", "install_weights", "export_weights",
+              "save_weights_snapshot", "load_weights_snapshot"):
     PAIRS[_CB + _name] = (getattr(jsched.ContinuousBatchingEngine, _name),
                           getattr(tsched.ContinuousBatchingEngine, _name))
 for _mods, _names in (
@@ -171,7 +180,26 @@ for _mods, _names in (
                       "StoreKVTransport.delete")),
         ((jti, tti), ("resolve_tier", "KVTierStore.__init__",
                       "KVTierStore.put", "KVTierStore.get",
-                      "KVTierStore.delete", "KVTierStore.stats"))):
+                      "KVTierStore.delete", "KVTierStore.stats")),
+        # multi-replica serving (A7.7, A7.5) and the checkpoint layer
+        # (A8.4) it stands on
+        ((jrouter, trouter), (
+            "CircuitBreaker.__init__", "EngineReplica.__init__",
+            "EngineRouter.__init__", "EngineRouter.add_request",
+            "EngineRouter.hot_swap", "EngineRouter.load_adapter",
+            "EngineRouter.add_replica", "EngineRouter.shift_queued",
+            "EngineRouter.set_replica_role",
+            "EngineRouter.save_weights_snapshot")),
+        ((jpx, tpx), ("chain_digest", "prompt_digests", "chain_key_digest",
+                      "PrefixIndex.__init__", "PrefixIndex.publish",
+                      "PrefixIndex.lookup", "PrefixIndex.expire",
+                      "StorePrefixIndex.__init__")),
+        ((jckpt, tckpt), ("save_state", "save_state_async", "load_state",
+                          "save_snapshot", "load_snapshot_for",
+                          "save_checkpoint", "load_latest",
+                          "install_preemption_hook",
+                          "save_model_and_optimizer",
+                          "load_model_and_optimizer"))):
     for _name in _names:
         _pair = []
         for _m in _mods:
@@ -205,8 +233,8 @@ def test_reference_parameters_lead_in_order(name):
 def test_unported_reference_parameters_are_taken():
     """The reference's parameters the port refuses (use_pallas) are in its
     signatures, so a reference call gets a typed refusal, never a
-    TypeError; so is the fleet prefix index's engine hook
-    (attach_prefix_index, A7.5). tp_mode and tp_compress are taken (tensor
+    TypeError; the fleet prefix index's engine hook (attach_prefix_index,
+    A7.5) is ported and attaches. tp_mode and tp_compress are taken (tensor
     parallelism is ported): ignored at tp = 1, as the reference ignores
     them, and checked at tp > 1. tier_dir and tier_host_cap_mb are taken
     (KV tiering is ported): without kv_tier they configure nothing, as in
@@ -232,8 +260,8 @@ def test_unported_reference_parameters_are_taken():
     for tkw in (dict(tier_dir="kv_tier"), dict(tier_host_cap_mb=8)):
         eng = tsched.ContinuousBatchingEngine(model, **tkw, **kw)
         assert eng.health()["kv_tier"] is None
-    with pytest.raises(NotImplementedError, match="A7.5"):
-        eng.attach_prefix_index(None, "r0")
+    # the fleet prefix index's engine hook is ported (A7.5)
+    assert eng.attach_prefix_index(None, "r0") is eng
     # a positional call in the reference's order binds the same way
     eng = tserving.LLMEngine(model, 32, 8, 1, None, None, None, "float32",
                              16, device="cpu")

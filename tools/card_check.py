@@ -54,6 +54,10 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   pass on the 7B cb_stream (K=8, bf16 and int8, speculate off and 4); run
   from another tree's root to price that tree (parent and change in
   turns, separate processes).
+- `router`: `chip_smoke.py`'s phase 17 alone (multi-replica serving over
+  one shared bf16 LLaMA-7B: route, failover, prefix, disagg, adapters,
+  hot_swap), with the phase's seconds, its non-zero launch counts and the
+  peak memory.
 
     python3 tools/card_check.py ragged flash mask bert   # from the repository root; needs one CUDA card
 """
@@ -301,8 +305,21 @@ def width(dev):
     torch.cuda.empty_cache()
 
 
+def router(dev):
+    t = time.perf_counter()
+    model, geom = C.router_model(torch, dev)
+    rows, launches = C.cb_router(torch, model, geom)
+    yield from (dict(phase="router", **r) for r in rows)
+    del model
+    torch.cuda.empty_cache()
+    yield dict(phase="router", seconds=time.perf_counter() - t,
+               launches={k: v for k, v in launches.items() if v},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, ok=True)
+
+
 PHASES = dict(qmm=qmm, ragged=ragged, flash=flash, mask=mask, f32=f32, gpt=gpt, bert=bert, tp=tp,
-              tp_path=tp_path, width=width, width_rows=width_rows, width_price=width_price)
+              tp_path=tp_path, width=width, width_rows=width_rows, width_price=width_price,
+              router=router)
 
 
 def main(names):
