@@ -171,6 +171,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               and a rolling weight hot-swap of a 4-layer 7B-width model
               with its rollback on a flipped snapshot byte; save / load
               GB/s
+ 18. fleet    the process fleet (`inference/fleet.py`): LLaMA-7B worker
+              processes built from one spec dict (seed 0, phase 17's
+              geometry), each its own CUDA context, behind EngineRouter:
+              routing over 2 workers (ids equal phase 17's single engine's,
+              #4 and #5 launched in each worker, the router's host work a
+              step beside phase 17's), kill -9 of one worker mid-decode
+              (store-ledger salvage, the probe's rebuild respawns it,
+              breaker open -> half_open -> closed), 1 prefill : 1 decode
+              with handoffs over the "store" transport, and the SLO
+              autoscaler (inference/autoscale.py) over a 4-layer 7B-width
+              fleet: one scale-out, then drain-then-retire
 
 Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
 bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row:
@@ -285,9 +296,12 @@ class watchdog:
         self.phase, self.seconds = phase, seconds
 
     def _fire(self):
+        import multiprocessing
         import os
         print(f"chip_smoke: phase {self.phase} did not finish within {self.seconds} s",
               file=sys.stderr, flush=True)
+        for p in multiprocessing.active_children():
+            p.kill()            # fleet workers must not outlive the run
         os._exit(1)
 
     def __enter__(self):
@@ -4348,7 +4362,7 @@ def cb_router(torch, model, geom):
                 one leaf flipped: HotSwapError, the fleet serves the old
                 weights' ids, no temp directory left; save / load GB/s
 
-    Returns (rows, launches)."""
+    Returns (rows, launches, the single engine's ids on the route stream)."""
     import glob
     import os
     import shutil
@@ -4764,6 +4778,460 @@ def cb_router(torch, model, geom):
         shutil.rmtree(tmp, ignore_errors=True)
         del m_old, m_new
         free()
+    return rows, launches, ref
+
+
+# ---------------------------------------------------------------- phase 18
+# the process fleet (`inference/fleet.py`): worker processes, each its own
+# CUDA context, each building LLaMA-7B from a spec dict (seed 0, the
+# geometry of phase 17; the f32 draw is dropped and the allocator emptied
+# once the engine holds its bf16 snapshot). Workers are built one after
+# another (two 7B builds at once would need ~81 GB); the autoscale leg runs
+# a 4-layer model at 7B width (its scale-out spawns a worker mid-stream).
+FLEET_AUTOSCALE_LAYERS = 4
+FLEET_CONNECT_MS = 300000     # a 7B worker's spawn-to-rendezvous wait
+
+
+def fleet_spec(layers=None):
+    """The worker spec of phase 18: LlamaConfig.llama_7b()'s fields under
+    preset "config", seed 0, phase 17's engine geometry on cuda:0."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = vars(LlamaConfig.llama_7b())
+    if layers is not None:
+        cfg["num_hidden_layers"] = layers
+    return {"model": {"preset": "config", "seed": 0, **cfg},
+            "engine": dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
+                           prefix_cache=True, weight_dtype="bfloat16", decode_block=8,
+                           megakernel=False, device="cuda:0")}
+
+
+def fleet_reference(torch, layers=None):
+    """The single engine's ids on the route stream (phase 17's, for a run
+    without phase 17), built from fleet_spec and dropped in this process."""
+    import numpy as np
+    from paddle_tpu_torch.inference.fleet import build_engine_from_spec
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    spec = fleet_spec(layers)
+    eng = build_engine_from_spec(spec)
+    prompts, budgets = router_stream(LlamaConfig.llama_7b(), spec["engine"]["page_size"])
+    uids = [eng.add_request(p, b) for p, b in zip(prompts, budgets)]
+    eng.drain()
+    ref = [np.asarray(eng.result(u)) for u in uids]
+    del eng
+    release(torch)
+    return ref
+
+
+def release(torch):
+    """Free this process's card memory for the fleet's workers: collect
+    the cyclic garbage that still holds tensors (routers and their
+    replicas, engines and their closures), then empty the caching
+    allocator. Returns the GB still allocated."""
+    import gc
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated() / 1e9
+    return 0.0
+
+
+def _gpu_apps():
+    """nvidia-smi's compute apps as {pid: used MiB} (a sandbox may report
+    pids of another namespace: the caller matches what it can)."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    out = {}
+    for line in r.stdout.strip().splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            out[int(parts[0])] = float(parts[1]) if parts[1].replace(".", "").isdigit() else parts[1]
+    return out
+
+
+def _launch_delta(after, before):
+    return {k: after.get(k, 0) - before.get(k, 0) for k in after}
+
+
+def cb_fleet(torch, dev, ref, router_host_ms=None):
+    """Multi-process serving on the card (`inference/fleet.py`): four legs,
+    each row with its gates and "ok". `ref`: the single engine's ids on the
+    route stream (phase 17's route leg); `router_host_ms`: phase 17's
+    router host work a router step, shown beside this phase's.
+
+      route     spawn_fleet(spec, n=1), then handle.spawn_worker(): two
+                7B worker processes behind EngineRouter(backends=...,
+                prefix_index=...): ids equal the single engine's exactly,
+                each uid delivered once, no page leak in either worker
+                (alloc_stats over RPC), #4 and #5 launched in each worker
+                (rpc_kernel_launches); spawn-to-rendezvous seconds, each
+                worker's memory, the router's own host work a router step
+                (the run's wall less the time inside the replicas' RPCs),
+                the RPC round trip of step and health on an idle worker
+      kill9     SIGKILL to worker w0 mid-decode: every uid delivered once,
+                w0's requests salvaged from its store ledger; ids of
+                unsalvaged requests exact, salvaged ones by the
+                first-divergence margin rule (0.1); the probe's rebuild
+                respawns w0 and its breaker passes open -> half_open ->
+                closed; the new incarnation serves a request with exact ids
+                and launches #4 and #5 itself; seconds from the kill to the
+                closed breaker
+      disagg    the same two workers as 1 prefill : 1 decode: every
+                handoff over "store", ids equal the single engine's;
+                handoff ms and GB/s
+      autoscale a FleetController over a 1-worker fleet of the 4-layer
+                model (max_replicas 2, a queue-wait SLO the burst
+                breaches): one scale-out spawns a worker, the burst's ids
+                equal a single 4-layer engine's; then sustained slack
+                drains and retires a worker with nothing lost; decision
+                latencies, spawn-to-rendezvous seconds
+
+    Every worker is reaped on the way out, failed or not. Returns (rows,
+    launches): the workers' launch counts of the legs, summed."""
+    import os
+    import signal
+    import numpy as np
+    from paddle_tpu_torch.inference.autoscale import FleetController, SLOTarget
+    from paddle_tpu_torch.inference.fleet import build_engine_from_spec, spawn_fleet
+    from paddle_tpu_torch.inference.router import EngineRouter
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    spec = fleet_spec()
+    page = spec["engine"]["page_size"]
+    prompts, budgets = router_stream(LlamaConfig.llama_7b(), page)
+    launches, rows = {}, []
+
+    def add(counts):
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+
+    def same(a, b):
+        return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def no_leak(rep):
+        st = rep._call("alloc_stats")
+        return st["available"] == st["n_pages"] - st["prefix_pages"]
+
+    def kernels_ok(counts):
+        return counts.get("paged_attention", 0) > 0 and \
+            counts.get("ragged_paged_attention", 0) > 0
+
+    def rpc_timer(reps):
+        """Wrap each replica's _call: seconds inside RPCs, calls by method."""
+        acc = {"s": 0.0, "calls": {}}
+        for rep in reps:
+            def timed(method, *a, _orig=rep._call, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(method, *a, **k)
+                finally:
+                    acc["s"] += time.perf_counter() - t0
+                    acc["calls"][method] = acc["calls"].get(method, 0) + 1
+            rep._call = timed
+        return acc
+
+    def untime(reps):
+        for rep in reps:
+            rep.__dict__.pop("_call", None)
+
+    def serve(router):
+        """The route stream through the router: (uids, outputs, wall s,
+        {replica: requests placed on it at admission})."""
+        t = time.perf_counter()
+        uids = [router.add_request(p, b) for p, b in zip(prompts, budgets)]
+        placed = {}
+        for u in uids:
+            placed[router._reqs[u].replica] = placed.get(router._reqs[u].replica, 0) + 1
+        router.drain()
+        return uids, [np.asarray(router.result(u)) for u in uids], time.perf_counter() - t, placed
+
+    handle = None
+    try:
+        # -- route -------------------------------------------------------------
+        # each worker's card memory: the card's free memory before and after
+        # it came up (this process allocates nothing in between)
+        spawn_s, free = [], [torch.cuda.mem_get_info()[0]]
+        t = time.perf_counter()
+        handle = spawn_fleet(spec, 1, connect_timeout_ms=FLEET_CONNECT_MS)
+        spawn_s.append(time.perf_counter() - t)
+        free.append(torch.cuda.mem_get_info()[0])
+        t = time.perf_counter()
+        handle.spawn_worker()
+        spawn_s.append(time.perf_counter() - t)
+        free.append(torch.cuda.mem_get_info()[0])
+        reps = handle.replicas
+        mem = _gpu_apps()
+        pids = [rep._resolve()["pid"] for rep in reps]
+        router = EngineRouter(backends=reps, prefix_index=handle.prefix_index)
+        k0 = [rep.kernel_launches() for rep in reps]
+        acc = rpc_timer(reps)
+        uids, outs, route_s, served = serve(router)
+        untime(reps)
+        k1 = [rep.kernel_launches() for rep in reps]
+        deltas = [_launch_delta(b, a) for a, b in zip(k0, k1)]
+        for d in deltas:
+            add(d)
+        h = router.health()
+        rtt = {}
+        for method in ("step", "health"):
+            ts = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                getattr(reps[1], method)()
+                ts.append(1e3 * (time.perf_counter() - t0))
+            rtt[method] = sorted(ts)[len(ts) // 2]
+        host_s = route_s - acc["s"]
+        row = dict(run="route", workers=len(reps), pids=pids, spawn_to_rendezvous_s=spawn_s,
+                   worker_gb=[(a - b) / 1e9 for a, b in zip(free, free[1:])],
+                   card_free_gb=free[-1] / 1e9, gpu_apps=mem,
+                   requests=len(prompts), equal_single=same(ref, outs),
+                   delivered=h["done"], failed=h["failed"],
+                   duplicates_dropped=h["duplicates_dropped"], served=served,
+                   no_leak=[no_leak(r) for r in reps],
+                   worker_launches=[{k: v for k, v in d.items() if v} for d in deltas],
+                   wall_s=route_s, router_steps=router.steps, rpc_s=acc["s"],
+                   rpc_calls=acc["calls"], router_host_s=host_s,
+                   router_host_ms_per_step=1e3 * host_s / router.steps,
+                   router_host_share=host_s / route_s, rpc_rtt_ms=rtt,
+                   phase17_router_host_ms_per_step=router_host_ms)
+        row["ok"] = (row["equal_single"] and h["done"] == len(prompts) and h["failed"] == 0
+                     and h["duplicates_dropped"] == 0 and len(set(uids)) == len(prompts)
+                     and len(served) == 2 and all(row["no_leak"])
+                     and all(kernels_ok(d) for d in deltas))
+        rows.append(row)
+        del router
+
+        # -- kill9 -------------------------------------------------------------
+        victim, other = reps
+        router = EngineRouter(backends=reps, prefix_index=handle.prefix_index,
+                              quarantine_threshold=1, probe_backoff=2,
+                              probe_sleep=lambda d: None)
+        ledger_reads = [0]
+        orig_ledger = victim._ledger
+
+        def ledger():
+            led = orig_ledger()
+            if led:
+                ledger_reads[0] += 1
+            return led
+
+        victim._ledger = ledger
+        k_other = other.kernel_launches()
+        uids = [router.add_request(p, b) for p, b in zip(prompts, budgets)]
+
+        def victim_decoding():
+            return any(victim.status(router._reqs[u].engine_uid) == "decode"
+                       for u in router._assigned[victim.name])
+
+        while not victim_decoding():
+            router.step()
+        on_victim = sorted(router._assigned[victim.name])
+        old_inc = victim._resolve()["incarnation"]
+        pid = victim._resolve()["pid"]
+        os.kill(pid, signal.SIGKILL)
+        handle.procs[0].join()
+        t_kill = time.perf_counter()
+        trail, t_closed, rebuild_s = [], None, []
+        orig_rebuild = victim.rebuild
+
+        def rebuild():
+            t0 = time.perf_counter()
+            try:
+                return orig_rebuild()
+            finally:
+                rebuild_s.append(time.perf_counter() - t0)
+
+        victim.rebuild = rebuild
+        for _ in range(5000):
+            router.step()
+            if not trail or trail[-1] != victim.breaker.state:
+                trail.append(victim.breaker.state)
+            if trail[-1] == "closed" and "open" in trail and t_closed is None:
+                t_closed = time.perf_counter() - t_kill
+            if t_closed is not None and not router.pending():
+                break
+        router.drain()
+        add(_launch_delta(other.kernel_launches(), k_other))
+        victim.__dict__.pop("_ledger", None)
+        victim.__dict__.pop("rebuild", None)
+        outs = [np.asarray(router.result(u)) for u in uids]
+        h = router.health()
+        salvaged = [i for i, u in enumerate(uids) if router._reqs[u].requeues]
+        exact = [i for i in range(len(uids)) if i not in salvaged]
+        divs_idx = [i for i in salvaged if not np.array_equal(outs[i], ref[i])]
+        new_inc = victim._resolve()["incarnation"]
+        k_before = victim.kernel_launches()
+        eng_uid = victim.submit({"prompt": prompts[0], "max_new_tokens": budgets[0],
+                                 "eos_token_id": None, "tenant": "default", "priority": None,
+                                 "ttl_steps": None, "deadline": None})
+        while victim.has_work():
+            victim.step()
+        fresh = np.asarray(victim.result(eng_uid))
+        k_after = victim.kernel_launches()
+        add(_launch_delta(k_after, {}))           # the new incarnation's own counts
+        order = [s for s in ("open", "half_open", "closed") if s in trail]
+        row = dict(run="kill9", victim=victim.name, killed_pid=pid, on_victim=len(on_victim),
+                   failovers=h["failovers"], requeued=h["requeued"], probes=h["probes"],
+                   delivered=h["done"], failed=h["failed"],
+                   duplicates_dropped=h["duplicates_dropped"], salvaged=salvaged,
+                   ledger_salvages=ledger_reads[0], breaker_trail=trail,
+                   respawns=victim.respawns, rebuild_s=rebuild_s,
+                   incarnations=[old_inc, new_inc], kill_to_closed_s=t_closed,
+                   equal_exact=all(np.array_equal(outs[i], ref[i]) for i in exact),
+                   equal_salvaged=sum(np.array_equal(outs[i], ref[i]) for i in salvaged),
+                   divergent=divs_idx, margin_tol=0.1,
+                   respawned_equal=bool(np.array_equal(fresh, ref[0])),
+                   respawned_launches={k: v for k, v in k_after.items() if v},
+                   respawned_launches_before={k: v for k, v in k_before.items() if v},
+                   no_leak=[no_leak(r) for r in reps])
+        row["ok"] = (h["done"] == len(prompts) and h["failed"] == 0 and h["pending"] == 0
+                     and h["duplicates_dropped"] == 0 and len(set(uids)) == len(prompts)
+                     and row["equal_exact"] and len(salvaged) >= 1 and ledger_reads[0] >= 1
+                     and h["failovers"] >= 1 and victim.respawns >= 1 and new_inc != old_inc
+                     and order == ["open", "half_open", "closed"]
+                     and trail.index("half_open") > trail.index("open")
+                     and trail[-1] == "closed" and row["respawned_equal"]
+                     and kernels_ok(k_after) and all(row["no_leak"]))
+        rows.append(row)
+        kill_outs = outs
+        del router
+
+        # -- disagg --------------------------------------------------------------
+        router = EngineRouter(backends=reps, topology={"prefill": 1, "decode": 1},
+                              prefix_index=handle.prefix_index)
+        src, dst = router._replicas
+        moves = []
+
+        def export_kv(uid, transport="host", _orig=src.export_kv):
+            t0 = time.perf_counter()
+            out = _orig(uid, transport)
+            ms = 1e3 * (time.perf_counter() - t0)
+            n_bytes = None
+            if isinstance(out, dict) and "store_key" in out:
+                # the payload's byte count from its manifest (read outside
+                # the timed calls)
+                raw = handle.store.get(out["store_key"] + "/manifest", wait=False)
+                if raw is not None:
+                    n_bytes = json.loads(raw.split(b"\n", 1)[1].decode())["blob_bytes"]
+            moves.append(dict(transport=transport, bytes=n_bytes, export_ms=ms))
+            return out
+
+        def import_kv(payload, _orig=dst.import_kv):
+            t0 = time.perf_counter()
+            try:
+                return _orig(payload)
+            finally:
+                moves[-1]["import_ms"] = 1e3 * (time.perf_counter() - t0)
+
+        src.export_kv, dst.import_kv = export_kv, import_kv
+        k0 = [rep.kernel_launches() for rep in reps]
+        uids, outs, dis_s, _ = serve(router)
+        k1 = [rep.kernel_launches() for rep in reps]
+        for a, b in zip(k0, k1):
+            add(_launch_delta(b, a))
+        src.__dict__.pop("export_kv", None)
+        dst.__dict__.pop("import_kv", None)
+        h = router.health()
+        hand_ms = [m["export_ms"] + m.get("import_ms", 0.0) for m in moves]
+        n_bytes = sum(m["bytes"] or 0 for m in moves)
+        row = dict(run="disagg", topology=h["topology"], requests=len(prompts),
+                   kv_handoffs=h["kv_handoffs"], handoff_failures=h["handoff_failures"],
+                   transports=dict(router.handoff_transports), handoff_ms=hand_ms,
+                   export_ms=[m["export_ms"] for m in moves],
+                   import_ms=[m.get("import_ms") for m in moves],
+                   handoff_bytes=[m["bytes"] for m in moves],
+                   handoff_gb_per_s=(n_bytes / sum(hand_ms) / 1e6) if hand_ms else None,
+                   equal_single=same(ref, outs), wall_s=dis_s,
+                   store_keys_after=handle.store.num_keys(),
+                   no_leak=[no_leak(r) for r in reps])
+        row["ok"] = (row["equal_single"] and all(row["no_leak"]) and h["kv_handoffs"] >= 1
+                     and row["transports"] == {"store": h["kv_handoffs"]}
+                     and all(m["transport"] == "store" and m["bytes"] for m in moves)
+                     and h["handoff_failures"] == 0 and h["failed"] == 0)
+        rows.append(row)
+        del router
+        handle.shutdown()
+        handle = None
+        release(torch)
+
+        # -- autoscale -------------------------------------------------------------
+        ref4 = fleet_reference(torch, FLEET_AUTOSCALE_LAYERS)
+        spec4 = fleet_spec(FLEET_AUTOSCALE_LAYERS)
+        t = time.perf_counter()
+        handle = spawn_fleet(spec4, 1, prefix_index=False, connect_timeout_ms=FLEET_CONNECT_MS)
+        first_spawn_s = time.perf_counter() - t
+        router = EngineRouter(backends=handle.replicas, telemetry=True, probe_backoff=10_000)
+        spawned = []
+
+        def spawner(role):
+            t0 = time.perf_counter()
+            rep = handle.spawn_worker(role=role)
+            spawned.append(dict(name=rep.name, spawn_to_rendezvous_s=time.perf_counter() - t0))
+            return rep
+
+        ctl = FleetController(router, SLOTarget(queue_wait_p99_ms=1.0), spawner=spawner,
+                              retirer=handle.retire_worker, breach_ticks=1, cooldown_ticks=2,
+                              slack_ticks=2, min_window_count=1, max_replicas=2,
+                              shed_after_ticks=99)
+        t = time.perf_counter()
+        uids = [router.add_request(p, b) for p, b in zip(prompts, budgets)]
+        steps = 0
+        while router.pending() and steps < 20000:
+            router.step()
+            steps += 1
+            ctl.maybe_tick(every_steps=3)
+        router.drain()
+        burst_s = time.perf_counter() - t
+        outs = [np.asarray(router.result(u)) for u in uids]
+        served = {rep.name: rep.health()["done"] for rep in router._replicas}
+        for rep in router._replicas:
+            add(rep.kernel_launches())
+        worker_launches = {rep.name: {k: v for k, v in rep.kernel_launches().items() if v}
+                           for rep in router._replicas}
+        h = router.health()
+        lazy = FleetController(router, SLOTarget(queue_wait_p99_ms=1e9),
+                               retirer=handle.retire_worker, slack_ticks=1, cooldown_ticks=0,
+                               min_replicas=1)
+        retire = lazy.tick()
+        h2 = router.health()
+        t0 = time.perf_counter()
+        while sum(p.is_alive() for p in handle.procs) > 1 and time.perf_counter() - t0 < 60:
+            time.sleep(0.2)         # the retired worker's exit (CUDA teardown)
+        decisions = list(ctl.decisions) + list(lazy.decisions)
+        row = dict(run="autoscale", layers=FLEET_AUTOSCALE_LAYERS, requests=len(prompts),
+                   first_spawn_s=first_spawn_s, spawned=spawned, scale_outs=ctl.scale_outs,
+                   actions=[d["action"] for d in decisions],
+                   decision_ms=[d["decision_ms"] for d in decisions],
+                   equal_single=same(ref4, outs), served=served,
+                   worker_launches=worker_launches, burst_s=burst_s, router_steps=steps,
+                   retired=retire.get("replica"), retire_action=retire["action"],
+                   replicas_after=len(router._replicas), failed=h2["failed"],
+                   delivered=h2["done"], duplicates_dropped=router.duplicates_dropped,
+                   live_workers=sum(p.is_alive() for p in handle.procs))
+        row["ok"] = (row["equal_single"] and ctl.scale_outs == 1 and len(spawned) == 1
+                     and all(v > 0 for v in served.values()) and len(served) == 2
+                     and all(kernels_ok(c) for c in worker_launches.values())
+                     and retire["action"] == "scale_in" and len(router._replicas) == 1
+                     and h["failed"] == 0 and h2["failed"] == 0
+                     and h2["done"] == len(prompts) and router.duplicates_dropped == 0
+                     and row["live_workers"] == 1)
+        rows.append(row)
+        del router
+        handle.shutdown()
+        handle = None
+    finally:
+        if handle is not None:
+            handle.shutdown()
+    # the margin rule for salvaged requests whose ids moved: phase 17's
+    # model, built once the workers are gone
+    kill = rows[1]
+    if kill["divergent"]:
+        model, geom = router_model(torch, dev)
+        divs, held = divergence_held(torch, model, geom, prompts, ref, kill_outs)
+        del model
+        release(torch)
+    else:
+        divs, held = [], True
+    kill.update(divergences=divs, held=held)
+    kill["ok"] = kill["ok"] and held
     return rows, launches
 
 
@@ -5249,15 +5717,29 @@ def main():
     t = time.perf_counter()
     model, geom = router_model(torch, dev)
     with watchdog("router", PATH_PHASE_S):
-        rows, counts = cb_router(torch, model, geom)
+        rows, counts, router_ref = cb_router(torch, model, geom)
     add(counts)
     for r in rows:
         emit(dict(phase="router", **r))
         ok &= r["ok"]
+    router_host_ms = rows[0]["router_host_ms_per_step"]
     del model
     torch.cuda.empty_cache()
     emit(dict(phase="router", seconds=time.perf_counter() - t, launches=launches,
               elapsed_s=time.perf_counter() - t_start))
+    # 18. the process fleet: worker processes on the card, this process
+    # holding no model (phase 17's ids kept as numpy); each leg reads the
+    # workers' launch counts over RPC just before and after its run
+    t = time.perf_counter()
+    parent_gb = release(torch)
+    with watchdog("fleet", PATH_PHASE_S):
+        rows, counts = cb_fleet(torch, dev, router_ref, router_host_ms)
+    add(counts)
+    for r in rows:
+        emit(dict(phase="fleet", **r))
+        ok &= r["ok"]
+    emit(dict(phase="fleet", seconds=time.perf_counter() - t, parent_allocated_gb=parent_gb,
+              launches=launches, elapsed_s=time.perf_counter() - t_start))
     # the f32 builds' launches: each kernel's less its bf16 ones
     for kind in ("fwd", "bwd"):
         launches[f"flash_attention_{kind}_f32"] = (

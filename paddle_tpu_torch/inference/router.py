@@ -1210,16 +1210,22 @@ class EngineRouter:
         typically onto the fresh empty replica. Queued requests carry
         no KV, so each move is a pure re-route (the same
         keep-nothing-behind triage as failover, minus the failure).
-        Returns how many moved."""
+        Returns how many moved.
+
+        The backlogs are read once, before the first move: a request this
+        call moved onto another replica is not in that replica's snapshot,
+        so it is never moved a second time (back to the backlog it left).
+        """
         moved = 0
-        by_depth = sorted(self._replicas,
-                          key=lambda r: -len(self._assigned[r.name]))
-        for rep in by_depth:
+        by_depth = [(rep, list(self._assigned[rep.name])) for rep in
+                    sorted(self._replicas,
+                           key=lambda r: -len(self._assigned[r.name]))]
+        for rep, backlog in by_depth:
             if moved >= max_moves:
                 break
             if rep.breaker.state == "open" or rep.state != ACTIVE:
                 continue
-            for ruid in list(self._assigned[rep.name]):
+            for ruid in backlog:
                 if moved >= max_moves:
                     break
                 rr = self._reqs[ruid]
@@ -1823,6 +1829,8 @@ class EngineRouter:
                     rep.abort_handoff(euid)
                 except Exception:
                     pass
+                if self._retired_at_source(rep, ruid):
+                    return False       # delivered: nothing to move
                 self.handoff_failures += 1
                 faults_charged = True
                 if kind != "host":
@@ -1897,6 +1905,21 @@ class EngineRouter:
                                 from_replica=rep.name,
                                 to_replica=tgt.name,
                                 transport=kind)
+        return True
+
+    def _retired_at_source(self, rep, ruid):
+        """True (and the request delivered) when an export was refused
+        because the request retired at its source: an engine settles its
+        in-flight chained block before an export, and that block may finish
+        the request. Its replica then has no work left, so no step would
+        collect it and every later sweep would retry a dead handoff."""
+        try:
+            st = rep.status(self._reqs[ruid].engine_uid)
+        except Exception:
+            return False
+        if st not in (DONE, FAILED, "cancelled"):
+            return False
+        self._collect(rep)
         return True
 
     def _fail_stuck_head(self, rep, exc):

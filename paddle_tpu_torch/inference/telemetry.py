@@ -1,8 +1,8 @@
 """Serving telemetry plane: request lifecycle tracing and latency metrics.
 
 Counterpart of `paddle_tpu/inference/telemetry.py` (the engine-level
-plane; it imports no JAX, so the port keeps its own copy). The router-side
-`ReplicaTelemetryMirror` waits for the process fleet (ROADMAP A7.8).
+plane; it imports no JAX, so the port keeps its own copy), with the
+router-side `ReplicaTelemetryMirror` of a process-backed replica.
 
 Design constraints, as in the reference:
 
@@ -705,6 +705,86 @@ class Telemetry:
 
         add_fault_hook(hook)
         self._fault_hook = hook
+
+
+class ReplicaTelemetryMirror(Telemetry):
+    """Router-side mirror of a PROCESS replica's telemetry: the object
+    `EngineRouter.metrics()/prometheus()/export_chrome_trace()` read
+    when the replica's engine lives in another process
+    (`inference/fleet.py`'s ProcessReplica).
+
+    Each `install_state` pull replaces the mirror's registry contents
+    and traces with the worker's snapshot, merged over a BASE registry
+    that accumulates dead incarnations: when the worker is killed (or
+    respawned by a quarantine-probe rebuild), the last-known counts
+    fold into the base instead of vanishing, so fleet p50/p95/p99
+    survive replica death across process boundaries. The sliding
+    windows are the live incarnation's only (a current-load view).
+    Rate sampling (`registry.sample`) stays LOCAL to the mirror's
+    registry object, so `<counter>_per_s` gauges keep their baseline
+    across pulls."""
+
+    def __init__(self, name):
+        super().__init__(name=name, capture_faults=False)
+        self._base = MetricsRegistry()
+        self._cur = None                # (incarnation, hist, counters)
+
+    def install_state(self, state):
+        if state is None:
+            return
+        inc = state.get("incarnation")
+        if self._cur is not None and self._cur[0] != inc:
+            self.fold_incarnation()     # the old worker is gone: keep
+            #                             its last-known counts (and
+            #                             drop the rate baseline)
+        self._cur = (inc, state["hist"], state["counters"])
+        merged = MetricsRegistry()
+        merged.merge(self._base)
+        cur = MetricsRegistry()
+        cur.hist = state["hist"]
+        cur.counters = state["counters"]
+        merged.merge(cur)
+        # materialize into self.registry IN PLACE: the registry object
+        # identity (and its _last_sample rate baseline) must survive
+        # the refresh -- it is what the router merges and samples
+        self.registry.hist = merged.hist
+        self.registry.counters = merged.counters
+        if "win" in state:
+            # windows are a CURRENT-load view: the live incarnation's
+            # rebased slices replace the mirror's (the base registry
+            # keeps a dead incarnation's lifetime histograms, not its
+            # windows)
+            self.registry.win = {
+                n: SlidingWindowHistogram.install(st)
+                for n, st in state["win"].items()}
+        if "done" in state:             # a full pull (sync_telemetry);
+            #                             registry-only pulls keep the
+            #                             mirror's last-known traces
+            self.done = collections.deque(state["done"],
+                                          maxlen=self.done.maxlen)
+            self._live = dict(state["live"])
+            self._gevents = collections.deque(state["gevents"],
+                                              maxlen=4096)
+            self.log = collections.deque(state["log"],
+                                         maxlen=self.log.maxlen)
+
+    def fold_incarnation(self):
+        """Fold the current incarnation's last-known registry into the
+        base (called when the worker dies or respawns)."""
+        if self._cur is None:
+            return
+        _, hist, counters = self._cur
+        cur = MetricsRegistry()
+        cur.hist = hist
+        cur.counters = counters
+        self._base.merge(cur)
+        self._cur = None
+        # whatever incarnation reports next starts its counters near
+        # zero: sampling it against this one's baseline would export
+        # large NEGATIVE <counter>_per_s gauges -- drop the baseline so
+        # both fold paths skip one rate interval
+        self.registry._last_sample = None
+        self.registry._rates = {}
 
 
 # -- chrome-trace (perfetto) export ------------------------------------------

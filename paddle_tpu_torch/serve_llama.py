@@ -21,8 +21,19 @@ routes them by the fleet prefix index; `--hot-swap DIR` rolls the weight
 snapshot in DIR through the fleet mid-stream (saved first from the live
 weights when DIR does not exist; needs N >= 2); `--disagg P:D` serves
 through P prefill and D decode workers with a KV-page handoff at the first
-token. The process fleet (`--fleet`, `--fleet-worker`) and `--autoscale`
-are not ported yet.
+token.
+
+Process fleet (`inference/fleet.py`): `--fleet N` spawns N worker
+processes, each building its own engine from one spec dict (the same seed
+draws the same weights in every process), and routes the four requests
+over them by RPC; with `--disagg P:D` (P + D = N) the KV handoff crosses
+processes over the store transport. `--fleet-worker --fleet-store
+HOST:PORT --fleet-name NAME` runs this process as one worker of a fleet
+whose router runs elsewhere. `--autoscale` ticks an SLO-driven
+FleetController (`inference/autoscale.py`) in every router mode
+(`--replicas`, `--disagg`, `--fleet`): scale out on a windowed p99 breach
+(`--slo-queue-wait-ms`, `--slo-ttft-ms`), drain-then-retire on slack,
+within `--min-replicas` / `--max-replicas`.
 
     python -m paddle_tpu_torch.serve_llama --model 7b --quant int8
     python -m paddle_tpu_torch.serve_llama --scheduler --decode-block 8
@@ -39,10 +50,14 @@ are not ported yet.
     python -m paddle_tpu_torch.serve_llama --replicas 2 --prefix-routing
     python -m paddle_tpu_torch.serve_llama --replicas 2 --hot-swap snap_dir
     python -m paddle_tpu_torch.serve_llama --disagg 1:1
+    python -m paddle_tpu_torch.serve_llama --fleet 2 --device cpu
+    python -m paddle_tpu_torch.serve_llama --fleet 2 --disagg 1:1 --autoscale \
+        --slo-queue-wait-ms 1 --max-replicas 3 --device cpu
 """
 import os
 
 import argparse
+import json
 import warnings
 
 import numpy as np
@@ -152,23 +167,50 @@ def main(argv=None):
                          "decode workers behind the router; requests move "
                          "at first token via the CRC-checked KV-page handoff")
     ap.add_argument("--fleet", type=int, default=0, metavar="N",
-                    help="process-backed fleet of N workers (not ported "
-                         "yet: ROADMAP A7.8)")
+                    help="process-backed fleet: spawn N worker processes "
+                         "(each building its own engine from one spec "
+                         "dict) and route over them by RPC through a "
+                         "TCPStore rendezvous; the fleet prefix index is "
+                         "wired; with --disagg P:D (P + D = N) the KV "
+                         "handoff crosses processes over the store "
+                         "transport")
     ap.add_argument("--fleet-worker", action="store_true",
-                    help="run as one fleet worker (not ported yet: ROADMAP "
-                         "A7.8)")
+                    help="run this process as one fleet worker: build the "
+                         "engine from the same flags and serve the replica "
+                         "surface until shut down (one per host, all "
+                         "pointing at --fleet-store)")
+    ap.add_argument("--fleet-store", metavar="HOST:PORT", default=None,
+                    help="rendezvous TCPStore for --fleet-worker (--fleet "
+                         "creates its own)")
+    ap.add_argument("--fleet-name", default="w0",
+                    help="this worker's replica name (--fleet-worker)")
     ap.add_argument("--autoscale", action="store_true",
-                    help="SLO-driven fleet controller (not ported yet: "
-                         "ROADMAP A7.9)")
+                    help="tick an SLO-driven FleetController while "
+                         "draining: scale out on a windowed p99 breach, "
+                         "drain-then-retire on sustained slack, rebalance "
+                         "the prefill:decode split under --disagg, shed "
+                         "load as the last resort (router modes: "
+                         "--replicas, --disagg, --fleet)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None, metavar="MS",
+                    help="--autoscale: p99 TTFT target over the sliding "
+                         "window (unset = not watched)")
+    ap.add_argument("--slo-queue-wait-ms", type=float, default=50.0,
+                    metavar="MS",
+                    help="--autoscale: p99 queue-wait target over the "
+                         "sliding window (default 50)")
+    ap.add_argument("--min-replicas", type=int, default=1, metavar="N",
+                    help="--autoscale: never drain the fleet below N")
+    ap.add_argument("--max-replicas", type=int, default=4, metavar="N",
+                    help="--autoscale: never grow the fleet past N "
+                         "(breaches beyond the cap fall through to "
+                         "load-shedding)")
     args = ap.parse_args(argv)
-    if args.fleet or args.fleet_worker:
-        raise NotImplementedError(
-            "--fleet / --fleet-worker: the process-backed fleet is not "
-            "ported to paddle_tpu_torch yet (ROADMAP A7.8)")
-    if args.autoscale:
-        raise NotImplementedError(
-            "--autoscale: the fleet controller is not ported to "
-            "paddle_tpu_torch yet (ROADMAP A7.9)")
+    if args.autoscale and not (args.fleet or args.disagg
+                               or args.replicas > 1):
+        ap.error("--autoscale needs a router mode (--replicas >= 2, "
+                 "--disagg P:D, or --fleet N)")
+    if args.fleet_worker and not args.fleet_store:
+        ap.error("--fleet-worker needs --fleet-store HOST:PORT")
     if args.hot_swap and args.replicas < 2:
         ap.error("--hot-swap needs --replicas >= 2 (the router keeps "
                  "serving from the other replicas while one flips)")
@@ -205,8 +247,15 @@ def main(argv=None):
                       else args.tp_compress)
     # 7b: weights serve in bf16, as the reference's checkpoint-scale mode
     weight_dtype = "bfloat16" if args.model == "7b" else None
-    model = LlamaForCausalLM(g["cfg"], device=device, seed=0)
     quant = None if args.quant == "none" else args.quant
+    if args.fleet or args.fleet_worker:
+        # every worker process builds its own engine from the spec: the
+        # router side never holds the weights
+        spec = _fleet_spec(args, g, ap, quant)
+        if args.fleet_worker:
+            return serve_fleet_worker(args, spec)
+        return serve_fleet(args, g, spec, ap)
+    model = LlamaForCausalLM(g["cfg"], device=device, seed=0)
     if args.disagg or args.replicas > 1:
         return serve_router(args, g, model, quant, weight_dtype, device)
     if args.scheduler:
@@ -261,11 +310,13 @@ def serve_router(args, g, model, quant, weight_dtype, device):
         p_n, d_n = args.disagg
         router = EngineRouter(factory, topology={"prefill": p_n,
                                                  "decode": d_n},
-                              prefix_routing=args.prefix_routing)
+                              prefix_routing=args.prefix_routing,
+                              telemetry=args.autoscale)
         mode = f"disagg {p_n}:{d_n}"
     else:
         router = EngineRouter(factory, replicas=args.replicas,
-                              prefix_routing=args.prefix_routing)
+                              prefix_routing=args.prefix_routing,
+                              telemetry=args.autoscale)
         mode = f"replicas={args.replicas}"
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, g["cfg"].vocab_size, (t,)).astype(np.int64)
@@ -289,7 +340,8 @@ def serve_router(args, g, model, quant, weight_dtype, device):
             # round-trip demo: snapshot the live weights first
             router.save_weights_snapshot(args.hot_swap, step=0)
         print(f"  hot-swap: {router.hot_swap(args.hot_swap)}")
-    router.drain()
+    # in-process elastic fleet: the router's own factory is the spawner
+    drive_router(args, router, make_controller(args, router))
     h = router.health()
     print(f"model={args.model} quant={args.quant} router {mode}: "
           f"{h['done']} done / {h['failed']} failed, {h['failovers']} "
@@ -305,6 +357,125 @@ def serve_router(args, g, model, quant, weight_dtype, device):
         print(f"  request {i}: {prompts[i].size} -> {o.size} tokens, "
               f"tail {o[-4:].tolist()}")
     return router
+
+
+def _fleet_spec(args, g, ap, quant):
+    """The engine spec of a fleet worker, as plain data
+    (`fleet.build_engine_from_spec`): the model the in-process modes build
+    (seed 0) and their engine geometry, so a worker needs no code shipped
+    and every process draws the same weights."""
+    if args.model == "tiny":
+        model_spec = {"preset": "tiny", "seed": 0}
+    elif args.model == "350m":
+        # every field of the config is a plain scalar: the spec carries
+        # the geometries table's config exactly
+        model_spec = {"preset": "config", "seed": 0, **vars(g["cfg"])}
+    else:
+        ap.error("--fleet/--fleet-worker supports tiny/350m (each worker "
+                 "would draw its own 7B weights; serve 7B through "
+                 "spawn_fleet with a spec dict, as chip_smoke.py's fleet "
+                 "phase does)")
+    engine = dict(max_len=g["max_len"], page_size=g["page"],
+                  max_batch=max(2, g["bs"]), quant=quant,
+                  decode_block=args.decode_block,
+                  megakernel=MEGAKERNEL[args.megakernel], **args.tp_kw)
+    if args.engine_device is not None:
+        engine["device"] = ([str(d) for d in args.engine_device]
+                            if isinstance(args.engine_device, list)
+                            else str(args.engine_device))
+    return {"model": model_spec, "engine": engine}
+
+
+def make_controller(args, router, spawner=None, retirer=None):
+    """--autoscale: the SLO-driven FleetController that drive_router ticks
+    between router steps (None without --autoscale)."""
+    if not args.autoscale:
+        return None
+    from .inference.autoscale import FleetController, SLOTarget
+    slo = SLOTarget(ttft_p99_ms=args.slo_ttft_ms,
+                    queue_wait_p99_ms=args.slo_queue_wait_ms)
+    return FleetController(router, slo, spawner=spawner, retirer=retirer,
+                           min_replicas=args.min_replicas,
+                           max_replicas=args.max_replicas)
+
+
+def drive_router(args, router, ctl=None):
+    """Drain the router; with --autoscale the controller ticks every 4
+    router steps, the cadence the traffic advances at."""
+    while router.step():
+        if ctl is not None:
+            ctl.maybe_tick(every_steps=4)
+    router.drain()                          # the final collect pass
+    if ctl is not None:
+        st = ctl.stats()
+        last = st["last_decision"]
+        print(f"  autoscale: {st['ticks']} ticks, +{st['scale_outs']}/"
+              f"-{st['scale_ins']} replicas ({st['replicas']} final), "
+              f"{st['rebalances']} rebalances, {st['sheds']} sheds, "
+              f"last={last and last['action']}")
+
+
+def serve_fleet_worker(args, spec):
+    """--fleet-worker: one worker of a fleet whose router runs elsewhere;
+    serves until the router shuts it down."""
+    from .distributed.store import TCPStore
+    from .inference.fleet import EngineHost, build_engine_from_spec
+    host_s, _, port_s = args.fleet_store.partition(":")
+    store = TCPStore(host_s, int(port_s))
+    host = EngineHost(build_engine_from_spec(spec), args.fleet_name, store)
+    print(f"fleet worker {args.fleet_name} serving {host.ip}:{host.port} "
+          f"(store {args.fleet_store})", flush=True)
+    host.serve_forever()
+    return host
+
+
+def serve_fleet(args, g, spec, ap):
+    """--fleet N: four requests through an EngineRouter over N worker
+    processes (ProcessReplicas); --disagg P:D makes P of them prefill and
+    D decode workers; --autoscale spawns and retires real processes
+    through the fleet handle."""
+    from .inference.fleet import spawn_fleet
+    from .inference.router import EngineRouter
+    topo = roles = None
+    if args.disagg:
+        p_n, d_n = args.disagg
+        if p_n + d_n != args.fleet:
+            ap.error(f"--disagg {p_n}:{d_n} needs --fleet {p_n + d_n}")
+        topo = {"prefill": p_n, "decode": d_n}
+        roles = ["prefill"] * p_n + ["decode"] * d_n
+    handle = spawn_fleet(spec, args.fleet, roles=roles)
+    try:
+        # the workers are non-daemon processes: whatever raises after the
+        # spawn must still shut them down
+        router = EngineRouter(backends=handle.replicas, topology=topo,
+                              prefix_index=handle.prefix_index,
+                              telemetry=args.autoscale)
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, g["cfg"].vocab_size, (t,)).astype(np.int64)
+                   for t in (16, 9, 5, 12)]
+        uids = [router.add_request(p, args.max_new_tokens,
+                                   sampling=sampling_for(args, i))
+                for i, p in enumerate(prompts)]
+        drive_router(args, router, make_controller(
+            args, router, spawner=lambda role: handle.spawn_worker(role=role),
+            retirer=handle.retire_worker))
+        h = router.health()
+        print(f"model={args.model} quant={args.quant} fleet {args.fleet} "
+              "processes" + (f" (disagg {topo['prefill']}:{topo['decode']})"
+                             if topo else "")
+              + f": {h['done']} done / {h['failed']} failed, "
+              f"{h['failovers']} failovers, {h['kv_handoffs']} KV handoffs "
+              f"(transports {dict(router.handoff_transports)})")
+        for name, rh in h["replicas"].items():
+            print(f"  {name} [{rh['role']}]: breaker={rh['breaker']} "
+                  f"worker={json.dumps(rh.get('worker'))}")
+        for i, u in enumerate(uids):
+            o = router.result(u)
+            print(f"  request {i}: {prompts[i].size} -> {o.size} tokens, "
+                  f"tail {o[-4:].tolist()}")
+        return router
+    finally:
+        handle.shutdown()
 
 
 def serve_scheduler(args, g, model, quant, weight_dtype, device):

@@ -42,6 +42,10 @@ assert "paddle_tpu_torch.inference.router" in sys.modules
 assert "paddle_tpu_torch.inference.prefix_index" in sys.modules
 assert "paddle_tpu_torch.inference.fleet" in sys.modules
 assert "paddle_tpu_torch.distributed.checkpoint" in sys.modules
+assert "paddle_tpu_torch.distributed.store" in sys.modules
+assert "paddle_tpu_torch.distributed.rpc" in sys.modules
+assert "paddle_tpu_torch.distributed.spawn" in sys.modules
+assert "paddle_tpu_torch.inference.autoscale" in sys.modules
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))
@@ -72,6 +76,56 @@ def test_source_imports_neither_jax_nor_paddle_tpu(path):
     text = (ROOT / path).read_text()
     hits = _FORBIDDEN.findall(text)
     assert not hits, f"{path} imports {hits}"
+
+
+_PROBE = """
+import sys
+from paddle_tpu_torch.inference.fleet import build_engine_from_spec
+
+
+def factory():
+    eng = build_engine_from_spec({
+        "model": {"preset": "tiny", "seed": 0, "num_hidden_layers": 1},
+        "engine": {"max_len": 32, "page_size": 8, "max_batch": 2,
+                   "device": "cpu"}})
+    health = eng.health
+
+    def probed():
+        # what the worker process has loaded by now, read at call time
+        bad = sorted(n for n in sys.modules
+                     if n == "jax" or n.startswith("jax.") or n == "jaxlib"
+                     or n == "paddle_tpu" or n.startswith("paddle_tpu."))
+        return dict(health(), probe_bad=bad, probe_port=len(
+            [n for n in sys.modules if n.startswith("paddle_tpu_torch")]))
+    eng.health = probed
+    return eng
+"""
+
+
+def test_spawned_fleet_worker_loads_neither_jax_nor_paddle_tpu(
+        tmp_path, monkeypatch):
+    """A worker process of `spawn_fleet` (the `spawn` start method, the
+    fleet's engine, store, RPC and prefix-index modules, a routed request,
+    telemetry pulls) never imports jax or paddle_tpu, even when the process
+    that spawns it has both loaded."""
+    from paddle_tpu_torch.inference.fleet import spawn_fleet
+    from paddle_tpu_torch.inference.router import EngineRouter
+    (tmp_path / "ptt_isolation_probe.py").write_text(_PROBE)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    handle = spawn_fleet("ptt_isolation_probe:factory", 1)
+    try:
+        router = EngineRouter(backends=handle.replicas,
+                              prefix_index=handle.prefix_index,
+                              telemetry=True)
+        u = router.add_request(np.arange(1, 9), 4)
+        router.drain()
+        assert router.result(u).size == 12
+        router.metrics()
+        h = handle.replicas[0].health()
+        assert h["probe_bad"] == [] and h["probe_port"] >= 13, h
+        assert handle.replicas[0].transport_endpoint()["backend"] == "cpu"
+    finally:
+        handle.shutdown()
 
 
 def test_engine_refuses_cpu_without_being_asked():
@@ -189,6 +243,21 @@ def test_kernel_wrappers_count_only_kernel_launches():
                                  "quantized_matmul_tc": 0,
                                  "quantized_matmul_ring": 0,
                                  "lora": 0}
+
+
+def test_fleet_worker_refuses_cpu_without_being_asked():
+    """A fleet worker's engine runs on CUDA unless its spec asks for the
+    CPU: without a card, a spec with no device raises, one with "cpu"
+    builds."""
+    from paddle_tpu_torch.inference.fleet import build_engine_from_spec
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    spec = {"model": {"preset": "tiny", "seed": 0, "num_hidden_layers": 1},
+            "engine": {"max_len": 32, "page_size": 8, "max_batch": 1}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_engine_from_spec(spec)
+    spec["engine"]["device"] = "cpu"
+    assert build_engine_from_spec(spec).device == torch.device("cpu")
 
 
 def test_training_entry_points_refuse_cpu_without_being_asked():

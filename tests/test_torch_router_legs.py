@@ -480,6 +480,27 @@ def test_serve_llama_router_modes(argv, check, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--fleet", "2"], ["--fleet-worker"],
                                   ["--autoscale"]])
-def test_serve_llama_fleet_modes_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="A7.[89]"):
-        serve_llama.main(["--device", "cpu"] + flag)
+def test_serve_llama_fleet_modes_not_ported(flag, capsys):
+    """The fleet flags are ported now (they raised NotImplementedError while
+    ROADMAP A7.8 / A7.9 were open): `--fleet 2` serves the four requests over
+    two worker processes with the tails of `--replicas 2`; `--fleet-worker`
+    without `--fleet-store` and `--autoscale` without a router mode are
+    usage errors."""
+    argv = ["--device", "cpu", "--max_new_tokens", "4"]
+    if flag[0] != "--fleet":
+        with pytest.raises(SystemExit):
+            serve_llama.main(argv + flag)
+        return
+    r = serve_llama.main(argv + flag)
+    assert all(rr.state == "done" for rr in r._reqs.values())
+    assert len(r._reqs) == 4
+    fleet_out = capsys.readouterr().out
+    serve_llama.main(argv + ["--replicas", "2"])
+    local_out = capsys.readouterr().out
+
+    def tails(out):
+        return [line.split("tail")[1] for line in out.splitlines()
+                if "request" in line and "tail" in line]
+
+    assert "fleet 2 processes: 4 done / 0 failed" in fleet_out
+    assert tails(fleet_out) == tails(local_out) and len(tails(fleet_out)) == 4

@@ -208,6 +208,44 @@ for _mods, _names in (
                 _obj = getattr(_obj, _part)
             _pair.append(_obj)
         PAIRS[_name] = tuple(_pair)
+# the process fleet (A7.8), its store / RPC framing / spawn, the fleet's
+# telemetry mirror (A7.3) and the SLO autoscaler (A7.9): every function of
+# the reference's modules and every method of their classes
+import importlib  # noqa: E402
+import paddle_tpu.distributed.rpc.rpc as jrpc  # noqa: E402
+import paddle_tpu.distributed.store as jstore  # noqa: E402
+import paddle_tpu.inference.autoscale as jauto  # noqa: E402
+import paddle_tpu.inference.fleet as jfleet  # noqa: E402
+import paddle_tpu.inference.telemetry as jtel  # noqa: E402
+import paddle_tpu_torch.distributed.rpc as trpc  # noqa: E402
+# the package's `spawn` function shadows its submodule of that name
+jspawn = importlib.import_module("paddle_tpu.distributed.spawn")
+tspawn = importlib.import_module("paddle_tpu_torch.distributed.spawn")
+import paddle_tpu_torch.distributed.store as tstore  # noqa: E402
+import paddle_tpu_torch.inference.autoscale as tauto  # noqa: E402
+import paddle_tpu_torch.inference.fleet as tfleet  # noqa: E402
+import paddle_tpu_torch.inference.telemetry as ttel  # noqa: E402
+
+for _jm, _tm, _names in (
+        (jstore, tstore, ("TCPStore",)),
+        (jrpc, trpc, ("_send_msg", "_recv_msg", "send_msg", "recv_msg")),
+        (jspawn, tspawn, ("spawn", "_wrap")),
+        (jfleet, tfleet, ("RespawnGovernor", "_ship_spec", "_land_spec",
+                          "build_engine_from_spec", "resolve_factory",
+                          "EngineHost", "ProcessReplica", "_worker_entry",
+                          "_make_respawner", "FleetHandle", "spawn_fleet",
+                          "_respawn_wrap", "main")),
+        (jtel, ttel, ("ReplicaTelemetryMirror",)),
+        (jauto, tauto, ("SLOTarget", "FleetController", "price_from_spec"))):
+    for _name in _names:
+        _j, _t = getattr(_jm, _name), getattr(_tm, _name)
+        if not isinstance(_j, type):
+            PAIRS[f"{_jm.__name__.split('.')[-1]}.{_name}"] = (_j, _t)
+            continue
+        for _meth, _fn in vars(_j).items():
+            if callable(_fn) and (not _meth.startswith("_")
+                                  or _meth == "__init__"):
+                PAIRS[f"{_name}.{_meth}"] = (_fn, getattr(_t, _meth))
 PAIRS["lora_delta"] = (jad.lora_delta, tlora.lora_delta)
 PAIRS["lora_apply"] = (jad.lora_apply, tlora.lora_apply)
 

@@ -58,6 +58,10 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   one shared bf16 LLaMA-7B: route, failover, prefix, disagg, adapters,
   hot_swap), with the phase's seconds, its non-zero launch counts and the
   peak memory.
+- `fleet`: `chip_smoke.py`'s phase 18 alone (the process fleet: route,
+  kill9, disagg, autoscale over LLaMA-7B worker processes), after the
+  single engine's ids it is held against (built and dropped in this
+  process first); the workers' non-zero launch counts.
 
     python3 tools/card_check.py ragged flash mask bert   # from the repository root; needs one CUDA card
 """
@@ -308,7 +312,7 @@ def width(dev):
 def router(dev):
     t = time.perf_counter()
     model, geom = C.router_model(torch, dev)
-    rows, launches = C.cb_router(torch, model, geom)
+    rows, launches, _ = C.cb_router(torch, model, geom)
     yield from (dict(phase="router", **r) for r in rows)
     del model
     torch.cuda.empty_cache()
@@ -317,9 +321,20 @@ def router(dev):
                peak_gb=torch.cuda.max_memory_allocated() / 1e9, ok=True)
 
 
+def fleet(dev):
+    t = time.perf_counter()
+    ref = C.fleet_reference(torch)
+    ref_s = time.perf_counter() - t
+    rows, launches = C.cb_fleet(torch, dev, ref)
+    yield from (dict(phase="fleet", **r) for r in rows)
+    yield dict(phase="fleet", seconds=time.perf_counter() - t, reference_s=ref_s,
+               launches={k: v for k, v in launches.items() if v},
+               parent_peak_gb=torch.cuda.max_memory_allocated() / 1e9, ok=True)
+
+
 PHASES = dict(qmm=qmm, ragged=ragged, flash=flash, mask=mask, f32=f32, gpt=gpt, bert=bert, tp=tp,
               tp_path=tp_path, width=width, width_rows=width_rows, width_price=width_price,
-              router=router)
+              router=router, fleet=fleet)
 
 
 def main(names):
