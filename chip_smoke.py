@@ -181,7 +181,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
               breaker open -> half_open -> closed), 1 prefill : 1 decode
               with handoffs over the "store" transport, and the SLO
               autoscaler (inference/autoscale.py) over a 4-layer 7B-width
-              fleet: one scale-out, then drain-then-retire
+              fleet spawned through spawn_fleet(traffic_target=) (the cost
+              model sizes it to its one worker) and priced by
+              price_from_spec: one scale-out, then drain-then-retire
+ 19. plan     the cost-model planner (`cost_model.py`): the checked-in H100
+              calibration (its card beside this one), search_plan over
+              LLaMA-7B on one card with phase 18's geometry (every ranked
+              spec with predicted TTFT / TPOT and why()), the top spec
+              built by EngineSpec.build() and run on the cb_path stream:
+              ids equal cb_path's run of the same knobs bit for bit, the
+              path's launches, measured TTFT and ms per micro-step beside
+              the prediction (the ratios are the calibration's residuals);
+              the engine's device-time probe and busy share; then dense-KV
+              `models.generation.generate` on phase 4's bf16 7B (4 x 12
+              prompts, 16 tokens): #1 exactly (2 * 32 + 1) * 16 launches,
+              ids against phase 4's bf16 engine by the margin rule (0.1)
 
 Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
 bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row:
@@ -2415,7 +2429,7 @@ def serve_7b(torch, dev):
                           + 3 * H * cfg.intermediate_size)
     n_head_params = H * cfg.vocab_size
     ring_layer, ring_head = qmm_ring_gemvs(cfg)
-    results, launches = [], {}
+    results, launches, held = [], {}, {}
     for wname, eng in engines.items():
         w_bytes = weight_bytes_per_step(torch, eng)
         step_bound = 1e3 * w_bytes / HBM_BYTES_PER_S
@@ -2474,10 +2488,11 @@ def serve_7b(torch, dev):
                 tail=out1[0, -4:].tolist(), ok=ok))
             for kname, c in counts.items():
                 launches[kname] = launches.get(kname, 0) + c
+            held[(wname, pname)] = dict(prompts=ids, ids=out1, decode_ms_per_step=decode_ms)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del engines
     torch.cuda.empty_cache()
-    return dict(setup_s=setup_s, peak_gb=peak_gb, runs=results), launches
+    return dict(setup_s=setup_s, peak_gb=peak_gb, runs=results, held=held), launches
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2767,7 +2782,7 @@ def serve_cb_7b(torch, dev):
     torch.cuda.empty_cache()
     return dict(runs=results, single=single, sampled=sampled, proc=proc, spec=spec,
                 width=width, item8=item8, tenants=tenants, faults=faults, ptq=ptq,
-                telemetry=tel, tp=tp, peak_gb=peak_gb, busy=busy), launches
+                telemetry=tel, tp=tp, peak_gb=peak_gb, busy=busy, streams=streams), launches
 
 
 # The block-width gate: 5 requests submitted one engine step apart, so that
@@ -4789,6 +4804,9 @@ def cb_router(torch, model, geom):
 # another (two 7B builds at once would need ~81 GB); the autoscale leg runs
 # a 4-layer model at 7B width (its scale-out spawns a worker mid-stream).
 FLEET_AUTOSCALE_LAYERS = 4
+# the autoscale leg's traffic target: the cost model (the checked-in H100
+# calibration) sizes the 4-layer fleet to one worker
+FLEET_TRAFFIC = {"qps": 1.0, "prompt_len": 256, "gen_tokens": 48}
 FLEET_CONNECT_MS = 300000     # a 7B worker's spawn-to-rendezvous wait
 
 
@@ -4890,7 +4908,8 @@ def cb_fleet(torch, dev, ref, router_host_ms=None):
     import os
     import signal
     import numpy as np
-    from paddle_tpu_torch.inference.autoscale import FleetController, SLOTarget
+    from paddle_tpu_torch.inference.autoscale import (FleetController, SLOTarget,
+                                                      price_from_spec)
     from paddle_tpu_torch.inference.fleet import build_engine_from_spec, spawn_fleet
     from paddle_tpu_torch.inference.router import EngineRouter
     from paddle_tpu_torch.models.llama import LlamaConfig
@@ -5156,8 +5175,11 @@ def cb_fleet(torch, dev, ref, router_host_ms=None):
         ref4 = fleet_reference(torch, FLEET_AUTOSCALE_LAYERS)
         spec4 = fleet_spec(FLEET_AUTOSCALE_LAYERS)
         t = time.perf_counter()
-        handle = spawn_fleet(spec4, 1, prefix_index=False, connect_timeout_ms=FLEET_CONNECT_MS)
+        # the cost model sizes the fleet from the traffic target: one worker
+        handle = spawn_fleet(spec4, traffic_target=FLEET_TRAFFIC, prefix_index=False,
+                             connect_timeout_ms=FLEET_CONNECT_MS)
         first_spawn_s = time.perf_counter() - t
+        sized = dict(handle.plan)
         router = EngineRouter(backends=handle.replicas, telemetry=True, probe_backoff=10_000)
         spawned = []
 
@@ -5170,7 +5192,7 @@ def cb_fleet(torch, dev, ref, router_host_ms=None):
         ctl = FleetController(router, SLOTarget(queue_wait_p99_ms=1.0), spawner=spawner,
                               retirer=handle.retire_worker, breach_ticks=1, cooldown_ticks=2,
                               slack_ticks=2, min_window_count=1, max_replicas=2,
-                              shed_after_ticks=99)
+                              shed_after_ticks=99, price=price_from_spec(spec4))
         t = time.perf_counter()
         uids = [router.add_request(p, b) for p, b in zip(prompts, budgets)]
         steps = 0
@@ -5197,6 +5219,8 @@ def cb_fleet(torch, dev, ref, router_host_ms=None):
             time.sleep(0.2)         # the retired worker's exit (CUDA teardown)
         decisions = list(ctl.decisions) + list(lazy.decisions)
         row = dict(run="autoscale", layers=FLEET_AUTOSCALE_LAYERS, requests=len(prompts),
+                   traffic_target=FLEET_TRAFFIC, sized=sized,
+                   priced=[d.get("priced") for d in ctl.decisions if d["action"] == "scale_out"],
                    first_spawn_s=first_spawn_s, spawned=spawned, scale_outs=ctl.scale_outs,
                    actions=[d["action"] for d in decisions],
                    decision_ms=[d["decision_ms"] for d in decisions],
@@ -5207,6 +5231,7 @@ def cb_fleet(torch, dev, ref, router_host_ms=None):
                    delivered=h2["done"], duplicates_dropped=router.duplicates_dropped,
                    live_workers=sum(p.is_alive() for p in handle.procs))
         row["ok"] = (row["equal_single"] and ctl.scale_outs == 1 and len(spawned) == 1
+                     and sized["replicas"] == 1
                      and all(v > 0 for v in served.values()) and len(served) == 2
                      and all(kernels_ok(c) for c in worker_launches.values())
                      and retire["action"] == "scale_in" and len(router._replicas) == 1
@@ -5232,6 +5257,192 @@ def cb_fleet(torch, dev, ref, router_host_ms=None):
         divs, held = [], True
     kill.update(divergences=divs, held=held)
     kill["ok"] = kill["ok"] and held
+    return rows, launches
+
+
+# ---------------------------------------------------------------- phase 19
+# the cb_path runs whose ids phase `plan` holds a searched spec to, by
+# (megakernel, decode_block); all bf16, phase 18's geometry and seed
+PLAN_HELD = {(False, 8): "K=8 bf16", (False, 1): "K=1 bf16", ("multi", 8): "multi K=8 bf16",
+             ("layer", 8): "layer K=8 bf16"}
+PLAN_PROMPT = 128          # the TTFT request's prompt (and the search's prompt_len)
+PLAN_TTFT_SEED = 29
+GEN_NEW = 16               # generate: phase 4's short prompts, 16 new tokens
+
+
+def _raw(calib):
+    """The calibration without its residuals: what a residual multiplies."""
+    import copy
+    raw = copy.copy(calib)
+    raw.residuals = {}
+    return raw
+
+
+def plan_run(torch, spec, cost, raw, prompts, budgets, held, L):
+    """One searched spec built through EngineSpec.build() on the card, the
+    cb_path stream through it, then a TTFT request and the probes on the
+    idle engine. Returns (row, launches)."""
+    import numpy as np
+    from paddle_tpu_torch.cost_model import predict_serving
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    cfg = LlamaConfig.llama_7b()
+    mk, K = spec.megakernel, spec.decode_block
+    t = time.perf_counter()
+    eng = spec.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    reset_kernel_launches()
+    outs, wall, dec_ms = drive_cb(torch, eng, prompts, budgets)
+    counts = kernel_launches()
+    h = eng.health()
+    dec = h["decode_steps"]
+    expect_mk = {False: 0, "layer": L * dec, "multi": dec}[mk]
+    launch_ok = (dec > 0 and counts["decode_megakernel"] == expect_mk
+                 and counts["paged_attention"] == (0 if mk else L * dec)
+                 and counts["ragged_paged_attention"] % L == 0
+                 and (counts["ragged_paged_attention"] > 0) == (K > 1)
+                 and counts["flash_attention_fwd"] == 0)
+    name = PLAN_HELD.get((mk, K))
+    ref = held.get(name)
+    equal = ref is not None and len(ref) == len(outs) and all(
+        np.array_equal(a, b) for a, b in zip(ref, outs))
+    # TTFT: one fresh request on the warm idle engine, prefill + first token
+    ids = np.random.RandomState(PLAN_TTFT_SEED).randint(
+        0, cfg.vocab_size, PLAN_PROMPT).astype(np.int64)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.add_request(ids, 1)
+    eng.drain()
+    torch.cuda.synchronize()
+    ttft_ms = 1e3 * (time.perf_counter() - t)
+    probe_s = eng.probe_device_step_seconds(iters=30)
+    busy = eng.device_busy_frac(wall, dec, probe_s)
+    pred_raw = predict_serving(cfg, spec, calib=raw, prompt_len=PLAN_PROMPT,
+                               gen_tokens=round(float(np.mean(budgets))))
+    tpot_ratio = dec_ms / cost.meta["tpot_ms"]
+    row = dict(run="searched", megakernel=mk, decode_block=K, held_run=name,
+               build_s=build_s, requests=len(prompts), decode_steps=dec,
+               ids_equal_held=equal if ref is not None else None, launches=counts,
+               launches_ok=launch_ok, wall_s=wall, ms_per_decode_microstep=dec_ms,
+               predicted_tpot_ms=cost.meta["tpot_ms"], tpot_ratio=tpot_ratio,
+               tpot_residual=dec_ms / pred_raw.meta["tpot_ms"],
+               ttft_ms=ttft_ms, predicted_ttft_ms=cost.meta["ttft_ms"],
+               ttft_ratio=ttft_ms / cost.meta["ttft_ms"],
+               ttft_residual=ttft_ms / pred_raw.meta["ttft_ms"],
+               probe_step_ms=1e3 * probe_s, device_busy_frac=busy,
+               host_ms_per_step=dec_ms - 1e3 * probe_s,
+               no_leak=h["pages_free"] + h["prefix_pages"] == h["pages_total"])
+    row["ok"] = (launch_ok and (equal or ref is None) and row["no_leak"]
+                 and probe_s > 0 and 0.0 <= busy <= 1.0)
+    del eng
+    release(torch)
+    return row, counts
+
+
+def plan_phase(torch, dev, smi_line, held_cb, held_path, train_ms=None):
+    """Phase 19 (`cost_model.py` and `models/generation.py`): the search,
+    the searched spec on the card against the held ids of cb_path's run of
+    the same knobs, its probes, and dense-KV generate against phase 4's
+    bf16 engine. `held_cb`: cb_path's ids by run name; `held_path`: phase
+    4's bf16 short-prompt run (prompts, ids, ms a decode step);
+    `train_ms`: phase 8's llama350m ms a step (the training residual).
+    Returns (rows, launches)."""
+    import numpy as np
+    from paddle_tpu_torch.cost_model import (DEFAULT_CALIB_PATH, Calibration, Plan,
+                                             predict_train_step, search_plan,
+                                             spec_from_fleet_dict)
+    from paddle_tpu_torch.models.generation import generate
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.train_llama import CONFIGS
+    cfg = LlamaConfig.llama_7b()
+    L = cfg.num_hidden_layers
+    rows, launches = [], {}
+
+    def add(counts):
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+
+    # (a) the calibration and the search
+    calib = Calibration.load()
+    raw = _raw(calib)
+    with open(DEFAULT_CALIB_PATH) as f:
+        meta = json.load(f)
+    prompts, budgets = cb_stream(cfg)
+    wl = dict(prompt_len=PLAN_PROMPT, gen_tokens=round(float(np.mean(budgets))))
+    base = spec_from_fleet_dict(fleet_spec())
+    t = time.perf_counter()
+    ranked = search_plan(cfg, 1, mode="serving", base_spec=base, calib=calib, top_k=None,
+                         **wl)
+    search_ms = 1e3 * (time.perf_counter() - t)
+    rows.append(dict(run="search", calibration=calib.source, calib_device=meta.get("device"),
+                     calib_run=meta.get("run"), card=smi_line,
+                     card_matches=meta.get("device") == smi_line, search_ms=search_ms,
+                     workload=wl, ranked=[dict(
+                         rank=r.rank, megakernel=r.plan.megakernel,
+                         decode_block=r.plan.decode_block, tp=r.plan.tp,
+                         replicas=r.plan.replicas, ttft_ms=r.cost.meta["ttft_ms"],
+                         tpot_ms=r.cost.meta["tpot_ms"], total_ms=r.cost.total_ms,
+                         hbm_gb=r.cost.hbm_gb, why=r.why()) for r in ranked],
+                     ok=bool(ranked) and calib.backend == "cuda"
+                     and calib.source.startswith("calib:h100.json")))
+    if train_ms is not None:
+        spec350 = CONFIGS["llama350m"]
+        pred = predict_train_step(dict(spec350["model"], preset="config"),
+                                  Plan(recompute=True), calib=raw,
+                                  global_batch=spec350["bs"], seq=spec350["seq"],
+                                  dtype="bfloat16", moment_dtype="float32")
+        rows[-1].update(train_ms=train_ms, predicted_train_ms=pred.total_ms,
+                        train_residual=train_ms / pred.total_ms)
+    # (b, c) the top spec; and the best-ranked spec with held ids when the
+    # top has none
+    runs = [ranked[0]]
+    if (ranked[0].plan.megakernel, ranked[0].plan.decode_block) not in PLAN_HELD:
+        runs.append(next(r for r in ranked
+                         if (r.plan.megakernel, r.plan.decode_block) in PLAN_HELD))
+    for r in runs:
+        row, counts = plan_run(torch, r.plan, r.cost, raw, prompts, budgets, held_cb, L)
+        row["rank"] = r.rank
+        add(counts)
+        rows.append(row)
+    rows[1]["top"] = True
+    if len(rows) > 2:
+        rows[2]["ok"] = rows[2]["ok"] and rows[2]["ids_equal_held"]
+    else:
+        rows[1]["ok"] = rows[1]["ok"] and rows[1]["ids_equal_held"]
+    # (d) dense-KV generate on phase 4's model in bf16 (seed 0)
+    t = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    ids, ref = held_path["prompts"], held_path["ids"]
+    generate(model, ids, max_new_tokens=2)                       # warm
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    t = time.perf_counter()
+    out = generate(model, ids, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    counts = kernel_launches()
+    add(counts)
+    expect = dict.fromkeys(counts, 0)
+    expect["rms_norm"] = (2 * L + 1) * GEN_NEW
+    geom = dict(max_len=512, page_size=64, device=dev)
+    divs, held = divergence_held(torch, model, geom, list(ids), list(ref), list(out))
+    t0 = ids.shape[1]
+    same = int((out[:, t0:] == ref[:, t0:]).sum())
+    row = dict(run="generate", setup_s=setup_s, batch=ids.shape[0], prompt_len=t0,
+               max_new_tokens=GEN_NEW, out_shape=list(out.shape), launches=counts,
+               expected_launches=expect, tokens_equal_static=same / ref[:, t0:].size,
+               divergences=divs, margin_rule_held=held, wall_s=gen_s,
+               ms_per_token=1e3 * gen_s / GEN_NEW,
+               static_decode_ms_per_step=held_path["decode_ms_per_step"])
+    row["ok"] = (out.shape == ref.shape and counts == expect and held
+                 and bool((out[:, t0:] >= 0).all() and (out[:, t0:] < cfg.vocab_size).all()))
+    rows.append(row)
+    del model
+    release(torch)
     return rows, launches
 
 
@@ -5645,6 +5856,7 @@ def main():
     with watchdog("train_path", PATH_PHASE_S):
         runs, counts = train_path(torch, dev)
     add(counts)
+    train_ms = next(r["ms_per_step"] for r in runs if r["config"] == "llama350m")
     for r in runs:
         emit(dict(phase="train_path", **r))
         ok &= r["ok"]
@@ -5740,6 +5952,18 @@ def main():
         ok &= r["ok"]
     emit(dict(phase="fleet", seconds=time.perf_counter() - t, parent_allocated_gb=parent_gb,
               launches=launches, elapsed_s=time.perf_counter() - t_start))
+    # 19. the cost-model planner and dense-KV generate; counts are zeroed
+    # just before each run inside plan_phase and read just after it
+    t = time.perf_counter()
+    with watchdog("plan", PATH_PHASE_S):
+        rows, counts = plan_phase(torch, dev, smi_line, cb["streams"],
+                                  path["held"][("bf16", "short")], train_ms)
+    add(counts)
+    for r in rows:
+        emit(dict(phase="plan", **r))
+        ok &= r["ok"]
+    emit(dict(phase="plan", seconds=time.perf_counter() - t, launches=launches,
+              elapsed_s=time.perf_counter() - t_start))
     # the f32 builds' launches: each kernel's less its bf16 ones
     for kind in ("fwd", "bwd"):
         launches[f"flash_attention_{kind}_f32"] = (

@@ -31,10 +31,10 @@ fires BEFORE its action commits (a failed spawn leaves the fleet as it
 was; a failed retire leaves the replica serving; a failed rebalance
 leaves roles unchanged).
 
-The cost-model price gate (`price_from_spec`) waits for the cost model
-(ROADMAP A7.10) and refuses with NotImplementedError; `price=None` (the
-default) runs every other part of the loop. A router nobody ticks serves
-exactly as one built without this module.
+The cost-model price gate (`price=price_from_spec(spec)`) prices one more
+replica through `cost_model.predict_serving` before paying for it;
+`price=None` (the default) runs every other part of the loop. A router
+nobody ticks serves exactly as one built without this module.
 """
 import collections
 import time
@@ -454,12 +454,22 @@ class FleetController:
 
 def price_from_spec(fleet_spec, prompt_len=128, gen_tokens=64,
                     calib=None):
-    """A FleetController price= callable from a worker spec dict: the
-    cost model's pricing of one more replica before paying for it. The
-    cost model (paddle_tpu_torch/cost_model.py, ROADMAP A7.10) is not
-    ported yet, so this refuses with NotImplementedError;
-    `FleetController(price=None)` runs the whole control loop without a
-    price gate."""
-    raise NotImplementedError(
-        "price_from_spec: the cost model (paddle_tpu_torch/cost_model.py, "
-        "ROADMAP A7.10) is not ported yet; use FleetController(price=None)")
+    """Build a FleetController price= callable from a worker spec dict
+    — the same predict_serving pricing spawn_fleet's traffic_target
+    sizing uses, so the controller and the spawner agree on what a
+    replica costs before paying for it."""
+    from ..cost_model import (model_cfg_from_fleet_spec,
+                              predict_serving, spec_from_fleet_dict)
+    cfg = model_cfg_from_fleet_spec(fleet_spec)
+
+    def price(n_replicas):
+        spec = spec_from_fleet_dict(fleet_spec, replicas=n_replicas)
+        cost = predict_serving(cfg, spec, calib=calib,
+                               prompt_len=prompt_len,
+                               gen_tokens=gen_tokens)
+        return {"fits": cost.fits, "hbm_gb": cost.hbm_gb,
+                "ttft_ms": cost.meta["ttft_ms"],
+                "tpot_ms": cost.meta["tpot_ms"],
+                "fleet_tokens_per_sec":
+                    cost.meta["fleet_tokens_per_sec"]}
+    return price

@@ -39,8 +39,10 @@ chunked StoreKVTransport; only a handle crosses the router) and never
 "device". The port's one addition to the wire surface is the read-only
 `EngineHost.rpc_kernel_launches`.
 
-`traffic_target=` sizing and the `cost_model.EngineSpec` spec form wait for
-the cost model (ROADMAP A7.10) and refuse with NotImplementedError.
+`spawn_fleet(traffic_target=)` sizes the fleet through the cost model
+(`cost_model.size_fleet`) and keeps the sizing record on `FleetHandle.plan`;
+a `cost_model.EngineSpec` (the planner's output) lowers to its spec dict
+through `.fleet_spec()` wherever a spec dict is taken.
 
 Fault points: `rpc.call` (client side of every RPC), `fleet.heartbeat`
 (worker liveness reads), with the reference's detail strings.
@@ -69,10 +71,6 @@ ACTIVE = "active"                       # router.ACTIVE redefined: the
 #                                         must never import router at
 #                                         module level -- that would
 #                                         close the cycle
-
-_COST_MODEL = ("the cost model (paddle_tpu_torch/cost_model.py, ROADMAP "
-               "A7.10) is not ported yet")
-
 
 class FleetRPCError(SchedulerError):
     """A fleet RPC failed at the TRANSPORT level (connect refused,
@@ -192,13 +190,13 @@ def build_engine_from_spec(spec):
     and the CUDA caching allocator's reserve is released, so a worker
     keeps only the engine's weights and pools on the card.
 
-    A `cost_model.EngineSpec` (the planner's output) is refused with
-    NotImplementedError until the cost model is ported (ROADMAP A7.10).
+    Also accepts a `cost_model.EngineSpec` directly (the planner's
+    output): it lowers to exactly this dict via .fleet_spec(), so a
+    searched spec and a hand-written dict with the same fields build the
+    same engine through ONE construction path.
     """
     if hasattr(spec, "fleet_spec"):   # cost_model.EngineSpec
-        raise NotImplementedError(
-            f"build_engine_from_spec(EngineSpec): {_COST_MODEL}; pass the "
-            "spec dict")
+        spec = spec.fleet_spec()
     import torch
     from .. import resolve_device
     from ..models.llama import LlamaConfig, LlamaForCausalLM
@@ -227,13 +225,10 @@ def build_engine_from_spec(spec):
 
 def resolve_factory(factory):
     """Engine factory from any of the worker-config forms: a spec dict
-    (build_engine_from_spec), a "module:function" import path, or a
-    picklable zero-arg callable. A `cost_model.EngineSpec` is refused
-    until the cost model is ported (ROADMAP A7.10)."""
+    (build_engine_from_spec), a `cost_model.EngineSpec`, a
+    "module:function" import path, or a picklable zero-arg callable."""
     if hasattr(factory, "fleet_spec"):   # cost_model.EngineSpec
-        raise NotImplementedError(
-            f"resolve_factory(EngineSpec): {_COST_MODEL}; pass the spec "
-            "dict")
+        factory = factory.fleet_spec()
     if isinstance(factory, dict):
         return lambda: build_engine_from_spec(factory)
     if isinstance(factory, str):
@@ -1226,9 +1221,13 @@ def spawn_fleet(factory, n=None, store=None, namespace="fleet",
       no-code-shipped form the CLI uses; `"device": "cpu"` in its engine
       kwargs runs the workers on the CPU), a "module:function" import
       path, or a picklable zero-arg callable.
-    n: worker count.
-    traffic_target: sizing the fleet from a traffic target needs the
-      cost model (ROADMAP A7.10): refused with NotImplementedError.
+    n: worker count; None asks the cost model to size the fleet from
+      `traffic_target` (spec-dict factories only — sizing needs the
+      model config).
+    traffic_target: {"qps": float, "prompt_len": int, "gen_tokens":
+      int, ...} forwarded to cost_model.size_fleet; the sizing record
+      (predictions + headroom) lands on handle.plan, and the autoscale
+      controller reuses the same pricing (autoscale.price_from_spec).
     store: an existing TCPStore MASTER client to rendezvous through;
       None creates one on an ephemeral loopback port.
     roles: per-worker roles for a disaggregated topology (e.g.
@@ -1241,11 +1240,16 @@ def spawn_fleet(factory, n=None, store=None, namespace="fleet",
     from ..distributed.spawn import spawn
     from ..distributed.store import TCPStore
     plan = None
-    if traffic_target is not None:
-        raise NotImplementedError(
-            f"spawn_fleet(traffic_target=): {_COST_MODEL}; pass n=")
     if n is None:
-        raise ValueError("spawn_fleet needs n=")
+        if traffic_target is None:
+            raise ValueError("spawn_fleet needs n= or traffic_target=")
+        if not isinstance(factory, dict):
+            raise ValueError(
+                "traffic_target sizing needs a spec-dict factory (the "
+                "cost model prices from the model config; a callable "
+                "factory hides it)")
+        from ..cost_model import size_fleet
+        n, plan = size_fleet(factory, **dict(traffic_target))
     if store is None:
         store = TCPStore("127.0.0.1", 0, is_master=True, world_size=1)
     names = [f"{name_prefix}{i}" for i in range(int(n))]

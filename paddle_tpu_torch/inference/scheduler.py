@@ -1071,6 +1071,62 @@ class ContinuousBatchingEngine(LLMEngine):
                                    if s is not None})},
         }
 
+    def probe_device_step_seconds(self, iters=30):
+        """Synchronize-sampled bare decode-step time at full slot width —
+        the device-side denominator for host-overhead attribution.
+        `dispatch_seconds` accrues DISPATCH wall (host call machinery
+        included) and so overstates device busyness; this probe queues
+        `iters` decode steps back to back on the path the engine is
+        configured for (the op chain at its `_product_rows` width, or the
+        megakernel; under tp every shard) and synchronizes ONCE, so the
+        per-step host read-back and bookkeeping drop out. The op chain
+        issues its ~50 ops a layer from the host, so on it the probe reads
+        the larger of the issue time and the device time.
+
+        The probe runs REAL steps: it writes garbage KV into the probe
+        rows' page-0 slots and therefore (a) requires an IDLE engine
+        (raises RuntimeError otherwise) and (b) drops the prefix cache
+        afterwards — cached pages may alias the clobbered slots.
+        """
+        if any(s is not None for s in self._slots) or self._queue \
+                or self._demoted:
+            raise RuntimeError(
+                "probe_device_step_seconds needs an idle engine: the "
+                "probe dispatches real decode steps that clobber page-0 "
+                "KV slots (drain in-flight requests first)")
+        w = self.max_batch
+        tok = self._to_dev(np.zeros(w, np.int64))
+        tab = self._to_dev(self._tables_np[:w])
+        lens = self._to_dev(np.zeros(w, np.int64))
+        act = self._to_dev(np.ones(w, bool))
+
+        def sync():
+            for dev in self.devices:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+
+        with torch.no_grad():
+            self._decode_math(tok, tab, lens, act)    # warm
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(max(1, int(iters))):
+                self._decode_math(tok, tab, lens, act)
+            sync()
+        t = (time.perf_counter() - t0) / max(1, int(iters))
+        if self._prefix is not None:
+            self._prefix.clear(self.allocator)
+        return t
+
+    def device_busy_frac(self, wall_seconds, n_steps, t_step=None):
+        """Fraction of `wall_seconds` the device was genuinely busy
+        running `n_steps` decode steps, derived from the synchronize
+        probe (pass `t_step` to reuse a measurement). The complement is
+        the host overhead share."""
+        if t_step is None:
+            t_step = self.probe_device_step_seconds()
+        return min(1.0, max(0.0, n_steps * t_step
+                            / max(wall_seconds, 1e-9)))
+
     def generate_many(self, prompts, max_new_tokens=32, eos_token_id=None):
         """Submit a list of (ragged) prompts and drain. Returns a list of
         1-D arrays in submission order."""

@@ -378,6 +378,14 @@ class LLMEngine:
             min(int(x), max_batch) for x in batch_buckets)))
             if batch_buckets is not None else None)
 
+    @property
+    def device_seconds(self):
+        """DEPRECATED alias of `dispatch_seconds` (renamed because the
+        accrued value is dispatch wall-clock — host call machinery
+        included — not device busyness; use probe_device_step_seconds /
+        device_busy_frac for that)."""
+        return self.dispatch_seconds
+
     # -- tensor parallelism (inference/tp.py) ---------------------------------
     def _rep(self, x):
         """x on every shard's device (a step's replicated inputs)."""

@@ -28,8 +28,11 @@ state's tensors in place (the reference donates its state to the step)
 and returns the same dict. `gather_params` gives the reference's layout
 (outer list + per-name stacked [L, ...] in `phys_order`).
 
+`plan=` (a `cost_model.Plan` or its JSON dict) sets the knobs it carries, as
+in the reference, after checking the mesh against `plan.mesh_axes()`.
+
 Not ported here (ROADMAP A8): any mesh axis above 1, the pipeline
-schedules, `grad_compress`, `plan=` and sequence parallelism; each raises
+schedules, `grad_compress` and sequence parallelism; each raises
 NotImplementedError, and so does a `sep` axis, whose GPT position offset
 is not ported (A8.6). `sharding_stage` only changes the layout of the
 state across ranks, so on one device the three stages are the same step.
@@ -98,8 +101,35 @@ class SpmdTrainer:
                  matmul_precision=None, recompute_policy="save_attn",
                  moment_dtype="float32", grad_compress=None,
                  compress_chunk=None, grad_accum=1, plan=None):
+        # --- declarative plan (cost_model.Plan) -------------------------
+        # The planner's output is the single source of truth for the knobs
+        # it carries: when plan= is given (a Plan or its JSON dict), its
+        # fields REPLACE the corresponding constructor arguments, and then
+        # go through the same checks (so a multi-device plan, or int8
+        # grad_compress, raises the typed A8 refusal). The mesh must agree
+        # with plan.mesh_axes() first.
+        self.plan = None
         if plan is not None:
-            raise NotImplementedError(f"plan= (cost_model.Plan) {_NOT_PORTED}")
+            from ..cost_model import Plan
+            if isinstance(plan, dict):
+                plan = Plan.from_json(plan)
+            mesh_shape = _mesh_shape(mesh)
+            for axis, want in plan.mesh_axes().items():
+                have = mesh_shape.get(axis, 1)
+                if have != want:
+                    raise ValueError(
+                        f"mesh axis {axis!r} is {have} but the plan "
+                        f"needs {want} (plan.mesh_axes()="
+                        f"{plan.mesh_axes()}) — build the mesh with "
+                        f"plan.build_mesh()")
+            self.plan = plan
+            sharding_stage = plan.sharding_stage
+            grad_compress = plan.grad_compress
+            grad_accum = plan.grad_accum
+            micro_batch_size = plan.micro_batch_size
+            pp_schedule = plan.pp_schedule
+            virtual_pp_degree = plan.virtual_pp_degree
+            recompute = plan.recompute
         if sharding_stage not in (1, 2, 3):
             raise ValueError(f"sharding_stage must be 1/2/3, got "
                              f"{sharding_stage}")
@@ -139,6 +169,8 @@ class SpmdTrainer:
         self.eps = eps
         self.wd = weight_decay
         self.recompute = recompute
+        self.sharding_stage = sharding_stage
+        self.grad_compress = grad_compress
         self.recompute_policy = recompute_policy
         self.fuse_head_ce = fuse_head_ce
         self.ce_chunk = ce_chunk

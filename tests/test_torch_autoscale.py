@@ -228,6 +228,31 @@ def sc_price(pkg):
                 sheds=ctl.sheds, log=_log(ctl))
 
 
+def sc_priced(pkg):
+    """The cost model's price gate (`price_from_spec`) on a tiny spec under
+    the CPU nominal calibration; a replica budget of 3 on top of its "fits"
+    (one replica's footprint does not grow with the fleet) turns the third
+    scale-out into a refusal."""
+    from paddle_tpu.cost_model import Calibration as JaxCalibration
+    from paddle_tpu_torch.cost_model import Calibration
+    cal = (JaxCalibration if pkg is PACKAGES["jax"] else Calibration)(
+        backend="cpu")
+    spec = {"model": {"preset": "tiny", "seed": 0},
+            "engine": {"max_len": 64, "page_size": 16, "max_batch": 2}}
+    price = pkg.auto.price_from_spec(spec, prompt_len=16, gen_tokens=8,
+                                     calib=cal)
+
+    def capped(n):
+        out = dict(price(n))
+        out["fits"] = out["fits"] and n <= 3
+        return out
+    r = StubRouter()
+    ctl = _ctl(pkg, r, breach_ticks=1, cooldown_ticks=0, price=capped)
+    r.windows = BAD
+    acts = [ctl.tick()["action"] for _ in range(3)]
+    return dict(acts=acts, n=len(r._replicas), log=_log(ctl))
+
+
 def sc_shed_clears(pkg):
     r = StubRouter()
     ctl = _ctl(pkg, r, breach_ticks=1, max_replicas=1)
@@ -387,8 +412,17 @@ class TestControllerUnits:
         assert got == want
 
     def test_price_from_spec_waits_for_the_cost_model(self):
-        with pytest.raises(NotImplementedError, match="A7.10"):
-            tauto.price_from_spec({"model": {"preset": "tiny"}})
+        """The price gate is ported (it refused until the cost model was):
+        a controller priced by `price_from_spec` under the CPU nominal
+        calibration takes the JAX controller's decisions, "priced" records
+        (exact floats) included, scaling out while the priced spec fits and
+        capping once the next replica would not."""
+        want, got = both(sc_priced)
+        assert got["acts"] == ["scale_out", "scale_out", "capped"]
+        assert got["n"] == 3
+        assert got["log"][0]["priced"]["fits"] is True
+        assert got["log"][2]["priced"]["fits"] is False
+        assert got == want
 
 
 class TestRespawnGovernor:

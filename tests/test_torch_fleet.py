@@ -475,15 +475,43 @@ class TestWire:
                    (w["emb"], w["norm"], w["layers"][0]["wq"]))
 
     def test_cost_model_forms_refuse_typed(self):
-        class EngineSpecLike:
-            def fleet_spec(self):
-                return SPEC
-        with pytest.raises(NotImplementedError, match="A7.10"):
-            tfleet.build_engine_from_spec(EngineSpecLike())
-        with pytest.raises(NotImplementedError, match="A7.10"):
-            tfleet.resolve_factory(EngineSpecLike())
-        with pytest.raises(NotImplementedError, match="A7.10"):
-            tfleet.spawn_fleet(SPEC, traffic_target={"qps": 1.0})
+        """The cost model's forms, refused until the planner was ported,
+        now work as the reference's: an `EngineSpec` builds and resolves to
+        the engine its spec dict builds (the same ids), and
+        `traffic_target` sizes a real fleet through `size_fleet`, with the
+        JAX package's sizing record (exact floats) on `handle.plan`. With
+        neither n nor a traffic target, or a traffic target over a
+        callable factory, spawn_fleet raises ValueError."""
+        from paddle_tpu.cost_model import Calibration as JaxCalibration
+        from paddle_tpu.cost_model import size_fleet as jax_size_fleet
+        from paddle_tpu_torch.cost_model import Calibration, EngineSpec
+        spec = EngineSpec(model=dict(SPEC["model"]), max_len=64, page_size=8,
+                          max_batch=2, engine_extra={"prefill_chunk": 8,
+                                                     "device": "cpu"})
+        prompt = np.arange(1, 10, dtype=np.int64)
+
+        def ids(eng):
+            return eng.generate_many([prompt], max_new_tokens=4)[0]
+
+        want = ids(tfleet.build_engine_from_spec(SPEC))
+        np.testing.assert_array_equal(
+            ids(tfleet.build_engine_from_spec(spec)), want)
+        np.testing.assert_array_equal(ids(tfleet.resolve_factory(spec)()),
+                                      want)
+        target = {"qps": 5.0, "prompt_len": 16, "gen_tokens": 8}
+        _, record = jax_size_fleet(
+            {"model": dict(SPEC["model"]), "engine": dict(ENGINE_KW)},
+            calib=JaxCalibration(backend="cpu"), **target)
+        handle = tfleet.spawn_fleet(
+            SPEC, traffic_target=dict(target,
+                                      calib=Calibration(backend="cpu")))
+        try:
+            assert handle.plan == record and record["replicas"] == 1
+            assert len(handle.replicas) == 1 and handle.replicas[0].health()
+        finally:
+            handle.shutdown()
+        with pytest.raises(ValueError, match="spec-dict"):
+            tfleet.spawn_fleet(lambda: None, traffic_target=target)
         with pytest.raises(ValueError):
             tfleet.spawn_fleet(SPEC)
 

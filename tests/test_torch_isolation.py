@@ -46,6 +46,8 @@ assert "paddle_tpu_torch.distributed.store" in sys.modules
 assert "paddle_tpu_torch.distributed.rpc" in sys.modules
 assert "paddle_tpu_torch.distributed.spawn" in sys.modules
 assert "paddle_tpu_torch.inference.autoscale" in sys.modules
+assert "paddle_tpu_torch.cost_model" in sys.modules
+assert "paddle_tpu_torch.models.generation" in sys.modules
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))

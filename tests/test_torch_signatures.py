@@ -246,6 +246,39 @@ for _jm, _tm, _names in (
             if callable(_fn) and (not _meth.startswith("_")
                                   or _meth == "__init__"):
                 PAIRS[f"{_name}.{_meth}"] = (_fn, getattr(_t, _meth))
+# the cost-model planner (A7.10): every function of the reference's module
+# (but `_guess_backend`, the JAX platform guess the port drops: its
+# backend is "cuda" unless asked for "cpu") and every method of its
+# classes; dense-KV generation (A7.12); the engines' device-time probes
+import paddle_tpu.cost_model as jcm  # noqa: E402
+import paddle_tpu.models.generation as jgen  # noqa: E402
+import paddle_tpu_torch.cost_model as tcm  # noqa: E402
+import paddle_tpu_torch.models.generation as tgen  # noqa: E402
+
+for _name, _j in vars(jcm).items():
+    if getattr(_j, "__module__", None) != jcm.__name__ \
+            or _name == "_guess_backend":
+        continue
+    _t = getattr(tcm, _name)
+    if not isinstance(_j, type):
+        PAIRS[f"cost_model.{_name}"] = (_j, _t)
+        continue
+    for _meth, _fn in vars(_j).items():
+        if isinstance(_fn, (classmethod, staticmethod)):
+            _fn, _tf = _fn.__func__, vars(_t)[_meth].__func__
+        elif callable(_fn):
+            _tf = vars(_t)[_meth]
+        else:
+            continue
+        PAIRS[f"cost_model.{_name}.{_meth}"] = (_fn, _tf)
+for _name in ("_decode_math", "generate", "_sample"):
+    PAIRS[f"generation.{_name}"] = (getattr(jgen, _name),
+                                    getattr(tgen, _name))
+for _name in ("probe_device_step_seconds", "device_busy_frac"):
+    PAIRS[_CB + _name] = (getattr(jsched.ContinuousBatchingEngine, _name),
+                          getattr(tsched.ContinuousBatchingEngine, _name))
+PAIRS["LLMEngine.device_seconds"] = (jserving.LLMEngine.device_seconds.fget,
+                                     tserving.LLMEngine.device_seconds.fget)
 PAIRS["lora_delta"] = (jad.lora_delta, tlora.lora_delta)
 PAIRS["lora_apply"] = (jad.lora_apply, tlora.lora_apply)
 

@@ -4,7 +4,8 @@ against paddle_tpu's.
 
 Replays tests/test_telemetry.py (TestHistogram, TestRegistry,
 TestWindowedPercentiles, TestTracedRun, the spec-pass and fault-hook legs,
-JSONL streaming). The router, tiering, handoff and failover legs wait for
+JSONL streaming, the engines' device-time probes at tp = 1 and 2 and
+through the megakernel). The router, tiering, handoff and failover legs wait for
 ROADMAP A7.4, A7.6 and A7.7, the jax.profiler session tests for A9.3.
 
 Exact: histogram percentiles and snapshots on the same samples, the
@@ -352,6 +353,35 @@ class TestLegs:
         assert [c["filled"] for c in chunks] == [8, 16, 20]
         assert tel.registry.hist["prefill_chunk_ms"].count == 3
         tel.close()
+
+    @pytest.mark.parametrize("tp,mk_mode", [(1, False), (2, False),
+                                            (1, "multi")])
+    def test_dispatch_seconds_and_probe(self, tp, mk_mode):
+        """The reference's probe assertions (test_telemetry.py
+        test_dispatch_seconds_and_probe) on the port's engine, at tp = 1
+        and tp = 2 and through the megakernel: the alias, a positive probe
+        on an idle engine, a busy share in [0, 1], the refusal while busy;
+        the probe drops the prefix cache and leaks no page."""
+        eng = mk(tp=tp, megakernel=mk_mode)
+        rng = np.random.RandomState(23)
+        p = rng.randint(0, 128, (6,)).astype(np.int64)
+        want = eng.generate_many([p], max_new_tokens=3)[0]
+        assert eng.dispatch_seconds > 0
+        assert eng.device_seconds == eng.dispatch_seconds  # alias
+        t = eng.probe_device_step_seconds(iters=3)
+        assert t > 0
+        assert 0.0 <= eng.device_busy_frac(1.0, 10, t) <= 1.0
+        h = eng.health()
+        assert h["prefix_pages"] == 0
+        assert h["pages_free"] == h["pages_total"]
+        # busy engines refuse: the probe clobbers page-0 KV slots
+        eng.add_request(p, max_new_tokens=3)
+        with pytest.raises(RuntimeError, match="idle"):
+            eng.probe_device_step_seconds()
+        eng.drain()
+        # the probe's garbage KV reaches no later request
+        np.testing.assert_array_equal(
+            eng.generate_many([p], max_new_tokens=3)[0], want)
 
     def test_jsonl_streaming(self, tmp_path):
         path = str(tmp_path / "stream.jsonl")

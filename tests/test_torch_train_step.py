@@ -165,9 +165,11 @@ def test_state_layout_and_sync_to_model():
 
 @pytest.mark.parametrize("kw", [
     dict(mesh={"data": 2, "model": 1}), dict(pp_schedule="1f1b"),
-    dict(grad_compress="int8"), dict(plan={"mesh": {}})],
+    dict(grad_compress="int8"), dict(plan={"grad_compress": "int8"})],
     ids=["mesh", "pipeline", "grad_compress", "plan"])
 def test_unported_options_raise(kw):
+    """`plan=` is taken (cost_model.Plan or its JSON dict); a plan whose
+    knobs need the training and distributed stack raises as they do."""
     model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
                              device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):

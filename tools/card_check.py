@@ -62,6 +62,12 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   kill9, disagg, autoscale over LLaMA-7B worker processes), after the
   single engine's ids it is held against (built and dropped in this
   process first); the workers' non-zero launch counts.
+- `plan`: `chip_smoke.py`'s phase 19 alone (the cost-model search over
+  LLaMA-7B on the checked-in H100 calibration, the searched spec built
+  and run on the cb_path stream, its probes, dense-KV generate), after the
+  ids it is held against: phase 4's bf16 static engine on the 4 x 12
+  prompts and cb_path's runs of the knobs the search ranks (built and
+  dropped in this process first).
 
     python3 tools/card_check.py ragged flash mask bert   # from the repository root; needs one CUDA card
 """
@@ -332,9 +338,62 @@ def fleet(dev):
                parent_peak_gb=torch.cuda.max_memory_allocated() / 1e9, ok=True)
 
 
+def plan(dev):
+    import numpy as np
+    from paddle_tpu_torch.cost_model import Calibration, search_plan, spec_from_fleet_dict
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    t = time.perf_counter()
+    cfg = LlamaConfig.llama_7b()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    eng = LLMEngine(model, max_len=512, page_size=64, max_batch=4, weight_dtype="bfloat16",
+                    device=dev)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 12)).astype(np.int64)
+    eng.generate(ids, max_new_tokens=C.GEN_NEW, device_loop=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=C.GEN_NEW, device_loop=True)
+    total = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.generate(ids, max_new_tokens=1, device_loop=True)
+    prefill = time.perf_counter() - t0
+    held_path = dict(prompts=ids, ids=out, decode_ms_per_step=1e3 * (total - prefill) / 32)
+    del eng
+    # cb_path's runs of the knobs the search ranks first (and the first
+    # with held ids), on the cb_stream
+    prompts, budgets = C.cb_stream(cfg)
+    ranked = search_plan(cfg, 1, mode="serving", base_spec=spec_from_fleet_dict(C.fleet_spec()),
+                         calib=Calibration.load(), top_k=None, prompt_len=C.PLAN_PROMPT,
+                         gen_tokens=round(float(np.mean(budgets))))
+    knobs = [k for k in C.PLAN_HELD if k in {(r.plan.megakernel, r.plan.decode_block)
+                                             for r in ranked[:1]}]
+    if not knobs:
+        knobs = [next((r.plan.megakernel, r.plan.decode_block) for r in ranked
+                      if (r.plan.megakernel, r.plan.decode_block) in C.PLAN_HELD)]
+    held_cb = {}
+    for mk, K in knobs:
+        eng = ContinuousBatchingEngine(model, decode_block=K, megakernel=mk, page_size=64,
+                                       max_len=1024, max_batch=8, prefill_chunk=128,
+                                       prefix_cache=True, weight_dtype="bfloat16", device=dev)
+        held_cb[C.PLAN_HELD[(mk, K)]] = C.drive_cb(torch, eng, prompts, budgets)[0]
+        del eng
+    del model
+    C.release(torch)
+    held_s = time.perf_counter() - t
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t = time.perf_counter()
+    rows, launches = C.plan_phase(torch, dev, smi, held_cb, held_path)
+    yield from (dict(phase="plan", **r) for r in rows)
+    yield dict(phase="plan", seconds=time.perf_counter() - t, held_s=held_s,
+               launches={k: v for k, v in launches.items() if v},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, ok=True)
+
+
 PHASES = dict(qmm=qmm, ragged=ragged, flash=flash, mask=mask, f32=f32, gpt=gpt, bert=bert, tp=tp,
               tp_path=tp_path, width=width, width_rows=width_rows, width_price=width_price,
-              router=router, fleet=fleet)
+              router=router, fleet=fleet, plan=plan)
 
 
 def main(names):
