@@ -142,8 +142,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
  13. bert_train_parity  2 layers at the base width, batch 4 x 128 with
               padding, 3 AdamW steps, dropout on: the card (f32, bf16)
               against the CPU (f32), the global generator seeded alike
- 14. cb_adapters  multi-LoRA serving at 7B (full width and depth, the cb_path
-              geometry, K = 8): a 12-request stream over three rank-16
+ 14. cb_adapters  multi-LoRA serving at 7B's width (CUT_LAYERS = 8 of its
+              layers, the cb_path geometry, K = 8): a 12-request stream over three rank-16
               adapters and base, on the op chain (bf16, int8), at
               speculate = 4, on "multi" and at tp = 2; adapter requests
               equal dedicated single-adapter runs, base requests the
@@ -151,7 +151,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               "multi" the op chain (adapter dispatches fall back) exactly;
               base rows on "multi" and tp = 2 by the margin rule; LoRA
               launches, fallbacks, ms per micro-step with and without
- 15. cb_handoff  two 7B engines on the card: mid-decode exports over the
+ 15. cb_handoff  two engines of phase 14's model on the card: mid-decode exports over the
               "device", "host" and "store" transports, continuations equal
               the uninterrupted run, a flipped payload byte refused with
               the importer untouched; ms and GB/s by transport
@@ -160,7 +160,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               demote-on-idle; outputs equal the never-demoted runs; ms and
               GB/s by tier
  17. router   multi-replica serving (`inference/router.py`) over op-chain
-              engines of one shared 7B model: routing over 2 replicas (ids
+              engines of one shared model of 7B's width and CUT_LAYERS (8)
+              layers: routing over 2 replicas (ids
               equal a single engine's; the router's own host cost, the
               wall less the time inside the engines),
               failover with a breaker that opens, half-opens and closes
@@ -171,9 +172,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               and a rolling weight hot-swap of a 4-layer 7B-width model
               with its rollback on a flipped snapshot byte; save / load
               GB/s
- 18. fleet    the process fleet (`inference/fleet.py`): LLaMA-7B worker
-              processes built from one spec dict (seed 0, phase 17's
-              geometry), each its own CUDA context, behind EngineRouter:
+ 18. fleet    the process fleet (`inference/fleet.py`): worker processes
+              of phase 17's model built from one spec dict (seed 0, phase
+              17's geometry), each its own CUDA context, behind EngineRouter:
               routing over 2 workers (ids equal phase 17's single engine's,
               #4 and #5 launched in each worker, the router's host work a
               step beside phase 17's), kill -9 of one worker mid-decode
@@ -196,6 +197,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
               `models.generation.generate` on phase 4's bf16 7B (4 x 12
               prompts, 16 tokens): #1 exactly (2 * 32 + 1) * 16 launches,
               ids against phase 4's bf16 engine by the margin rule (0.1)
+ 20. dp       Fleet data parallelism (`distributed/`): two ranks spawned by
+              `distributed.spawn` on the one card, gloo by
+              init_parallel_env's rule (both on cuda:0), each training
+              BertForMaskedLM(BertConfig.base()) in f32 with dropout 0
+              under fleet.init(dp 2) / distributed_model /
+              distributed_optimizer(AdamW 1e-4) on its 8 x 128 half of a
+              padded batch, 1 + 3 steps, EagerReducer's 25 MB buckets;
+              first the verb set of `tests/collective_worker.py` (and the
+              port's own) on CUDA tensors against exact values and one
+              rpc_sync each way; gates: the ranks' parameters equal bit
+              for bit and within atol 1e-5 (attention key biases steps x
+              lr) of one process training the 16-row batch on the card,
+              flushes = buckets x steps, #2f / #3f launched 12 a step on
+              each rank (every launch masked, non-causal), parameters and
+              gradients on cuda; ms a step, the flushes' ms and GB/s, one
+              25 MiB bucket's all-reduce alone, spawn-to-rendezvous s
 
 Phase 3 also holds the ragged kernel at tq = 1 against the decode kernel
 bit for bit (bf16 and f32, page 64 and page 8), a gate of the paged row:
@@ -4166,10 +4183,26 @@ def cb_tiering(torch, model, geom):
     return rows, launches
 
 
+# phases 14-18's depth: LLaMA-7B's width at CUT_LAYERS of its 32 layers.
+# The depth was cut when phase 20 (dp) came in, to keep the run's time on
+# a slow host inside its limit; the adapters', handoffs', tiers', routers'
+# and the fleet's gates do not depend on it (their launch counts scale
+# with the model's layers)
+CUT_LAYERS = 8
+
+
+def cut_7b_config():
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.llama_7b()
+    cfg.num_hidden_layers = CUT_LAYERS
+    return cfg
+
+
 def lora_handoff_tier_model(torch, dev):
-    """The 7B model and engine geometry of phases 14-16 (phase 6's)."""
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    model = LlamaForCausalLM(LlamaConfig.llama_7b(), device=dev, seed=0)
+    """The model of phases 14-16 (7B's width, CUT_LAYERS layers, seed 0)
+    and their engine geometry (phase 6's)."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    model = LlamaForCausalLM(cut_7b_config(), device=dev, seed=0)
     geom = dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
                 prefix_cache=True, weight_dtype="bfloat16", device=dev)
     return model, geom
@@ -4326,8 +4359,8 @@ SWAP_LAYERS = 4             # the hot-swap leg's model: 7B width, 4 layers
 
 
 def router_model(torch, dev):
-    """Phase 17's shared 7B model in bf16 (seed 0, as phases 14-16's) and
-    its engine geometry."""
+    """Phase 17's shared model in bf16 (phases 14-16's: 7B's width,
+    CUT_LAYERS layers, seed 0) and its engine geometry."""
     model, geom = lora_handoff_tier_model(torch, dev)
     return model.to(torch.bfloat16), geom
 
@@ -4346,7 +4379,7 @@ def _no_leak(eng):
 
 
 def cb_router(torch, model, geom):
-    """Multi-replica serving at 7B (`inference/router.py`): six legs, each
+    """Multi-replica serving at 7B's width (`inference/router.py`): six legs, each
     row with its gates and "ok".
 
       route     2 replicas, the route stream: ids equal a single engine's
@@ -4913,7 +4946,7 @@ def cb_fleet(torch, dev, ref, router_host_ms=None):
     from paddle_tpu_torch.inference.fleet import build_engine_from_spec, spawn_fleet
     from paddle_tpu_torch.inference.router import EngineRouter
     from paddle_tpu_torch.models.llama import LlamaConfig
-    spec = fleet_spec()
+    spec = fleet_spec(CUT_LAYERS)
     page = spec["engine"]["page_size"]
     prompts, budgets = router_stream(LlamaConfig.llama_7b(), page)
     launches, rows = {}, []
@@ -5686,6 +5719,414 @@ def bert_train_parity(torch, dev):
     return rows
 
 
+# ---------------------------------------------------------------- phase 20
+# Fleet data parallelism: two ranks spawned by `distributed.spawn` on the
+# one card train BertForMaskedLM(BertConfig.base()) in f32, dropout 0, under
+# fleet.init(dp 2) / distributed_model / distributed_optimizer(AdamW): each
+# rank a batch of 8 x 128 with a [b, 1, 1, s] padding mask, labels at the
+# odd positions (config 2's `labels[:, ::2] = -100`: both halves score the
+# same count, so the mean of their means is the whole batch's mean).
+# init_parallel_env's rule picks gloo (both ranks on cuda:0). One process
+# on the card trains the whole 16-row batch for the same steps from the
+# same weights: the reference the ranks are held to.
+DP_WARMUP, DP_STEPS, DP_LR = 1, 3, 1e-4
+DP_ROWS, DP_SEQ = 8, 128            # a rank's batch
+DP_BUCKET_MB = 25                   # DataParallel's comm_buffer_size
+DP_PER_STEP = {f"flash_attention_{kind}{branch}": 12 for kind in ("fwd", "bwd")
+               for branch in ("", "_masked", "_noncausal")}
+DP_JOIN_S = 420
+DP_GRAD_RTOL = 1e-4                 # a bucket's step-0 gradient, relative L2
+
+
+def dp_config(**kw):
+    from paddle_tpu_torch.models.bert import BertConfig
+    return BertConfig.base(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0, **kw)
+
+
+def dp_batch(cfg, rows):
+    """(ids, token types, mask, labels) of `rows` rows, int64 numpy: the
+    padding of `train_bert.mlm_batch`, labels at every odd position."""
+    import numpy as np
+    from paddle_tpu_torch.train_bert import mlm_batch
+    ids, tt, am, _ = mlm_batch(cfg, rows, DP_SEQ, seed=1)
+    labels = np.random.RandomState(2).randint(0, cfg.vocab_size, ids.shape).astype(np.int64)
+    labels[:, ::2] = -100
+    return ids, tt, am, labels
+
+
+def dp_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_train(torch, model, opt, batch, dev, steps, on_step=None):
+    """`steps` AdamW steps on `batch`; per step (loss, seconds)."""
+    ids, tt, am, labels = (torch.from_numpy(a).to(dev) for a in batch)
+    out = []
+    for i in range(steps):
+        dp_sync(torch, dev)
+        t = time.perf_counter()
+        loss = model(ids, tt, am, labels=labels)
+        loss.backward()
+        if on_step is not None:
+            on_step(i)
+        opt.step()
+        opt.clear_grad()
+        dp_sync(torch, dev)
+        out.append((float(loss.detach()), time.perf_counter() - t))
+    return out
+
+
+def dp_verbs(torch, dist, rank, dev):
+    """`tests/collective_worker.py`'s verb set (and the port's own) on this
+    rank's device, each against its exact value: {verb: ok}."""
+    from paddle_tpu_torch.distributed import comm_compress
+    other = 1 - rank
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    def eq(a, b):
+        return torch.equal(a.cpu(), torch.as_tensor(b, dtype=a.dtype))
+
+    def reduce_scatter():
+        out = t([0.0, 0.0])
+        dist.reduce_scatter(out, torch.full((4,), float(rank + 1), device=dev))
+        return eq(out, [3.0, 3.0])
+
+    def alltoall():
+        outs = []
+        dist.alltoall(outs, [t([rank * 10 + j]) for j in range(2)])
+        return eq(torch.cat(outs), [rank, 10 + rank])
+
+    def all_to_all_single():
+        out = t([0.0, 0.0])
+        dist.all_to_all_single(out, t([rank * 10, rank * 10 + 1]))
+        het = torch.zeros(3, device=dev)       # source s sends s + 1 rows
+        dist.all_to_all_single(het, t([rank * 10 + d for d in (0, 1) for _ in range(rank + 1)]),
+                               in_split_sizes=[rank + 1, rank + 1])
+        return eq(out, [rank, 10 + rank]) and eq(het, [rank, 10 + rank, 10 + rank])
+
+    def broadcast():
+        x = torch.full((3,), float(rank), device=dev)
+        dist.broadcast(x, src=1)
+        return eq(x, [1.0, 1.0, 1.0])
+
+    def scatter():
+        x = t([0.0, 0.0])
+        dist.scatter(x, [t([5.0, 5.0]), t([7.0, 7.0])] if rank == 0 else None, src=0)
+        return eq(x, [5.0, 5.0] if rank == 0 else [7.0, 7.0])
+
+    def send_recv():
+        if rank == 0:
+            dist.send(t([42.0]), dst=1)
+            return True
+        buf = t([0.0])
+        dist.recv(buf, src=0)
+        return eq(buf, [42.0])
+
+    def batch_isend_irecv():
+        rbuf = t([0.0])
+        dist.batch_isend_irecv([dist.P2POp(dist.isend, t([float(rank)]), other),
+                                dist.P2POp(dist.irecv, rbuf, other)])
+        return eq(rbuf, [float(other)])
+
+    def all_reduce():
+        x = [[1.0, -2.0, 3.5], [4.0, 5.0, -0.25]][rank]
+        ok = True
+        for op, want in ((dist.ReduceOp.SUM, [5.0, 3.0, 3.25]),
+                         (dist.ReduceOp.MAX, [4.0, 5.0, 3.5]),
+                         (dist.ReduceOp.MIN, [1.0, -2.0, -0.25]),
+                         (dist.ReduceOp.PROD, [4.0, -10.0, -0.875]),
+                         (dist.ReduceOp.AVG, [2.5, 1.5, 1.625])):
+            y = t(x)
+            dist.all_reduce(y, op=op)
+            ok &= eq(y, want)
+        big = 2 ** 40
+        n = t([big + 3 * rank, 7 + rank, -7 - 2 * rank], torch.int64)
+        a = n.clone()
+        dist.all_reduce(n)
+        dist.all_reduce(a, op=dist.ReduceOp.AVG)
+        return ok and eq(n, [2 * big + 3, 15, -16]) and eq(a, [big + 1, 7, -8])
+
+    def all_gather():
+        lst = []
+        dist.all_gather(lst, t([[rank * 100.0, rank + 0.5]]))
+        cat = dist.all_gather_into_tensor(t([[rank, rank]]), concat_axis=1)
+        return eq(torch.cat(lst), [[0.0, 0.5], [100.0, 1.5]]) and eq(cat, [[0, 0, 1, 1]])
+
+    def all_reduce_int8():
+        rows = [torch.randn(700, generator=torch.Generator().manual_seed(10 + r)) for r in range(2)]
+        x = rows[rank].to(dev, copy=True)
+        dist.all_reduce(x, compress="int8", compress_chunk=64)
+        want = sum(comm_compress.dequantize_int8(*comm_compress.quantize_int8(r.to(dev), 64))
+                   for r in rows)
+        return torch.equal(x, want)
+
+    def objects():
+        objs, lst, outl = [], [{"seed": 123}] if rank == 0 else [None], []
+        dist.all_gather_object(objs, {"rank": rank})
+        dist.broadcast_object_list(lst, src=0)
+        dist.scatter_object_list(outl, ["part0", "part1"] if rank == 0 else None, src=0)
+        return (objs == [{"rank": 0}, {"rank": 1}] and lst == [{"seed": 123}]
+                and outl == [f"part{rank}"])
+
+    out = {}
+    for fn in (reduce_scatter, alltoall, all_to_all_single, broadcast, scatter, send_recv,
+               batch_isend_irecv, all_reduce, all_gather, all_reduce_int8, objects):
+        out[fn.__name__] = bool(fn())
+    return out
+
+
+def dp_rank(out_dir, spawn_t, device, cfg_kw):
+    """One rank of phase 20 (a `distributed.spawn` child): its verbs, one
+    RPC each way, then the data-parallel training; writes its report and
+    final parameters under out_dir."""
+    import os
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet, rpc
+    from paddle_tpu_torch.distributed.fleet.utils import hybrid_parallel_util
+    from paddle_tpu_torch.models.bert import BertForMaskedLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import AdamW
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": 1, "pp_degree": 1,
+                               "sharding_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy, device=dev)
+    rendezvous_s = time.time() - spawn_t
+    rank, hcg = dist.get_rank(), fleet.get_hybrid_communicate_group()
+    rep = dict(rank=rank, pid=os.getpid(), backend=dist.get_backend(),
+               rendezvous_s=rendezvous_s, mode=hcg.get_parallel_mode())
+    t = time.perf_counter()
+    rep["verbs"] = dp_verbs(torch, dist, rank, dev)
+    rep["verbs_s"] = time.perf_counter() - t
+    ep = f"127.0.0.1:{int(os.environ['MASTER_PORT']) + 2}"
+    rpc.init_rpc(f"rank{rank}", rank=rank, world_size=2, master_endpoint=ep)
+    t = time.perf_counter()
+    rep["rpc_peer_pid"] = rpc.rpc_sync(f"rank{1 - rank}", os.getpid)
+    rep["rpc_ms"] = 1e3 * (time.perf_counter() - t)
+    dist.barrier()
+    rpc.shutdown()
+    cfg = dp_config(**cfg_kw)
+    model = BertForMaskedLM(cfg, device=dev, seed=5)
+    hybrid_parallel_util.broadcast_dp_parameters(model, hcg)
+    rep["start_sum"] = float(sum(p.detach().double().sum() for p in model.parameters()))
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(AdamW(DP_LR, parameters=model.named_parameters()))
+    red = model._reducer
+    batch = [a[rank * DP_ROWS:(rank + 1) * DP_ROWS] for a in dp_batch(cfg, 2 * DP_ROWS)]
+    flush = {}
+    names = {id(p): n for n, p in model.named_parameters()}
+    rep["bucket_names"] = [[names[id(p)] for p in b] for b in red.buckets]
+
+    def on_step(i):
+        if i == 0:      # the averaged gradients the backward's flushes left
+            torch.save({n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                        if p.grad is not None}, os.path.join(out_dir, f"grads{rank}.pt"))
+        if i == DP_WARMUP - 1:
+            flush["s"], flush["bytes"], flush["n"] = (red.flush_seconds, red.flush_bytes,
+                                                      red.flushes)
+        ps = list(model.parameters())
+        rep["on_device"] = (all(p.device.type == dev.type for p in ps)
+                            and all(p.grad.device.type == dev.type
+                                    for p in ps if p.grad is not None))
+
+    reset_kernel_launches()
+    steps = dp_train(torch, model, opt, batch, dev, DP_WARMUP + DP_STEPS, on_step)
+    rep["launches"] = kernel_launches()
+    rep["losses"] = [x for x, _ in steps]
+    rep["step_ms"] = [1e3 * s for _, s in steps[DP_WARMUP:]]
+    rep["buckets"], rep["flushes"] = len(red.buckets), red.flushes
+    rep["flush_ms_per_step"] = 1e3 * (red.flush_seconds - flush["s"]) / DP_STEPS
+    rep["flush_bytes_per_step"] = (red.flush_bytes - flush["bytes"]) / DP_STEPS
+    rep["grad_bytes"] = 4 * sum(p.numel() for p in model.parameters() if p.requires_grad)
+    # one bucket's all-reduce alone, the ranks in step: median of 5
+    x = torch.ones(DP_BUCKET_MB * 2 ** 20 // 4, device=dev)
+    times = []
+    for _ in range(5):
+        dist.barrier()
+        t = time.perf_counter()
+        dist.all_reduce(x, op=dist.ReduceOp.AVG)
+        dp_sync(torch, dev)
+        times.append(time.perf_counter() - t)
+    rep["bucket_allreduce_ms"] = 1e3 * sorted(times)[2]
+    rep["bucket_allreduce_ok"] = bool((x == 1).all())
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               os.path.join(out_dir, f"params{rank}.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_groups(name):
+    """The parameter group a BERT parameter's difference is reported under."""
+    if name.endswith("k_proj.bias"):
+        return "attention k bias"
+    for key, group in (("embeddings", "embeddings"), ("self_attn", "attention"),
+                       ("linear", "feed-forward"), ("norm", "layer norms"),
+                       ("pooler", "pooler")):
+        if key in name:
+            return group
+    return "mlm head"
+
+
+def dp_phase(torch, dev, cfg_kw=None):
+    """Phase 20 on `dev`: two spawned ranks, then the one-process reference
+    on the same card; the rows and the ranks' launch counts."""
+    import os
+    import random
+    import shutil
+    import socket
+    import tempfile
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.models.bert import BertForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+    t_phase = time.perf_counter()
+    cfg_kw = cfg_kw or {}
+    out_dir = tempfile.mkdtemp(prefix="dp-")
+    # MASTER_PORT, the store on + 1 and the RPC store on + 2: all three held
+    # bound until the ranks start, drawn below the ephemeral range that
+    # other processes' bind(0) sockets come from
+    draw, held = random.Random(os.getpid()), []
+    while not held:
+        port = draw.randrange(20000, 32000 - 3)
+        try:
+            for k in range(3):
+                held.append(socket.socket())
+                held[-1].bind(("127.0.0.1", port + k))
+        except OSError:
+            for h in held:
+                h.close()
+            held = []
+    for h in held:
+        h.close()
+    saved = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT")}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    try:
+        spawn_t = time.time()
+        procs = spawn(dp_rank, args=(out_dir, spawn_t, str(dev), cfg_kw), nprocs=2, join=False)
+        deadline = time.time() + DP_JOIN_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    ranks_s = time.perf_counter() - t_phase
+    exits = [p.exitcode for p in procs]
+    if any(c != 0 for c in exits) or not all(
+            os.path.exists(os.path.join(out_dir, f"rank{r}.json")) for r in range(2)):
+        shutil.rmtree(out_dir, ignore_errors=True)
+        return [dict(run="ranks", exitcodes=exits, ok=False)], {}
+    reps = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    params = [torch.load(os.path.join(out_dir, f"params{r}.pt")) for r in range(2)]
+    grads = [torch.load(os.path.join(out_dir, f"grads{r}.pt")) for r in range(2)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # the one-process reference: the whole batch, the same steps
+    cfg = dp_config(**cfg_kw)
+    model = BertForMaskedLM(cfg, device=dev, seed=5)
+    start_sum = float(sum(p.detach().double().sum() for p in model.parameters()))
+    opt = AdamW(DP_LR, parameters=model.named_parameters())
+    ref_grads = {}
+
+    def keep_grads(i):
+        if i == 0:
+            ref_grads.update((n, p.grad.detach().cpu()) for n, p in model.named_parameters()
+                             if p.grad is not None)
+
+    ref_steps = dp_train(torch, model, opt, dp_batch(cfg, 2 * DP_ROWS), dev,
+                         DP_WARMUP + DP_STEPS, keep_grads)
+    ref = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, opt
+    release(torch)
+    n_steps = DP_WARMUP + DP_STEPS
+    same = all(torch.equal(params[0][n], params[1][n]) for n in ref)
+    diff, worst = {}, 0.0
+    for n, want in ref.items():
+        d = float((params[0][n] - want).abs().max())
+        g = dp_groups(n)
+        diff[g] = max(diff.get(g, 0.0), d)
+        limit = n_steps * DP_LR if n.endswith("k_proj.bias") else 1e-5
+        worst = max(worst, d / limit)
+    ref_losses = [x for x, _ in ref_steps]
+    mean_losses = [(a + b) / 2 for a, b in zip(reps[0]["losses"], reps[1]["losses"])]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mean_losses, ref_losses))
+    # Adam's update hides a gradient's scale (a SUM for an AVG moves the
+    # parameters alike), so step 0's flushed gradients are held to one
+    # process's full-batch gradients bucket by bucket: a bucket divided by
+    # the wrong count is off by 0.5 or more
+    grad_rel = []
+    for r in range(2):
+        if set(grads[r]) != set(ref_grads):
+            grad_rel.append(float("inf"))
+            continue
+        worst_b = 0.0
+        for members in reps[r]["bucket_names"]:
+            members = [n for n in members if n in ref_grads]     # the pooler takes none
+            if not members:
+                continue
+            got = torch.cat([grads[r][n].double().flatten() for n in members])
+            want = torch.cat([ref_grads[n].double().flatten() for n in members])
+            worst_b = max(worst_b, float((got - want).norm() / want.norm()))
+        grad_rel.append(worst_b)
+    grad_diff = {}
+    for n, want in ref_grads.items():
+        g = dp_groups(n)
+        grad_diff[g] = max(grad_diff.get(g, 0.0), float((grads[0][n] - want).abs().max()))
+    rows, launches = [], {}
+    for rep in reps:
+        expect = {k: DP_PER_STEP.get(k, 0) * n_steps for k in rep["launches"]}
+        flushes_ok = rep["flushes"] == rep["buckets"] * n_steps
+        verbs_ok = all(rep["verbs"].values())
+        grad_gb_s = rep["flush_bytes_per_step"] / 1e9 / (rep["flush_ms_per_step"] / 1e3)
+        bucket_bytes = DP_BUCKET_MB * 2 ** 20
+        rows.append(dict(
+            run=f"rank {rep['rank']}", backend=rep["backend"], mode=rep["mode"],
+            spawn_to_rendezvous_s=rep["rendezvous_s"], verbs=rep["verbs"],
+            verbs_s=rep["verbs_s"], rpc_peer_pid_ok=rep["rpc_peer_pid"] == reps[1 - rep["rank"]]["pid"],
+            rpc_ms=rep["rpc_ms"], losses=rep["losses"], ms_per_step=rep["step_ms"],
+            buckets=rep["buckets"], flushes=rep["flushes"], flushes_ok=flushes_ok,
+            flush_ms_per_step=rep["flush_ms_per_step"],
+            flush_gb_per_step=rep["flush_bytes_per_step"] / 1e9, flush_grad_gb_s=grad_gb_s,
+            bucket_allreduce_ms=rep["bucket_allreduce_ms"],
+            bucket_allreduce_gb_s=bucket_bytes / 1e9 / (rep["bucket_allreduce_ms"] / 1e3),
+            on_device=rep["on_device"], start_equal=rep["start_sum"] == start_sum,
+            launches={k: v for k, v in rep["launches"].items() if v}, launches_ok=rep["launches"] == expect,
+            ok=(rep["backend"] == "gloo" and rep["mode"] == "data_parallel" and verbs_ok
+                and rep["rpc_peer_pid"] == reps[1 - rep["rank"]]["pid"] and flushes_ok
+                and rep["on_device"] and rep["launches"] == expect and rep["bucket_allreduce_ok"]
+                and rep["start_sum"] == start_sum)))
+        for k, c in rep["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+    rows.append(dict(
+        run="ranks against one process", layers=cfg.num_hidden_layers, hidden=cfg.hidden_size,
+        rows_per_rank=DP_ROWS, seq=DP_SEQ, steps=n_steps, lr=DP_LR,
+        ranks_bit_equal=same, param_max_abs_diff_by_group=diff,
+        step0_grad_bucket_rel_l2=grad_rel, grad_rtol=DP_GRAD_RTOL,
+        step0_grad_max_abs_diff_by_group=grad_diff,
+        param_worst_over_limit=worst, tol="atol 1e-5; attention k bias steps x lr",
+        rank_mean_losses=mean_losses, one_process_losses=ref_losses, loss_max_rel_diff=loss_rel,
+        one_process_ms_per_step=[1e3 * x for _, x in ref_steps[DP_WARMUP:]],
+        ranks_s=ranks_s, seconds=time.perf_counter() - t_phase,
+        ok=same and worst <= 1 and loss_rel <= 1e-5 and max(grad_rel) <= DP_GRAD_RTOL
+        and all(math.isfinite(x) for x in mean_losses)))
+    return rows, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5964,6 +6405,18 @@ def main():
         ok &= r["ok"]
     emit(dict(phase="plan", seconds=time.perf_counter() - t, launches=launches,
               elapsed_s=time.perf_counter() - t_start))
+    # 20. Fleet data parallelism: two spawned ranks on the card; each
+    # rank zeroes its counts just before its training steps and reads
+    # them just after (the parent's one-process reference launches are
+    # not counted)
+    release(torch)
+    with watchdog("dp", PATH_PHASE_S):
+        rows, counts = dp_phase(torch, dev)
+    add(counts)
+    for r in rows:
+        emit(dict(phase="dp", smi=smi_line, **r))
+        ok &= r["ok"]
+    emit(dict(phase="dp", launches=launches, elapsed_s=time.perf_counter() - t_start))
     # the f32 builds' launches: each kernel's less its bf16 ones
     for kind in ("fwd", "bwd"):
         launches[f"flash_attention_{kind}_f32"] = (

@@ -31,3 +31,12 @@ def resolve_device(device=None):
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {device!r}: expected cuda or cpu")
+
+
+def __getattr__(name):
+    # paddle.DataParallel; loaded on first use, so importing the package
+    # does not load torch.distributed
+    if name == "DataParallel":
+        from .distributed.parallel import DataParallel
+        return DataParallel
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

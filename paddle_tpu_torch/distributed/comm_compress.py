@@ -1,9 +1,14 @@
-"""Chunked int8 quantization and the two-stage quantized all-reduce.
+"""Chunked int8 quantization, the two-stage quantized all-reduce, and the
+eager int8 all-reduce.
 
-Counterpart of the part of `paddle_tpu/distributed/comm_compress.py` that
+Counterpart of the parts of `paddle_tpu/distributed/comm_compress.py` that
 tensor-parallel serving's `tp_compress="int8"` rides (inference/tp.py
 `TPContext.reduce`): `quantize_int8` / `dequantize_int8`, their row forms,
-and `quantized_psum`. The reference runs inside `shard_map` over a mesh
+and `quantized_psum`; and of its eager half, which the collectives'
+`compress="int8"` and EagerReducer's compressed bucket flushes ride:
+`eager_quantized_allreduce`, `wire_bytes` and `resolve_chunk`. The mesh
+trainer's `quantized_psum_scatter` and `all_gather_with_qscatter_grad` wait
+for ROADMAP A8.8 / A8.10. The reference runs inside `shard_map` over a mesh
 axis; here one process holds every rank's tensor, so `quantized_psum`
 takes the list of per-rank tensors (one per shard, in rank order) and
 plays the collectives out explicitly: an all-to-all is a hand-over of
@@ -19,6 +24,19 @@ the two quantization points.
 import torch
 
 DEFAULT_CHUNK = 256
+
+
+def resolve_chunk(compress_chunk):
+    """None -> DEFAULT_CHUNK; anything else must be an int >= 1 (every
+    compress_chunk= entry point funnels through here, so a 0 fails at
+    construction)."""
+    if compress_chunk is None:
+        return DEFAULT_CHUNK
+    c = int(compress_chunk)
+    if c < 1:
+        raise ValueError(f"compress_chunk must be >= 1, got "
+                         f"{compress_chunk!r}")
+    return c
 
 
 def _quantize_rows(rows, chunk):
@@ -112,3 +130,47 @@ def quantized_psum(xs, chunk=DEFAULT_CHUNK):
         err[lo:lo + shard] += accs[r] - acc_hats[r]
         errs.append(err[:size].reshape(shape))
     return ys, errs
+
+
+def eager_quantized_allreduce(arr, group=None, chunk=DEFAULT_CHUNK):
+    """The int8 all-reduce of the eager cross-process path.
+
+    arr: a float tensor on this rank. Its int8 rows and f32 scales are
+    packed into ONE byte payload, gathered from every group rank (one
+    collective a flush, ~4x fewer bytes than f32), dequantized and summed
+    in rank order. Returns (sum f32 tensor of arr's shape, err f32 tensor):
+    err is this rank's quantization residual (arr - its dequantized copy),
+    what error feedback carries into the next flush."""
+    from . import collective
+    shape = tuple(arr.shape)
+    q, s, size = quantize_int8(arr, chunk=chunk)
+    xhat = dequantize_int8(q, s, size, shape)
+    err = arr.float().reshape(shape) - xhat
+    payload = torch.cat([q.reshape(-1).view(torch.uint8),
+                         s.contiguous().view(torch.uint8)])
+    gathered = collective._process_gather(payload, group)    # [n, bytes]
+    nr, nq = gathered.shape[0], q.numel()
+    qg = gathered[:, :nq].contiguous().view(torch.int8).reshape(
+        (nr,) + tuple(q.shape))
+    sg = gathered[:, nq:].contiguous().view(torch.float32)
+    tot = _dequantize_rows(qg, sg, size).sum(dim=0).reshape(shape)
+    return tot, err
+
+
+def wire_bytes(size, n, dtype_bytes=4, chunk=DEFAULT_CHUNK,
+               compressed=False, scatter_only=False):
+    """Analytic bytes on the wire per rank for a ring all-reduce of `size`
+    elements over `n` ranks.
+
+    Exact f32: 2*(n-1)/n * size * 4   (reduce-scatter + all-gather).
+    int8:      the same element traffic at 1 byte + f32 scales every
+    `chunk`. scatter_only drops the all-gather phase (the ZeRO
+    reduce-to-owner pattern)."""
+    if n <= 1:
+        return 0
+    phases = 1 if scatter_only else 2
+    frac = (n - 1) / n
+    if not compressed:
+        return int(phases * frac * size * dtype_bytes)
+    scale_bytes = 4 * (-(-size // chunk))
+    return int(phases * frac * (size * 1 + scale_bytes))

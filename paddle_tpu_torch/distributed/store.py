@@ -177,3 +177,15 @@ class TCPStore:
         if n == world_size:
             self.set(f"__barrier/{name}/done", b"1")
         self.wait([f"__barrier/{name}/done"], timeout_ms)
+
+
+_retired = []
+
+
+def retire(store):
+    """Drop a store from its owner's use but keep its server up until the
+    process exits, as the reference's native server thread does: a rank
+    that leaves first (gloo_release, destroy_process_group) must not take
+    the store from under the peers still reading their last keys."""
+    if store is not None:
+        _retired.append(store)

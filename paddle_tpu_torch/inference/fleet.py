@@ -3,7 +3,7 @@
 Counterpart of `paddle_tpu/inference/fleet.py`. Each worker process owns one
 ContinuousBatchingEngine (on its own CUDA context, or on the CPU when its
 spec asks for it) and serves the `EngineReplica` method surface over the
-framed RPC socket of `distributed/rpc.py` (4-byte big-endian length +
+framed RPC socket of `distributed/rpc/` (4-byte big-endian length +
 pickle); workers rendezvous through a `distributed/store.py` TCPStore.
 
 Pieces:

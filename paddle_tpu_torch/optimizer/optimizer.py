@@ -22,7 +22,7 @@ by the reciprocal of a Python scalar).
 Not ported (ROADMAP A9.1): `LRScheduler` learning rates, `grad_clip`,
 parameter groups, the sparse (`SelectedRows`) path, per-parameter
 regularisers and learning rates (`ParamAttr`), and the optimizers other
-than Adam and AdamW. Each raises NotImplementedError.
+than SGD, Adam and AdamW. Each raises NotImplementedError.
 """
 import torch
 

@@ -1,5 +1,7 @@
-"""Adam and AdamW, counterparts of `paddle_tpu/optimizer/optimizers.py`'s.
+"""SGD, Adam and AdamW, counterparts of `paddle_tpu/optimizer/
+optimizers.py`'s.
 
+SGD: p - lr g (lr in the parameter's dtype, as JAX's weak scalar).
 Adam: f32 moments m, v; m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2,
 p -= lr (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps), in f32, the step
 cast to the parameter's dtype. AdamW first decays p by (1 - lr * coeff)
@@ -9,6 +11,11 @@ cast to the parameter's dtype. AdamW first decays p by (1 - lr * coeff)
 import torch
 
 from .optimizer import Optimizer, scalar
+
+
+class SGD(Optimizer):
+    def _rule(self, p, g, state, lr, t, name=None):
+        return p - lr * g, state
 
 
 class Adam(Optimizer):

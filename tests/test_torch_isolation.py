@@ -48,6 +48,11 @@ assert "paddle_tpu_torch.distributed.spawn" in sys.modules
 assert "paddle_tpu_torch.inference.autoscale" in sys.modules
 assert "paddle_tpu_torch.cost_model" in sys.modules
 assert "paddle_tpu_torch.models.generation" in sys.modules
+for m in ("parallel_env", "collective", "communication", "communication.stream",
+          "parallel_with_gloo", "rpc.rpc", "reducer", "parallel", "topology",
+          "fleet", "fleet.fleet_base", "fleet.distributed_strategy",
+          "fleet.utils.hybrid_parallel_util"):
+    assert "paddle_tpu_torch.distributed." + m in sys.modules, m
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))

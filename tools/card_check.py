@@ -55,11 +55,13 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   from another tree's root to price that tree (parent and change in
   turns, separate processes).
 - `router`: `chip_smoke.py`'s phase 17 alone (multi-replica serving over
-  one shared bf16 LLaMA-7B: route, failover, prefix, disagg, adapters,
+  one shared bf16 model of LLaMA-7B's width and `CUT_LAYERS` layers:
+  route, failover, prefix, disagg, adapters,
   hot_swap), with the phase's seconds, its non-zero launch counts and the
   peak memory.
 - `fleet`: `chip_smoke.py`'s phase 18 alone (the process fleet: route,
-  kill9, disagg, autoscale over LLaMA-7B worker processes), after the
+  kill9, disagg, autoscale over worker processes of phase 17's model),
+  after the
   single engine's ids it is held against (built and dropped in this
   process first); the workers' non-zero launch counts.
 - `plan`: `chip_smoke.py`'s phase 19 alone (the cost-model search over
@@ -68,6 +70,11 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   ids it is held against: phase 4's bf16 static engine on the 4 x 12
   prompts and cb_path's runs of the knobs the search ranks (built and
   dropped in this process first).
+- `dp`: `chip_smoke.py`'s phase 20 alone (Fleet data parallelism: two
+  spawned ranks on the card train BERT-base under fleet.distributed_model
+  over gloo, held bit for bit to each other and to one process training
+  the whole batch; the verb set on CUDA tensors, one RPC each way), with
+  the phase's seconds and the ranks' non-zero launch counts.
 
     python3 tools/card_check.py ragged flash mask bert   # from the repository root; needs one CUDA card
 """
@@ -329,7 +336,7 @@ def router(dev):
 
 def fleet(dev):
     t = time.perf_counter()
-    ref = C.fleet_reference(torch)
+    ref = C.fleet_reference(torch, C.CUT_LAYERS)
     ref_s = time.perf_counter() - t
     rows, launches = C.cb_fleet(torch, dev, ref)
     yield from (dict(phase="fleet", **r) for r in rows)
@@ -391,9 +398,17 @@ def plan(dev):
                peak_gb=torch.cuda.max_memory_allocated() / 1e9, ok=True)
 
 
+def dp(dev):
+    t = time.perf_counter()
+    rows, launches = C.dp_phase(torch, dev)
+    yield from (dict(phase="dp", **r) for r in rows)
+    yield dict(phase="dp", seconds=time.perf_counter() - t,
+               launches={k: v for k, v in launches.items() if v}, ok=True)
+
+
 PHASES = dict(qmm=qmm, ragged=ragged, flash=flash, mask=mask, f32=f32, gpt=gpt, bert=bert, tp=tp,
               tp_path=tp_path, width=width, width_rows=width_rows, width_price=width_price,
-              router=router, fleet=fleet, plan=plan)
+              router=router, fleet=fleet, plan=plan, dp=dp)
 
 
 def main(names):
