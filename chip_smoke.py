@@ -2532,10 +2532,16 @@ def parity_2layer(torch, dev):
     for quant in (None, "int8"):
         kw = dict(max_len=512, page_size=64, max_batch=2, quant=quant)
         cpu = LLMEngine(model, device="cpu", **kw)
+        # the CPU run's own logits, step by step (its prefill, then each
+        # decode step): the margins of the decisions it took
+        seen = []
+        for name in ("_prefill", "_step"):
+            setattr(cpu, name, lambda *a, f=getattr(cpu, name): seen.append(f(*a)) or seen[-1])
         gpu = LLMEngine(model, device=dev, weight_dtype="bfloat16", **kw)
         for pname, ids in prompts.items():
             t0 = ids.shape[1]
             err = max_err(gpu.prefill_logits(ids).cpu(), cpu.prefill_logits(ids))
+            seen.clear()
             ids_cpu = cpu.generate(ids, max_new_tokens=n_new)
             ids_gpu = gpu.generate(ids, max_new_tokens=n_new, device_loop=True)
             # a step counts where the CPU run's top-2 margin exceeds the
@@ -2543,8 +2549,7 @@ def parity_2layer(torch, dev):
             compared = equal = 0
             for i in range(ids.shape[0]):
                 for t in range(n_new):
-                    lg = cpu.prefill_logits(ids_cpu[i:i + 1, :t0 + t])[0]
-                    top2 = torch.topk(lg, 2).values
+                    top2 = torch.topk(seen[t][i].float(), 2).values
                     same = ids_cpu[i, t0 + t] == ids_gpu[i, t0 + t]
                     if float(top2[0] - top2[1]) > tol:
                         compared += 1
@@ -2794,9 +2799,9 @@ def serve_cb_7b(torch, dev):
     faults = cb_faults(torch, model, geom, prompts, budgets, streams, launches)
     ptq = ptq_serve(torch, model, geom, prompts, budgets, streams, launches)
     tel = telemetry_runs(torch, model, geom, prompts, budgets, streams, launches)
-    tp = tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches)
     del model
     torch.cuda.empty_cache()
+    tp = tp_cut_runs(torch, dev, launches)
     return dict(runs=results, single=single, sampled=sampled, proc=proc, spec=spec,
                 width=width, item8=item8, tenants=tenants, faults=faults, ptq=ptq,
                 telemetry=tel, tp=tp, peak_gb=peak_gb, busy=busy, streams=streams), launches
@@ -3189,9 +3194,37 @@ TP_RUNS = (
      "share"))
 
 
+def tp_cut_runs(torch, dev, launches):
+    """`tp_cb_runs` on phase 6's stream and geometry at 7B's width and
+    CUT_LAYERS of its 32 layers (the tp = 2 shards run one after another
+    on the card, and the op-chain runs' host work grows with the depth),
+    after the tp = 1 runs it holds its ids against (one for each
+    mode of TP_RUNS, on the same cut model; their launches are not
+    counted)."""
+    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
+    model, geom = lora_handoff_tier_model(torch, dev)
+    prompts, budgets = cb_stream(model.config)
+    specs = sampled_specs(len(prompts))
+    streams = {}
+    for ref in sorted({r[6] for r in TP_RUNS}):
+        mk = "multi" if "multi" in ref else "layer" if "layer" in ref else False
+        eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=mk,
+                                       quant="int8" if "int8" in ref else None,
+                                       sample_k=8, **geom)
+        streams[ref] = drive_cb(torch, eng, prompts, budgets,
+                                specs if ref.startswith("sampled") else None)[0]
+        del eng
+        torch.cuda.empty_cache()
+    out = tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches)
+    out["layers"] = model.config.num_hidden_layers
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_cb_runs(torch, model, geom, prompts, budgets, streams, launches):
     """The cb_stream through ContinuousBatchingEngine(tp=2, device=[card,
-    card]) at 7B full width and depth, K=8, cb_path's settings (TP_RUNS),
+    card]) at 7B's width and the model's depth, K=8, cb_path's settings (TP_RUNS),
     then LLMEngine(tp=2).generate(device_loop=True) on 4 x 12 prompts.
     Gates: ids against the tp = 1 run of the same mode (TP_RUNS' rule: the
     megakernel modes and the int8 op chain exactly; the bf16 op chain, whose
@@ -4208,14 +4241,30 @@ def lora_handoff_tier_model(torch, dev):
     return model, geom
 
 
+def cpu_logits(torch, model, seq, t0, n):
+    """The f32 CPU model's logits [n, V] for the tokens at t0 .. t0 + n - 1
+    of `seq` (numpy ids), each given the tokens before it: one causal
+    forward over seq[:t0 + n - 1]."""
+    with torch.no_grad():
+        lg = model(torch.from_numpy(seq[None, :t0 + n - 1]))[0]
+    return lg[t0 - 1:].float()
+
+
+def cpu_margins(torch, model, seq, t0, n):
+    """Top-2 gaps of `cpu_logits`: the CPU run's margin at each of its n
+    generated tokens."""
+    top2 = torch.topk(cpu_logits(torch, model, seq, t0, n), 2).values
+    return top2[:, 0] - top2[:, 1]
+
+
 def parity_cb_2layer(torch, dev):
     """The CB engine on the card (bf16, K=8, kernels; the op chain and the
     "multi" megakernel) against the same weights in the CPU CB engine (f32,
     plain versions) on 4 ragged requests; greedy ids compared wherever the
-    CPU's top-2 margin (from the static CPU engine's prefill_logits) exceeds
-    the tolerance. Returns one row per card run."""
+    CPU's top-2 margin (from one causal forward of the CPU model over the
+    CPU stream, `cpu_margins`) exceeds the tolerance. Returns one row per
+    card run."""
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
-    from paddle_tpu_torch.inference.serving import LLMEngine
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     import numpy as np
 
@@ -4231,9 +4280,7 @@ def parity_cb_2layer(torch, dev):
               decode_block=8)
     outs_cpu = ContinuousBatchingEngine(model, device="cpu", **kw).generate_many(
         prompts, max_new_tokens=n_new)
-    ref = LLMEngine(model, device="cpu", max_len=512, page_size=64, max_batch=1)
-    margins = [[float(torch.topk(ref.prefill_logits(oc[None, :p.size + t])[0], 2)
-                      .values.diff().neg()) for t in range(n_new)]
+    margins = [[float(m) for m in cpu_margins(torch, model, oc, p.size, n_new)]
                for p, oc in zip(prompts, outs_cpu)]
     rows = []
     # the spec leg: the CPU spec engine's ids must equal the CPU stream's
@@ -4276,8 +4323,8 @@ def parity_cb_sampled(torch, dev):
     K=8) against the same weights in the CPU CB engine (f32, plain
     versions), 2 layers at 7B width, 8 ragged requests, all sampled. The
     margin rule of parity_cb_2layer carried to a draw: a token is compared
-    where the CPU's draw (from the static CPU engine's prefill_logits at
-    its key) is unchanged when every logit moves by up to tol / 2, tried
+    where the CPU's draw (from the CPU model's logits, `cpu_logits`, at its
+    key) is unchanged when every logit moves by up to tol / 2, tried
     with 32 seeded perturbations (a draw's Gumbel noise belongs to a rank,
     so near-equal candidates that swap ranks swap noise too: a gap between
     two selection scores alone does not decide it); a request is followed
@@ -4285,7 +4332,6 @@ def parity_cb_sampled(torch, dev):
     position by position."""
     from paddle_tpu_torch.inference.sampling import fold_keys, selection_scores, top_k
     from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
-    from paddle_tpu_torch.inference.serving import LLMEngine
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
     import numpy as np
@@ -4303,8 +4349,6 @@ def parity_cb_sampled(torch, dev):
               decode_block=8, megakernel="multi", sample_k=8)
     cpu = ContinuousBatchingEngine(model, device="cpu", **kw)
     outs_cpu, _, _ = drive_cb(torch, cpu, prompts, [n_new] * len(prompts), specs)
-    ref = LLMEngine(model, device="cpu", max_len=512, page_size=64, max_batch=1)
-
     def decided(lg, sp, pos, trials=32):
         v, ids = top_k(lg, 64)          # a move of tol / 2 reaches no further
         n = trials + 1
@@ -4319,8 +4363,10 @@ def parity_cb_sampled(torch, dev):
         picks = ids.expand(n, -1).gather(1, ti.gather(1, sc.argmax(-1, keepdim=True)))
         return bool((picks == picks[0]).all())
 
-    decided_at = [[decided(ref.prefill_logits(oc[None, :p.size + t]), sp, p.size + t)
-                   for t in range(n_new)] for p, oc, sp in zip(prompts, outs_cpu, specs)]
+    decided_at = []
+    for p, oc, sp in zip(prompts, outs_cpu, specs):
+        lg = cpu_logits(torch, model, oc, p.size, n_new)
+        decided_at.append([decided(lg[t:t + 1], sp, p.size + t) for t in range(n_new)])
     gpu = ContinuousBatchingEngine(model, device=dev, weight_dtype="bfloat16", **kw)
     reset_kernel_launches()
     outs_gpu, _, _ = drive_cb(torch, gpu, prompts, [n_new] * len(prompts), specs)
@@ -5975,23 +6021,16 @@ def dp_groups(name):
     return "mlm head"
 
 
-def dp_phase(torch, dev, cfg_kw=None):
-    """Phase 20 on `dev`: two spawned ranks, then the one-process reference
-    on the same card; the rows and the ranks' launch counts."""
+def spawn_ranks(target, make_args, nprocs, join_s):
+    """`distributed.spawn(target, make_args(spawn_t), nprocs)` with MASTER_PORT
+    set, joined within `join_s` (killed past it); returns the exit codes.
+    MASTER_PORT, the store on + 1 and the RPC store on + 2 are held bound
+    until the ranks start, drawn below the ephemeral range that other
+    processes' bind(0) sockets come from."""
     import os
     import random
-    import shutil
     import socket
-    import tempfile
     from paddle_tpu_torch.distributed import spawn
-    from paddle_tpu_torch.models.bert import BertForMaskedLM
-    from paddle_tpu_torch.optimizer import AdamW
-    t_phase = time.perf_counter()
-    cfg_kw = cfg_kw or {}
-    out_dir = tempfile.mkdtemp(prefix="dp-")
-    # MASTER_PORT, the store on + 1 and the RPC store on + 2: all three held
-    # bound until the ranks start, drawn below the ephemeral range that
-    # other processes' bind(0) sockets come from
     draw, held = random.Random(os.getpid()), []
     while not held:
         port = draw.randrange(20000, 32000 - 3)
@@ -6009,8 +6048,8 @@ def dp_phase(torch, dev, cfg_kw=None):
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     try:
         spawn_t = time.time()
-        procs = spawn(dp_rank, args=(out_dir, spawn_t, str(dev), cfg_kw), nprocs=2, join=False)
-        deadline = time.time() + DP_JOIN_S
+        procs = spawn(target, args=make_args(spawn_t), nprocs=nprocs, join=False)
+        deadline = time.time() + join_s
         for p in procs:
             p.join(max(1.0, deadline - time.time()))
         for p in procs:
@@ -6023,8 +6062,23 @@ def dp_phase(torch, dev, cfg_kw=None):
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
+    return [p.exitcode for p in procs]
+
+
+def dp_phase(torch, dev, cfg_kw=None):
+    """Phase 20 on `dev`: two spawned ranks, then the one-process reference
+    on the same card; the rows and the ranks' launch counts."""
+    import os
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.models.bert import BertForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+    t_phase = time.perf_counter()
+    cfg_kw = cfg_kw or {}
+    out_dir = tempfile.mkdtemp(prefix="dp-")
+    exits = spawn_ranks(dp_rank, lambda spawn_t: (out_dir, spawn_t, str(dev), cfg_kw), 2,
+                        DP_JOIN_S)
     ranks_s = time.perf_counter() - t_phase
-    exits = [p.exitcode for p in procs]
     if any(c != 0 for c in exits) or not all(
             os.path.exists(os.path.join(out_dir, f"rank{r}.json")) for r in range(2)):
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -6124,6 +6178,174 @@ def dp_phase(torch, dev, cfg_kw=None):
         ranks_s=ranks_s, seconds=time.perf_counter() - t_phase,
         ok=same and worst <= 1 and loss_rel <= 1e-5 and max(grad_rel) <= DP_GRAD_RTOL
         and all(math.isfinite(x) for x in mean_losses)))
+    return rows, launches
+
+
+# ---------------------------------------------------------------- phase 21
+# Tensor-parallel training: two model-parallel ranks on cuda:0 over gloo,
+# spawned by `distributed.spawn` into `train_llama.tp_rank`, LLaMA at 7B's
+# width (H 4096, 32 heads, ffn 11008, vocab 32000) with 2 layers, mp 2,
+# batch 2 x 1024, 1 + 3 steps in f32 (TF32 off) and in bf16 (the "7b"
+# recipe's dtypes: bf16 params, f32 moments, recompute save_attn), each
+# with one more step whose collectives are timed one by one; then one
+# process trains the dense model from the same weights (the same seed: a
+# rank's shards are the dense model's slices) on the same batch.
+TPT_MP = 2
+TPT_LAYERS = 2
+TPT_BATCH = (2, 1024)
+TPT_WARMUP, TPT_STEPS = 1, 3
+TPT_SEED = 7
+TPT_JOIN_S = 420
+TPT_GRAD_RTOL = 1e-4      # a rank's step-0 gradient shard, relative L2, f32
+TPT_PARAM_ATOL = 1e-5     # the parameters after the steps, f32
+TPT_BF16_LOSS_RTOL = 1e-3  # bf16 losses against the dense bf16 run
+TPT_RUNS = (
+    # name, trainer, exact launches a step on each rank: no recompute in
+    # f32 (2 norms a layer and the final one; one flash forward and
+    # backward a layer on the f32 builds); save_attn in bf16 (the layers'
+    # norms again in the recompute, the forward attention replayed from the
+    # stash; the tensor-core builds)
+    ("f32", dict(lr=1e-5, param_dtype="float32", moment_dtype="float32"),
+     {"rms_norm": 5, "flash_attention_fwd": 2, "flash_attention_bwd": 2}),
+    ("bf16", dict(lr=1e-4, param_dtype="bfloat16", moment_dtype="float32", recompute=True,
+                  recompute_policy="save_attn"),
+     {"rms_norm": 9, "flash_attention_fwd": 2, "flash_attention_bwd": 2,
+      "flash_attention_fwd_tc": 2, "flash_attention_bwd_tc": 2}),
+)
+
+
+def tpt_config(**kw):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return dict(vars(LlamaConfig.llama_7b()), num_hidden_layers=TPT_LAYERS, **kw)
+
+
+def tpt_dense(torch, dev, cfg, trainer_kw, steps):
+    """One process training the dense model from the ranks' weights on
+    their batch: (losses, step-0 gradients, final parameters)."""
+    import numpy as np
+    from paddle_tpu_torch.models import SpmdTrainer
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM(LlamaConfig(**cfg), device=dev, seed=TPT_SEED)
+    trainer = SpmdTrainer(model, **trainer_kw)
+    state = trainer.init_state()
+    bs, seq = TPT_BATCH
+    ids = np.random.RandomState(0).randint(0, cfg["vocab_size"], (bs, seq)).astype(np.int64)
+    ids_t = torch.from_numpy(ids).to(dev)
+    labels_t = torch.from_numpy(np.roll(ids, -1, axis=1)).to(dev)
+    grads0, losses = {}, []
+    for i in range(steps):
+        state, loss = trainer.step(state, ids_t, labels_t, grads_out=grads0 if i == 0 else None)
+        losses.append(float(loss))
+    return losses, grads0, state["params"]
+
+
+def tp_phase(torch, dev, cfg_kw=None):
+    """Phase 21 on `dev`: two spawned model-parallel ranks, then the dense
+    one-process runs on the same card; the rows and the ranks' launch
+    counts."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.convert import model_dim, model_shard
+    from paddle_tpu_torch.train_llama import tp_rank
+    t_phase = time.perf_counter()
+    cfg = tpt_config(**(cfg_kw or {}))
+    out_dir = tempfile.mkdtemp(prefix="tp-")
+    n_steps = TPT_WARMUP + TPT_STEPS
+    runs = [dict(name=name, family="llama", model=cfg, seed=TPT_SEED, batch=list(TPT_BATCH),
+                 keys=[None] * n_steps, warmup=TPT_WARMUP, trainer=kw, comm_timed=True,
+                 save=name == "f32")
+            for name, kw, _ in TPT_RUNS]
+    spec = dict(mp=TPT_MP, device=str(dev), runs=runs)
+    exits = spawn_ranks(tp_rank, lambda spawn_t: (spec, out_dir, spawn_t), TPT_MP, TPT_JOIN_S)
+    ranks_s = time.perf_counter() - t_phase
+    reps = {}
+    for name, _, _ in TPT_RUNS:
+        for r in range(TPT_MP):
+            path = os.path.join(out_dir, f"{name}_rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    reps[name, r] = _json.load(f)
+    if any(c != 0 for c in exits) or len(reps) != len(TPT_RUNS) * TPT_MP:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        return [dict(run="ranks", exitcodes=exits, reports=sorted(map(list, reps)),
+                     ok=False)], {}
+    shards = [torch.load(os.path.join(out_dir, f"f32_rank{r}.pt")) for r in range(TPT_MP)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    attrs = shards[0]["dist_attrs"]
+    rows, launches = [], {}
+    for name, kw, per_step in TPT_RUNS:
+        for r in range(TPT_MP):
+            rep = reps[name, r]
+            expect = {k: per_step.get(k, 0) * n_steps for k in rep["launches"]}
+            comm_s = rep["comm_ms_per_step"] / 1e3
+            rows.append(dict(
+                run=f"{name} rank {r}", backend=rep["backend"], mode=rep["mode"],
+                spawn_to_rendezvous_s=rep["rendezvous_s"], losses=rep["losses"],
+                ms_per_step=rep["ms_per_step"], peak_gb=rep["peak_gb"],
+                allreduce_calls_per_step=rep["comm_calls_per_step"],
+                allreduce_mb_per_step=rep["comm_bytes_per_step"] / 1e6,
+                allreduce_ms_per_step=rep["comm_ms_per_step"],
+                allreduce_gb_s=rep["comm_bytes_per_step"] / 1e9 / comm_s if comm_s else None,
+                launches={k: v for k, v in rep["launches"].items() if v},
+                launches_per_step={k: v for k, v in per_step.items()},
+                launches_ok=rep["launches"] == expect,
+                ok=(rep["backend"] == "gloo" and rep["mode"] == "tensor_parallel"
+                    and rep["launches"] == expect
+                    and all(math.isfinite(x) for x in rep["losses"]))))
+            for k, c in rep["launches"].items():
+                launches[k] = launches.get(k, 0) + c
+    # the dense runs in this process (their launches are not counted)
+    release(torch)
+    t = time.perf_counter()
+    dense = {}
+    for name, kw, _ in TPT_RUNS:
+        dense[name] = tpt_dense(torch, dev, cfg, kw, n_steps)
+        if name != "f32":
+            dense[name] = (dense[name][0], None, None)
+        release(torch)
+    dense_s = time.perf_counter() - t
+    losses32, grads32, params32 = dense["f32"]
+    grad_rel, param_diff, repl_equal = [0.0] * TPT_MP, 0.0, True
+    worst_grad = worst_param = None
+    for n, want in params32.items():
+        attr = attrs.get(n)
+        for r in range(TPT_MP):
+            g = shards[r]["grads0"][n].to(dev).double()
+            gw = model_shard(grads32[n], r, TPT_MP, attr).double()
+            rel = float((g - gw).norm() / gw.norm())
+            if not rel <= grad_rel[r]:
+                grad_rel[r] = rel
+                worst_grad = n
+            p = shards[r]["params"][n].to(dev)
+            d = float((p - model_shard(want, r, TPT_MP, attr)).abs().max())
+            if not d <= param_diff:
+                param_diff, worst_param = d, n
+        if model_dim(attr) is None:
+            repl_equal &= all(torch.equal(shards[0]["params"][n], s["params"][n])
+                              for s in shards[1:])
+    del shards, grads32, params32
+    release(torch)
+    loss_rel = {}
+    for name, _, _ in TPT_RUNS:
+        mine = reps[name, 0]["losses"]
+        loss_rel[name] = max(abs(a - b) / abs(b) for a, b in zip(mine, dense[name][0]))
+    ranks_same = {name: reps[name, 0]["losses"] == reps[name, 1]["losses"]
+                  for name, _, _ in TPT_RUNS}
+    rows.append(dict(
+        run="ranks against one process", width=cfg["hidden_size"], layers=cfg["num_hidden_layers"],
+        heads=cfg["num_attention_heads"], vocab=cfg["vocab_size"], mp=TPT_MP,
+        batch=list(TPT_BATCH), steps=n_steps,
+        step0_grad_rel_l2_by_rank=grad_rel, worst_grad=worst_grad, grad_rtol=TPT_GRAD_RTOL,
+        param_max_abs_diff=param_diff, worst_param=worst_param, param_atol=TPT_PARAM_ATOL,
+        replicated_bit_equal=repl_equal, rank_losses_equal=ranks_same,
+        dense_losses={name: d[0] for name, d in dense.items()},
+        loss_max_rel_diff=loss_rel, bf16_loss_rtol=TPT_BF16_LOSS_RTOL,
+        ranks_s=ranks_s, dense_s=dense_s, seconds=time.perf_counter() - t_phase,
+        ok=(max(grad_rel) <= TPT_GRAD_RTOL and param_diff <= TPT_PARAM_ATOL and repl_equal
+            and all(ranks_same.values()) and loss_rel["f32"] <= 1e-5
+            and loss_rel["bf16"] <= TPT_BF16_LOSS_RTOL)))
     return rows, launches
 
 
@@ -6275,7 +6497,7 @@ def main():
         emit(dict(phase="tp_path", **r))
         ok &= r["ok"]
     emit(dict(phase="tp_path", peak_gb=cb["tp"]["peak_gb"], seconds=cb["tp"]["seconds"],
-              label="tp shards run one after another on one card"))
+              layers=cb["tp"]["layers"], label="tp shards run one after another on one card"))
     emit(dict(phase="cb_path", peak_gb=cb["peak_gb"], busy=cb["busy"],
               elapsed_s=time.perf_counter() - t_start))
 
@@ -6417,6 +6639,17 @@ def main():
         emit(dict(phase="dp", smi=smi_line, **r))
         ok &= r["ok"]
     emit(dict(phase="dp", launches=launches, elapsed_s=time.perf_counter() - t_start))
+    # 21. tensor-parallel training: two spawned model-parallel ranks on
+    # the card; each rank zeroes its counts just before its steps and reads
+    # them just after (the parent's dense reference runs are not counted)
+    release(torch)
+    with watchdog("tp_train", PATH_PHASE_S):
+        rows, counts = tp_phase(torch, dev)
+    add(counts)
+    for r in rows:
+        emit(dict(phase="tp_train", smi=smi_line, **r))
+        ok &= r["ok"]
+    emit(dict(phase="tp_train", launches=launches, elapsed_s=time.perf_counter() - t_start))
     # the f32 builds' launches: each kernel's less its bf16 ones
     for kind in ("fwd", "bwd"):
         launches[f"flash_attention_{kind}_f32"] = (

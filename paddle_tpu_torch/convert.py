@@ -5,6 +5,12 @@ counterparts (LLaMA, GPT, BERT; Adam and AdamW).
 Both packages keep Paddle's [in, out] weight layout and the same parameter
 names, so the copy is by name with no transposes. The caller hands over
 numpy arrays (this package never imports jax or paddle_tpu).
+
+Tensor parallelism: `shard_numpy_params` cuts the reference's full
+parameters into one model-parallel rank's shards by the `dist_attr` its
+Parameters carry (the mesh axis of each dim, "model" on the split one;
+ref `paddle_tpu/distributed/fleet/meta_parallel/spmd.py:28` `param_spec`),
+and `gather_shards` joins every rank's back, exactly.
 """
 import numpy as np
 import torch
@@ -31,6 +37,72 @@ def load_numpy_params(model, arrays):
         for name, p in params.items():
             p.copy_(torch.tensor(np.asarray(arrays[name])))
     return model
+
+
+def model_dim(dist_attr):
+    """The dim a `dist_attr` splits over "model" (None: replicated)."""
+    dims = [i for i, a in enumerate(dist_attr or ()) if a == "model"]
+    if len(dims) > 1:
+        raise ValueError(f"dist_attr {dist_attr} splits two dims over "
+                         f"'model'")
+    return dims[0] if dims else None
+
+
+def model_shard(a, rank, mp, dist_attr, name="tensor"):
+    """Model-parallel rank `rank`'s shard of the full `a` (a numpy array
+    or a torch tensor) at degree `mp`: the rank's contiguous 1 / mp of the
+    dim `dist_attr` names "model" on (a view, no copy or transpose), or
+    `a` whole when it names none."""
+    dim = model_dim(dist_attr)
+    if dim is None or mp == 1:
+        return a
+    if a.shape[dim] % mp:
+        raise ValueError(f"{name}: dim {dim} of {tuple(a.shape)} is not "
+                         f"divisible by mp {mp}")
+    n = a.shape[dim] // mp
+    index = [slice(None)] * a.ndim
+    index[dim] = slice(rank * n, (rank + 1) * n)
+    return a[tuple(index)]
+
+
+def shard_numpy_params(arrays, rank, mp, dist_attrs):
+    """Model-parallel rank `rank`'s shards of `arrays` ({name: full
+    numpy array}) at degree `mp`, each by `model_shard` with
+    `dist_attrs[name]` (no entry: whole)."""
+    if not 0 <= rank < mp:
+        raise ValueError(f"rank {rank} is outside mp {mp}")
+    return {name: model_shard(np.asarray(a), rank, mp, dist_attrs.get(name),
+                              name)
+            for name, a in arrays.items()}
+
+
+def gather_shards(shards, dist_attrs):
+    """The full parameters from every model-parallel rank's shards
+    (`shards`: a list of {name: numpy array} in rank order): the split
+    ones concatenated on their "model" dim, the replicated ones as rank
+    0's, which every other rank must equal bit for bit (else
+    ValueError)."""
+    names = list(shards[0])
+    if any(list(s) != names for s in shards[1:]):
+        raise ValueError("the ranks' shards carry different names")
+    out = {}
+    for name in names:
+        parts = [np.asarray(s[name]) for s in shards]
+        dim = model_dim(dist_attrs.get(name))
+        if dim is None:
+            if any(not np.array_equal(parts[0], p) for p in parts[1:]):
+                raise ValueError(f"{name}: a replicated parameter differs "
+                                 f"between ranks")
+            out[name] = parts[0]
+        else:
+            out[name] = np.concatenate(parts, axis=dim)
+    return out
+
+
+def dist_attrs_of(model):
+    """{name: dist_attr} of a model's parameters that carry one."""
+    return {n: tuple(p.dist_attr) for n, p in model.named_parameters()
+            if getattr(p, "dist_attr", None) is not None}
 
 
 def trainer_state_from_numpy(trainer, params, opt=None, step=0):

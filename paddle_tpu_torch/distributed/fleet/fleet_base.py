@@ -10,11 +10,13 @@ is one device, so the reference's device count is the world size here
 (the default, with no degree given, is all data parallel).
 
 `distributed_model` returns `DataParallel` in the "data_parallel" mode and
-`distributed_optimizer` the optimizer unchanged. Every other mode raises
-`FleetModeError` naming its ROADMAP item: tensor parallel A8.5, pipeline
-parallel A8.7, sharding A8.8; so does the `mesh` property with an axis
-above 1 (the device mesh, A8.10) and the parameter-server mode,
-`is_collective=False` (A8.12).
+`TensorParallel` in the "tensor_parallel" mode; `distributed_optimizer`
+returns the optimizer unchanged in the first and `HybridParallelOptimizer`
+in the second (ref: fleet_base.py:95-122). The other modes raise
+`FleetModeError` naming their ROADMAP item: pipeline parallel A8.7,
+sharding A8.8; so does the `mesh` property with an axis above 1 (the
+device mesh, A8.10) and the parameter-server mode, `is_collective=False`
+(A8.12).
 
 A world above 1 must equal the topology's size. A world of 1 takes any
 degrees (BERT config 2's dp 8 on one process): nothing crosses a wire, and
@@ -26,8 +28,8 @@ from .distributed_strategy import DistributedStrategy
 
 HYBRID_AXES = ("data", "pipe", "sharding", "model")
 
-_MODE_ITEMS = {"tensor_parallel": "A8.5", "pipeline_parallel": "A8.7",
-               "sharding_parallel": "A8.8"}
+_MODE_ITEMS = {"pipeline_parallel": "A8.7", "sharding_parallel": "A8.8"}
+_PORTED_MODES = ("data_parallel", "tensor_parallel")
 
 
 class FleetModeError(NotImplementedError):
@@ -116,25 +118,35 @@ class Fleet:
         from ..collective import barrier
         barrier()
 
-    def _require_data_parallel(self, what):
+    def _require_ported_mode(self, what):
         mode = self._hcg.get_parallel_mode()
-        if mode != "data_parallel":
+        if mode not in _PORTED_MODES:
             raise FleetModeError(
                 f"fleet.{what}: the {mode} mode is not ported yet (ROADMAP "
                 f"{_MODE_ITEMS[mode]})")
+        return mode
 
     def distributed_model(self, model):
         """Wrapper selection (ref: fleet/model.py:126-165)."""
         from ..parallel import DataParallel
-        self._require_data_parallel("distributed_model")
+        from .meta_parallel import TensorParallel
+        mode = self._require_ported_mode("distributed_model")
+        if mode == "tensor_parallel":
+            return TensorParallel(model, self._hcg, strategy=self._strategy)
         return DataParallel(model, group=self._hcg.get_data_parallel_group())
 
     def distributed_optimizer(self, optimizer, strategy=None):
-        """ref: fleet.py:1044 — data parallel needs no wrapper: the
-        gradients are averaged before the optimizer sees them."""
-        if self._hcg is not None:
-            self._require_data_parallel("distributed_optimizer")
-        return optimizer
+        """ref: fleet.py:1044 — data parallel needs no wrapper (the
+        gradients are averaged before the optimizer sees them); tensor
+        parallel takes `HybridParallelOptimizer`."""
+        if self._hcg is None:
+            return optimizer
+        if self._require_ported_mode("distributed_optimizer") == \
+                "data_parallel":
+            return optimizer
+        from .meta_optimizers import HybridParallelOptimizer
+        return HybridParallelOptimizer(optimizer, self._hcg,
+                                       strategy or self._strategy)
 
     # the parameter-server lifecycle (ref: fleet.py:679, :780)
     def init_server(self, *args, **kwargs):

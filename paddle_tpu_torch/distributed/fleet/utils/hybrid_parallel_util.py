@@ -1,15 +1,21 @@
-"""Cross-wrapper glue of the data-parallel axis.
+"""Cross-wrapper glue of the data- and model-parallel axes.
 
 Counterpart of `paddle_tpu/distributed/fleet/utils/hybrid_parallel_util.py`
 (ref: python/paddle/distributed/fleet/utils/hybrid_parallel_util.py —
-broadcast_dp_parameters:186, fused_allreduce_gradients:206). The reference
-holds one logical copy of every parameter, so its broadcasts are identity;
-here every rank holds its own, so `broadcast_dp_parameters` broadcasts each
-parameter from the data-parallel group's first rank.
+broadcast_input_data:96, broadcast_mp_parameters:168,
+broadcast_dp_parameters:186, fused_allreduce_gradients:206). The
+reference holds one logical copy of every parameter and input, so its
+broadcasts are identity (ref :14-20); here every rank holds its own:
+`broadcast_dp_parameters` broadcasts each parameter from the
+data-parallel group's first rank, `broadcast_mp_parameters` each
+replicated parameter (one whose `is_distributed` is not set: norms,
+row-parallel biases, GPT's position table) from the model-parallel
+group's first rank, and `broadcast_input_data` each tensor input over the
+model-parallel group, in place.
 
-The functions of the other axes (tensor A8.5, sequence A8.6, sharding
-A8.8) have nothing to do while their axis has one rank, and raise
-`HybridAxisError` naming their ROADMAP item when it has more.
+The functions of the other axes (sequence A8.6, sharding A8.8) have
+nothing to do while their axis has one rank, and raise `HybridAxisError`
+naming their ROADMAP item when it has more.
 """
 import torch
 
@@ -29,15 +35,39 @@ def _degree(hcg, getter):
     return 1 if hcg is None else int(getattr(hcg, getter)())
 
 
+def _mp_group(hcg):
+    """The model-parallel group when it spans more than one process."""
+    from ...parallel_env import get_world_size
+    group = hcg.get_model_parallel_group() if hcg is not None else None
+    if group is None or group.nranks <= 1 or get_world_size() <= 1:
+        return None
+    return group
+
+
+@torch.no_grad()
 def broadcast_input_data(hcg, *inputs, **kwargs):
-    if _degree(hcg, "get_model_parallel_world_size") > 1:
-        raise _axis_refused("broadcast_input_data", "model", "A8.5")
+    """Every tensor input (positional and keyword) from the model-parallel
+    group's first rank to the group, in place."""
+    group = _mp_group(hcg)
+    if group is not None:
+        src = hcg.get_model_parallel_group_src_rank()
+        for t in list(inputs) + list(kwargs.values()):
+            if isinstance(t, torch.Tensor):
+                broadcast(t, src=src, group=group)
     return inputs if not kwargs else (inputs, kwargs)
 
 
+@torch.no_grad()
 def broadcast_mp_parameters(model, hcg):
-    if _degree(hcg, "get_model_parallel_world_size") > 1:
-        raise _axis_refused("broadcast_mp_parameters", "model", "A8.5")
+    """Every replicated parameter (`is_distributed` unset) from the
+    model-parallel group's first rank to the group; the shards stay."""
+    group = _mp_group(hcg)
+    if group is None:
+        return
+    src = hcg.get_model_parallel_group_src_rank()
+    for p in model.parameters():
+        if not getattr(p, "is_distributed", False):
+            broadcast(p.data, src=src, group=group)
 
 
 @torch.no_grad()

@@ -14,9 +14,13 @@ the `dist.store_init` fault point. Every rank publishes where its tensors
 live ("<host>/cpu" or "<host>/cuda:<i>") under `init/device/<rank>`, then
 `init_ready`, then one `torch.distributed.init_process_group` over a
 `PrefixStore` of the same store, with the backend `choose_backend` reads off
-that map, then `init_done`. `torch.distributed` takes the place of
-`jax.distributed.initialize`. A failed `init_process_group` raises; nothing
-retries on another backend. A world of 1 does no rendezvous.
+that map, then `init/done/<rank>` and `init_done`. `torch.distributed`
+takes the place of `jax.distributed.initialize`. A failed
+`init_process_group` raises the backend's own error on every rank: the
+failing rank posts `init/failed/<rank>`, and rank 0 keeps the store up
+until every rank has posted "done" or "failed" (bounded by the store's
+timeout), so no peer loses the store mid-rendezvous; nothing retries on
+another backend. A world of 1 does no rendezvous.
 
 The rank's device is `init_parallel_env(device=)`: CUDA (the card
 FLAGS_selected_gpus names, else the current one) unless the caller asks for
@@ -25,6 +29,7 @@ the CPU; without a CUDA device and without that request it raises.
 import datetime
 import os
 import socket
+import time
 
 import torch
 
@@ -166,9 +171,15 @@ def init_parallel_env(strategy=None, device=None):
         devices = [store.get(f"init/device/{r}").decode()
                    for r in range(world)]
         backend = choose_backend(devices)
-        tdist.init_process_group(
-            backend, store=tdist.PrefixStore("pg", store._store), rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=600))
+        try:
+            tdist.init_process_group(
+                backend, store=tdist.PrefixStore("pg", store._store),
+                rank=rank, world_size=world,
+                timeout=datetime.timedelta(seconds=600))
+        except Exception as e:
+            _init_failed(store, rank, world, e)
+            raise
+        store.set(f"init/done/{rank}", b"1")
         store.barrier("init_done", world)
         _state["store"] = store
     _state.update(initialized=True, device=dev)
@@ -177,6 +188,30 @@ def init_parallel_env(strategy=None, device=None):
     collective._world_group[0] = None
     collective._ensure_world_group()
     return env
+
+
+def _init_failed(store, rank, world, err):
+    """A failed `init_process_group` on `rank`: post `init/failed/<rank>`;
+    the store's host (rank 0) then waits, bounded by the store's timeout,
+    until every rank has posted "done" or "failed" before it retires the
+    store, so a peer still reading its rendezvous keys never loses the
+    store under it and raises its own backend error too. Nothing
+    retries."""
+    from .store import retire
+    try:
+        store.set(f"init/failed/{rank}", f"{type(err).__name__}: {err}")
+    except Exception:       # the host is gone: the caller's error stands
+        pass
+    if rank == 0:
+        deadline = time.monotonic() + store._timeout.total_seconds()
+        left = set(range(world))
+        while left and time.monotonic() < deadline:
+            left = {r for r in left
+                    if not store.check(f"init/done/{r}")
+                    and not store.check(f"init/failed/{r}")}
+            if left:
+                time.sleep(0.05)
+    retire(store)
 
 
 def get_store():

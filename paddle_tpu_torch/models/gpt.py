@@ -19,6 +19,19 @@ stream (`framework.random.next_key`): inside the trainer's `key_scope`
 they are the reference's counters (embedding 1, the attention seed 2, the
 hidden dropout 3, the same for every layer; see `models/train_step.py`).
 
+Tensor parallelism (built under `fleet.init(mp_degree=n)` in a world of n
+or more), as the reference's model: the word table vocab-parallel (the
+position table replicated), q / k / v and fc_in column-parallel, out_proj
+and fc_out row-parallel (their biases replicated, added after the
+all-reduce), the lm_head column-parallel with `gather_output=False` and
+the CE vocab-parallel; attention runs on the rank's nh / n heads. The
+dropout draws are the reference's under its `{"model": n}` shard_map:
+every rank binds the same step key, so the hidden dropout on the
+replicated activations draws one mask on every rank, and the attention
+seed is the same on every rank while the flash kernels hash the LOCAL
+head index (`_slice_id`), so rank r's heads draw as heads 0 .. nh / n - 1
+of the dense model. At mp 1 the modules are the plain ones, unchanged.
+
 Not ported: `gpt_pipeline_layers` (the pipeline LayerDesc list, ROADMAP
 A8.7) and the `sep` position offset of context parallelism (A8.6); the
 first raises, and the trainer refuses a `sep` mesh axis.
@@ -29,8 +42,8 @@ from torch import nn
 from .. import resolve_device
 from ..nn import Dropout, Embedding, LayerNorm, Linear
 from ..nn import functional as F
-from ..ops.fused_ce import vocab_parallel_ce_rows
 from ..ops.pallas import sdpa
+from .llama import model_parallel
 
 
 class GPTConfig:
@@ -68,8 +81,16 @@ class GPTConfig:
 class GPTEmbeddings(nn.Module):
     def __init__(self, config, gen, device):
         super().__init__()
-        self.word_embeddings = Embedding(config.vocab_size,
-                                         config.hidden_size, gen, device)
+        group, mp = model_parallel()
+        if mp == 1:
+            self.word_embeddings = Embedding(config.vocab_size,
+                                             config.hidden_size, gen, device)
+        else:
+            from ..distributed.fleet.meta_parallel import \
+                VocabParallelEmbedding
+            self.word_embeddings = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, mp_group=group,
+                gen=gen, device=device)
         self.position_embeddings = Embedding(config.max_position_embeddings,
                                              config.hidden_size, gen, device,
                                              std=1.0)
@@ -87,10 +108,25 @@ class GPTAttention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.head_dim = config.hidden_size // self.num_heads
         H = config.hidden_size
-        self.q_proj = Linear(H, H, gen, device)
-        self.k_proj = Linear(H, H, gen, device)
-        self.v_proj = Linear(H, H, gen, device)
-        self.out_proj = Linear(H, H, gen, device)
+        group, mp = model_parallel()
+        if mp == 1:
+            self.q_proj = Linear(H, H, gen, device)
+            self.k_proj = Linear(H, H, gen, device)
+            self.v_proj = Linear(H, H, gen, device)
+            self.out_proj = Linear(H, H, gen, device)
+        else:
+            from ..distributed.fleet.meta_parallel import (
+                ColumnParallelLinear as Col, RowParallelLinear as Row)
+            from .llama import _split_heads
+            _split_heads(self.num_heads, self.num_heads, mp)
+            self.num_heads //= mp          # this rank's heads
+            kw = dict(has_bias=True, gather_output=False, mp_group=group,
+                      gen=gen, device=device)
+            self.q_proj = Col(H, H, **kw)
+            self.k_proj = Col(H, H, **kw)
+            self.v_proj = Col(H, H, **kw)
+            self.out_proj = Row(H, H, has_bias=True, input_is_parallel=True,
+                                mp_group=group, gen=gen, device=device)
         self.dropout_p = config.attention_probs_dropout_prob
 
     def forward(self, x):
@@ -111,8 +147,17 @@ class GPTDecoderLayer(nn.Module):
         self.ln_1 = LayerNorm(H, eps, device)
         self.attn = GPTAttention(config, gen, device)
         self.ln_2 = LayerNorm(H, eps, device)
-        self.fc_in = Linear(H, config.intermediate_size, gen, device)
-        self.fc_out = Linear(config.intermediate_size, H, gen, device)
+        I = config.intermediate_size
+        group, mp = model_parallel()
+        if mp == 1:
+            self.fc_in = Linear(H, I, gen, device)
+            self.fc_out = Linear(I, H, gen, device)
+        else:
+            from ..distributed.fleet.meta_parallel import (
+                ColumnParallelLinear as Col, RowParallelLinear as Row)
+            kw = dict(has_bias=True, mp_group=group, gen=gen, device=device)
+            self.fc_in = Col(H, I, gather_output=False, **kw)
+            self.fc_out = Row(I, H, input_is_parallel=True, **kw)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, x):
@@ -138,25 +183,12 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class ParallelCrossEntropy(nn.Module):
-    """Per-token softmax CE in f32 (the reference's ParallelCrossEntropy at
-    one model-parallel rank): rows labelled `ignore_index` give 0."""
-
-    def __init__(self, ignore_index=-100):
-        super().__init__()
-        self.ignore_index = ignore_index
-
-    def forward(self, input, label):
-        loss, _, _ = vocab_parallel_ce_rows(input.float(), label,
-                                            ignore_index=self.ignore_index)
-        return loss
-
-
 class GPTForCausalLM(nn.Module):
     """GPT with its (untied, bias-free) lm_head. `device` defaults to CUDA
     (see `paddle_tpu_torch.resolve_device`); `seed` seeds the generator
     the weights are drawn from. `forward(ids, labels)` returns the token
-    mean of `ce`, as the reference."""
+    mean of `ce`, as the reference. `mp_group` / `mp_degree`: the
+    model-parallel group the layers split over (None / 1 at mp 1)."""
 
     def __init__(self, config, device=None, seed=0):
         super().__init__()
@@ -164,10 +196,19 @@ class GPTForCausalLM(nn.Module):
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         self.config = config
+        self.mp_group, self.mp_degree = model_parallel()
         self.gpt = GPTModel(config, gen, device)
-        self.lm_head = Linear(config.hidden_size, config.vocab_size, gen,
-                              device, bias=False)
-        self.ce = ParallelCrossEntropy()
+        if self.mp_degree == 1:
+            self.lm_head = Linear(config.hidden_size, config.vocab_size, gen,
+                                  device, bias=False)
+        else:
+            from ..distributed.fleet.meta_parallel import ColumnParallelLinear
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=False, mp_group=self.mp_group, gen=gen,
+                device=device)
+        from ..distributed.fleet.meta_parallel import ParallelCrossEntropy
+        self.ce = ParallelCrossEntropy(mp_group=self.mp_group)
 
     def forward(self, input_ids, labels=None):
         logits = self.lm_head(self.gpt(input_ids))

@@ -16,6 +16,17 @@ the `sdpa` slot (`FlashAttention`: the flash forward and backward kernels
 on CUDA); on the CPU both take their plain versions. The serving engine
 (`inference/serving.py`) reads the weights and never calls it.
 `LlamaPretrainingCriterion` is the reference's token-mean CE.
+
+Tensor parallelism: built under `fleet.init(mp_degree=n)` in a world of n
+or more, the model takes the reference's model-parallel layers
+(`distributed/fleet/meta_parallel`): q / k / v, gate and up
+column-parallel, o and down row-parallel, the embedding vocab-parallel,
+the lm_head column-parallel with `gather_output=False` and the criterion
+vocab-parallel; attention splits by whole heads (`num_attention_heads`
+and `num_key_value_heads` divisible by n, else ValueError) and runs on
+the rank's heads. Each rank draws the full weights and keeps its slices,
+so its shards equal the mp-1 model's. At mp 1 (a world of 1, whatever
+mp_degree says) the modules are the plain ones above, unchanged.
 """
 import math
 
@@ -25,9 +36,24 @@ from torch import nn
 
 from .. import resolve_device
 from ..nn import Embedding, Linear
-from ..ops.fused_ce import vocab_parallel_ce_rows
 from ..ops.pallas import rmsnorm, sdpa
 from ..ops.pallas.paged_attention import expand_kv_heads
+
+
+def model_parallel():
+    """(group, degree) of the model-parallel group the layers split over:
+    `fleet.init`'s, (None, 1) in a world of 1."""
+    from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import \
+        _mp_group_and_size
+    return _mp_group_and_size(None)
+
+
+def _split_heads(nh, nh_kv, mp):
+    if nh % mp or nh_kv % mp:
+        raise ValueError(
+            f"tensor parallelism splits attention by whole heads: "
+            f"num_attention_heads {nh} and num_key_value_heads {nh_kv} must "
+            f"both be divisible by mp {mp}")
 
 
 class LlamaConfig:
@@ -113,10 +139,24 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = config.num_key_value_heads
         kv_out = self.num_kv_heads * self.head_dim
         H = self.hidden_size
-        self.q_proj = Linear(H, H, gen, device, bias=False)
-        self.k_proj = Linear(H, kv_out, gen, device, bias=False)
-        self.v_proj = Linear(H, kv_out, gen, device, bias=False)
-        self.o_proj = Linear(H, H, gen, device, bias=False)
+        group, mp = model_parallel()
+        if mp == 1:
+            self.q_proj = Linear(H, H, gen, device, bias=False)
+            self.k_proj = Linear(H, kv_out, gen, device, bias=False)
+            self.v_proj = Linear(H, kv_out, gen, device, bias=False)
+            self.o_proj = Linear(H, H, gen, device, bias=False)
+        else:
+            from ..distributed.fleet.meta_parallel import (
+                ColumnParallelLinear as Col, RowParallelLinear as Row)
+            _split_heads(self.num_heads, self.num_kv_heads, mp)
+            self.num_heads //= mp          # this rank's heads
+            kw = dict(has_bias=False, gather_output=False, mp_group=group,
+                      gen=gen, device=device)
+            self.q_proj = Col(H, H, **kw)
+            self.k_proj = Col(H, kv_out, **kw)
+            self.v_proj = Col(H, kv_out, **kw)
+            self.o_proj = Row(H, H, has_bias=False, input_is_parallel=True,
+                              mp_group=group, gen=gen, device=device)
         cos, sin = _rope_cache(config.max_position_embeddings, self.head_dim,
                                config.rope_theta, device=device)
         self.register_buffer("_cos", cos, persistent=False)
@@ -142,9 +182,18 @@ class LlamaMLP(nn.Module):
     def __init__(self, config, gen, device):
         super().__init__()
         H, I = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(H, I, gen, device, bias=False)
-        self.up_proj = Linear(H, I, gen, device, bias=False)
-        self.down_proj = Linear(I, H, gen, device, bias=False)
+        group, mp = model_parallel()
+        if mp == 1:
+            self.gate_proj = Linear(H, I, gen, device, bias=False)
+            self.up_proj = Linear(H, I, gen, device, bias=False)
+            self.down_proj = Linear(I, H, gen, device, bias=False)
+            return
+        from ..distributed.fleet.meta_parallel import (
+            ColumnParallelLinear as Col, RowParallelLinear as Row)
+        kw = dict(has_bias=False, mp_group=group, gen=gen, device=device)
+        self.gate_proj = Col(H, I, gather_output=False, **kw)
+        self.up_proj = Col(H, I, gather_output=False, **kw)
+        self.down_proj = Row(I, H, input_is_parallel=True, **kw)
 
     def forward(self, x):
         g = self.gate_proj(x)
@@ -171,8 +220,16 @@ class LlamaModel(nn.Module):
     def __init__(self, config, gen, device):
         super().__init__()
         self.config = config
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      gen, device)
+        group, mp = model_parallel()
+        if mp == 1:
+            self.embed_tokens = Embedding(config.vocab_size,
+                                          config.hidden_size, gen, device)
+        else:
+            from ..distributed.fleet.meta_parallel import \
+                VocabParallelEmbedding
+            self.embed_tokens = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, mp_group=group,
+                gen=gen, device=device)
         self.layers = nn.ModuleList([LlamaDecoderLayer(config, gen, device)
                                      for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
@@ -187,7 +244,8 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     """LLaMA with its lm_head. `device` defaults to CUDA (see
     `paddle_tpu_torch.resolve_device`); `seed` seeds the generator the
-    weights are drawn from."""
+    weights are drawn from. `mp_group` / `mp_degree`: the model-parallel
+    group the layers split over (None / 1 at mp 1)."""
 
     def __init__(self, config, device=None, seed=0):
         super().__init__()
@@ -195,10 +253,19 @@ class LlamaForCausalLM(nn.Module):
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         self.config = config
+        self.mp_group, self.mp_degree = model_parallel()
         self.llama = LlamaModel(config, gen, device)
-        self.lm_head = Linear(config.hidden_size, config.vocab_size, gen,
-                              device, bias=False)
-        self.criterion = LlamaPretrainingCriterion(config)
+        if self.mp_degree == 1:
+            self.lm_head = Linear(config.hidden_size, config.vocab_size, gen,
+                                  device, bias=False)
+        else:
+            from ..distributed.fleet.meta_parallel import ColumnParallelLinear
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=False, mp_group=self.mp_group, gen=gen,
+                device=device)
+        self.criterion = LlamaPretrainingCriterion(config,
+                                                   mp_group=self.mp_group)
 
     def forward(self, input_ids, labels=None):
         logits = self.lm_head(self.llama(input_ids))
@@ -208,15 +275,17 @@ class LlamaForCausalLM(nn.Module):
 
 
 class LlamaPretrainingCriterion(nn.Module):
-    """Token-mean softmax CE over the logits, the reference's
-    `ParallelCrossEntropy` + mean at one model-parallel rank: rows labelled
-    `ignore_index` add 0 to the sum and still count in the mean."""
+    """Token-mean softmax CE over the logits, the reference's: its
+    `ParallelCrossEntropy` (`mp_layers`) and the mean. Rows labelled
+    `ignore_index` add 0 to the sum and still count in the mean. Over a
+    model-parallel `mp_group` the logits are this rank's vocab shard."""
 
-    def __init__(self, config=None, ignore_index=-100):
+    def __init__(self, config=None, ignore_index=-100, mp_group=None):
         super().__init__()
+        from ..distributed.fleet.meta_parallel import ParallelCrossEntropy
+        self.ce = ParallelCrossEntropy(mp_group=mp_group,
+                                       ignore_index=ignore_index)
         self.ignore_index = ignore_index
 
     def forward(self, logits, labels):
-        loss, _, _ = vocab_parallel_ce_rows(
-            logits.float(), labels, ignore_index=self.ignore_index)
-        return loss.mean()
+        return self.ce(logits, labels).mean()

@@ -31,11 +31,28 @@ and returns the same dict. `gather_params` gives the reference's layout
 `plan=` (a `cost_model.Plan` or its JSON dict) sets the knobs it carries, as
 in the reference, after checking the mesh against `plan.mesh_axes()`.
 
-Not ported here (ROADMAP A8): any mesh axis above 1, the pipeline
-schedules, `grad_compress` and sequence parallelism; each raises
-NotImplementedError, and so does a `sep` axis, whose GPT position offset
-is not ported (A8.6). `sharding_stage` only changes the layout of the
-state across ranks, so on one device the three stages are the same step.
+Tensor parallelism (the "model" axis, ROADMAP A8.5): `SpmdTrainer(model,
+mesh={"model": n})` with a model built under `fleet.init(mp_degree=n)`
+(its layers the model-parallel ones, `model.mp_degree == n`), one trainer
+a rank. Each rank steps its own shards and its copy of the replicated
+parameters: the embedding and layers as built, then the fused head and CE
+over the rank's vocab shard (`ops/fused_ce.py` over the model-parallel
+group, its input through `mp_ops._c_identity`), one backward, AdamW
+elementwise. The model-parallel layers leave every rank the dense
+gradient of what it holds, so the moments, too, are the dense ones'
+slices (the reference needs `_untied_psum("model")(loss / mp)` for that,
+`paddle_tpu/models/train_step.py:919-929`). `gather_params` and
+`canonical_state` gather the shards over the group into the reference's
+layout on every rank. The reference's dropout draws under its `{"model":
+n}` shard_map are kept (`models/gpt.py`).
+
+Not ported here: the other mesh axes above 1 — "data" within the
+trainer (tensor x data parallelism, the A8.5 remainder), "pipe" (A8.7),
+"sharding" (A8.8), "sep" (A8.6, with GPT's position offset) — the
+pipeline schedules (A8.7), `grad_compress` (A8.2) and sequence
+parallelism (A8.6); each raises NotImplementedError naming its ROADMAP
+item. `sharding_stage` only changes the layout of the state across ranks,
+so without a sharding axis the three stages are the same step.
 """
 import contextlib
 
@@ -48,6 +65,12 @@ from ..ops.fused_ce import fused_linear_ce
 from ..ops.pallas.flash_attention import AttnResidualStash
 
 _NOT_PORTED = "is not ported yet (ROADMAP A8)"
+_AXIS_ITEMS = {"data": "tensor x data parallelism inside the trainer "
+                       "(ROADMAP A8.5 remainder)",
+               "pipe": "pipeline parallelism (ROADMAP A8.7)",
+               "sharding": "ZeRO sharding (ROADMAP A8.8)",
+               "sep": "context parallelism and GPT's sep position offset "
+                      "(ROADMAP A8.6)"}
 
 
 def _mesh_shape(mesh):
@@ -75,7 +98,8 @@ def _model_parts(model):
         return (model.gpt.embeddings, list(model.gpt.h),
                 [model.gpt.ln_f, model.lm_head],
                 # the token mean of GPT's per-token `ce`
-                LlamaPretrainingCriterion(ignore_index=model.ce.ignore_index),
+                LlamaPretrainingCriterion(ignore_index=model.ce.ignore_index,
+                                          mp_group=model.ce.group),
                 "gpt.h")
     raise TypeError(f"unsupported model {type(model).__name__}: the port "
                     f"trains LlamaForCausalLM and GPTForCausalLM")
@@ -150,18 +174,24 @@ class SpmdTrainer:
         if recompute_policy not in ("full", "save_attn"):
             raise ValueError(f"recompute_policy must be full/save_attn, got "
                              f"{recompute_policy}")
-        for axis, n in _mesh_shape(mesh).items():
-            if axis == "sep" and n > 1:
+        shape = _mesh_shape(mesh)
+        for axis, n in shape.items():
+            if n > 1 and axis != "model":
+                what = _AXIS_ITEMS.get(
+                    axis, f"multi-device training {_NOT_PORTED}")
                 raise NotImplementedError(
-                    f"mesh axis 'sep' of size {n}: context parallelism and "
-                    f"GPT's sep position offset are not ported yet "
-                    f"(ROADMAP A8.6)")
-            if n > 1:
-                raise NotImplementedError(
-                    f"mesh axis {axis!r} of size {n}: multi-device training "
-                    f"{_NOT_PORTED}")
+                    f"mesh axis {axis!r} of size {n}: {what}")
         if getattr(model.config, "sequence_parallel", False):
-            raise NotImplementedError(f"sequence parallelism {_NOT_PORTED}")
+            raise NotImplementedError(
+                "sequence parallelism is not ported yet (ROADMAP A8.6)")
+        self.mp_degree = int(getattr(model, "mp_degree", 1))
+        self.mp_group = getattr(model, "mp_group", None)
+        if shape.get("model", 1) != self.mp_degree:
+            raise ValueError(
+                f"mesh axis 'model' is {shape.get('model', 1)} but the "
+                f"model's layers split over {self.mp_degree} ranks: build "
+                f"the model under fleet.init(mp_degree=n) in a world of n "
+                f"and pass mesh={{'model': n}}")
 
         self.model = model
         self.lr = lr
@@ -219,15 +249,48 @@ class SpmdTrainer:
     def layer_name(self, layer, name):
         return f"{self._layer_prefix}.{layer}.{name}"
 
+    def _whole(self, name, t):
+        """`t` (a parameter's or moment's local tensor) whole: the shards
+        of every model-parallel rank joined on the parameter's "model"
+        dim, in rank order."""
+        from ..convert import model_dim
+        dim = model_dim(getattr(self._params[name], "dist_attr", None))
+        if self.mp_degree == 1 or dim is None:
+            return t
+        from ..distributed.fleet.meta_parallel.parallel_layers.mp_ops \
+            import gather_last
+        whole = gather_last(t.movedim(dim, -1).contiguous(), self.mp_group)
+        return whole.movedim(-1, dim).contiguous()
+
+    def _layout(self, tensors):
+        """{name: tensor} (whole) in the reference's layout."""
+        return {"outer": [tensors[n] for n in self.outer_names],
+                "stacked": [torch.stack([tensors[self.layer_name(li, n)]
+                                         for li in self.phys_order])
+                            for n in self.layer_param_names]}
+
     def gather_params(self, state):
         """The reference's logical layout: {"outer": [embed, final norm,
         lm_head], "stacked": [[L, ...] per decoder parameter name, layers
-        in phys_order]}."""
+        in phys_order]}, the shards of a tensor-parallel run gathered
+        (a collective: every rank of the group calls it)."""
         p = state["params"]
-        return {"outer": [p[n] for n in self.outer_names],
-                "stacked": [torch.stack([p[self.layer_name(li, n)]
-                                         for li in self.phys_order])
-                            for n in self.layer_param_names]}
+        return self._layout({n: self._whole(n, t) for n, t in p.items()})
+
+    def canonical_state(self, state):
+        """The reference's mesh-independent form: {"params": gather_params,
+        "opt": {"outer": [{"m", "v"}], "stacked": [{"m", "v"}]} with each
+        moment whole and parameter-shaped (stacked ones [L, ...]), "step"}.
+        A collective under tensor parallelism, as `gather_params`."""
+        opt = state["opt"]
+        moments = {k: self._layout({n: self._whole(n, st[k])
+                                    for n, st in opt.items()})
+                   for k in ("m", "v")}
+        return {"params": self.gather_params(state),
+                "opt": {kind: [{"m": m, "v": v} for m, v in
+                               zip(moments["m"][kind], moments["v"][kind])]
+                        for kind in ("outer", "stacked")},
+                "step": state["step"]}
 
     def sync_to_model(self, state):
         """Write the state's params into the model (copies, in
@@ -301,21 +364,30 @@ class SpmdTrainer:
         if not self.fuse_head_ce:
             return self.criterion(lm_head(h), labels)
         flat = h.reshape(-1, h.shape[-1])
+        group = None
+        if self.mp_degree > 1:
+            from ..distributed.fleet.meta_parallel.parallel_layers.mp_ops \
+                import _c_identity
+            # the column-parallel input: dh sums every vocab shard's part
+            group = self.mp_group
+            flat = _c_identity(flat, group=group)
         total, _ = fused_linear_ce(
-            flat, lm_head.weight, labels.reshape(-1), chunk=self.ce_chunk,
-            ignore_index=self.criterion.ignore_index,
+            flat, lm_head.weight, labels.reshape(-1), axis=group,
+            chunk=self.ce_chunk, ignore_index=self.criterion.ignore_index,
             precision=self.matmul_precision)
         return total / flat.shape[0]
 
     def _as_ids(self, x):
         return torch.as_tensor(x).to(device=self.device, dtype=torch.long)
 
-    def step(self, state, ids, labels, key=None, lr=None):
+    def step(self, state, ids, labels, key=None, lr=None, grads_out=None):
         """One AdamW step on a batch; returns (state, loss), the loss a
         0-dim f32 tensor on the device (no host read). `key`: the step's
         key (a [2] tensor or array of uint32 words, as
         `framework.random.key` or JAX's `key_data` give), or None for the
-        global generator's next."""
+        global generator's next. `grads_out`: a dict that receives the
+        step's gradients by parameter name (this rank's shards under
+        tensor parallelism), for checks."""
         ids, labels = self._as_ids(ids), self._as_ids(labels)
         lr = self.lr if lr is None else float(lr)
         params = state["params"]
@@ -347,6 +419,8 @@ class SpmdTrainer:
                         p.grad = None
                 grads = {n: g / K for n, g in grads.items()}
                 loss = loss / K
+            if grads_out is not None:
+                grads_out.update(grads)
             state["step"] += 1
             self._adamw(params, grads, state["opt"], state["step"], lr)
         return state, loss.detach()

@@ -29,6 +29,26 @@ busy share of the unprofiled ms per step.
 
     python -m paddle_tpu_torch.train_llama --config llama350m --profile
     python -m paddle_tpu_torch.train_llama --config tiny --device cpu
+
+Tensor parallelism: `tp_rank(spec, out_dir)` is one model-parallel rank,
+a target for `distributed.spawn` (PADDLE_TRAINER_ID / PADDLE_TRAINERS_NUM
+from spawn, MASTER_ADDR / MASTER_PORT from the parent's environment). It
+brings the world up with `fleet.init(mp_degree=spec["mp"])` on
+`spec["device"]` (CUDA unless "cpu"), then for each run of
+`spec["runs"]` builds the model from the run's config and seed (under the
+fleet its layers are the model-parallel ones; with `weights`, an .npz of
+the reference's full parameters, each rank loads its shards through
+`convert.shard_numpy_params`), trains it with `SpmdTrainer(model,
+mesh={"model": mp})` on the run's batch for len(keys) steps (step i keyed
+by `framework.random.key(keys[i])`, or by the global generator, seeded by
+the run's seed, for None), and writes `<run>_rank<r>.json` (losses, ms a
+step past the warmup, peak memory, kernel launches, the model-parallel
+collectives' calls, bytes and, over one more step timed collective by
+collective, ms) and, with "save", `<run>_rank<r>.pt` (the rank's
+parameter shards, its step-0 gradients, the parameters' `dist_attr`s and,
+with "save_moments", its moments) into `out_dir`;
+with "canonical", rank 0 writes the gathered `canonical_state` as
+`<run>_canonical.npz` ("params.outer.0", "opt.stacked.3.m", ...).
 """
 import argparse
 import json
@@ -197,6 +217,130 @@ def run_config(name, steps=None, warmup=None, device=None, seed=0,
         peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None,
         losses=[float(x) for x in losses], profile=prof,
         **{k: v for k, v in spec["trainer"].items()})
+
+
+def _tp_batch(run, vocab):
+    if run.get("data"):
+        d = np.load(run["data"])
+        return d["ids"], d["labels"]
+    bs, seq = run["batch"]
+    ids = np.random.RandomState(0).randint(0, vocab, (bs, seq)).astype(np.int64)
+    return ids, np.roll(ids, -1, axis=1)
+
+
+def _tp_model(run, dev, mp, rank):
+    from .convert import dist_attrs_of, load_numpy_params, shard_numpy_params
+    if run.get("family", "llama") == "gpt":
+        model = GPTForCausalLM(GPTConfig(**run["model"]), device=dev,
+                               seed=run.get("seed", 0))
+    else:
+        model = LlamaForCausalLM(LlamaConfig(**run["model"]), device=dev,
+                                 seed=run.get("seed", 0))
+    if run.get("weights"):
+        full = dict(np.load(run["weights"]))
+        load_numpy_params(model, shard_numpy_params(full, rank, mp,
+                                                    dist_attrs_of(model)))
+    return model
+
+
+def _tp_train(run, dev, mp, rank, out_dir):
+    """One run of `tp_rank` on this rank; returns its report."""
+    import os
+    from .convert import dist_attrs_of
+    from .distributed.fleet.meta_parallel import mp_ops
+    from .ops import kernel_launches, reset_kernel_launches
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    frnd.seed(run.get("seed", 0))
+    model = _tp_model(run, dev, mp, rank)
+    trainer = SpmdTrainer(model, mesh={"model": mp}, **run["trainer"])
+    state = trainer.init_state()
+    ids, labels = (torch.from_numpy(a).to(dev) for a in
+                   _tp_batch(run, model.config.vocab_size))
+    keys = [None if k is None else frnd.key(k) for k in run["keys"]]
+    warmup = run.get("warmup", 0)
+    grads0, losses, times = {}, [], []
+    mp_ops.reset_comm_stats()
+    reset_kernel_launches()
+    for i, key in enumerate(keys):
+        if i == warmup:
+            calls, nbytes = mp_ops.comm_stats["calls"], mp_ops.comm_stats["bytes"]
+        sync()
+        t = time.perf_counter()
+        state, loss = trainer.step(state, ids, labels, key=key,
+                                   grads_out=grads0 if i == 0 and run.get("save") else None)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t)
+    timed = len(keys) - warmup
+    rep = dict(run=run["name"], rank=rank, losses=losses,
+               ms_per_step=[1e3 * x for x in times[warmup:]],
+               launches=kernel_launches(), steps=len(keys),
+               comm_calls_per_step=(mp_ops.comm_stats["calls"] - calls) / timed,
+               comm_bytes_per_step=(mp_ops.comm_stats["bytes"] - nbytes) / timed,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None)
+    if run.get("save"):
+        cpu = {n: t.detach().cpu() for n, t in state["params"].items()}
+        saved = {"params": cpu, "dist_attrs": dist_attrs_of(model),
+                 "grads0": {n: g.detach().cpu() for n, g in grads0.items()}}
+        if run.get("save_moments"):
+            saved["opt"] = {n: {k: v.cpu() for k, v in st.items()}
+                            for n, st in state["opt"].items()}
+        torch.save(saved, os.path.join(out_dir, f"{run['name']}_rank{rank}.pt"))
+    if run.get("canonical"):
+        canon = trainer.canonical_state(state)
+        if rank == 0:
+            flat = {f"params.{kind}.{i}": t.detach().cpu().numpy()
+                    for kind in ("outer", "stacked")
+                    for i, t in enumerate(canon["params"][kind])}
+            flat.update({f"opt.{kind}.{i}.{k}": ent[k].detach().cpu().numpy()
+                         for kind in ("outer", "stacked")
+                         for i, ent in enumerate(canon["opt"][kind])
+                         for k in ("m", "v")})
+            np.savez(os.path.join(out_dir, f"{run['name']}_canonical.npz"), **flat)
+    if run.get("comm_timed"):
+        # one more step (after the saves), each collective timed alone (the device
+        # synchronized around it): the collectives' ms a step
+        before = mp_ops.comm_stats["seconds"]
+        with mp_ops.comm_timing():
+            state, loss = trainer.step(state, ids, labels, key=keys[-1])
+        rep["comm_ms_per_step"] = 1e3 * (mp_ops.comm_stats["seconds"] - before)
+        rep["comm_timed_loss"] = float(loss)
+    del trainer, state, model
+    return rep
+
+
+def tp_rank(spec, out_dir, spawn_t=None):
+    """One model-parallel rank (see the module docstring)."""
+    import os
+    from . import distributed as dist
+    from .distributed import fleet
+    dev = resolve_device(spec.get("device"))
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mp = int(spec["mp"])
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": mp,
+                               "pp_degree": 1, "sharding_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy, device=dev)
+    hcg = fleet.get_hybrid_communicate_group()
+    rank = hcg.get_model_parallel_rank()
+    head = dict(rank=rank, pid=os.getpid(), backend=dist.get_backend(),
+                mode=hcg.get_parallel_mode(),
+                rendezvous_s=None if spawn_t is None else time.time() - spawn_t)
+    for run in spec["runs"]:
+        rep = dict(head, **_tp_train(run, dev, mp, rank, out_dir))
+        with open(os.path.join(out_dir, f"{run['name']}_rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def main(argv=None):

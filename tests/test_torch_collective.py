@@ -24,7 +24,11 @@ module fixtures spawn every world at once and join them with a timeout.
     collective after the subgroup traffic;
   - "badinit" (2 ranks): the backend rule patched to NCCL, which this
     CPU-only torch lacks: init_parallel_env raises the NCCL failure, and
-    nothing is left initialised (no second backend is tried).
+    nothing is left initialised (no second backend is tried);
+  - "badinit_slow" (2 ranks): the same, with rank 1's store reads delayed
+    by a second, so rank 0 fails its init while rank 1 still reads its
+    rendezvous keys: rank 0 must keep the store up until rank 1 has
+    posted its own failure, and both raise the NCCL error.
 
 In-process: the backend rule, the uninitialised raise, the mesh-axis
 refusal, `split`, the int8 all-reduce bit for bit against the reference's
@@ -37,6 +41,7 @@ import random
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -423,8 +428,17 @@ def _worker(mode):
     from paddle_tpu_torch import failsafe
     from paddle_tpu_torch.distributed import parallel_env
     rank = int(os.environ["PADDLE_TRAINER_ID"])
-    if mode == "badinit":
+    if mode in ("badinit", "badinit_slow"):
         parallel_env.choose_backend = lambda devices: "nccl"
+        if mode == "badinit_slow" and rank == 1:
+            from paddle_tpu_torch.distributed.store import TCPStore
+            get = TCPStore.get
+
+            def slow_get(self, *a, **kw):
+                time.sleep(1.0)
+                return get(self, *a, **kw)
+
+            TCPStore.get = slow_get
         try:
             dist.init_parallel_env(device="cpu")
         except RuntimeError as e:   # the failure is the expected outcome
@@ -484,7 +498,8 @@ def worlds():
     """Every world of this file, spawned at once and joined."""
     me = os.path.abspath(__file__)
     held = []
-    worlds = (("verbs2", 2), ("sub3", 3), ("badinit", 2))
+    worlds = (("verbs2", 2), ("sub3", 3), ("badinit", 2),
+              ("badinit_slow", 2))
     # MASTER_PORT, the store on +1, the gloo store tier on +3
     ports = [free_ports(4, held) for _ in worlds]
     for s in held:
@@ -522,6 +537,12 @@ def test_workers_exit_cleanly(worlds):
 
 def test_failed_init_raises_without_fallback(worlds):
     _held(worlds, "badinit", "init_failure_raises", 2)
+
+
+def test_failed_init_raises_on_a_delayed_rank(worlds):
+    """The race of a failed init under load, made certain: rank 1 is still
+    reading the store when rank 0's init fails."""
+    _held(worlds, "badinit_slow", "init_failure_raises", 2)
 
 
 def test_backend_rule():

@@ -14,8 +14,9 @@ In-process:
     members change, int8 at world 1 exact, sparse gradients refused;
   - the topology (`CommunicateTopology`, `HybridCommunicateGroup`) equal
     to the reference's for several hybrid configurations, exactly;
-  - `fleet`: the modes other than data parallel refused with their ROADMAP
-    items, `mesh`, the parameter server;
+  - `fleet`: the pipeline and sharding modes refused with their ROADMAP
+    items (tensor parallel taken: `TensorParallel`,
+    `HybridParallelOptimizer`), `mesh`, the parameter server;
   - BERT config 2 (`test_config2_bert_dp`: dp 8 in one process, so
     `DataParallel` passes through) through both packages' `fleet`, dropout
     on, drawn alike: losses within rtol 1e-5.
@@ -711,13 +712,25 @@ def _strategy(fleet, dp=1, mp=1, pp=1, sharding=1):
                                           (dict(pp=2), "A8.7"),
                                           (dict(sharding=2), "A8.8")])
 def test_fleet_refuses_unported_modes(clean_env, degrees, item):
+    """The pipeline (A8.7) and sharding (A8.8) modes are refused. The
+    tensor-parallel mode (A8.5) is ported: its case now checks that
+    `distributed_model` gives `TensorParallel` and `distributed_optimizer`
+    `HybridParallelOptimizer`. Every case refuses `fleet.mesh` (A8.10)."""
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import meta_optimizers
+    from paddle_tpu_torch.distributed.fleet import meta_parallel
     fleet.init(is_collective=True, strategy=_strategy(fleet, **degrees),
                device="cpu")
-    with pytest.raises(fleet.FleetModeError, match=item):
-        fleet.distributed_model(_mlp())
-    with pytest.raises(fleet.FleetModeError, match=item):
-        fleet.distributed_optimizer(object())
+    if item == "A8.5":
+        assert isinstance(fleet.distributed_model(_mlp()),
+                          meta_parallel.TensorParallel)
+        assert isinstance(fleet.distributed_optimizer(object()),
+                          meta_optimizers.HybridParallelOptimizer)
+    else:
+        with pytest.raises(fleet.FleetModeError, match=item):
+            fleet.distributed_model(_mlp())
+        with pytest.raises(fleet.FleetModeError, match=item):
+            fleet.distributed_optimizer(object())
     with pytest.raises(fleet.FleetModeError, match="A8.10"):
         fleet.fleet_instance.mesh
 
@@ -744,10 +757,18 @@ def test_fleet_data_parallel_and_refusals(clean_env):
     hybrid_parallel_util.broadcast_mp_parameters(dp, hcg)
     hybrid_parallel_util.broadcast_dp_parameters(dp, hcg)
     hybrid_parallel_util.fused_allreduce_gradients(list(dp.parameters()), hcg)
+    # in a world of 1 the model-parallel group has one member whatever
+    # mp_degree says: the mp broadcasts pass through; sharding above 1
+    # stays refused (A8.8)
     fleet.init(is_collective=True, strategy=_strategy(fleet, mp=2),
                device="cpu")
-    with pytest.raises(hybrid_parallel_util.HybridAxisError, match="A8.5"):
-        hybrid_parallel_util.broadcast_mp_parameters(
+    hcg = fleet.get_hybrid_communicate_group()
+    hybrid_parallel_util.broadcast_mp_parameters(dp, hcg)
+    assert hybrid_parallel_util.broadcast_input_data(hcg, 1, 2) == (1, 2)
+    fleet.init(is_collective=True, strategy=_strategy(fleet, sharding=2),
+               device="cpu")
+    with pytest.raises(hybrid_parallel_util.HybridAxisError, match="A8.8"):
+        hybrid_parallel_util.broadcast_sharding_parameters(
             dp, fleet.get_hybrid_communicate_group())
 
 

@@ -51,7 +51,13 @@ assert "paddle_tpu_torch.models.generation" in sys.modules
 for m in ("parallel_env", "collective", "communication", "communication.stream",
           "parallel_with_gloo", "rpc.rpc", "reducer", "parallel", "topology",
           "fleet", "fleet.fleet_base", "fleet.distributed_strategy",
-          "fleet.utils.hybrid_parallel_util"):
+          "fleet.utils.hybrid_parallel_util", "fleet.meta_parallel",
+          "fleet.meta_parallel.parallel_layers.mp_ops",
+          "fleet.meta_parallel.parallel_layers.mp_layers",
+          "fleet.meta_parallel.parallel_layers.random",
+          "fleet.meta_parallel.meta_parallel_base",
+          "fleet.meta_parallel.tensor_parallel", "fleet.meta_optimizers",
+          "fleet.meta_optimizers.hybrid_parallel_optimizer"):
     assert "paddle_tpu_torch.distributed." + m in sys.modules, m
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"

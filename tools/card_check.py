@@ -27,9 +27,10 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   BERT card-against-CPU parity phase;
 - `tp`: the decode megakernel's tensor-parallel segment rows
   (`check_megakernel_tp`) and the tp = 1 greedy rows beside them;
-- `tp_path`: LLaMA-7B at full width and depth, the cb_stream through
-  `tp_cb_runs` (tp = 2, both shards on the card), after the tp = 1 runs
-  it is held against; then the tp = 2 card-against-CPU parity row.
+- `tp_path`: LLaMA-7B's width at `CUT_LAYERS` layers, the cb_stream
+  through `tp_cb_runs` (tp = 2, both shards on the card), after the tp = 1
+  runs it is held against (`tp_cut_runs`, phase 6's tp leg); then the
+  tp = 2 card-against-CPU parity row.
 - `qmm`: the int8 matmul's rows (every route: the decode GEMV on both
   builds, the tensor-core build at the prefill and verify widths, the
   tiled build off the main path), with the ring-equals-direct and
@@ -75,6 +76,12 @@ to a training path; `chip_smoke.py` is the whole check. Phases:
   over gloo, held bit for bit to each other and to one process training
   the whole batch; the verb set on CUDA tensors, one RPC each way), with
   the phase's seconds and the ranks' non-zero launch counts.
+- `tp_train`: `chip_smoke.py`'s phase 21 alone (tensor-parallel training:
+  two spawned model-parallel ranks on the card train LLaMA at 7B's width
+  with 2 layers at mp 2 over gloo, in f32 and in bf16, held to one
+  process training the dense model from the same weights), with the
+  phase's seconds and the ranks' non-zero launch counts (`tp` above is
+  the decode megakernel's tensor-parallel rows).
 
     python3 tools/card_check.py ragged flash mask bert   # from the repository root; needs one CUDA card
 """
@@ -152,29 +159,9 @@ def tp(dev):
 
 
 def tp_path(dev):
-    from paddle_tpu_torch.inference.scheduler import ContinuousBatchingEngine
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    cfg = LlamaConfig.llama_7b()
-    model = LlamaForCausalLM(cfg, device=dev, seed=0)
-    geom = dict(page_size=64, max_len=1024, max_batch=8, prefill_chunk=128,
-                prefix_cache=True, weight_dtype="bfloat16", device=dev)
-    prompts, budgets = C.cb_stream(cfg)
-    specs = C.sampled_specs(len(prompts))
-    streams = {}
-    for ref in sorted({r[6] for r in C.TP_RUNS}):
-        mk = "multi" if "multi" in ref else "layer" if "layer" in ref else False
-        eng = ContinuousBatchingEngine(model, decode_block=8, megakernel=mk,
-                                       quant="int8" if "int8" in ref else None,
-                                       sample_k=8, **geom)
-        streams[ref] = C.drive_cb(torch, eng, prompts, budgets,
-                                  specs if ref.startswith("sampled") else None)[0]
-        del eng
-        torch.cuda.empty_cache()
-    out = C.tp_cb_runs(torch, model, geom, prompts, budgets, streams, {})
-    del model
-    torch.cuda.empty_cache()
+    out = C.tp_cut_runs(torch, dev, {})
     yield from out["runs"]
-    yield dict(peak_gb=out["peak_gb"], seconds=out["seconds"], ok=True)
+    yield dict(peak_gb=out["peak_gb"], seconds=out["seconds"], layers=out["layers"], ok=True)
     yield from (r for r in C.parity_cb_2layer(torch, dev) if r["tp"] == 2)
 
 
@@ -406,9 +393,17 @@ def dp(dev):
                launches={k: v for k, v in launches.items() if v}, ok=True)
 
 
+def tp_train(dev):
+    t = time.perf_counter()
+    rows, launches = C.tp_phase(torch, dev)
+    yield from (dict(phase="tp_train", **r) for r in rows)
+    yield dict(phase="tp_train", seconds=time.perf_counter() - t,
+               launches={k: v for k, v in launches.items() if v}, ok=True)
+
+
 PHASES = dict(qmm=qmm, ragged=ragged, flash=flash, mask=mask, f32=f32, gpt=gpt, bert=bert, tp=tp,
               tp_path=tp_path, width=width, width_rows=width_rows, width_price=width_price,
-              router=router, fleet=fleet, plan=plan, dp=dp)
+              router=router, fleet=fleet, plan=plan, dp=dp, tp_train=tp_train)
 
 
 def main(names):
